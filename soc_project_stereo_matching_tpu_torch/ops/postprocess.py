@@ -1,0 +1,120 @@
+"""Disparity post-processing — plain PyTorch counterpart of
+``ops/postprocess.py``: LR consistency, speckle removal, out-of-place median.
+
+The reference's in-place (raster-recurrence) median is not ported:
+``sgm_forward`` raises for ``SGMOptions(median_inplace=True)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_OFFSETS8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def lr_check(
+    disp_left: torch.Tensor,
+    disp_right: torch.Tensor,
+    thres: float,
+    max_shift: int,
+) -> torch.Tensor:
+    """Invalidate left disparities inconsistent with the right map (f32
+    (..., H, W), +inf invalid); pixels whose right sample is not finite stay.
+
+    Bit-equal to the JAX op on every input, including its bounded select:
+    the right map is sampled at ``col_right = trunc((j - d) + 0.5)`` only
+    while ``j - col_right`` lies in ``[-1, min(max_shift, W-1) + 2)``;
+    outside that band the JAX op sees 0.0, and so does this one."""
+    if max_shift <= 0:
+        raise ValueError(
+            f"max_shift={max_shift}: pass the disparity bound "
+            "(e.g. options.max_disparity)")
+    w = disp_left.shape[-1]
+    dev = disp_left.device
+    lane = torch.arange(w, dtype=torch.int32, device=dev)
+    valid = torch.isfinite(disp_left)
+    dl = torch.where(valid, disp_left, 0.0)
+    # (int32)(j - disp + 0.5), evaluated in f32, truncates toward zero
+    col_right = torch.trunc(lane.to(torch.float32) - dl + 0.5).to(torch.int32)
+    in_range = (col_right >= 0) & (col_right < w)
+    shift = lane - col_right
+    band = in_range & (shift >= -1) & (shift < min(max_shift, w - 1) + 2)
+    sampled = torch.gather(disp_right, -1, col_right.clamp(0, w - 1).long())
+    disp_r = torch.where(band, sampled, 0.0)
+    r_finite = torch.isfinite(disp_r)
+    dr = torch.where(r_finite, disp_r, 0.0)
+    mismatch = (dl - dr).abs() > float(np.float32(thres))
+    kill = valid & (~in_range | (r_finite & mismatch))
+    return torch.where(kill, torch.inf, disp_left)
+
+
+def _shift2d(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
+    """out[..., r, c] = x[..., r + dr, c + dc], ``fill`` outside the frame."""
+    h, w = x.shape[-2], x.shape[-1]
+    out = torch.full_like(x, fill)
+    out[..., max(0, -dr):h - max(0, dr), max(0, -dc):w - max(0, dc)] = \
+        x[..., max(0, dr):h + min(0, dr), max(0, dc):w + min(0, dc)]
+    return out
+
+
+def remove_speckles(
+    disp: torch.Tensor,
+    diff_insame: float = 1.0,
+    min_area: int = 50,
+) -> torch.Tensor:
+    """Connected-component speckle filter on f32 (..., H, W), +inf invalid.
+
+    8-neighbours connect when both are finite and ``|dd| <= diff`` in f32;
+    a component's area counts its (finite) pixels and components with
+    ``area < min_area`` become +inf.  Labels start as flat pixel indices and
+    converge to each component's minimum index by rounds of neighbour-min
+    propagation plus pointer jumping, until a round changes nothing."""
+    shape = disp.shape
+    h, w = shape[-2], shape[-1]
+    flat = disp.reshape(-1, h, w)
+    finite = torch.isfinite(flat)
+    d = torch.where(finite, flat, 0.0)
+    diff = float(np.float32(diff_insame))
+    edges = []
+    for dr, dc in _OFFSETS8:
+        nd = _shift2d(d, dr, dc, 0.0)
+        nf = _shift2d(finite, dr, dc, False)
+        edges.append((dr, dc, finite & nf & ((d - nd).abs() <= diff)))
+
+    n_all = flat.numel()
+    big = n_all
+    labels = torch.arange(n_all, device=disp.device).reshape(flat.shape)
+    while True:
+        new = labels
+        for dr, dc, edge in edges:
+            new = torch.minimum(new, torch.where(edge, _shift2d(labels, dr, dc, big), big))
+        new = new.reshape(-1)[new]              # pointer jumping
+        if torch.equal(new, labels):
+            break
+        labels = new
+
+    counts = torch.bincount(labels[finite], minlength=n_all)
+    small = counts[labels] < min_area
+    return torch.where(finite & small, torch.inf, flat).reshape(shape)
+
+
+def _median9(planes):
+    """Median of 9 equal-shape planes via Paeth's 19-exchange min/max
+    network (the JAX op's network; +inf orders last)."""
+    p = list(planes)
+    for i, j in ((1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2),
+                 (4, 5), (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4),
+                 (2, 5), (4, 7), (4, 2), (6, 4), (4, 2)):
+        p[i], p[j] = torch.minimum(p[i], p[j]), torch.maximum(p[i], p[j])
+    return p[4]
+
+
+def median_filter_3x3(disp: torch.Tensor) -> torch.Tensor:
+    """Out-of-place 3x3 median on (..., H, W); the 1-px border is untouched."""
+    h, w = disp.shape[-2], disp.shape[-1]
+    out = disp.clone()
+    out[..., 1:h - 1, 1:w - 1] = _median9(
+        [disp[..., 1 + r:h - 1 + r, 1 + c:w - 1 + c]
+         for r in (-1, 0, 1) for c in (-1, 0, 1)])
+    return out

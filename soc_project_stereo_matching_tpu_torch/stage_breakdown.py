@@ -1,0 +1,212 @@
+"""Where the time of one ``match_batch`` goes on the card.
+
+    python -m soc_project_stereo_matching_tpu_torch.stage_breakdown \
+        [--batch 32] [--h 375] [--w 450] [--dmax 64] [--reps 10] \
+        [--out chiprun_out/stage_breakdown.json]
+
+Needs one CUDA device.  On a seeded synthetic pair at the given geometry
+(default: the cone geometry, 450x375, D=64, B=32) with default
+``SGMOptions`` otherwise, it measures:
+
+* per stage of ``sgm_forward`` (the kernel path), CUDA-event milliseconds
+  between stages, median and [min, max] over ``--reps`` batches; the staged
+  output is checked bit-equal to ``SGMEngine.match_batch``;
+* the end-to-end batch time and the host's enqueue time (wall clock from the
+  call to ``match_batch`` until it returns, before synchronising);
+* the device idle share over a three-batch ``torch.profiler`` window:
+  1 - (union of the device activity intervals) / (CUDA-event window);
+* each of the eight K2 scan directions alone, median of five launches, and
+  the bytes one direction must move (1 cost byte read + a 2-byte read and a
+  2-byte write of the uint16 sum per volume element).
+
+Prints one line per figure and writes all of them as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from . import SGMEngine, SGMOptions, _build
+from .data.synthetic import synthetic_pair
+from .ops import aggregation, kernels
+from .ops.postprocess import median_filter_3x3
+from .ops.wta import finalize_disparity
+
+
+def _summary(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def staged_forward(left, right, opt: SGMOptions, marks: list):
+    """``sgm_forward`` on the kernel path, recording a CUDA event after each
+    stage into ``marks`` as (stage, event)."""
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    mark("start")
+    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                      opt.max_disparity)
+    mark("census_cost (K1)")
+    aggr = kernels.aggregate_paths(cost, left, opt)
+    mark("scan, 8 launches (K2)")
+    fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
+    mark("wta (K2)")
+    dl, dr = finalize_disparity(fwd, opt), finalize_disparity(inv, opt)
+    mark("2x finalize_disparity (plain)")
+    disp = kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity)
+    mark("lr_check (K3)")
+    disp = kernels.remove_speckles(disp, 1.0, opt.min_speckle_area)
+    mark("speckle (K4)")
+    disp = median_filter_3x3(disp)
+    mark("median (plain)")
+    return disp
+
+
+def stage_times(left, right, opt, reps):
+    per_stage = {}
+    for _ in range(reps + 1):          # the first batch is a warm-up
+        marks = []
+        staged_forward(left, right, opt, marks)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(marks, marks[1:]):
+            per_stage.setdefault(stage, []).append(a.elapsed_time(b))
+        per_stage.setdefault("total", []).append(
+            marks[0][1].elapsed_time(marks[-1][1]))
+    return {stage: _summary(xs[1:]) for stage, xs in per_stage.items()}
+
+
+def batch_and_enqueue(engine, left, right, reps):
+    batch_ms, enqueue_ms = [], []
+    engine.match_batch(left, right)
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        engine.match_batch(left, right)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        batch_ms.append(start.elapsed_time(end))
+    return _summary(batch_ms), _summary(enqueue_ms)
+
+
+def idle_share(engine, left, right, batches=3):
+    """(idle share, device busy ms, window ms) over ``batches`` batches: busy
+    is the union of the device activity intervals the profiler recorded, the
+    window the CUDA-event time around the batches; share None if the
+    profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(batches):
+            engine.match_batch(left, right)
+        end.record()
+        torch.cuda.synchronize()
+    window = start.elapsed_time(end)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    busy = busy_us / 1e3
+    return (1.0 - busy / window if busy > 0 else None), busy, window
+
+
+def scan_directions(left, right, opt, reps=5):
+    """Milliseconds of each DIRECTIONS_8 scan launched alone."""
+    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                      opt.max_disparity)
+    b, h, d, w = cost.shape
+    aggr = torch.zeros(cost.shape, dtype=torch.uint16, device=cost.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for axis, reverse, roll in aggregation.DIRECTIONS_8:
+        def launch():
+            err = lib.sgm_scan_direction(
+                cost.data_ptr(), left.data_ptr(), aggr.data_ptr(), b, h, d, w,
+                int(axis == "v"), int(reverse), roll, 0, opt.p1, opt.p2_init,
+                1, stream)
+            if err:
+                raise RuntimeError(f"sgm_scan_direction: CUDA error {err}")
+        launch()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"{axis} reverse={reverse} roll={roll}"] = statistics.median(times)
+    return out, b * h * d * w * 5
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--h", type=int, default=375)
+    ap.add_argument("--w", type=int, default=450)
+    ap.add_argument("--dmax", type=int, default=64)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default="chiprun_out/stage_breakdown.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("stage_breakdown: needs a CUDA device")
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    opt = SGMOptions(max_disparity=args.dmax)
+    engine = SGMEngine(opt, device="cuda")
+    levels = tuple(args.dmax * f // 64 for f in (10, 20, 35))
+    left, right, _ = synthetic_pair(2, args.batch, args.h, args.w, levels)
+    left, right = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+
+    staged = staged_forward(left, right, opt, [])
+    if not torch.equal(staged, engine.match_batch(left, right)):
+        raise AssertionError("staged pipeline differs from match_batch")
+
+    stages = stage_times(left, right, opt, args.reps)
+    batch, enqueue = batch_and_enqueue(engine, left, right, args.reps)
+    idle, busy, window = idle_share(engine, left, right)
+    scans, scan_bytes = scan_directions(left, right, opt)
+
+    result = {"card": card, "batch": args.batch, "h": args.h, "w": args.w,
+              "d": args.dmax, "stages_ms": stages, "batch_ms": batch,
+              "enqueue_ms": enqueue, "idle_share": idle,
+              "device_busy_ms": busy, "profiler_window_ms": window,
+              "scan_direction_ms": scans, "scan_direction_bytes": scan_bytes}
+    print(card)
+    total = stages["total"]["median"]
+    for stage, s in stages.items():
+        print(f"stage {stage}: {s['median']:.4f} ms [{s['min']:.4f}, "
+              f"{s['max']:.4f}] {100 * s['median'] / total:.1f}%")
+    print(f"batch {batch['median']:.4f} ms, host enqueue "
+          f"{enqueue['median']:.4f} ms; idle share {idle} "
+          f"(device {busy:.3f} of {window:.3f} ms)")
+    for name, ms in scans.items():
+        print(f"scan {name}: {ms:.4f} ms")
+    print(f"bytes per scan direction: {scan_bytes / 1e9:.4f} GB")
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,109 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports no JAX (the oracle module is numpy only), so it also runs where JAX
+is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from soc_project_stereo_matching_tpu import SGMOptions, oracle
+from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu_torch.data.synthetic import synthetic_pair
+from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
+from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
+                                                       postprocess, wta)
+
+H, W = 37, 53
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def same(got, want):
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("dmin,dmax", [(0, 16), (8, 56), (3, 4), (0, 256)])
+def test_kernels_match_plain_on_card(cuda, dmin, dmax):
+    left, right, _ = synthetic_pair(0, 2, H, W, (3, 5, 7))
+    il, ir = torch.from_numpy(left).to(cuda), torch.from_numpy(right).to(cuda)
+    opt = SGMOptions(min_disparity=dmin, max_disparity=dmax)
+    before = dict(kernels.LAUNCHES)
+    cost = kernels.census_cost_volume(il, ir, dmin, dmax)
+    same(cost, kernels.census_cost_volume_plain(il, ir, dmin, dmax))
+    for mode in ("wrap", "restart"):
+        same(kernels.aggregate_paths(cost, il, opt, mode).to(torch.int32),
+             aggregation.aggregate_paths(cost, il, opt, mode).to(torch.int32))
+    aggr = kernels.aggregate_paths(cost, il, opt)
+    got, want = kernels.wta_reduce(aggr, opt), kernels.wta_reduce_plain(aggr, opt)
+    for g, w_ in zip(got[0] + got[1], want[0] + want[1]):
+        same(g, w_)
+    dl = wta.finalize_disparity(got[0], opt)
+    dr = wta.finalize_disparity(got[1], opt)
+    checked = kernels.lr_check(dl, dr, 1.0, dmax)
+    same(checked, postprocess.lr_check(dl, dr, 1.0, dmax))
+    same(kernels.remove_speckles(checked, 1.0, 9),
+         postprocess.remove_speckles(checked, 1.0, 9))
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] > before[k] for k in kernels.LAUNCHES)
+
+
+def test_engine_on_card_matches_plain_path_and_oracle(cuda):
+    left, right, _ = synthetic_pair(6, 2, H, W, (3, 6, 10))
+    opt = SGMOptions(max_disparity=16, min_speckle_area=8)
+    got = SGMEngine(opt, device="cuda").match_batch(left, right)
+    assert got.is_cuda and got.dtype == torch.float32
+    same(got, sgm_forward(torch.from_numpy(left).to(cuda),
+                          torch.from_numpy(right).to(cuda), opt,
+                          use_kernels=False))
+    same(got, torch.from_numpy(np.stack([oracle.sgm_match(a, b, opt)
+                                         for a, b in zip(left, right)])))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    img = torch.zeros((1, 8, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.census_cost_volume(img.float(), img.float(), 0, 4)
+    with pytest.raises(ValueError):
+        kernels.census_cost_volume(img.transpose(1, 2), img, 0, 4)
+    with pytest.raises(ValueError):
+        kernels.census_cost_volume(img, img.cpu(), 0, 4)
+    cost = torch.zeros((1, 8, 257, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.aggregate_paths(cost, img, SGMOptions(max_disparity=257))
+
+
+def test_uniqueness_threshold_on_card_is_the_f32_product(cuda):
+    """``finalize_disparity`` on the card invalidates exactly where
+    sec - min <= trunc(f32(min) * (f32(1) - f32(ratio))), for every min cost
+    up to past the uint16 range."""
+    opt = SGMOptions()
+    m = np.arange(70000, dtype=np.int32)
+    factor = np.float32(1.0) - np.float32(opt.uniqueness_ratio)
+    thresh = np.trunc(m.astype(np.float32) * factor).astype(np.int32)
+    for extra, invalid in ((0, True), (1, False)):
+        planes = wta.WTAPlanes(*(torch.from_numpy(x).to(cuda) for x in (
+            np.full_like(m, 5), m, m + thresh + extra, m + 1, m + 1)))
+        got = wta.finalize_disparity(planes, opt)
+        assert bool((torch.isinf(got) == invalid).all())
+
+
+def test_stage_breakdown_runs_and_matches_the_engine(cuda, tmp_path):
+    from soc_project_stereo_matching_tpu_torch import stage_breakdown
+
+    out = tmp_path / "stages.json"
+    result = stage_breakdown.main(["--batch", "2", "--h", str(H), "--w", str(W),
+                                   "--dmax", "16", "--reps", "2",
+                                   "--out", str(out)])
+    assert out.exists() and len(result["scan_direction_ms"]) == 8
+    assert result["stages_ms"]["total"]["median"] > 0

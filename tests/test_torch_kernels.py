@@ -1,0 +1,198 @@
+"""The port's kernel wrappers (``ops/kernels.py``) vs the JAX Pallas entries
+they replace and the numpy oracle.
+
+On the CPU a wrapper runs its plain PyTorch version, so here each wrapper is
+held bit for bit (inf equal to inf) against the Pallas entry run as
+``test_pallas_kernels.py`` runs it on the CPU (interpret mode) and against
+``oracle.py``.  The CUDA kernels themselves run only on a card:
+``test_torch_cuda.py`` compares them with the plain versions there.
+"""
+
+import ctypes
+import re
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from soc_project_stereo_matching_tpu import SGMOptions, oracle
+from soc_project_stereo_matching_tpu.ops import pallas_kernels as pk
+from soc_project_stereo_matching_tpu_torch import _build
+from soc_project_stereo_matching_tpu_torch.ops import kernels, wta
+
+H, W = 37, 53
+RANGES = [(0, 16), (8, 56)]          # D=16, and D=48 with dmin=8
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def same(got, *wants):
+    for want in wants:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def same_planes(got, want):
+    assert len(got) == len(want) == 5
+    for g, w_ in zip(got, want):
+        same(g.numpy(), w_)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    rng = np.random.default_rng(7)
+    return (rng.integers(0, 256, (2, H, W), dtype=np.uint8),
+            rng.integers(0, 256, (2, H, W), dtype=np.uint8))
+
+
+@pytest.fixture
+def no_launch():
+    """The wrapped calls must stay on the plain path: no counter moves."""
+    before = dict(kernels.LAUNCHES)
+    yield
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dmin,dmax", RANGES)
+def test_census_cost_volume_matches_pallas_and_oracle(pair, dmin, dmax, no_launch):
+    il, ir = pair
+    got = kernels.census_cost_volume(t(il), t(ir), dmin, dmax).numpy()
+    same(got, pk.census_cost_volume_pallas(jnp.asarray(il), jnp.asarray(ir),
+                                           dmin, dmax, block_rows=8),
+         np.stack([oracle.hamming_cost_volume(oracle.census_5x5(a),
+                                              oracle.census_5x5(b), dmin, dmax)
+                   for a, b in zip(il, ir)]))
+
+
+@pytest.mark.parametrize("paths,mode,dmin,dmax", [
+    (8, "wrap", 0, 16), (8, "restart", 0, 16), (4, "wrap", 0, 16),
+    (4, "restart", 0, 16), (8, "wrap", 8, 56)])
+def test_aggregate_paths_wta_matches_pallas(pair, paths, mode, dmin, dmax,
+                                            no_launch):
+    il, ir = pair
+    opt = SGMOptions(num_paths=paths, min_disparity=dmin, max_disparity=dmax)
+    cost = kernels.census_cost_volume(t(il), t(ir), dmin, dmax)
+    fwd, inv = kernels.aggregate_paths_wta(cost, t(il), opt, mode)
+    want_f, want_i = pk.aggregate_paths_wta(jnp.asarray(cost.numpy()),
+                                            jnp.asarray(il), opt, mode,
+                                            block_rows=8)
+    same_planes(fwd, want_f)
+    same_planes(inv, want_i)
+    if mode == "wrap":                              # the oracle's geometry
+        aggr = [oracle.aggregate_paths(c, i, opt) for c, i in zip(cost.numpy(), il)]
+        for planes, inverse in ((fwd, False), (inv, True)):
+            same(wta.finalize_disparity(planes, opt).numpy(),
+                 np.stack([oracle.compute_disparity(a, opt, inverse) for a in aggr]))
+    only_f, none = kernels.aggregate_paths_wta(cost, t(il), opt, mode,
+                                               include_inverse=False)
+    assert none is None
+    same_planes(only_f, want_f)
+
+
+def test_aggregate_paths_matches_pallas_full_uint8_domain(no_launch):
+    """Costs >= 128 exercise the mod-256 wrap of every path step."""
+    rng = np.random.default_rng(8)
+    cost = rng.integers(0, 256, (2, H, 16, W), dtype=np.uint8)
+    img = rng.integers(0, 256, (2, H, W), dtype=np.uint8)
+    opt = SGMOptions(max_disparity=16)
+    got = kernels.aggregate_paths(t(cost), t(img), opt)
+    assert got.dtype == torch.uint16
+    same(got.numpy(), pk.aggregate_paths(jnp.asarray(cost), jnp.asarray(img),
+                                         opt, block_rows=8))
+
+
+@pytest.mark.parametrize("dmin,dmax", RANGES + [(3, 4)])
+def test_wta_reduce_matches_pallas(dmin, dmax, no_launch):
+    opt = SGMOptions(min_disparity=dmin, max_disparity=dmax)
+    aggr = np.random.default_rng(9).integers(0, 60000, (2, 9, dmax - dmin, 40)
+                                             ).astype(np.uint16)
+    aggr[0, :, :, :8] = 7                           # ties: first argmin wins
+    fwd, inv = kernels.wta_reduce(t(aggr), opt, include_inverse=True)
+    want_f, want_i = pk.wta_reduce_pallas(jnp.asarray(aggr), opt,
+                                          include_inverse=True, block_rows=8)
+    same_planes(fwd, want_f)
+    same_planes(inv, want_i)
+    only_f, none = kernels.wta_reduce(t(aggr), opt, include_inverse=False)
+    assert none is None
+    same_planes(only_f, want_f)
+
+
+def test_lr_check_matches_pallas_and_oracle(no_launch):
+    rng = np.random.default_rng(17)
+    dl = rng.uniform(0, 16, (2, 45, 83)).astype(np.float32)
+    dr = rng.uniform(0, 16, (2, 45, 83)).astype(np.float32)
+    dl[rng.random(dl.shape) < 0.2] = np.inf
+    dr[rng.random(dr.shape) < 0.2] = np.inf
+    got = kernels.lr_check(t(dl), t(dr), 1.0, max_shift=16).numpy()
+    same(got, pk.lr_check_pallas(jnp.asarray(dl), jnp.asarray(dr), 1.0,
+                                 max_shift=16, block_rows=16),
+         np.stack([oracle.lr_check(a, b, 1.0) for a, b in zip(dl, dr)]))
+
+
+def test_lr_check_nonfinite_matches_pallas(no_launch):
+    rng = np.random.default_rng(29)
+    dl = rng.uniform(0, 15, (16, 40)).astype(np.float32)
+    dr = rng.uniform(0, 15, (16, 40)).astype(np.float32)
+    for a in (dl, dr):
+        a[rng.random(a.shape) < 0.15] = np.inf
+        a[rng.random(a.shape) < 0.1] = -np.inf
+        a[rng.random(a.shape) < 0.1] = np.nan
+    dl[3, 30:] = dr[3, :] = 25.0                    # beyond the select's band
+    got = kernels.lr_check(t(dl[None]), t(dr[None]), 1.0, max_shift=16).numpy()
+    same(got[0], pk.lr_check_pallas(jnp.asarray(dl), jnp.asarray(dr), 1.0,
+                                    max_shift=16, block_rows=16))
+
+
+@pytest.mark.parametrize("min_area", [9, 50])
+def test_remove_speckles_matches_pallas_and_oracle(min_area, no_launch):
+    rng = np.random.default_rng(10)
+    d = rng.integers(0, 8, (2, 47, 61)).astype(np.float32)
+    d[rng.random(d.shape) < 0.35] = np.inf
+    got = kernels.remove_speckles(t(d), 1.0, min_area).numpy()
+    same(got, pk.remove_speckles_pallas(jnp.asarray(d), 1.0, min_area),
+         np.stack([oracle.remove_speckles(x, 1.0, min_area) for x in d]))
+
+
+def test_wrappers_reject_mixed_or_unsupported_devices():
+    cpu = torch.zeros((1, 4, 4))
+    meta = torch.zeros((1, 4, 4), device="meta")
+    with pytest.raises(ValueError):
+        kernels.lr_check(cpu, meta, 1.0, 4)
+    with pytest.raises(ValueError):
+        kernels.remove_speckles(meta, 1.0, 4)
+
+
+def test_c_signatures_match_the_sources():
+    """Every ``extern "C"`` entry of csrc/ has ctypes argtypes of the right
+    arity and kinds: pointers (and the stream) c_void_p, int c_int, float
+    c_float."""
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[name] = tuple(
+                ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+                for p in (" ".join(q.split()) for q in params.split(",")))
+    assert found == _build.SIGNATURES
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
+    path = _build.library_path()
+    assert path.name == _build.LIB_NAME and path.parent.parent == _build.BUILD_DIR
+    assert _build.library_path() == path
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path() != path
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
