@@ -31,9 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 SIGNATURES = {
-    "sgm_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sgm_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_scan_direction": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
+    "sgm_scan_carry": (_P,) * 8 + (_I,) * 11 + (_P,),
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),

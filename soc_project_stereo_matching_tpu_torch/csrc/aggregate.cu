@@ -1,9 +1,10 @@
 // K2: SGM path aggregation (one launch per direction) and the WTA reduction.
 //
 // Replaces: soc_project_stereo_matching_tpu/ops/pallas_kernels.py:
-//   _directional_scan_group / _scan_group_kernel and
+//   _directional_scan_group / _scan_group_kernel (with and without its
+//   cross-tile carry-in/out refs) and
 //   _directional_scan_group_bidir / _bidir_kernel, as driven by
-//   aggregate_paths_wta (without the tiled path's carry-in/out mode), and
+//   aggregate_paths_wta and parallel/tiles.py, and
 //   wta_reduce_pallas / _wta_kernel / _wta_reduce_block.
 //
 // What bounds it on the H100 (measured; PERF.md, Open questions): memory
@@ -37,6 +38,17 @@
 // the wrapped one.  In restart mode the path restarts (raw cost) whenever it
 // is at column 0 (roll > 0) or W-1 (roll < 0) after its first step.
 //
+// Carry mode (sgm_scan_carry, vertical scans of an H-tile): the DP state
+// crosses tile boundaries as int32 planes indexed by column, the layout of
+// the Pallas entry (cost (B, n, D, W), min (B, n, 1, W)).  A path's first
+// step reads the state at column (col - roll) mod W of the carry-in and the
+// upstream tile's boundary gray row there, for P2; its last step writes
+// the state at its own column of the carry-out.  Each column is the last
+// column of exactly one path, so the writes never collide.  A reverse scan
+// takes the carry at the tile's last row and emits it at the first.  Only a
+// first step without a carry-in starts fresh; a zero carry-in is neutral
+// (m = 0, so the first row contributes its raw cost).
+//
 // WTA design: one thread per pixel, looping over d with w fastest across
 // threads (coalesced).  A single pass keeps the first argmin, the min and
 // the min over d != best; c1/c2 are re-read at clip(best -+ 1).  The inverse
@@ -59,12 +71,25 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
+// One direction's cross-tile DP state; all pointers null outside carry
+// mode.  Plane pointers are already offset to the direction; n is the
+// number of directions in the carry tensors (their batch stride).
+struct Carry {
+  const int* in_cost;         // (B, n, D, W) int32, or null: fresh start
+  const int* in_min;          // (B, n, 1, W) int32
+  const uint8_t* prev_gray;   // (B, W) upstream boundary row
+  int* out_cost;              // (B, n, D, W) int32, or null: not wanted
+  int* out_min;               // (B, n, 1, W) int32
+  int n;
+};
+
 template <int DPL>
 __global__ void scan_kernel(const uint8_t* __restrict__ cost,
                             const uint8_t* __restrict__ img,
                             uint16_t* __restrict__ aggr, int B, int H, int D,
                             int W, int vertical, int reverse, int roll,
-                            int restart, int p1, int p2_init, int accumulate) {
+                            int restart, int p1, int p2_init, int accumulate,
+                            Carry carry) {
   const int paths = vertical ? W : H;  // paths per image
   const int warp = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   if (warp >= B * paths) return;  // warp-uniform
@@ -80,6 +105,22 @@ __global__ void scan_kernel(const uint8_t* __restrict__ cost,
   int prev[DPL];
   int prev_min = 0;
   int prev_gray = 0;
+  const bool carried = carry.in_cost != nullptr;
+  const size_t cost_stride = (size_t)carry.n * D * W;
+  const size_t min_stride = (size_t)carry.n * W;
+  if (carried) {  // carry mode is vertical: the path starts at column `path`
+    int pc = (path - roll) % W;
+    if (pc < 0) pc += W;
+    const int* cin = carry.in_cost + b * cost_stride + pc;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane * DPL + i;
+      prev[i] = d < D ? cin[(size_t)d * W] : 0;
+    }
+    prev_min = carry.in_min[b * min_stride + pc];
+    prev_gray = carry.prev_gray[(size_t)b * W + pc];
+  }
+  int last_col = 0;
   for (int s = 0; s < steps; ++s) {
     const int t = reverse ? steps - 1 - s : s;
     int row, col;
@@ -105,8 +146,9 @@ __global__ void scan_kernel(const uint8_t* __restrict__ cost,
 
     int cur[DPL];
     const bool fresh =
-        s == 0 || (restart && roll &&
-                   ((roll > 0 && col == 0) || (roll < 0 && col == W - 1)));
+        (s == 0 && !carried) ||
+        (restart && roll &&
+         ((roll > 0 && col == 0) || (roll < 0 && col == W - 1)));
     if (fresh) {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) cur[i] = c[i];
@@ -137,6 +179,16 @@ __global__ void scan_kernel(const uint8_t* __restrict__ cost,
     }
     prev_min = warp_min(local_min);
     prev_gray = gray;
+    last_col = col;
+  }
+  if (carry.out_cost != nullptr) {  // the state after the last step
+    int* cout = carry.out_cost + b * cost_stride + last_col;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane * DPL + i;
+      if (d < D) cout[(size_t)d * W] = prev[i];
+    }
+    if (lane == 0) carry.out_min[b * min_stride + last_col] = prev_min;
   }
 }
 
@@ -144,14 +196,42 @@ template <int DPL>
 int launch_scan(const uint8_t* cost, const uint8_t* img, uint16_t* aggr,
                 int B, int H, int D, int W, int vertical, int reverse,
                 int roll, int restart, int p1, int p2_init, int accumulate,
-                cudaStream_t stream) {
+                Carry carry, cudaStream_t stream) {
   constexpr int kThreads = 256;  // 8 warps = 8 paths per block
   const long long warps = (long long)B * (vertical ? W : H);
   const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
   scan_kernel<DPL><<<(unsigned)blocks, kThreads, 0, stream>>>(
       cost, img, aggr, B, H, D, W, vertical, reverse, roll, restart, p1,
-      p2_init, accumulate);
+      p2_init, accumulate, carry);
   return (int)cudaGetLastError();
+}
+
+int scan_direction(const void* cost, const void* img, void* aggr, int B,
+                   int H, int D, int W, int vertical, int reverse, int roll,
+                   int restart, int p1, int p2_init, int accumulate,
+                   Carry carry, void* stream) {
+  if (B * H * W == 0) return 0;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  const uint8_t* c = (const uint8_t*)cost;
+  const uint8_t* g = (const uint8_t*)img;
+  uint16_t* a = (uint16_t*)aggr;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((D + 31) / 32) {
+#define SGM_SCAN_CASE(N)                                                  \
+  case N:                                                                 \
+    return launch_scan<N>(c, g, a, B, H, D, W, vertical, reverse, roll,  \
+                          restart, p1, p2_init, accumulate, carry, s);
+    SGM_SCAN_CASE(1)
+    SGM_SCAN_CASE(2)
+    SGM_SCAN_CASE(3)
+    SGM_SCAN_CASE(4)
+    SGM_SCAN_CASE(5)
+    SGM_SCAN_CASE(6)
+    SGM_SCAN_CASE(7)
+    SGM_SCAN_CASE(8)
+#undef SGM_SCAN_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 struct Best {
@@ -215,28 +295,26 @@ extern "C" int sgm_scan_direction(const void* cost, const void* img,
                                   int vertical, int reverse, int roll,
                                   int restart, int p1, int p2_init,
                                   int accumulate, void* stream) {
-  if (B * H * W == 0) return 0;
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
-  const uint8_t* c = (const uint8_t*)cost;
-  const uint8_t* g = (const uint8_t*)img;
-  uint16_t* a = (uint16_t*)aggr;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch ((D + 31) / 32) {
-#define SGM_SCAN_CASE(N)                                                  \
-  case N:                                                                 \
-    return launch_scan<N>(c, g, a, B, H, D, W, vertical, reverse, roll,  \
-                          restart, p1, p2_init, accumulate, s);
-    SGM_SCAN_CASE(1)
-    SGM_SCAN_CASE(2)
-    SGM_SCAN_CASE(3)
-    SGM_SCAN_CASE(4)
-    SGM_SCAN_CASE(5)
-    SGM_SCAN_CASE(6)
-    SGM_SCAN_CASE(7)
-    SGM_SCAN_CASE(8)
-#undef SGM_SCAN_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  return scan_direction(cost, img, aggr, B, H, D, W, vertical, reverse, roll,
+                        restart, p1, p2_init, accumulate, Carry{}, stream);
+}
+
+// One vertical direction of an H-tile in carry mode (see the header):
+// cin_cost may be null (fresh paths; then cin_min and prev_gray are unused)
+// and cout_cost null (no carry-out wanted).  The carry pointers point at
+// this direction's plane of (B, n, ...) int32 tensors.
+extern "C" int sgm_scan_carry(const void* cost, const void* img, void* aggr,
+                              const void* cin_cost, const void* cin_min,
+                              const void* prev_gray, void* cout_cost,
+                              void* cout_min, int B, int H, int D, int W,
+                              int n, int reverse, int roll, int restart,
+                              int p1, int p2_init, int accumulate,
+                              void* stream) {
+  const Carry carry{(const int*)cin_cost, (const int*)cin_min,
+                    (const uint8_t*)prev_gray, (int*)cout_cost,
+                    (int*)cout_min, n};
+  return scan_direction(cost, img, aggr, B, H, D, W, 1, reverse, roll,
+                        restart, p1, p2_init, accumulate, carry, stream);
 }
 
 // WTA planes of a uint16 (B, H, D, W) volume into out = int32 (5 or 10, B,

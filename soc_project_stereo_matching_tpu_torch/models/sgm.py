@@ -2,7 +2,8 @@
 ``models/sgm.py``.
 
 census -> Hamming cost -> multi-path aggregation -> WTA (+ inverse WTA, LR
-check) -> speckle removal -> out-of-place 3x3 median, on a (B, H, W) batch.
+check) -> speckle removal -> 3x3 median (out-of-place, or the reference's
+in-place recurrence with ``median_inplace``), on a (B, H, W) batch.
 With ``use_kernels=True`` (the main path) the volume stages and the LR and
 speckle passes run the hand-written CUDA kernels of ``ops/kernels.py``; the
 elementwise glue (``finalize_disparity``, the median) is plain PyTorch on
@@ -18,8 +19,12 @@ import torch
 from soc_project_stereo_matching_tpu.config import EngineConfig, SGMOptions
 
 from ..ops import kernels, postprocess
-from ..ops.postprocess import median_filter_3x3
+from ..ops.postprocess import median_filter_3x3, median_filter_3x3_inplace
 from ..ops.wta import finalize_disparity
+from ..parallel.mesh import Mesh
+from ..parallel.tiles import make_tiled_matcher
+
+TILE_MODES = ("none", "exact", "pipelined", "local")
 
 
 def sgm_forward(
@@ -31,10 +36,6 @@ def sgm_forward(
 ) -> torch.Tensor:
     """uint8 (..., H, W) stereo pair -> float32 (..., H, W) disparity
     (+inf invalid).  Accepts any number of leading batch dimensions."""
-    if options.median_inplace:
-        raise NotImplementedError(
-            "median_inplace=True (the reference's raster-recurrence median) "
-            "is not ported; use the default out-of-place median")
     if diagonal_mode not in ("wrap", "restart"):
         raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
     lead = img_left.shape[:-2]
@@ -62,8 +63,9 @@ def sgm_forward(
                         options.lrcheck_thres, max_shift=options.max_disparity)
     if options.is_remove_speckles:
         disp = remove_speckles(disp, 1.0, options.min_speckle_area)
-    disp = median_filter_3x3(disp)
-    return disp.reshape(lead + (h, w))
+    median = median_filter_3x3_inplace if options.median_inplace \
+        else median_filter_3x3
+    return median(disp).reshape(lead + (h, w))
 
 
 class SGMEngine:
@@ -76,18 +78,24 @@ class SGMEngine:
     when ``device="cpu"`` is passed, and then uses the plain ops.
     ``config.use_pallas`` selects the kernels (True) or the plain ops
     (False).  ``config.compute16`` is the TPU's int16 register-width choice
-    with bit-identical results, so the port ignores it.  Spatial tiling
-    (``tile_mode != "none"``) and device meshes are not ported yet.
+    with bit-identical results, so the port ignores it.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``), ``match_batch`` runs
+    sharded: every rank passes the global batch and gets the global result.
+    With ``config.tile_mode`` 'exact', 'pipelined' or 'local' the batch is
+    split over the mesh's 'data' axis and the image rows over its 'tile'
+    axis (``parallel/tiles.py``); with 'none' the batch is still split over
+    'data' (rows replicated over any 'tile' axis).  ``match`` never shards.
     """
 
     def __init__(self, options: SGMOptions = SGMOptions(),
                  config: EngineConfig = EngineConfig(),
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported yet")
-        if config.tile_mode != "none":
-            raise NotImplementedError(
-                f"tile_mode={config.tile_mode!r} is not ported yet")
+        if config.tile_mode not in TILE_MODES:
+            raise ValueError(f"unknown tile_mode {config.tile_mode!r}")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), "
+                            f"got {type(mesh).__name__}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SGMEngine(device='cuda'): no CUDA device is "
@@ -97,6 +105,14 @@ class SGMEngine:
         self.options = options
         self.config = config
         self.device = device
+        self.mesh = mesh
+        self._matchers = {}
+
+    def _matcher_key(self, h: int, w: int) -> tuple:
+        # everything a tiled matcher bakes in: reassigned options or config
+        # miss the cache instead of reusing a stale matcher
+        return (h, w, self.options, self.config.tile_mode,
+                self.config.diagonal_mode, self.config.use_pallas)
 
     def _tensor(self, img) -> torch.Tensor:
         if not isinstance(img, torch.Tensor):
@@ -111,4 +127,23 @@ class SGMEngine:
 
     def match_batch(self, imgs_left, imgs_right) -> torch.Tensor:
         """(B, H, W) pairs -> (B, H, W) disparities."""
-        return self.match(imgs_left, imgs_right)
+        mesh = self.mesh
+        if mesh is None or (self.config.tile_mode == "none" and mesh.size == 1):
+            return self.match(imgs_left, imgs_right)
+        lefts, rights = self._tensor(imgs_left), self._tensor(imgs_right)
+        if self.config.tile_mode == "none":     # data-parallel only
+            if lefts.shape[0] % mesh.data:
+                raise ValueError(f"batch {lefts.shape[0]} not divisible by "
+                                 f"the data axis size {mesh.data}")
+            bl = lefts.shape[0] // mesh.data
+            mine = slice(mesh.data_index * bl, (mesh.data_index + 1) * bl)
+            return mesh.gather(self.match(lefts[mine], rights[mine]), "data",
+                               dim=0)
+        h, w = lefts.shape[-2:]
+        key = self._matcher_key(h, w)
+        if key not in self._matchers:
+            self._matchers[key] = make_tiled_matcher(
+                self.options, mesh, h, w, cross_tile=self.config.tile_mode,
+                diagonal_mode=self.config.diagonal_mode,
+                use_kernels=self.config.use_pallas)
+        return self._matchers[key](lefts, rights)

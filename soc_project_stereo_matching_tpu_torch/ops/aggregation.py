@@ -12,7 +12,9 @@ Each direction is a Python loop over the scan axis with a (..., D, P) carry.
 Diagonal paths wrap around the image edges: indexing the carry by the
 current column turns them into vertical scans whose carry is circularly
 rolled by +-1 every step (``diagonal_mode='wrap'``); ``'restart'`` instead
-resets the single wrapped lane to its raw cost.
+resets the single wrapped lane to its raw cost.  The scan also takes and
+returns the boundary ``ScanCarry``, so the H-tiles of a sharded image can
+chain their scans (``parallel/tiles.py``).
 
 Everything is int32: torch's uint16 has no add or min.  The summed volume
 is returned as uint16 like the JAX op (8 paths x 255 fits).
@@ -20,11 +22,22 @@ is returned as uint16 like the JAX op (8 paths x 255 fits).
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from soc_project_stereo_matching_tpu.config import SGMOptions
 
 SENTINEL = 255  # L(p-r, -1) = L(p-r, D) = UINT8_MAX
+
+
+class ScanCarry(NamedTuple):
+    """Per-path DP state carried along a scan (int32), indexed by the
+    column of each path's last pixel, like the JAX op's."""
+
+    cost: torch.Tensor      # (..., D, P) previous path costs
+    mincost: torch.Tensor   # (..., P)    min over D of ``cost``
+    gray: torch.Tensor      # (..., P)    previous pixel intensity
 
 # The eight reference directions as (axis, reverse, roll):
 #   axis 'h': scan over W (transposed view); axis 'v': scan over H.
@@ -62,23 +75,33 @@ def directional_scan(
     reverse: bool = False,
     roll: int = 0,
     diagonal_mode: str = "wrap",
-) -> torch.Tensor:
+    carry_in: Optional[ScanCarry] = None,
+) -> Tuple[torch.Tensor, ScanCarry]:
     """One directional DP pass over a (..., S, D, P) cost view with its
-    (..., S, P) image; returns the int32 contribution (..., S, D, P).
+    (..., S, P) image; returns the int32 contribution (..., S, D, P) and the
+    outgoing ``ScanCarry``.
 
-    The first pixel of every path contributes its raw cost."""
+    Without ``carry_in`` the first pixel of every path contributes its raw
+    cost; with it, the first row continues an upstream tile's paths: the
+    carry is rolled by ``roll`` before the step, and in restart mode the
+    edge lane still restarts."""
     cost = cost.to(torch.int32)
     img = img.to(torch.int32)
     if reverse:
         cost = cost.flip(-3)
         img = img.flip(-2)
     out = torch.empty_like(cost)
-    prev = cost[..., 0, :, :]
-    out[..., 0, :, :] = prev
-    prev_min = prev.amin(dim=-2)
-    prev_gray = img[..., 0, :]
+    if carry_in is None:
+        prev = cost[..., 0, :, :]
+        out[..., 0, :, :] = prev
+        prev_min = prev.amin(dim=-2)
+        prev_gray = img[..., 0, :]
+        start = 1
+    else:
+        prev, prev_min, prev_gray = (c.to(torch.int32) for c in carry_in)
+        start = 0
     reset_lane = 0 if roll > 0 else cost.shape[-1] - 1
-    for s in range(1, cost.shape[-3]):
+    for s in range(start, cost.shape[-3]):
         if roll:
             prev = prev.roll(roll, dims=-1)
             prev_min = prev_min.roll(roll, dims=-1)
@@ -89,7 +112,8 @@ def directional_scan(
             cs[..., reset_lane] = cost_row[..., reset_lane]
         out[..., s, :, :] = cs
         prev, prev_min, prev_gray = cs, cs.amin(dim=-2), gray_row
-    return out.flip(-3) if reverse else out
+    carry = ScanCarry(prev, prev_min, prev_gray)
+    return (out.flip(-3) if reverse else out), carry
 
 
 def aggregate_paths(
@@ -107,8 +131,8 @@ def aggregate_paths(
     for axis, reverse, roll in dirs:
         if axis == "h":
             aggr += directional_scan(cost_t, img_t, options.p1, options.p2_init,
-                                     reverse, roll, diagonal_mode).transpose(-1, -3)
+                                     reverse, roll, diagonal_mode)[0].transpose(-1, -3)
         else:
             aggr += directional_scan(cost, img_left, options.p1, options.p2_init,
-                                     reverse, roll, diagonal_mode)
+                                     reverse, roll, diagonal_mode)[0]
     return aggr.to(torch.uint16)

@@ -3,18 +3,25 @@ package's ``ops/pallas_kernels.py``.
 
 One wrapper per kernel entry, each with its plain PyTorch version beside it:
 
-    census_cost_volume  K1 csrc/census_cost.cu  <- census_cost_volume_pallas
-    aggregate_paths     K2 csrc/aggregate.cu    <- the DP scan kernels
-    wta_reduce          K2 csrc/aggregate.cu    <- wta_reduce_pallas
-    lr_check            K3 csrc/lr_check.cu     <- lr_check_pallas
-    remove_speckles     K4 csrc/speckle.cu      <- remove_speckles_pallas
+    census_cost_volume      K1 csrc/census_cost.cu  <- census_cost_volume_pallas
+                               (img_has_halo=True: the tiled path's mode)
+    aggregate_paths         K2 csrc/aggregate.cu    <- the DP scan kernels
+    horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial
+    directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group
+                               (with the cross-tile carry-in/out)
+    wta_reduce              K2 csrc/aggregate.cu    <- wta_reduce_pallas
+    lr_check                K3 csrc/lr_check.cu     <- lr_check_pallas
+    remove_speckles         K4 csrc/speckle.cu      <- remove_speckles_pallas
 
 ``aggregate_paths_wta`` chains the two K2 wrappers, like the JAX entry of
 that name.  A wrapper given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
-returns a CUDA error, and adds one to ``LAUNCHES[<wrapper>]`` per C entry
-call.  There is no fallback: any other device raises.
+returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
+call.  The counter is the wrapper's name, except that the halo census
+counts as ``census_cost_volume_halo`` and ``horizontal_partial`` as
+``aggregate_paths``, whose horizontal launches it makes.  There is no
+fallback: any other device raises.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from . import wta as wta_ops
 from .wta import WTAPlanes
 
 LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
-            "lr_check": 0, "remove_speckles": 0}
+            "lr_check": 0, "remove_speckles": 0,
+            "census_cost_volume_halo": 0, "directional_scan_group": 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,35 +77,68 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t, offset: int = 0):
+    """Address of element ``offset`` of ``t``, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr() + offset * t.element_size()
+
+
 # --- K1: census + cost volume -------------------------------------------------
 
 def census_cost_volume_plain(img_left, img_right, min_disparity: int,
-                             max_disparity: int) -> torch.Tensor:
-    return cost_volume.hamming_cost_volume(
-        census.census_5x5(img_left), census.census_5x5(img_right),
-        min_disparity, max_disparity)
+                             max_disparity: int,
+                             img_has_halo: bool = False) -> torch.Tensor:
+    cl, cr = census.census_5x5(img_left), census.census_5x5(img_right)
+    if img_has_halo:        # the census of the padded tile, cropped
+        h = img_left.shape[-2] - 4
+        cl, cr = cl[..., 2:2 + h, :], cr[..., 2:2 + h, :]
+    return cost_volume.hamming_cost_volume(cl, cr, min_disparity,
+                                           max_disparity)
 
 
 def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
-                       min_disparity: int, max_disparity: int) -> torch.Tensor:
-    """uint8 (B, H, W) pair -> uint8 (B, H, D, W) cost volume."""
+                       min_disparity: int, max_disparity: int,
+                       img_has_halo: bool = False) -> torch.Tensor:
+    """uint8 (B, H, W) pair -> uint8 (B, H, D, W) cost volume.
+
+    ``img_has_halo``: the images are (B, H+4, W) H-tiles with 2 neighbour
+    rows on each side; the output has H rows and no row-border masking (the
+    tiled caller fixes the image's global border rows)."""
     if _on_cpu(img_left, img_right):
         return census_cost_volume_plain(img_left, img_right, min_disparity,
-                                        max_disparity)
+                                        max_disparity, img_has_halo)
     _check(img_left, "img_left", torch.uint8, 3)
     _check(img_right, "img_right", torch.uint8, 3)
     if img_left.shape != img_right.shape:
         raise ValueError("left and right images differ in shape")
     b, h, w = img_left.shape
+    if img_has_halo:
+        h -= 4
+        if h < 0:
+            raise ValueError(f"a halo image needs >= 4 rows, got {h + 4}")
     d = max_disparity - min_disparity
     out = torch.empty((b, h, d, w), dtype=torch.uint8, device=img_left.device)
-    _launch("sgm_census_cost", "census_cost_volume", img_left.data_ptr(),
-            img_right.data_ptr(), out.data_ptr(), b, h, w, min_disparity, d,
-            _stream(out))
+    _launch("sgm_census_cost",
+            "census_cost_volume_halo" if img_has_halo else "census_cost_volume",
+            img_left.data_ptr(), img_right.data_ptr(), out.data_ptr(), b, h, w,
+            min_disparity, d, int(img_has_halo), _stream(out))
     return out
 
 
 # --- K2: path aggregation + WTA -------------------------------------------------
+
+def _check_scan(cost: torch.Tensor, img: torch.Tensor):
+    """Validate a scan's uint8 (B, S, D, W) cost and (B, S, W) image for
+    the kernel; return (B, S, D, W)."""
+    _check(cost, "cost", torch.uint8, 4)
+    _check(img, "img", torch.uint8, 3)
+    b, s, d, w = cost.shape
+    if img.shape != (b, s, w):
+        raise ValueError(f"image {tuple(img.shape)} does not match cost "
+                         f"{tuple(cost.shape)}")
+    if not 1 <= d <= 256:
+        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    return b, s, d, w
+
 
 def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                     options: SGMOptions,
@@ -106,14 +147,7 @@ def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
     aggregated volume; one launch per direction of ``DIRECTIONS_8/4``."""
     if _on_cpu(cost, img_left):
         return aggregation.aggregate_paths(cost, img_left, options, diagonal_mode)
-    _check(cost, "cost", torch.uint8, 4)
-    _check(img_left, "img_left", torch.uint8, 3)
-    b, h, d, w = cost.shape
-    if img_left.shape != (b, h, w):
-        raise ValueError(f"image {tuple(img_left.shape)} does not match cost "
-                         f"{tuple(cost.shape)}")
-    if not 1 <= d <= 256:
-        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    b, h, d, w = _check_scan(cost, img_left)
     if diagonal_mode not in ("wrap", "restart"):
         raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
     out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
@@ -127,6 +161,124 @@ def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                 int(diagonal_mode == "restart"), options.p1, options.p2_init,
                 int(i > 0), stream)
     return out
+
+
+def horizontal_partial_plain(cost, img, p1: int, p2_init: int,
+                             restart: bool) -> torch.Tensor:
+    mode = "restart" if restart else "wrap"
+    cost_t, img_t = cost.transpose(-1, -3), img.transpose(-1, -2)
+    total = sum(aggregation.directional_scan(cost_t, img_t, p1, p2_init,
+                                             reverse, 0, mode)[0]
+                for reverse in (False, True))
+    return total.transpose(-1, -3).to(torch.uint16)
+
+
+def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
+                       p2_init: int, restart: bool) -> torch.Tensor:
+    """Both horizontal directions: uint8 (B, H, D, W) cost + uint8 (B, H, W)
+    image -> their uint16 (B, H, D, W) sum.  Tile-local in the H-tiled
+    layout; two launches of the K2 scan."""
+    if _on_cpu(cost, img):
+        return horizontal_partial_plain(cost, img, p1, p2_init, restart)
+    b, h, d, w = _check_scan(cost, img)
+    out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
+    for reverse in (False, True):
+        _launch("sgm_scan_direction", "aggregate_paths", cost.data_ptr(),
+                img.data_ptr(), out.data_ptr(), b, h, d, w, 0, int(reverse), 0,
+                int(restart), p1, p2_init, int(reverse), _stream(out))
+    return out
+
+
+def _edge_gray(img: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The boundary gray row a group scan uses when none is given: the
+    wrapped edge row, as ``_p2_planes(prev_row=None)`` uses it."""
+    return img[:, 0 if reverse else -1].contiguous()
+
+
+def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
+                                 p2_init: int, restart: bool, carry_in=None,
+                                 want_carry: bool = False, prev_gray=None):
+    mode = "restart" if restart else "wrap"
+    if prev_gray is None and carry_in is not None:
+        prev_gray = _edge_gray(img, reverse)
+    total = 0 if acc is None else acc.to(torch.int32)
+    carries = []
+    for k, roll in enumerate(rolls):
+        cin = None if carry_in is None else aggregation.ScanCarry(
+            carry_in[0][:, k], carry_in[1][:, k, 0], prev_gray)
+        contrib, carry = aggregation.directional_scan(cost, img, p1, p2_init,
+                                                      reverse, roll, mode, cin)
+        total = total + contrib
+        carries.append(carry)
+    out = total.to(torch.uint16)
+    if acc is not None:
+        out = acc.copy_(out)
+    if carry_in is None and not want_carry:
+        return out
+    return out, (torch.stack([c.cost for c in carries], 1),
+                 torch.stack([c.mincost for c in carries], 1)[:, :, None])
+
+
+def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
+                           rolls, reverse: bool, p1: int, p2_init: int,
+                           restart: bool, carry_in=None,
+                           want_carry: bool = False, prev_gray=None):
+    """A group of vertical directions that share a scan order (rolls, e.g.
+    (0, 1, -1)) over an H-tile: uint8 (B, S, D, W) cost + uint8 (B, S, W)
+    image -> the uint16 (B, S, D, W) sum of their contributions, added in
+    place onto ``acc`` (uint16, same shape) and returned when ``acc`` is
+    given.  One launch per direction.
+
+    Carry mode, with the Pallas entry's layout: ``carry_in`` = int32
+    (cost (B, n, D, W), min (B, n, 1, W)) continues the upstream tile's
+    paths, and with ``carry_in`` or ``want_carry`` the result is
+    ``(sum, carry_out)``, the state after the tile's last row (its first
+    for ``reverse``).  ``prev_gray``: the upstream tile's uint8 (B, W)
+    boundary row, for P2 on the first row (default: the wrapped edge row of
+    ``img``, as the Pallas entry's P2 planes without ``prev_row``)."""
+    if prev_gray is None and carry_in is not None:
+        prev_gray = _edge_gray(img, reverse)
+    extra = [t for t in (acc, prev_gray, *(carry_in or ())) if t is not None]
+    if _on_cpu(cost, img, *extra):
+        return directional_scan_group_plain(cost, img, acc, rolls, reverse, p1,
+                                            p2_init, restart, carry_in,
+                                            want_carry, prev_gray)
+    b, s, d, w = _check_scan(cost, img)
+    n = len(rolls)
+    if acc is None:
+        out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
+    else:
+        _check(acc, "acc", torch.uint16, 4)
+        if acc.shape != cost.shape:
+            raise ValueError(f"acc {tuple(acc.shape)} != cost {tuple(cost.shape)}")
+        out = acc
+    cin_cost = cin_min = None
+    if carry_in is not None:
+        cin_cost, cin_min = carry_in
+        for t, name, shape in ((cin_cost, "carry cost", (b, n, d, w)),
+                               (cin_min, "carry min", (b, n, 1, w))):
+            _check(t, name, torch.int32, 4)
+            if t.shape != shape:
+                raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+        _check(prev_gray, "prev_gray", torch.uint8, 2)
+        if prev_gray.shape != (b, w):
+            raise ValueError(f"prev_gray: expected {(b, w)}, got "
+                             f"{tuple(prev_gray.shape)}")
+    has_carry = carry_in is not None or want_carry
+    cout_cost = cout_min = None
+    if has_carry:
+        cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
+        cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
+    stream = _stream(out)
+    for k, roll in enumerate(rolls):
+        _launch("sgm_scan_carry", "directional_scan_group", cost.data_ptr(),
+                img.data_ptr(), out.data_ptr(), _ptr(cin_cost, k * d * w),
+                _ptr(cin_min, k * w), _ptr(prev_gray),
+                _ptr(cout_cost, k * d * w),
+                _ptr(cout_min, k * w), b, s, d, w, n, int(reverse), roll,
+                int(restart), p1, p2_init, int(acc is not None or k > 0),
+                stream)
+    return (out, (cout_cost, cout_min)) if has_carry else out
 
 
 def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):

@@ -1,8 +1,6 @@
 """Disparity post-processing — plain PyTorch counterpart of
-``ops/postprocess.py``: LR consistency, speckle removal, out-of-place median.
-
-The reference's in-place (raster-recurrence) median is not ported:
-``sgm_forward`` raises for ``SGMOptions(median_inplace=True)``.
+``ops/postprocess.py``: LR consistency, speckle removal, and both 3x3
+medians (out-of-place, and the reference's in-place raster recurrence).
 """
 
 from __future__ import annotations
@@ -117,4 +115,28 @@ def median_filter_3x3(disp: torch.Tensor) -> torch.Tensor:
     out[..., 1:h - 1, 1:w - 1] = _median9(
         [disp[..., 1 + r:h - 1 + r, 1 + c:w - 1 + c]
          for r in (-1, 0, 1) for c in (-1, 0, 1)])
+    return out
+
+
+def median_filter_3x3_inplace(disp: torch.Tensor) -> torch.Tensor:
+    """The reference's in-place (raster-recurrence) 3x3 median on
+    (..., H, W); the 1-px border is untouched.
+
+    The reference filters with ``in == out``, so the raster scan reads
+    already-filtered values at (i-1, j-1), (i-1, j), (i-1, j+1) and
+    (i, j-1).  Each of those has a smaller ``t = 2i + j``, so the pixels of
+    one t-wavefront are independent: one step per front, 2(H-2)+(W-2)-2
+    sequential steps, each gathering only its front's pixels.  The parity
+    mode, not a fast path (the JAX op is the same wavefront)."""
+    h, w = disp.shape[-2], disp.shape[-1]
+    out = disp.clone()
+    if h < 3 or w < 3:
+        return out
+    for t in range(3, 2 * (h - 2) + (w - 2) + 1):
+        # interior pixels on the front: 1 <= i <= h-2, 1 <= j = t-2i <= w-2
+        i_lo, i_hi = max(1, -(-(t - (w - 2)) // 2)), min(h - 2, (t - 1) // 2)
+        i = torch.arange(i_lo, i_hi + 1, device=disp.device)
+        j = t - 2 * i
+        out[..., i, j] = _median9([out[..., i + r, j + c]
+                                   for r in (-1, 0, 1) for c in (-1, 0, 1)])
     return out

@@ -19,6 +19,8 @@ from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                        postprocess, wta)
 
 H, W = 37, 53
+MAIN_PATH = ("census_cost_volume", "aggregate_paths", "wta_reduce",
+             "lr_check", "remove_speckles")
 pytestmark = pytest.mark.cuda
 
 
@@ -55,7 +57,7 @@ def test_kernels_match_plain_on_card(cuda, dmin, dmax):
     same(kernels.remove_speckles(checked, 1.0, 9),
          postprocess.remove_speckles(checked, 1.0, 9))
     torch.cuda.synchronize()
-    assert all(kernels.LAUNCHES[k] > before[k] for k in kernels.LAUNCHES)
+    assert all(kernels.LAUNCHES[k] > before[k] for k in MAIN_PATH)
 
 
 def test_engine_on_card_matches_plain_path_and_oracle(cuda):
@@ -107,3 +109,75 @@ def test_stage_breakdown_runs_and_matches_the_engine(cuda, tmp_path):
                                    "--out", str(out)])
     assert out.exists() and len(result["scan_direction_ms"]) == 8
     assert result["stages_ms"]["total"]["median"] > 0
+
+
+@pytest.mark.parametrize("dmin,dmax", [(0, 16), (8, 56)])
+def test_halo_census_matches_plain_on_card(cuda, dmin, dmax):
+    rng = np.random.default_rng(30)
+    il, ir = (torch.from_numpy(rng.integers(0, 256, (2, H + 4, W),
+                                            dtype=np.uint8)).to(cuda)
+              for _ in range(2))
+    before = kernels.LAUNCHES["census_cost_volume_halo"]
+    got = kernels.census_cost_volume(il, ir, dmin, dmax, img_has_halo=True)
+    assert got.shape == (2, H, dmax - dmin, W)
+    same(got, kernels.census_cost_volume_plain(il, ir, dmin, dmax,
+                                               img_has_halo=True))
+    same(got, kernels.census_cost_volume(il, ir, dmin, dmax)[:, 2:H + 2])
+    assert kernels.LAUNCHES["census_cost_volume_halo"] == before + 1
+
+
+@pytest.mark.parametrize("restart", [False, True])
+@pytest.mark.parametrize("rolls,reverse", [((0, 1, -1), False),
+                                           ((0, -1, 1), True)])
+def test_tile_chain_on_card_matches_plain_and_untiled(cuda, rolls, reverse,
+                                                      restart):
+    """K=3 H-tiles chained through the group scan's carry in the exact
+    schedule's order: each tile equals the plain version on the same
+    carry-in, the chain equals the untiled kernel, and a zero carry-in
+    equals a fresh start."""
+    rng = np.random.default_rng(31)
+    k, ht, d = 3, 12, 24
+    cost = torch.from_numpy(rng.integers(0, 256, (2, k * ht, d, W),
+                                         dtype=np.uint8)).to(cuda)
+    img = torch.from_numpy(rng.integers(0, 256, (2, k * ht, W),
+                                        dtype=np.uint8)).to(cuda)
+    parts, carry = [None] * k, None
+    for i in (range(k - 1, -1, -1) if reverse else range(k)):
+        rows = slice(i * ht, (i + 1) * ht)
+        prev = None
+        if carry is not None:
+            prev = img[:, (i + 1) * ht if reverse else i * ht - 1].contiguous()
+        args = (cost[:, rows].contiguous(), img[:, rows].contiguous(), None,
+                rolls, reverse, 10, 150, restart)
+        kw = dict(carry_in=carry, want_carry=True, prev_gray=prev)
+        parts[i], carry = kernels.directional_scan_group(*args, **kw)
+        want, want_carry = kernels.directional_scan_group_plain(*args, **kw)
+        same(parts[i], want)
+        for c, wc in zip(carry, want_carry):
+            same(c, wc)
+    acc = torch.full(cost.shape, 7, dtype=torch.uint16, device=cuda)
+    whole = kernels.directional_scan_group(cost, img, acc, rolls, reverse, 10,
+                                           150, restart)
+    assert whole.data_ptr() == acc.data_ptr()          # added in place
+    same(torch.cat(parts, dim=1).int() + 7, whole.int())
+    zeros = tuple(torch.zeros_like(c) for c in carry)
+    same(kernels.directional_scan_group(cost, img, None, rolls, reverse, 10,
+                                        150, restart, carry_in=zeros)[0],
+         kernels.directional_scan_group(cost, img, None, rolls, reverse, 10,
+                                        150, restart))
+
+
+def test_tiled_engine_on_card_matches_untiled(cuda):
+    from soc_project_stereo_matching_tpu import EngineConfig
+    from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
+
+    left, right, _ = synthetic_pair(32, 2, 36, W, (3, 6, 10))
+    opt = SGMOptions(max_disparity=16, min_speckle_area=8)
+    want = SGMEngine(opt, device="cuda").match_batch(left, right)
+    for mode in ("exact", "pipelined", "local"):
+        kernels.reset_launch_counts()
+        got = SGMEngine(opt, EngineConfig(tile_mode=mode), device="cuda",
+                        mesh=make_mesh(1, 1)).match_batch(left, right)
+        same(got, want)
+        assert kernels.LAUNCHES["census_cost_volume_halo"] == 1
+        assert kernels.LAUNCHES["directional_scan_group"] == 6

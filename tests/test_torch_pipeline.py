@@ -112,21 +112,33 @@ def test_engine_cuda_without_a_card_raises():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        SGMEngine(config=EngineConfig(tile_mode="exact"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SGMEngine(device="cpu", mesh=object())
+    """Tiling, meshes and ``median_inplace`` run now; what still refuses is
+    a mesh that is not the port's (a JAX mesh, say) and a mesh larger than
+    the process group (here none)."""
+    from soc_project_stereo_matching_tpu.parallel.mesh import make_mesh as j_mesh
+    from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
+
+    for mesh in (object(), j_mesh(1, 1)):
+        with pytest.raises(TypeError, match="Mesh"):
+            SGMEngine(config=EngineConfig(tile_mode="exact"), device="cpu",
+                      mesh=mesh)
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        make_mesh(1, 2)
     engine = SGMEngine(SGMOptions(max_disparity=16, median_inplace=True),
                        device="cpu")
-    img = np.zeros((H, W), np.uint8)
-    with pytest.raises(NotImplementedError):
-        engine.match(img, img)
+    left, right, _ = synthetic_pair(9, 1, H, W, SMALL["levels"])
+    got = engine.match(left[0], right[0])
+    same(got, oracle.sgm_match(left[0], right[0], engine.options))
 
 
 def test_port_imports_no_jax():
     code = ("import sys; import soc_project_stereo_matching_tpu_torch.models.sgm, "
             "soc_project_stereo_matching_tpu_torch.ops.kernels, "
-            "soc_project_stereo_matching_tpu_torch._build; "
+            "soc_project_stereo_matching_tpu_torch._build, "
+            "soc_project_stereo_matching_tpu_torch.parallel.mesh, "
+            "soc_project_stereo_matching_tpu_torch.parallel.multihost, "
+            "soc_project_stereo_matching_tpu_torch.parallel.tiles, "
+            "soc_project_stereo_matching_tpu_torch.parallel.dryrun; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
