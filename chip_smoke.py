@@ -33,18 +33,31 @@ Phases (each raises on failure, so the script exits non-zero):
       frame time of both; all three tile modes at cone B=8 bit-equal too;
    c. multi-card: with two or more cards, ``dryrun_multichip(2)`` over NCCL
       (tile=2, exact and pipelined); with one card a line says it did not run;
-6. the per-kernel JSON line, then the contract line
+6. probe phase (the aggregation probe path, cone pair B=8, 375x450, D=64):
+   a. kernels: ``chain`` and ``chainio`` (every variant of the ladder, both
+      launch shapes, at the step counts the probe times: 375 and 450), the
+      volume transpose (uint8 and uint16, both ways), every rung of the
+      16-bit ladder and ``scan16`` (forward and reverse, wrap and restart)
+      against their plain versions, bit for bit; the same at an off shape
+      (37x45, D=48), there also ``hpart_T`` against the shipped horizontal
+      pair and ``scan16`` against the shipped K2 group scan;
+   b. the path: ``probes.recurrence_floor.run``, ``aggr_transpose.run`` and
+      ``int16_recurrence.run`` (counters reset before, read after), which
+      hold ``hpart_T`` and ``scan16`` against the shipped kernels at the cone
+      pair; each printed with the card's name and power limit;
+7. the per-kernel JSON line (each kernel's time beside its plain version's,
+   its bound from this run's shapes and, where one PyTorch call computes the
+   same function, that call's time), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Inputs are seeded synthetic pairs (no dataset is needed).  Neither JAX nor
-the JAX package is imported here; the port itself loads only that
-package's jax-free ``config`` module, for ``SGMOptions``.
+any module of the JAX package is imported, here or by the port: the last
+phase checks ``sys.modules`` for both.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -58,6 +71,10 @@ MIDDLEBURY_HALF = dict(batch=1, h=1000, w=1500, dmin=0, dmax=256,
 GROUPS = (((0, 1, -1), False), ((0, -1, 1), True))   # (rolls, reverse)
 CROP = (96, 160)
 MIN_GOOD = 0.95     # finite pixels within 1 of the true disparity, at least
+PROBE = dict(batch=8, h=375, w=450, dmax=64)
+PROBE_OFF = dict(batch=2, h=37, w=45, dmax=48)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, device memory
+OPS_PER_S = 67e12           # H100 SXM, 32-bit operations outside the tensor cores
 PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
 CSRC = "soc_project_stereo_matching_tpu_torch/csrc"
 KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
@@ -69,28 +86,40 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
     # the tiled path's modes: mask_rows=False, and the cin_*/cout_* refs
     "census_cost_volume_halo": (f"{CSRC}/census_cost.cu", f"{PALLAS}:1619"),
     "directional_scan_group": (f"{CSRC}/aggregate.cu", f"{PALLAS}:178"),
+    # the probe path
+    "probe_chain": (f"{CSRC}/probe_recurrence.cu",
+                    "scripts/recurrence_floor.py:122"),
+    "probe_chainio": (f"{CSRC}/probe_recurrence.cu",
+                      "scripts/recurrence_floor.py:202"),
+    "probe_transpose": (f"{CSRC}/probe_transpose.cu",
+                        "scripts/aggr_transpose_probe.py:176"),
+    "probe_int16": (f"{CSRC}/probe_int16.cu",
+                    "scripts/mosaic_int16_probe.py:102"),
 }
 MAIN_PATH = ("census_cost_volume", "aggregate_paths", "wta_reduce", "lr_check",
              "remove_speckles")
 TILE_PATH = ("census_cost_volume_halo", "directional_scan_group")
+PROBE_PATH = ("probe_chain", "probe_chainio", "probe_transpose", "probe_int16")
 
 
 def cuda_ms(fn, reps: int) -> float:
     """Median CUDA-event milliseconds of ``fn()`` over ``reps`` runs, after
     one warm-up run."""
-    import torch
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import cuda_time
 
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return cuda_time(fn, reps)["median"]
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (inputs read once, outputs written once) over the
+    memory rate and its operations over the peak 32-bit rate.  The operation
+    counts are the arithmetic of the plain formulation, to the nearest few
+    per element."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def max_abs_err(got, want) -> float:
@@ -142,8 +171,13 @@ def check_kernels(cfg, timed: bool) -> dict:
     out = {}
     before = dict(kernels.LAUNCHES)
 
-    def record(name, err, kernel_fn, plain_fn, plain_reps=3):
-        out[name] = {"max_abs_err": err}
+    b, h, w = left.shape
+    d = opt.disp_range
+    px, vol = b * h * w, b * h * w * d      # pixels, volume elements
+
+    def record(name, err, kernel_fn, plain_fn, nbytes, ops, plain_reps=3):
+        out[name] = {"max_abs_err": err, "library_ms": None,
+                     **bound(nbytes, ops)}
         if timed:
             out[name]["ms"] = cuda_ms(kernel_fn, 20)
             out[name]["plain_ms"] = cuda_ms(plain_fn, plain_reps)
@@ -154,7 +188,10 @@ def check_kernels(cfg, timed: bool) -> dict:
     cc_plain = lambda: kernels.census_cost_volume_plain(
         left, right, opt.min_disparity, opt.max_disparity)
     cost = cc()
-    record("census_cost_volume", max_abs_err(cost, cc_plain()), cc, cc_plain)
+    # 2 images in, the volume out; 24 compares + shifts per census bit
+    # string, xor + popcount per volume element
+    record("census_cost_volume", max_abs_err(cost, cc_plain()), cc, cc_plain,
+           2 * px + vol, 2 * px * 48 + 2 * vol)
 
     # K2 scans: the main path's wrap mode, plus restart and 4 paths off-shape
     modes = [(opt, "wrap")]
@@ -167,7 +204,10 @@ def check_kernels(cfg, timed: bool) -> dict:
     aggr = kernels.aggregate_paths(cost, left, opt)
     record("aggregate_paths", err,
            lambda: kernels.aggregate_paths(cost, left, opt),
-           lambda: aggregation.aggregate_paths(cost, left, opt), plain_reps=1)
+           lambda: aggregation.aggregate_paths(cost, left, opt),
+           # cost and image in, the uint16 volume out; per element and
+           # direction 3 mins, 4 adds, a mask, the min over D, the sum
+           vol + px + 2 * vol, 8 * 10 * vol, plain_reps=1)
 
     # K2 WTA, with and without the inverse view
     fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
@@ -179,7 +219,10 @@ def check_kernels(cfg, timed: bool) -> dict:
     err = max(err, planes_err(only_fwd, pf))
     record("wta_reduce", err,
            lambda: kernels.wta_reduce(aggr, opt, include_inverse=True),
-           lambda: kernels.wta_reduce_plain(aggr, opt, include_inverse=True))
+           lambda: kernels.wta_reduce_plain(aggr, opt, include_inverse=True),
+           # the volume in, 10 int32 planes out; compare + 2 selects per
+           # element and view
+           2 * vol + 40 * px, 2 * 3 * vol)
 
     # K3 on the pipeline's own maps, and off-shape on NaN / -inf / +inf too
     dl = wta.finalize_disparity(fwd, opt)
@@ -203,7 +246,8 @@ def check_kernels(cfg, timed: bool) -> dict:
     checked = kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity)
     record("lr_check", err,
            lambda: kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity),
-           lambda: postprocess.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity))
+           lambda: postprocess.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity),
+           12 * px, 8 * px)       # two f32 maps in, one out
 
     # K4 on the checked map, and on a noisy small-integer map
     g = torch.Generator().manual_seed(4)
@@ -214,7 +258,10 @@ def check_kernels(cfg, timed: bool) -> dict:
               for m, area in ((checked, opt.min_speckle_area), (rough.cuda(), 9)))
     record("remove_speckles", err,
            lambda: kernels.remove_speckles(checked, 1.0, opt.min_speckle_area),
-           lambda: postprocess.remove_speckles(checked, 1.0, opt.min_speckle_area))
+           lambda: postprocess.remove_speckles(checked, 1.0, opt.min_speckle_area),
+           # one f32 map in, one out; 8 neighbour tests of ~4 operations (the
+           # union rounds beyond one visit depend on the data: not counted)
+           8 * px, 32 * px)
 
     torch.cuda.synchronize()
     for name in MAIN_PATH:
@@ -339,6 +386,17 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
                  lambda: kernels.directional_scan_group_plain(*args, **kw))):
             out[name]["ms"] = cuda_ms(fn, 20)
             out[name]["plain_ms"] = cuda_ms(plain, 3)
+            out[name]["library_ms"] = None
+        b, w, d = left.shape[0], left.shape[2], dmax - dmin
+        px, vol = b * ht * w, b * ht * w * d
+        # the two halo images in, the tile's volume out
+        out["census_cost_volume_halo"].update(
+            bound(2 * b * (ht + 4) * w + vol, 2 * b * (ht + 4) * w * 48 + 2 * vol))
+        # cost, image and boundary row in, the uint16 sum out, and the int32
+        # carry (3 directions of D + 1 planes) in and out
+        out["directional_scan_group"].update(
+            bound(vol + px + b * w + 2 * vol + 2 * 4 * b * 3 * (d + 1) * w,
+                  3 * 10 * vol))
     return out
 
 
@@ -390,6 +448,141 @@ def tile_engine_phase() -> dict:
     print(f"tile engine: exact, pipelined and local on a 1x1 mesh bit-equal "
           f"to the untiled engine (cone B={SLICE_BATCH})")
     return launches
+
+
+def probe_kernel_checks(cfg, full: bool) -> dict:
+    """P1-P4 vs their plain versions, bit for bit, at one geometry.  With
+    ``full`` (the cone pair) also the times for the kernels line: kernel,
+    plain version, bound and, for the transpose, the PyTorch call; without
+    it (the off shape) also ``hpart_T`` and ``scan16`` vs the shipped
+    kernels, which the probes' own runs check at the cone pair."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        aggr_transpose, pair_and_cost, random_tensor)
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    dev = torch.device("cuda")
+    b, h, w = cfg["batch"], cfg["h"], cfg["w"]
+    opt, left, _, cost = pair_and_cost(dev, b, h, w, cfg["dmax"], seed=5)
+    d, p1, p2 = cost.shape[2], opt.p1, opt.p2_init
+    group, ring = (0, 1, -1), 4
+    out = {}
+
+    # P1 / P2 at both launch shapes: (x, steps, directions)
+    shapes = {"3": (random_tensor(11, 0, 65536, (b, d, w), torch.uint16, dev),
+                    h, group),
+              "1": (random_tensor(12, 0, 65536, (b, d, h), torch.uint16, dev),
+                    w, (0,))}
+    err = 0.0
+    for x, steps, rolls in shapes.values():
+        err = max(err, max_abs_err(pk.chain(x, steps, rolls, p1),
+                                   pk.chain_plain(x, steps, rolls, p1)))
+    out["probe_chain"] = {"max_abs_err": err}
+    err, rings = 0.0, {}
+    for key, (x, steps, rolls) in shapes.items():
+        p = x.shape[2]
+        rings[key] = (
+            random_tensor(13, 0, 256, (b, ring, d, p), torch.int32, dev),
+            random_tensor(14, p1, p2 + 1, (b, len(rolls), ring, p),
+                          torch.int32, dev))
+        for extra in (0, 1, 2):          # the f, m and b pass shapes
+            for n in (steps, ring - 1):  # as timed, and less than one lap
+                args = (x, *rings[key], n, rolls, extra, p1)
+                err = max(err, max_abs_err(pk.chainio(*args),
+                                           pk.chainio_plain(*args)))
+    out["probe_chainio"] = {"max_abs_err": err}
+
+    # P3: uint8 and uint16, both ways
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    err = 0.0
+    for vol in (cost, part):
+        there = pk.volume_transpose(vol)
+        err = max(err, max_abs_err(there, pk.volume_transpose_plain(vol)),
+                  max_abs_err(pk.volume_transpose(there), vol))
+    if not full:
+        max_abs_err(aggr_transpose.hpart_T(cost, left, p1, p2), part)
+    out["probe_transpose"] = {"max_abs_err": err}
+
+    # P4: every rung, and scan16 vs its plain version and vs the K2 scan
+    err = 0.0
+    for i, name in enumerate(pk.RUNGS):
+        rows = 8 if name in pk.LOOP_RUNGS else d
+        x = random_tensor(20 + i, 0, 256, (b, rows, w), torch.uint8, dev)
+        err = max(err, max_abs_err(pk.rung(name, x), pk.rung_plain(name, x)))
+    for reverse in (False, True):
+        for restart in (False, True):
+            args = (cost, left, group, reverse, p1, p2, restart)
+            got = pk.scan16(*args)
+            err = max(err, max_abs_err(got, pk.scan16_plain(*args)))
+            if not full:
+                max_abs_err(got, kernels.directional_scan_group(
+                    cost, left, None, group, reverse, p1, p2, restart))
+    out["probe_int16"] = {"max_abs_err": err}
+    torch.cuda.synchronize()
+    if not full:
+        return out
+
+    # times at the cone pair: chain1, chainio1 with one read-add (the shipped
+    # accumulating launch's shape), the uint16 transpose, scan16's group
+    x, steps, rolls = shapes["1"]
+    paths, vol = b * h, b * h * d * w
+    io_args = (x, *rings["1"], steps, rolls, 1, p1)
+    timed = {
+        "probe_chain": (
+            lambda: pk.chain(x, steps, rolls, p1),
+            lambda: pk.chain_plain(x, steps, rolls, p1),
+            # one row in, one out; ~10 operations per step and disparity
+            bound(4 * b * d * h, 10 * paths * steps * d), None),
+        "probe_chainio": (
+            lambda: pk.chainio(*io_args), lambda: pk.chainio_plain(*io_args),
+            # + the rings in; ~14 operations per step and disparity
+            bound(4 * b * d * h + 4 * b * ring * (d + 1) * h,
+                  14 * paths * steps * d), None),
+        "probe_transpose": (
+            lambda: pk.volume_transpose(part),
+            lambda: pk.volume_transpose_plain(part),
+            bound(2 * 2 * vol, 0),
+            lambda: part.permute(0, 3, 2, 1).contiguous()),
+        "probe_int16": (
+            lambda: pk.scan16(cost, left, group, False, p1, p2, False),
+            lambda: pk.scan16_plain(cost, left, group, False, p1, p2, False),
+            # cost and image in, the uint16 sum out; 3 directions of ~10
+            # operations per element, two elements to an operation
+            bound(vol + b * h * w + 2 * vol, 3 * 5 * vol), None),
+    }
+    for name, (fn, plain, bnd, library) in timed.items():
+        out[name].update(bnd, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 1),
+                         library_ms=cuda_ms(library, 20) if library else None)
+    return out
+
+
+def probe_phase() -> tuple:
+    """(per-kernel records, launch counts of the probe path's run)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        aggr_transpose, int16_recurrence, recurrence_floor)
+
+    probe_kernel_checks(PROBE_OFF, full=False)
+    records = probe_kernel_checks(PROBE, full=True)
+    kernels.reset_launch_counts()
+    docs = [probe.run(device="cuda", reps=5, **PROBE)
+            for probe in (recurrence_floor, aggr_transpose, int16_recurrence)]
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in PROBE_PATH}
+    missing = [name for name in PROBE_PATH if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"probe path launched no {missing}")
+    for probe, doc in zip((recurrence_floor, aggr_transpose, int16_recurrence),
+                          docs):
+        print(f"probe {doc['probe']} ({doc['card']}, {doc['power_limit']}; "
+              f"B={doc['batch']} {doc['h']}x{doc['w']} D={doc['d']}, ms per "
+              f"frame = ms per launch / B):")
+        print(probe.report(doc))
+    return records, launches
 
 
 def main() -> None:
@@ -473,15 +666,30 @@ def main() -> None:
         print("tile phase, multi-card: not run: one CUDA device "
               "(dryrun_multichip(2) needs two)")
 
-    # 6. results
+    # 6. probe phase
+    records, probe_launches = probe_phase()
+    cone.update(records)
+    launches.update(probe_launches)
+    for name in PROBE_PATH:
+        rec = cone[name]
+        print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms (cone B={PROBE['batch']} 375x450 D=64, bit-equal; also at "
+              f"37x45 D=48)")
+
+    # 7. results
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": cone[name]["max_abs_err"],
-         "ms": cone[name]["ms"], "plain_ms": cone[name]["plain_ms"]}
+         "launches": launches[name],
+         **{key: cone[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name, (src, replaces) in KERNELS.items()]}))
-    leaked = {"jax", "soc_project_stereo_matching_tpu.oracle"} & set(sys.modules)
+    jax_pkg = "soc_project_stereo_matching_tpu"
+    leaked = sorted(m for m in sys.modules
+                    if m.startswith("jax") or m == jax_pkg
+                    or m.startswith(jax_pkg + "."))
     if leaked:
-        raise AssertionError(f"imported {sorted(leaked)}")
+        raise AssertionError(f"imported {leaked}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

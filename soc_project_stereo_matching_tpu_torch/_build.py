@@ -1,11 +1,12 @@
 """Build ``csrc/*.cu`` into one shared library at first use and load it.
 
 The kernels have a plain C interface (no PyTorch headers), so ``nvcc``
-builds them in seconds.  The library goes to
+builds each file in seconds.  Every source is compiled by an ``nvcc`` of its
+own, all started together, and the objects are linked into one library in
 ``<repo>/build/torch_kernels/<hash>/``, keyed by a hash of the sources and
-the flags, and is loaded with ``ctypes``.  Each C entry returns the
+the flags, which is loaded with ``ctypes``.  Each C entry returns the
 ``cudaError_t`` of its launches, which the wrappers in ``ops/kernels.py``
-turn into an exception.
+and ``probes/kernels.py`` turn into an exception.
 
 No ``--use_fast_math``: the LR check needs IEEE f32 subtraction and
 ``truncf``, and the speckle test IEEE ``fabsf(a - b) <= diff``.
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libsgm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
@@ -38,6 +39,12 @@ SIGNATURES = {
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "sgm_probe_chain": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
+    "sgm_probe_chainio": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+                          _P),
+    "sgm_probe_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
+    "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 10 + (_P,),
 }
 
 _lib = None
@@ -74,20 +81,28 @@ def build() -> Path:
         return target
     nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *map(str, (s for s in sources() if s.suffix == ".cu"))]
-    try:
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, _, proc in jobs]          # waits for every nvcc
+        for cmd, log, code in logs:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
+        lib = str(Path(tmp) / LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, target)
     return target
 
 

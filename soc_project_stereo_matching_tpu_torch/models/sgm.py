@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from soc_project_stereo_matching_tpu.config import EngineConfig, SGMOptions
+from ..config import EngineConfig, SGMOptions
 
 from ..ops import kernels, postprocess
 from ..ops.postprocess import median_filter_3x3, median_filter_3x3_inplace

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from soc_project_stereo_matching_tpu.config import SGMOptions
+from ..config import SGMOptions
 
 SENTINEL = 255  # L(p-r, -1) = L(p-r, D) = UINT8_MAX
 

@@ -7,6 +7,7 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
                                (img_has_halo=True: the tiled path's mode)
     aggregate_paths         K2 csrc/aggregate.cu    <- the DP scan kernels
     horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial
+    scan_direction          K2 csrc/aggregate.cu    one direction alone
     directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group
                                (with the cross-tile carry-in/out)
     wta_reduce              K2 csrc/aggregate.cu    <- wta_reduce_pallas
@@ -19,8 +20,9 @@ tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
 returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
 call.  The counter is the wrapper's name, except that the halo census
-counts as ``census_cost_volume_halo`` and ``horizontal_partial`` as
-``aggregate_paths``, whose horizontal launches it makes.  There is no
+counts as ``census_cost_volume_halo`` and ``horizontal_partial`` and
+``scan_direction`` as ``aggregate_paths``, whose launches they make.  The
+four ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.  There is no
 fallback: any other device raises.
 """
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from soc_project_stereo_matching_tpu.config import SGMOptions
+from ..config import SGMOptions
 
 from .. import _build
 from . import aggregation, census, cost_volume, postprocess
@@ -38,7 +40,10 @@ from .wta import WTAPlanes
 
 LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "lr_check": 0, "remove_speckles": 0,
-            "census_cost_volume_halo": 0, "directional_scan_group": 0}
+            "census_cost_volume_halo": 0, "directional_scan_group": 0,
+            # the probe kernels, launched by probes/kernels.py
+            "probe_chain": 0, "probe_chainio": 0, "probe_transpose": 0,
+            "probe_int16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -160,6 +165,53 @@ def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                 int(axis == "v"), int(reverse), roll,
                 int(diagonal_mode == "restart"), options.p1, options.p2_init,
                 int(i > 0), stream)
+    return out
+
+
+def scan_direction_plain(cost, img, axis: str, reverse: bool, roll: int,
+                         p1: int, p2_init: int,
+                         restart: bool = False) -> torch.Tensor:
+    mode = "restart" if restart else "wrap"
+    if axis == "h":
+        out = aggregation.directional_scan(
+            cost.transpose(-1, -3), img.transpose(-1, -2), p1, p2_init,
+            reverse, roll, mode)[0].transpose(-1, -3)
+    else:
+        out = aggregation.directional_scan(cost, img, p1, p2_init, reverse,
+                                           roll, mode)[0]
+    return out.to(torch.uint16)
+
+
+def scan_direction(cost: torch.Tensor, img: torch.Tensor, axis: str,
+                   reverse: bool, roll: int, p1: int, p2_init: int,
+                   restart: bool = False, out=None) -> torch.Tensor:
+    """One direction of ``DIRECTIONS_8`` alone, one launch of the K2 scan:
+    uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> its uint16
+    (B, H, D, W) contribution.  ``axis`` 'h' scans over W, 'v' over H
+    (``roll`` +-1: the diagonals).  With ``out`` (uint16, same shape) the
+    contribution is added onto it in place.  For the measurement tools: the
+    main path goes through ``aggregate_paths``."""
+    if axis not in ("h", "v"):
+        raise ValueError(f"unknown axis {axis!r}")
+    if _on_cpu(cost, img, *(() if out is None else (out,))):
+        res = scan_direction_plain(cost, img, axis, reverse, roll, p1,
+                                   p2_init, restart)
+        if out is None:
+            return res
+        return out.copy_((out.to(torch.int32) + res.to(torch.int32))
+                         .to(torch.uint16))
+    b, h, d, w = _check_scan(cost, img)
+    accumulate = out is not None
+    if accumulate:
+        _check(out, "out", torch.uint16, 4)
+        if out.shape != cost.shape:
+            raise ValueError(f"out {tuple(out.shape)} != cost {tuple(cost.shape)}")
+    else:
+        out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
+    _launch("sgm_scan_direction", "aggregate_paths", cost.data_ptr(),
+            img.data_ptr(), out.data_ptr(), b, h, d, w, int(axis == "v"),
+            int(reverse), roll, int(restart), p1, p2_init, int(accumulate),
+            _stream(out))
     return out
 
 

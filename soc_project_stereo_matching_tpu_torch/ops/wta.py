@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from soc_project_stereo_matching_tpu.config import SGMOptions
+from ..config import SGMOptions
 
 from .exact_math import div_s32_correctly_rounded
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from soc_project_stereo_matching_tpu.config import EngineConfig, SGMOptions
+from ..config import EngineConfig, SGMOptions
 
 from ..data.synthetic import synthetic_pair
 from ..models.sgm import SGMEngine

@@ -40,7 +40,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from soc_project_stereo_matching_tpu.config import SGMOptions
+from ..config import SGMOptions
 
 from ..ops import aggregation, census, cost_volume, kernels, postprocess
 from ..ops.aggregation import DIRECTIONS_4, DIRECTIONS_8, ScanCarry

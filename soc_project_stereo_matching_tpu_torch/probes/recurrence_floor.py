@@ -1,0 +1,201 @@
+"""The serial floor of the SGM recurrence beside the shipped K2 scans.
+
+Counterpart of the JAX package's ``scripts/recurrence_floor.py``.  A K2 scan
+(``csrc/aggregate.cu``) walks one path per warp; along a path each step
+needs the step before, so B * paths warps of ``steps`` dependent steps are
+the least a launch of that decomposition can take.  This probe times a
+ladder at the production geometry (default: the cone pair, B=8, 375x450,
+D=64) so that "the scans run at x% of the byte roofline" can be held against
+what the recurrence itself allows:
+
+    chain1       the carried chain alone at the horizontal launch's shape:
+                 B*H paths of W steps (probes/kernels.chain)
+    chain1v      the same at a single vertical launch's shape: B*W paths of
+                 H steps
+    chain3       a vertical group (straight and both diagonals) in one
+                 launch: 3 * B*W paths of H steps
+    chainio*     chain plus a pass's per-step traffic from shared memory
+                 (probes/kernels.chainio): suffix f = forward pass (cost and
+                 P2 load, row store), m = + one uint16 row read-add (a pass
+                 that accumulates), b = + two (the backward pass of a group
+                 that also carries a parked sum)
+    prod1        the shipped horizontal launch (ops.kernels.scan_direction)
+    prod1v       one shipped vertical launch
+    prod3        the shipped vertical group, three launches
+                 (ops.kernels.directional_scan_group)
+    bw_stream    x + 1 on an int16 (B, H, D, W) volume: the memory stream a
+                 launch's loads and stores can draw on, in GB/s
+
+On this card the warps of a launch overlap each other's memory latency, so
+what is serial is a path's chain and nothing else; a launch can end no
+sooner than max(its chain with the on-chip traffic, its mandatory bytes at
+the streaming rate).  The summary adds that up over the main path's eight
+launches (two horizontal, six vertical):
+
+    floor        2 chain1 + 6 chain1v
+    achievable   sum over the eight launches of max(chainio, bytes / stream)
+    prod         2 prod1 + 2 prod3
+
+A launch's mandatory bytes: the cost volume read once and the uint16 sum
+read and written (the first launch only writes it).
+
+Every chain variant is compared with its plain version at the very step
+count that is timed.  The chain kernels must not be optimised away: their
+result row depends on every step, and the probe times ``chain1`` at ``steps`` and at 2 * steps
+and raises unless the time grows with the steps (from 200 steps on: below,
+a launch's fixed cost hides the chain).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import kernels as ops_kernels
+from . import (GEOMETRY, SEED, document, fmt, measure, pair_and_cost,
+               random_tensor, ratio, require_equal, resolve_device)
+from . import kernels as pk
+
+GROUP = (0, 1, -1)          # a vertical group: straight, both diagonals
+RING = 4                    # steps a warp of `chainio` stages in shared memory
+MIN_STEPS_FOR_GROWTH = 200  # from here on twice the steps must show in the time
+
+
+def _rings(seed, b, n, ring, d, p, opt, device):
+    cost = random_tensor(seed, 0, 128, (b, ring, d, p), torch.int32, device)
+    p2 = random_tensor(seed + 1, opt.p1, opt.p2_init + 1, (b, n, ring, p),
+                       torch.int32, device)
+    return cost, p2
+
+
+def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
+        w=GEOMETRY["w"], dmax=GEOMETRY["dmax"], reps: int = 10) -> dict:
+    device = resolve_device(device)
+    opt, left, _, cost = pair_and_cost(device, batch, h, w, dmax)
+    ring, seed = RING, SEED
+    d, p1, p2 = cost.shape[2], opt.p1, opt.p2_init
+    doc = document("recurrence_floor", device, reps, batch=batch, h=h, w=w,
+                   d=d, ring=ring)
+
+    # shapes: vertical launches step over H with one path per column,
+    # horizontal ones over W with one path per row
+    x_v = random_tensor(seed + 2, 0, 65536, (batch, d, w), torch.uint16, device)
+    x_h = random_tensor(seed + 3, 0, 65536, (batch, d, h), torch.uint16, device)
+    rings = {"3": (x_v, h, GROUP, _rings(seed + 4, batch, 3, ring, d, w, opt, device)),
+             "1": (x_h, w, (0,), _rings(seed + 6, batch, 1, ring, d, h, opt, device)),
+             "1v": (x_v, h, (0,), _rings(seed + 8, batch, 1, ring, d, w, opt, device))}
+
+    ladder = {}
+    for shape, (x, steps, rolls, _) in rings.items():
+        ladder[f"chain{shape}"] = (
+            f"{len(rolls)} direction(s), {batch * x.shape[2] * len(rolls)} "
+            f"paths of {steps} steps",
+            lambda n, x=x, rolls=rolls: pk.chain(x, n, rolls, p1),
+            lambda n, x=x, rolls=rolls: pk.chain_plain(x, n, rolls, p1), steps)
+    for shape, suffix, extra in (("3", "f", 0), ("3", "m", 1), ("3", "b", 2),
+                                 ("1", "f", 0), ("1", "b", 1),
+                                 ("1v", "f", 0), ("1v", "m", 1)):
+        x, steps, rolls, (cr, pr) = rings[shape]
+        ladder[f"chainio{shape}_{suffix}"] = (
+            f"chain{shape} + cost/P2 loads, {extra} uint16 row read-add(s) "
+            f"and a row store per step, ring of {ring}",
+            lambda n, a=(x, cr, pr), rolls=rolls, extra=extra:
+                pk.chainio(*a, n, rolls, extra, p1),
+            lambda n, a=(x, cr, pr), rolls=rolls, extra=extra:
+                pk.chainio_plain(*a, n, rolls, extra, p1), steps)
+
+    variants = {}
+    for name, (note, fn, plain, steps) in ladder.items():
+        require_equal(name, fn(steps), plain(steps))
+        variants[name] = dict(measure(lambda: fn(steps), device, reps, batch),
+                              note=note)
+
+    production = {
+        "prod1": ("the shipped horizontal launch",
+                  lambda: ops_kernels.scan_direction(cost, left, "h", False,
+                                                     0, p1, p2)),
+        "prod1v": ("one shipped vertical launch",
+                   lambda: ops_kernels.scan_direction(cost, left, "v", False,
+                                                      0, p1, p2)),
+        "prod3": ("the shipped vertical group, three launches",
+                  lambda: ops_kernels.directional_scan_group(
+                      cost, left, None, GROUP, False, p1, p2, False)),
+    }
+    for name, (note, fn) in production.items():
+        variants[name] = dict(measure(fn, device, reps, batch), note=note)
+
+    # the chain's time must grow with its steps
+    x, steps, rolls, _ = rings["1"]
+    twice = measure(lambda: pk.chain(x, 2 * steps, rolls, p1), device, reps,
+                    batch)
+    growth = ratio(twice["ms_per_frame"], variants["chain1"]["ms_per_frame"])
+    doc["chain1_steps_scaling"] = {
+        "steps": steps, "ms_per_frame": variants["chain1"]["ms_per_frame"],
+        "steps_doubled": 2 * steps,
+        "ms_per_frame_doubled": twice["ms_per_frame"], "ratio": growth}
+    # (below some hundred steps a launch's fixed cost hides the chain)
+    if growth is not None and steps >= MIN_STEPS_FOR_GROWTH and growth < 1.3:
+        raise AssertionError(f"chain1 took {growth:.3f}x as long for twice the "
+                             f"steps: the chain is not what is being timed")
+
+    # the memory stream at the volume's size: read + write of 2-byte elements
+    vol = torch.zeros(cost.shape, dtype=torch.int16, device=device)
+    sink = torch.empty_like(vol)
+    stream = measure(lambda: torch.add(vol, 1, out=sink), device, reps, batch)
+    gb_s = None
+    if stream["ms_per_call"] is not None:
+        gb_s = 2 * vol.numel() * 2 / (stream["ms_per_call"]["median"] * 1e-3) / 1e9
+    variants["bw_stream"] = dict(stream, gb_s=gb_s, note=(
+        "x + 1 on an int16 volume of the aggregated volume's size"))
+
+    doc["variants"] = variants
+    doc["summary"] = _summary(variants, gb_s, h * d * w)
+    return doc
+
+
+def _summary(variants: dict, gb_s, frame_elements: int) -> dict:
+    ms = {name: rec["ms_per_frame"] for name, rec in variants.items()}
+    if gb_s is None or any(v is None for v in ms.values()):
+        return {"floor_ms_per_frame": None, "achievable_ms_per_frame": None,
+                "prod_ms_per_frame": None, "prod_over_floor": None,
+                "prod_over_achievable": None}
+
+    def stream_ms(bytes_per_element):
+        return frame_elements * bytes_per_element / gb_s / 1e6
+
+    # the main path's eight launches: (chainio variant, bytes per element)
+    launches = [("chainio1_f", 3), ("chainio1_b", 5)] + [("chainio1v_m", 5)] * 6
+    floor = 2 * ms["chain1"] + 6 * ms["chain1v"]
+    achievable = sum(max(ms[name], stream_ms(nbytes))
+                     for name, nbytes in launches)
+    prod = 2 * ms["prod1"] + 2 * ms["prod3"]
+    return {
+        "floor_ms_per_frame": floor,
+        "achievable_ms_per_frame": achievable,
+        "prod_ms_per_frame": prod,
+        "prod_over_floor": prod / floor,
+        "prod_over_achievable": prod / achievable,
+        "note": ("floor = 2 chain1 + 6 chain1v (the main path's two horizontal "
+                 "and six vertical launches, the chain alone); achievable = "
+                 "the sum over those launches of max(chainio, mandatory bytes "
+                 "/ bw_stream): 3 bytes per element for the first launch "
+                 "(cost read, sum written), 5 for the others (sum read too); "
+                 "prod = 2 prod1 + 2 prod3"),
+    }
+
+
+def report(doc: dict) -> str:
+    lines = []
+    for name, rec in doc["variants"].items():
+        extra = f"  {rec['gb_s']:.1f} GB/s" if rec.get("gb_s") else ""
+        lines.append(f"{name:12s} {fmt(rec['ms_per_frame'])} ms/frame{extra}")
+    sc = doc["chain1_steps_scaling"]
+    lines.append(f"chain1 at {sc['steps']} / {sc['steps_doubled']} steps: "
+                 f"{fmt(sc['ms_per_frame'])} / "
+                 f"{fmt(sc['ms_per_frame_doubled'])} ms/frame")
+    s = doc["summary"]
+    lines.append(f"floor {fmt(s['floor_ms_per_frame'])}, achievable "
+                 f"{fmt(s['achievable_ms_per_frame'])}, prod "
+                 f"{fmt(s['prod_ms_per_frame'])} ms/frame; prod/floor "
+                 f"{fmt(s['prod_over_floor'])}, prod/achievable "
+                 f"{fmt(s['prod_over_achievable'])}")
+    return "\n".join(lines)

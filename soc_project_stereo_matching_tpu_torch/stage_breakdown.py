@@ -8,13 +8,14 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
 (default: the cone geometry, 450x375, D=64, B=32) with default
 ``SGMOptions`` otherwise, it measures:
 
-* per stage of ``sgm_forward`` (the kernel path), CUDA-event milliseconds
-  between stages, median and [min, max] over ``--reps`` batches; the staged
+* per stage of ``sgm_forward`` (the kernel path), the CUDA-event milliseconds
+  of its span, median and [min, max] over ``--reps`` batches; the staged
   output is checked bit-equal to ``SGMEngine.match_batch``;
 * the end-to-end batch time and the host's enqueue time (wall clock from the
   call to ``match_batch`` until it returns, before synchronising);
 * the device idle share over a three-batch ``torch.profiler`` window:
-  1 - (union of the device activity intervals) / (CUDA-event window);
+  1 - (union of the device activity intervals) / (CUDA-event window); the
+  window's Chrome trace is written to ``<--out without .json>/trace.json``;
 * each of the eight K2 scan directions alone, median of five launches, and
   the bytes one direction must move (1 cost byte read + a 2-byte read and a
   2-byte write of the uint16 sum per volume element).
@@ -26,62 +27,48 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import time
 from pathlib import Path
 
 import torch
 
-from . import SGMEngine, SGMOptions, _build
+from . import SGMEngine, SGMOptions
 from .data.synthetic import synthetic_pair
 from .ops import aggregation, kernels
 from .ops.postprocess import median_filter_3x3
 from .ops.wta import finalize_disparity
+from .utils.profiling import StageTimer, card, cuda_time, summary, trace
 
 
-def _summary(xs):
-    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
-
-
-def staged_forward(left, right, opt: SGMOptions, marks: list):
-    """``sgm_forward`` on the kernel path, recording a CUDA event after each
-    stage into ``marks`` as (stage, event)."""
-    def mark(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-
-    mark("start")
-    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
-                                      opt.max_disparity)
-    mark("census_cost (K1)")
-    aggr = kernels.aggregate_paths(cost, left, opt)
-    mark("scan, 8 launches (K2)")
-    fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
-    mark("wta (K2)")
-    dl, dr = finalize_disparity(fwd, opt), finalize_disparity(inv, opt)
-    mark("2x finalize_disparity (plain)")
-    disp = kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity)
-    mark("lr_check (K3)")
-    disp = kernels.remove_speckles(disp, 1.0, opt.min_speckle_area)
-    mark("speckle (K4)")
-    disp = median_filter_3x3(disp)
-    mark("median (plain)")
+def staged_forward(left, right, opt: SGMOptions, timer: StageTimer):
+    """``sgm_forward`` on the kernel path, each stage a span of ``timer``
+    and the whole a span named "total"."""
+    with timer.span("total"):
+        with timer.span("census_cost (K1)"):
+            cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                              opt.max_disparity)
+        with timer.span("scan, 8 launches (K2)"):
+            aggr = kernels.aggregate_paths(cost, left, opt)
+        with timer.span("wta (K2)"):
+            fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
+        with timer.span("2x finalize_disparity (plain)"):
+            dl, dr = finalize_disparity(fwd, opt), finalize_disparity(inv, opt)
+        with timer.span("lr_check (K3)"):
+            disp = kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity)
+        with timer.span("speckle (K4)"):
+            disp = kernels.remove_speckles(disp, 1.0, opt.min_speckle_area)
+        with timer.span("median (plain)"):
+            disp = median_filter_3x3(disp)
     return disp
 
 
 def stage_times(left, right, opt, reps):
-    per_stage = {}
+    timer = StageTimer()
     for _ in range(reps + 1):          # the first batch is a warm-up
-        marks = []
-        staged_forward(left, right, opt, marks)
-        torch.cuda.synchronize()
-        for (_, a), (stage, b) in zip(marks, marks[1:]):
-            per_stage.setdefault(stage, []).append(a.elapsed_time(b))
-        per_stage.setdefault("total", []).append(
-            marks[0][1].elapsed_time(marks[-1][1]))
-    return {stage: _summary(xs[1:]) for stage, xs in per_stage.items()}
+        staged_forward(left, right, opt, timer)
+    times = timer.times()
+    stages = [s for s in times if s != "total"] + ["total"]
+    return {stage: summary(times[stage][1:]) for stage in stages}
 
 
 def batch_and_enqueue(engine, left, right, reps):
@@ -97,19 +84,19 @@ def batch_and_enqueue(engine, left, right, reps):
         end.record()
         torch.cuda.synchronize()
         batch_ms.append(start.elapsed_time(end))
-    return _summary(batch_ms), _summary(enqueue_ms)
+    return summary(batch_ms), summary(enqueue_ms)
 
 
-def idle_share(engine, left, right, batches=3):
+def idle_share(engine, left, right, trace_dir, batches=3):
     """(idle share, device busy ms, window ms) over ``batches`` batches: busy
     is the union of the device activity intervals the profiler recorded, the
     window the CUDA-event time around the batches; share None if the
-    profiler recorded no device activity."""
+    profiler recorded no device activity.  The window's Chrome trace goes to
+    ``trace_dir``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(trace_dir) as prof:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for _ in range(batches):
@@ -131,30 +118,14 @@ def scan_directions(left, right, opt, reps=5):
     """Milliseconds of each DIRECTIONS_8 scan launched alone."""
     cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                       opt.max_disparity)
-    b, h, d, w = cost.shape
     aggr = torch.zeros(cost.shape, dtype=torch.uint16, device=cost.device)
-    lib = _build.load()
-    stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for axis, reverse, roll in aggregation.DIRECTIONS_8:
-        def launch():
-            err = lib.sgm_scan_direction(
-                cost.data_ptr(), left.data_ptr(), aggr.data_ptr(), b, h, d, w,
-                int(axis == "v"), int(reverse), roll, 0, opt.p1, opt.p2_init,
-                1, stream)
-            if err:
-                raise RuntimeError(f"sgm_scan_direction: CUDA error {err}")
-        launch()
-        times = []
-        for _ in range(reps):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            launch()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        out[f"{axis} reverse={reverse} roll={roll}"] = statistics.median(times)
-    return out, b * h * d * w * 5
+        out[f"{axis} reverse={reverse} roll={roll}"] = cuda_time(
+            lambda: kernels.scan_direction(cost, left, axis, reverse, roll,
+                                           opt.p1, opt.p2_init, out=aggr),
+            reps)["median"]
+    return out, cost.numel() * 5
 
 
 def main(argv=None) -> dict:
@@ -169,30 +140,29 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("stage_breakdown: needs a CUDA device")
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    name_and_limit = ", ".join(card())
     opt = SGMOptions(max_disparity=args.dmax)
     engine = SGMEngine(opt, device="cuda")
     levels = tuple(args.dmax * f // 64 for f in (10, 20, 35))
     left, right, _ = synthetic_pair(2, args.batch, args.h, args.w, levels)
     left, right = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
 
-    staged = staged_forward(left, right, opt, [])
+    staged = staged_forward(left, right, opt, StageTimer())
     if not torch.equal(staged, engine.match_batch(left, right)):
         raise AssertionError("staged pipeline differs from match_batch")
 
     stages = stage_times(left, right, opt, args.reps)
     batch, enqueue = batch_and_enqueue(engine, left, right, args.reps)
-    idle, busy, window = idle_share(engine, left, right)
+    idle, busy, window = idle_share(engine, left, right,
+                                    Path(args.out).with_suffix(""))
     scans, scan_bytes = scan_directions(left, right, opt)
 
-    result = {"card": card, "batch": args.batch, "h": args.h, "w": args.w,
+    result = {"card": name_and_limit, "batch": args.batch, "h": args.h, "w": args.w,
               "d": args.dmax, "stages_ms": stages, "batch_ms": batch,
               "enqueue_ms": enqueue, "idle_share": idle,
               "device_busy_ms": busy, "profiler_window_ms": window,
               "scan_direction_ms": scans, "scan_direction_bytes": scan_bytes}
-    print(card)
+    print(name_and_limit)
     total = stages["total"]["median"]
     for stage, s in stages.items():
         print(f"stage {stage}: {s['median']:.4f} ms [{s['min']:.4f}, "

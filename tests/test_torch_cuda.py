@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from soc_project_stereo_matching_tpu import SGMOptions, oracle
-from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu import oracle
+from soc_project_stereo_matching_tpu_torch import (EngineConfig, SGMEngine,
+                                                   SGMOptions)
 from soc_project_stereo_matching_tpu_torch.data.synthetic import synthetic_pair
 from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
 from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
@@ -168,7 +169,6 @@ def test_tile_chain_on_card_matches_plain_and_untiled(cuda, rolls, reverse,
 
 
 def test_tiled_engine_on_card_matches_untiled(cuda):
-    from soc_project_stereo_matching_tpu import EngineConfig
     from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
 
     left, right, _ = synthetic_pair(32, 2, 36, W, (3, 6, 10))
@@ -181,3 +181,99 @@ def test_tiled_engine_on_card_matches_untiled(cuda):
         same(got, want)
         assert kernels.LAUNCHES["census_cost_volume_halo"] == 1
         assert kernels.LAUNCHES["directional_scan_group"] == 6
+
+
+# --- the probe kernels (probes/kernels.py) ------------------------------------
+
+def _rand(seed, low, high, shape, dtype, cuda):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(low, high, shape).astype(dtype)).to(cuda)
+
+
+@pytest.mark.parametrize("d,p,steps,rolls", [(16, 24, 9, (0,)),
+                                             (48, 45, 37, (0, 1, -1)),
+                                             (256, 33, 20, (0, -1, 1)),
+                                             (64, 40, 100, (1,))])
+def test_chain_kernels_match_plain_on_card(cuda, d, p, steps, rolls):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    x = _rand(50, 0, 65536, (2, d, p), np.uint16, cuda)
+    before = dict(kernels.LAUNCHES)
+    same(pk.chain(x, steps, rolls, 10), pk.chain_plain(x, steps, rolls, 10))
+    n = len(rolls)
+    for ring in (3, steps):
+        if pk.chainio_shared_bytes(d, n, ring) > pk.MAX_SHARED_BYTES:
+            with pytest.raises(ValueError, match="shared memory"):
+                pk.chainio(x, torch.zeros((2, ring, d, p), dtype=torch.int32,
+                                          device=cuda),
+                           torch.zeros((2, n, ring, p), dtype=torch.int32,
+                                       device=cuda), steps, rolls)
+            continue
+        cost = _rand(51, 0, 256, (2, ring, d, p), np.int32, cuda)
+        p2 = _rand(52, 10, 151, (2, n, ring, p), np.int32, cuda)
+        for extra in (0, 1, 2):
+            args = (x, cost, p2, steps, rolls, extra, 10)
+            same(pk.chainio(*args), pk.chainio_plain(*args))
+    assert kernels.LAUNCHES["probe_chain"] == before["probe_chain"] + 1
+    assert kernels.LAUNCHES["probe_chainio"] > before["probe_chainio"]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16])
+@pytest.mark.parametrize("shape", [(2, 37, 48, 45), (1, 32, 1, 64), (3, 5, 7, 100)])
+def test_volume_transpose_matches_permute_on_card(cuda, dtype, shape):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    x = _rand(53, 0, 256, shape, dtype, cuda)
+    got = pk.volume_transpose(x)
+    same(got, x.permute(0, 3, 2, 1).contiguous())
+    same(pk.volume_transpose(got), x)
+    with pytest.raises(TypeError):
+        pk.volume_transpose(x.float())
+    with pytest.raises(ValueError):
+        pk.volume_transpose(x[..., ::2])            # not contiguous
+
+
+def test_rungs_and_scan16_match_plain_on_card(cuda):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    for name in pk.RUNGS:
+        for rows, w in ((16, 256), (48, 45), (2, 1)):
+            if name in pk.LOOP_RUNGS:
+                rows = 8
+            x = _rand(54, 0, 256, (2, rows, w), np.uint8, cuda)
+            same(pk.rung(name, x), pk.rung_plain(name, x))
+    with pytest.raises(ValueError):
+        pk.rung("p3", torch.zeros((1, 5, 8), dtype=torch.uint8, device=cuda))
+    for d, w in ((16, 256), (48, 45), (256, 21), (7, 9)):
+        cost = _rand(55, 0, 256, (2, 11, d, w), np.uint8, cuda)
+        img = _rand(56, 0, 256, (2, 11, w), np.uint8, cuda)
+        for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True)):
+            for restart in (False, True):
+                args = (cost, img, rolls, reverse, 10, 150, restart)
+                got = pk.scan16(*args)
+                same(got, pk.scan16_plain(*args))
+                same(got, kernels.directional_scan_group(
+                    cost, img, None, rolls, reverse, 10, 150, restart))
+
+
+def test_hpart_T_matches_the_shipped_horizontal_pair_on_card(cuda):
+    from soc_project_stereo_matching_tpu_torch.probes import aggr_transpose
+
+    cost = _rand(57, 0, 128, (2, 37, 48, 45), np.uint8, cuda)
+    img = _rand(58, 0, 256, (2, 37, 45), np.uint8, cuda)
+    same(aggr_transpose.hpart_T(cost, img, 10, 150),
+         kernels.horizontal_partial(cost, img, 10, 150, False))
+    same(kernels.scan_direction(cost, img, "h", True, 0, 10, 150),
+         kernels.scan_direction_plain(cost, img, "h", True, 0, 10, 150))
+
+
+def test_probes_run_on_card_and_write_json(cuda, tmp_path):
+    from soc_project_stereo_matching_tpu_torch.probes import __main__ as cli
+
+    for name in ("recurrence_floor", "aggr_transpose", "int16_recurrence",
+                 "ablation"):
+        out = tmp_path / f"{name}.json"
+        doc = cli.main([name, "--batch", "2", "--h", str(H), "--w", str(W),
+                        "--dmax", "16", "--reps", "2", "--out", str(out)])
+        assert out.exists() and doc["card"]
+        assert all(rec["ms_per_frame"] > 0 for rec in doc["variants"].values())

@@ -19,6 +19,7 @@ import torch
 from soc_project_stereo_matching_tpu import SGMOptions, oracle
 from soc_project_stereo_matching_tpu.ops import pallas_kernels as pk
 from soc_project_stereo_matching_tpu_torch import _build
+from soc_project_stereo_matching_tpu_torch.config import from_jax
 from soc_project_stereo_matching_tpu_torch.ops import kernels, wta
 
 H, W = 37, 53
@@ -74,7 +75,7 @@ def test_aggregate_paths_wta_matches_pallas(pair, paths, mode, dmin, dmax,
     il, ir = pair
     opt = SGMOptions(num_paths=paths, min_disparity=dmin, max_disparity=dmax)
     cost = kernels.census_cost_volume(t(il), t(ir), dmin, dmax)
-    fwd, inv = kernels.aggregate_paths_wta(cost, t(il), opt, mode)
+    fwd, inv = kernels.aggregate_paths_wta(cost, t(il), from_jax(opt), mode)
     want_f, want_i = pk.aggregate_paths_wta(jnp.asarray(cost.numpy()),
                                             jnp.asarray(il), opt, mode,
                                             block_rows=8)
@@ -83,9 +84,9 @@ def test_aggregate_paths_wta_matches_pallas(pair, paths, mode, dmin, dmax,
     if mode == "wrap":                              # the oracle's geometry
         aggr = [oracle.aggregate_paths(c, i, opt) for c, i in zip(cost.numpy(), il)]
         for planes, inverse in ((fwd, False), (inv, True)):
-            same(wta.finalize_disparity(planes, opt).numpy(),
+            same(wta.finalize_disparity(planes, from_jax(opt)).numpy(),
                  np.stack([oracle.compute_disparity(a, opt, inverse) for a in aggr]))
-    only_f, none = kernels.aggregate_paths_wta(cost, t(il), opt, mode,
+    only_f, none = kernels.aggregate_paths_wta(cost, t(il), from_jax(opt), mode,
                                                include_inverse=False)
     assert none is None
     same_planes(only_f, want_f)
@@ -97,7 +98,7 @@ def test_aggregate_paths_matches_pallas_full_uint8_domain(no_launch):
     cost = rng.integers(0, 256, (2, H, 16, W), dtype=np.uint8)
     img = rng.integers(0, 256, (2, H, W), dtype=np.uint8)
     opt = SGMOptions(max_disparity=16)
-    got = kernels.aggregate_paths(t(cost), t(img), opt)
+    got = kernels.aggregate_paths(t(cost), t(img), from_jax(opt))
     assert got.dtype == torch.uint16
     same(got.numpy(), pk.aggregate_paths(jnp.asarray(cost), jnp.asarray(img),
                                          opt, block_rows=8))
@@ -109,12 +110,13 @@ def test_wta_reduce_matches_pallas(dmin, dmax, no_launch):
     aggr = np.random.default_rng(9).integers(0, 60000, (2, 9, dmax - dmin, 40)
                                              ).astype(np.uint16)
     aggr[0, :, :, :8] = 7                           # ties: first argmin wins
-    fwd, inv = kernels.wta_reduce(t(aggr), opt, include_inverse=True)
+    fwd, inv = kernels.wta_reduce(t(aggr), from_jax(opt), include_inverse=True)
     want_f, want_i = pk.wta_reduce_pallas(jnp.asarray(aggr), opt,
                                           include_inverse=True, block_rows=8)
     same_planes(fwd, want_f)
     same_planes(inv, want_i)
-    only_f, none = kernels.wta_reduce(t(aggr), opt, include_inverse=False)
+    only_f, none = kernels.wta_reduce(t(aggr), from_jax(opt),
+                                      include_inverse=False)
     assert none is None
     same_planes(only_f, want_f)
 

@@ -20,6 +20,7 @@ from soc_project_stereo_matching_tpu.ops import cost_volume as j_cost
 from soc_project_stereo_matching_tpu.ops import exact_math as j_exact
 from soc_project_stereo_matching_tpu.ops import postprocess as j_post
 from soc_project_stereo_matching_tpu.ops import wta as j_wta
+from soc_project_stereo_matching_tpu_torch.config import from_jax
 from soc_project_stereo_matching_tpu_torch.ops import (aggregation, census,
                                                        cost_volume, exact_math,
                                                        postprocess, wta)
@@ -155,7 +156,7 @@ def test_aggregate_paths_matches_jax_and_oracle(paths, mode):
     cost = rng.integers(0, 256, (2, H, 16, W), dtype=np.uint8)
     img = rng.integers(0, 256, (2, H, W), dtype=np.uint8)
     opt = SGMOptions(num_paths=paths, max_disparity=16)
-    got = aggregation.aggregate_paths(t(cost), t(img), opt, mode)
+    got = aggregation.aggregate_paths(t(cost), t(img), from_jax(opt), mode)
     assert got.dtype == torch.uint16
     got = got.numpy()
     same(got, np.stack([j_agg.aggregate_paths(jnp.asarray(c), jnp.asarray(i),
@@ -179,7 +180,7 @@ def test_wta_reduce_matches_jax(dmin, dmax, inverse):
     opt = SGMOptions(min_disparity=dmin, max_disparity=dmax)
     for hi in (4, 2041):
         aggr = _aggr(np.random.default_rng(6), dmax - dmin, hi)
-        got = wta.wta_reduce(t(aggr), opt, inverse)
+        got = wta.wta_reduce(t(aggr), from_jax(opt), inverse)
         want = j_wta_reduce(jnp.asarray(aggr), opt, inverse)
         for g, w_ in zip(got, want):
             assert g.dtype == torch.int32
@@ -193,7 +194,8 @@ def test_finalize_disparity_matches_jax_and_oracle(dmin, dmax):
     opt = SGMOptions(min_disparity=dmin, max_disparity=dmax)
     aggr = _aggr(np.random.default_rng(7), dmax - dmin, 2041)
     for inverse in (False, True):
-        got = wta.finalize_disparity(wta.wta_reduce(t(aggr), opt, inverse), opt)
+        got = wta.finalize_disparity(
+            wta.wta_reduce(t(aggr), from_jax(opt), inverse), from_jax(opt))
         assert got.dtype == torch.float32
         same(got.numpy(),
              j_wta.compute_disparity(jnp.asarray(aggr), opt, inverse),
@@ -207,7 +209,7 @@ def test_uniqueness_threshold_is_f32():
     opt = SGMOptions()
     full = lambda v: torch.full((1, 1), v, dtype=torch.int32)
     planes = wta.WTAPlanes(full(5), full(100), full(101), full(120), full(110))
-    got = wta.finalize_disparity(planes, opt)
+    got = wta.finalize_disparity(planes, from_jax(opt))
     want = j_finalize(
         j_wta.WTAPlanes(*(jnp.asarray(p.numpy()) for p in planes)), opt)
     same(got.numpy(), want)

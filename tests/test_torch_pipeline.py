@@ -17,7 +17,8 @@ import torch
 
 from soc_project_stereo_matching_tpu import EngineConfig, SGMOptions, oracle
 from soc_project_stereo_matching_tpu.models import sgm as j_sgm
-from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu_torch import SGMEngine, config
+from soc_project_stereo_matching_tpu_torch.config import from_jax
 from soc_project_stereo_matching_tpu_torch.data.synthetic import synthetic_pair
 from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
 from soc_project_stereo_matching_tpu_torch.ops import kernels
@@ -38,8 +39,8 @@ def run(cfg, seed=0, batch=2, mode="wrap", **overrides):
     cfg = dict(cfg)
     left, right, _ = synthetic_pair(seed, batch, H, W, cfg.pop("levels"))
     opt = SGMOptions(**cfg, **overrides)
-    got = sgm_forward(torch.from_numpy(left), torch.from_numpy(right), opt,
-                      mode, use_kernels=False).numpy()
+    got = sgm_forward(torch.from_numpy(left), torch.from_numpy(right),
+                      from_jax(opt), mode, use_kernels=False).numpy()
     return got, left, right, opt
 
 
@@ -73,7 +74,7 @@ def test_slice_restart_mode_matches_jax():
 def test_slice_kernel_wrappers_on_cpu_equal_plain_without_launches():
     left, right, _ = synthetic_pair(3, 2, H, W, SMALL["levels"])
     lt, rt = torch.from_numpy(left), torch.from_numpy(right)
-    opt = SGMOptions(max_disparity=16)
+    opt = config.SGMOptions(max_disparity=16)
     before = dict(kernels.LAUNCHES)
     same(sgm_forward(lt, rt, opt, use_kernels=True),
          sgm_forward(lt, rt, opt, use_kernels=False))
@@ -83,7 +84,7 @@ def test_slice_kernel_wrappers_on_cpu_equal_plain_without_launches():
 def test_any_leading_batch_dims():
     left, right, _ = synthetic_pair(4, 4, H, W, SMALL["levels"])
     lt, rt = torch.from_numpy(left), torch.from_numpy(right)
-    opt = SGMOptions(max_disparity=16)
+    opt = config.SGMOptions(max_disparity=16)
     flat = sgm_forward(lt, rt, opt)
     nested = sgm_forward(lt.reshape(2, 2, H, W), rt.reshape(2, 2, H, W), opt)
     assert nested.shape == (2, 2, H, W)
@@ -93,14 +94,14 @@ def test_any_leading_batch_dims():
 
 def test_engine_on_cpu_takes_numpy_and_returns_f32_tensor():
     left, right, _ = synthetic_pair(5, 2, H, W, SMALL["levels"])
-    opt = SGMOptions(max_disparity=16)
+    opt = config.SGMOptions(max_disparity=16)
     engine = SGMEngine(opt, device="cpu")
     batch = engine.match_batch(left, right)
     assert isinstance(batch, torch.Tensor) and batch.dtype == torch.float32
     assert batch.device.type == "cpu" and batch.shape == (2, H, W)
     same(batch, sgm_forward(torch.from_numpy(left), torch.from_numpy(right), opt))
     same(engine.match(left[0], right[0]), batch[0])
-    plain = SGMEngine(opt, EngineConfig(use_pallas=False), device="cpu")
+    plain = SGMEngine(opt, config.EngineConfig(use_pallas=False), device="cpu")
     same(plain.match(torch.from_numpy(left[1]), right[1]), batch[1])
 
 
@@ -108,7 +109,7 @@ def test_engine_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        SGMEngine(SGMOptions())
+        SGMEngine(config.SGMOptions())
 
 
 def test_unported_options_raise():
@@ -120,11 +121,11 @@ def test_unported_options_raise():
 
     for mesh in (object(), j_mesh(1, 1)):
         with pytest.raises(TypeError, match="Mesh"):
-            SGMEngine(config=EngineConfig(tile_mode="exact"), device="cpu",
-                      mesh=mesh)
+            SGMEngine(config=config.EngineConfig(tile_mode="exact"),
+                      device="cpu", mesh=mesh)
     with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh(1, 2)
-    engine = SGMEngine(SGMOptions(max_disparity=16, median_inplace=True),
+    engine = SGMEngine(config.SGMOptions(max_disparity=16, median_inplace=True),
                        device="cpu")
     left, right, _ = synthetic_pair(9, 1, H, W, SMALL["levels"])
     got = engine.match(left[0], right[0])
@@ -132,18 +133,75 @@ def test_unported_options_raise():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import soc_project_stereo_matching_tpu_torch.models.sgm, "
-            "soc_project_stereo_matching_tpu_torch.ops.kernels, "
-            "soc_project_stereo_matching_tpu_torch._build, "
-            "soc_project_stereo_matching_tpu_torch.parallel.mesh, "
-            "soc_project_stereo_matching_tpu_torch.parallel.multihost, "
-            "soc_project_stereo_matching_tpu_torch.parallel.tiles, "
-            "soc_project_stereo_matching_tpu_torch.parallel.dryrun; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+    """No module of the port loads JAX or any module of the JAX package."""
+    pkg = "soc_project_stereo_matching_tpu_torch"
+    mods = ["config", "models.sgm", "ops.kernels", "_build", "parallel.mesh",
+            "parallel.multihost", "parallel.tiles", "parallel.dryrun",
+            "stage_breakdown", "utils.profiling", "probes", "probes.kernels",
+            "probes.recurrence_floor", "probes.aggr_transpose",
+            "probes.int16_recurrence", "probes.ablation", "probes.__main__"]
+    code = ("import sys; import " + ", ".join(f"{pkg}.{m}" for m in mods) + "; "
+            "ref = 'soc_project_stereo_matching_tpu'; "
+            "bad = sorted(m for m in sys.modules if m.startswith('jax') "
+            "or m == ref or m.startswith(ref + '.')); assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
                    timeout=120)
+    for path in [REPO / "chip_smoke.py", *(REPO / pkg).rglob("*.py")]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith("jax"), (path, line)
+                assert words[1] != "soc_project_stereo_matching_tpu" and \
+                    not words[1].startswith("soc_project_stereo_matching_tpu."), \
+                    (path, line)
+
+
+def test_port_config_mirrors_the_jax_config(tmp_path):
+    """Same fields, types and defaults; ``from_jax`` carries every field;
+    one YAML file loads in both packages."""
+    import dataclasses
+
+    from soc_project_stereo_matching_tpu import config as j_config
+
+    for name in ("SGMOptions", "EngineConfig"):
+        ours, theirs = getattr(config, name), getattr(j_config, name)
+        assert [(f.name, f.type, f.default) for f in dataclasses.fields(ours)] \
+            == [(f.name, f.type, f.default) for f in dataclasses.fields(theirs)]
+    assert config.INVALID_FLOAT == j_config.INVALID_FLOAT
+
+    j_opt = SGMOptions(num_paths=4, min_disparity=8, max_disparity=56,
+                       uniqueness_ratio=0.95, min_speckle_area=8, p1=7,
+                       median_inplace=True)
+    j_eng = EngineConfig(use_pallas=False, tile_mode="pipelined",
+                         diagonal_mode="restart", compute16=True)
+    opt, eng = from_jax(j_opt), from_jax(j_eng)
+    assert type(opt) is config.SGMOptions and type(eng) is config.EngineConfig
+    assert dataclasses.asdict(opt) == dataclasses.asdict(j_opt)
+    assert dataclasses.asdict(eng) == dataclasses.asdict(j_eng)
+    assert from_jax(opt) == opt and hash(from_jax(opt)) == hash(opt)
+    assert opt.disp_range == j_opt.disp_range
+    assert j_config.SGMOptions(**opt.to_dict()) == j_opt       # and back
+    with pytest.raises(TypeError):
+        from_jax({"p1": 3})
+    for bad in (dict(min_disparity=-1), dict(max_disparity=0),
+                dict(num_paths=5), dict(p1=-1)):
+        with pytest.raises(ValueError):
+            config.SGMOptions(**bad)
+    with pytest.raises(ValueError):
+        config.EngineConfig(tile_mode="ring")
+    with pytest.raises(ValueError, match="unknown SGMOptions"):
+        config.SGMOptions.from_dict({"p3": 1})
+
+    ours, theirs = tmp_path / "ours.yaml", tmp_path / "theirs.yaml"
+    config.save_yaml_config(ours, opt, eng)
+    j_config.save_yaml_config(theirs, j_opt, j_eng)
+    assert ours.read_text() == theirs.read_text()
+    assert j_config.load_yaml_config(ours) == (j_opt, j_eng)
+    assert config.load_yaml_config(theirs) == (opt, eng)
+    ours.write_text("engine: {tile: 2}\n")
+    with pytest.raises(ValueError, match="unknown EngineConfig"):
+        config.load_yaml_config(ours)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from soc_project_stereo_matching_tpu import EngineConfig, SGMOptions, oracle
+from soc_project_stereo_matching_tpu import SGMOptions, oracle
 from soc_project_stereo_matching_tpu.ops import aggregation as j_agg
 from soc_project_stereo_matching_tpu.ops import pallas_kernels as pk
 from soc_project_stereo_matching_tpu.ops import postprocess as j_post
 from soc_project_stereo_matching_tpu.parallel import mesh as j_mesh
 from soc_project_stereo_matching_tpu.parallel import tiles as j_tiles
-from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu_torch import EngineConfig, SGMEngine
+from soc_project_stereo_matching_tpu_torch.config import from_jax
 from soc_project_stereo_matching_tpu_torch.data.synthetic import synthetic_pair
 from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
 from soc_project_stereo_matching_tpu_torch.ops import aggregation, kernels, postprocess
@@ -27,7 +28,8 @@ from soc_project_stereo_matching_tpu_torch.parallel.mesh import Mesh, make_mesh
 from soc_project_stereo_matching_tpu_torch.parallel.tiles import make_tiled_matcher
 
 H, W = 16, 64
-OPTS = SGMOptions(max_disparity=16, min_speckle_area=8)
+OPTS = SGMOptions(max_disparity=16, min_speckle_area=8)     # the JAX package's
+T_OPTS = from_jax(OPTS)                                     # the port's
 
 
 def t(x):
@@ -189,7 +191,7 @@ def test_inplace_median_matches_jax_and_the_oracle_pipeline():
     assert not torch.equal(got, postprocess.median_filter_3x3(t(d)))
     left, right, _ = synthetic_pair(16, 2, 37, 53, (3, 6, 10))
     opt = dataclasses.replace(OPTS, median_inplace=True)
-    same(sgm_forward(t(left), t(right), opt),
+    same(sgm_forward(t(left), t(right), from_jax(opt)),
          np.stack([oracle.sgm_match(a, b, opt) for a, b in zip(left, right)]))
 
 
@@ -206,11 +208,11 @@ def test_one_rank_tiled_engine_matches_jax_and_untiled(pair, mode):
     left, right = pair
     want = j_tiles.make_tiled_matcher(OPTS, j_mesh.make_mesh(1, 1), H, W,
                                       cross_tile=mode)(left, right)
-    untiled = SGMEngine(OPTS, device="cpu").match_batch(left, right)
+    untiled = SGMEngine(T_OPTS, device="cpu").match_batch(left, right)
     before = dict(kernels.LAUNCHES)
     for use_pallas in (True, False):
-        engine = SGMEngine(OPTS, EngineConfig(tile_mode=mode,
-                                              use_pallas=use_pallas),
+        engine = SGMEngine(T_OPTS, EngineConfig(tile_mode=mode,
+                                                use_pallas=use_pallas),
                            device="cpu", mesh=make_mesh(1, 1))
         got = engine.match_batch(left, right)
         assert got.dtype == torch.float32 and got.shape == (4, H, W)
@@ -220,12 +222,12 @@ def test_one_rank_tiled_engine_matches_jax_and_untiled(pair, mode):
 
 def test_engine_caches_matchers_by_settings(pair):
     left, right = pair
-    engine = SGMEngine(OPTS, EngineConfig(tile_mode="exact"), device="cpu",
+    engine = SGMEngine(T_OPTS, EngineConfig(tile_mode="exact"), device="cpu",
                        mesh=make_mesh(1, 1))
     first = engine.match_batch(left, right)
     engine.match_batch(left[:2], right[:2])
     assert len(engine._matchers) == 1
-    engine.options = dataclasses.replace(OPTS, median_inplace=True)
+    engine.options = dataclasses.replace(T_OPTS, median_inplace=True)
     inplace = engine.match_batch(left, right)
     assert len(engine._matchers) == 2 and not torch.equal(inplace, first)
     same(inplace, sgm_forward(t(left), t(right), engine.options))
@@ -236,12 +238,12 @@ def test_engine_caches_matchers_by_settings(pair):
 def test_tiled_matcher_errors(pair):
     left, right = t(pair[0]), t(pair[1])
     with pytest.raises(ValueError, match="not divisible by tile"):
-        make_tiled_matcher(OPTS, Mesh(1, 3), H, W)
+        make_tiled_matcher(T_OPTS, Mesh(1, 3), H, W)
     with pytest.raises(ValueError, match="census halo"):
-        make_tiled_matcher(OPTS, Mesh(1, 16), H, W)
+        make_tiled_matcher(T_OPTS, Mesh(1, 16), H, W)
     with pytest.raises(ValueError, match="cross_tile"):
-        make_tiled_matcher(OPTS, make_mesh(1, 1), H, W, cross_tile="ring")
-    matcher = make_tiled_matcher(OPTS, make_mesh(1, 1), H, W,
+        make_tiled_matcher(T_OPTS, make_mesh(1, 1), H, W, cross_tile="ring")
+    matcher = make_tiled_matcher(T_OPTS, make_mesh(1, 1), H, W,
                                  cross_tile="pipelined", num_micro=3)
     with pytest.raises(ValueError, match="num_micro"):
         matcher(left, right)
@@ -253,7 +255,7 @@ def test_engine_and_mesh_errors():
     config = EngineConfig(tile_mode="exact")
     object.__setattr__(config, "tile_mode", "ring")     # past the dataclass
     with pytest.raises(ValueError, match="tile_mode"):
-        SGMEngine(OPTS, config, device="cpu")
+        SGMEngine(T_OPTS, config, device="cpu")
     with pytest.raises(RuntimeError, match="torch.distributed"):
         make_mesh(2, 2)
     with pytest.raises(ValueError):

@@ -24,6 +24,7 @@ from soc_project_stereo_matching_tpu.models.sgm import SGMEngine as JEngine
 from soc_project_stereo_matching_tpu.parallel import mesh as j_mesh
 from soc_project_stereo_matching_tpu.parallel import tiles as j_tiles
 from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu_torch.config import from_jax
 
 REPO = Path(__file__).resolve().parents[1]
 H, W, B = 16, 64, 4
@@ -44,8 +45,8 @@ from datetime import timedelta
 
 import numpy as np
 
-from soc_project_stereo_matching_tpu import EngineConfig, SGMOptions
-from soc_project_stereo_matching_tpu_torch import SGMEngine
+from soc_project_stereo_matching_tpu_torch import (EngineConfig, SGMEngine,
+                                                   SGMOptions)
 from soc_project_stereo_matching_tpu_torch.parallel import multihost
 from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
 
@@ -54,7 +55,9 @@ inputs, out, runs = sys.argv[5], sys.argv[6], ast.literal_eval(sys.argv[7])
 timeout = timedelta(seconds=60)
 multihost.initialize(f"tcp://127.0.0.1:{port}", data * tile, rank, "gloo",
                      timeout=timeout)
-assert "jax" not in sys.modules
+assert not any(m.startswith("jax") or m == "soc_project_stereo_matching_tpu"
+               or m.startswith("soc_project_stereo_matching_tpu.")
+               for m in sys.modules)
 mesh = make_mesh(data, tile, timeout=timeout)
 assert mesh.shape == {"data": data, "tile": tile} and mesh.rank == rank
 pair = np.load(inputs)
@@ -156,7 +159,7 @@ def test_gloo_ranks_match_jax_tiled_matcher(gloo_results, jax_result, shape,
 def test_gloo_exact_schedules_equal_untiled_and_local_differs(gloo_results,
                                                               pair, shape):
     res = gloo_results[shape]
-    untiled = SGMEngine(OPTS, device="cpu").match_batch(*pair).numpy()
+    untiled = SGMEngine(from_jax(OPTS), device="cpu").match_batch(*pair).numpy()
     for name in ("exact", "pipelined", "none", "exact_plain"):
         np.testing.assert_array_equal(res[name], untiled)
     assert not np.array_equal(res["local"], untiled)   # tiles restart paths
