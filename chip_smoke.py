@@ -45,7 +45,24 @@ Phases (each raises on failure, so the script exits non-zero):
       ``int16_recurrence.run`` (counters reset before, read after), which
       hold ``hpart_T`` and ``scan16`` against the shipped kernels at the cone
       pair; each printed with the card's name and power limit;
-7. the per-kernel JSON line (each kernel's time beside its plain version's,
+7. speckle probe phase (the speckle probe path, cone pair B=8, 375x450, D=64,
+   ``min_area`` 50, and an off shape 37x45, D=48, B=4, ``min_area`` 8; at each
+   shape the engine's pre-speckle disparity and four hand-made frames: a
+   full-height line, components of exactly ``min_area`` and ``min_area - 1``
+   pixels, NaN and -inf pixels, a frame with no finite pixel):
+   a. kernels: S1 ``speckle_labels`` in all five modes against its plain
+      version, labels and rounds; the exact modes against each other and K4's
+      label stage (after the map to S1's format) against ``base``; S2
+      ``speckle_hist`` with plain and aggregated adds and S3
+      ``speckle_verdict`` against their plain versions; S4
+      ``speckle_tail_fused`` (both adds) against S2 -> ``root_small`` -> S3;
+      the verdict applied to the disparity against K4
+      (``kernels.remove_speckles``) and its plain version; K4's two stage
+      entries against theirs.  Tolerance zero;
+   b. the path: ``probes.speckle.run`` and ``probes.speckle_tail.run``
+      (counters reset before, read after), their ladders printed with the
+      card's name and power limit;
+8. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time), then the contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -73,6 +90,8 @@ CROP = (96, 160)
 MIN_GOOD = 0.95     # finite pixels within 1 of the true disparity, at least
 PROBE = dict(batch=8, h=375, w=450, dmax=64)
 PROBE_OFF = dict(batch=2, h=37, w=45, dmax=48)
+SPECKLE = dict(PROBE, min_area=50)
+SPECKLE_OFF = dict(PROBE_OFF, batch=4, min_area=8)   # block4 takes 4 frames
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, device memory
 OPS_PER_S = 67e12           # H100 SXM, 32-bit operations outside the tensor cores
 PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
@@ -95,11 +114,22 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
                         "scripts/aggr_transpose_probe.py:176"),
     "probe_int16": (f"{CSRC}/probe_int16.cu",
                     "scripts/mosaic_int16_probe.py:102"),
+    # the speckle probe path
+    "probe_speckle_labels": (f"{CSRC}/probe_speckle.cu",
+                             "scripts/speckle_probe.py:216"),
+    "probe_speckle_hist": (f"{CSRC}/probe_speckle.cu",
+                           "scripts/speckle_tail_probe.py:60"),
+    "probe_speckle_verdict": (f"{CSRC}/probe_speckle.cu",
+                              "scripts/speckle_tail_probe.py:86"),
+    "probe_speckle_fused": (f"{CSRC}/probe_speckle.cu",
+                            "scripts/speckle_tail_probe.py:110"),
 }
 MAIN_PATH = ("census_cost_volume", "aggregate_paths", "wta_reduce", "lr_check",
              "remove_speckles")
 TILE_PATH = ("census_cost_volume_halo", "directional_scan_group")
 PROBE_PATH = ("probe_chain", "probe_chainio", "probe_transpose", "probe_int16")
+SPECKLE_PATH = ("probe_speckle_labels", "probe_speckle_hist",
+                "probe_speckle_verdict", "probe_speckle_fused")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -585,6 +615,177 @@ def probe_phase() -> tuple:
     return records, launches
 
 
+def hard_frames(b: int, h: int, w: int, area: int):
+    """f32 (b, h, w) hand-made speckle inputs on the card (b >= 4): frame 0
+    noise with a full-height line and components of exactly ``area`` and
+    ``area - 1`` pixels, frame 1 a plateau with NaN and -inf pixels, frame 2
+    a ramp (one component), the rest without a finite pixel."""
+    import torch
+
+    g = torch.Generator().manual_seed(9)
+    d = torch.full((b, h, w), float("inf"))
+    d[0] = torch.randint(0, 6, (h, w), generator=g).float()
+    d[0][torch.rand((h, w), generator=g) < 0.55] = float("inf")
+    d[0, :, 9:12] = float("inf")
+    d[0, :, 10] = 3.0
+    r0, c0 = h // 2, w // 2
+    d[0, r0 - 1:r0 + 2, c0 - 1:c0 + area + 1] = float("inf")
+    d[0, r0, c0:c0 + area] = 3.0                    # exactly area: kept
+    d[0, r0 + 3:r0 + 6, c0 - 1:c0 + area] = float("inf")
+    d[0, r0 + 4, c0:c0 + area - 1] = 3.0            # area - 1: removed
+    d[1] = 2.0
+    d[1, 5:9, 5:9] = float("nan")
+    d[1, h // 2, :] = float("-inf")
+    d[1, h - 6:h - 3, 3:6] = float("inf")
+    d[1, h - 5, 4] = 7.0
+    d[2] = torch.arange(h)[:, None] * 0.5 + torch.arange(w)[None, :] * 0.25
+    return d.cuda()
+
+
+def check_speckle_input(disp, area: int) -> dict:
+    """S1-S4 and K4's stage entries on one input vs their plain versions and
+    each other; returns {"labels", "grouped", "h_hist", "lo_bits", "small",
+    "rounds", "err"}, ``err`` the largest measured difference per kernel."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels, postprocess
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+    from soc_project_stereo_matching_tpu_torch.probes.speckle import EXACT
+
+    _, h, w = disp.shape
+    labels, rounds = {}, {}
+    err = dict.fromkeys(SPECKLE_PATH, 0.0)
+
+    def hold(name, got, want):
+        err[name] = max(err[name], max_abs_err(got, want))
+
+    s1, s2, s3, s4 = SPECKLE_PATH
+    for mode in pk.LABEL_MODES:
+        labels[mode], rounds[mode] = pk.speckle_labels(disp, 1.0, mode)
+        want, want_rounds = pk.speckle_labels_plain(disp, 1.0, mode)
+        hold(s1, labels[mode], want)
+        hold(s1, rounds[mode], want_rounds)
+    for mode in EXACT:
+        hold(s1, labels[mode], labels["base"])
+    hold(s1, rounds["pyr"], rounds["base"])
+    flat = kernels.union_find_labels(disp, 1.0)
+    max_abs_err(flat, kernels.union_find_labels_plain(disp, 1.0))
+    hold(s1, pk.flat_to_root_labels(flat), labels["base"])
+
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels["base"], area)
+    counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+    hold(s2, counts, pk.speckle_hist_plain(grouped, h_hist, lo_bits))
+    hold(s2, pk.speckle_hist(grouped, h_hist, lo_bits, True), counts)
+    small = pk.root_small(counts, area)
+    verdict = pk.speckle_verdict(grouped, small)
+    hold(s3, verdict, pk.speckle_verdict_plain(grouped, small))
+    hold(s4, pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits),
+         verdict)
+    for aggregate in (False, True):
+        hold(s4, pk.speckle_tail_fused(grouped, area, h_hist, lo_bits,
+                                       aggregate), verdict)
+    got = pk.apply_verdict(disp, pk.ungroup_verdict(verdict, h, w))
+    hold(s3, got, kernels.remove_speckles(disp, 1.0, area))
+    hold(s3, got, postprocess.remove_speckles(disp, 1.0, area))
+    max_abs_err(kernels.count_verdict(disp, flat, area), got)
+    torch.cuda.synchronize()
+    return {"labels": labels["base"], "grouped": grouped, "h_hist": h_hist,
+            "lo_bits": lo_bits, "small": small, "rounds": rounds["base"],
+            "err": err}
+
+
+def speckle_kernel_checks(cfg, full: bool) -> dict:
+    """S1-S4 at one geometry, on the engine's pre-speckle disparity and on
+    the hand-made frames.  With ``full`` (the cone pair) also the times for
+    the kernels line."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        prespeckle_disparity)
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    b, h, w, area = cfg["batch"], cfg["h"], cfg["w"], cfg["min_area"]
+    _, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, cfg["dmax"])
+    hard = check_speckle_input(hard_frames(b, h, w, area), area)
+    # frame 0 holds a component of min_area - 1 pixels: the verdict is not empty
+    if not bool(hard["small"][0].any()) or bool(hard["small"][3:].any()):
+        raise AssertionError("hand-made frames: unexpected root_small")
+    real = check_speckle_input(disp, area)
+    out = {name: {"max_abs_err": max(hard["err"][name], real["err"][name])}
+           for name in SPECKLE_PATH}
+    if not full:
+        return out
+
+    grouped, h_hist, lo_bits, small = (real[k] for k in (
+        "grouped", "h_hist", "lo_bits", "small"))
+    px, grp, size = b * h * w, grouped.numel(), h_hist << lo_bits
+    valid, idx = pk.label_index(grouped, size)
+    idx = idx + torch.arange(b, device=idx.device)[:, None] * size
+    counted = idx[valid]
+    timed = {
+        "probe_speckle_labels": (
+            lambda: pk.speckle_labels(disp, 1.0, "base"),
+            lambda: pk.speckle_labels_plain(disp, 1.0, "base"),
+            # the disparity in, the labels out; per pixel and round about 20
+            # operations, for the rounds this input's frames ran: that count
+            # is the propagation's own, not the least any labelling needs.
+            # Neither bounds it: a round is 6 steps of a barrier and a trip
+            # to the L2
+            bound(8 * px, 20 * h * w * int(real["rounds"].sum())), None),
+        "probe_speckle_hist": (
+            lambda: pk.speckle_hist(grouped, h_hist, lo_bits),
+            lambda: pk.speckle_hist_plain(grouped, h_hist, lo_bits),
+            # the labels in, the root plane out; a compare and an add
+            bound(4 * grp + 4 * b * size, 2 * grp),
+            lambda: torch.bincount(counted, minlength=b * size)),
+        "probe_speckle_verdict": (
+            lambda: pk.speckle_verdict(grouped, small),
+            lambda: pk.speckle_verdict_plain(grouped, small),
+            # the labels in, the verdict out; of the int8 root plane only the
+            # entries that labels point at are read, which is not counted
+            bound(8 * grp, 2 * grp),
+            lambda: small.flatten()[idx]),
+        "probe_speckle_fused": (
+            lambda: pk.speckle_tail_fused(grouped, area, h_hist, lo_bits),
+            lambda: pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits),
+            # the labels in, the verdict out; the counts stay in the L2
+            bound(8 * grp, 5 * grp), None),
+    }
+    for name, (fn, plain, bnd, library) in timed.items():
+        out[name].update(bnd, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
+                         library_ms=cuda_ms(library, 20) if library else None)
+    return out
+
+
+def speckle_phase() -> tuple:
+    """(per-kernel records, launch counts of the two speckle probes' run)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import (speckle,
+                                                              speckle_tail)
+
+    off = speckle_kernel_checks(SPECKLE_OFF, full=False)
+    records = speckle_kernel_checks(SPECKLE, full=True)
+    for name in SPECKLE_PATH:
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           off[name]["max_abs_err"])
+    kernels.reset_launch_counts()
+    docs = [probe.run(device="cuda", reps=5, **PROBE)
+            for probe in (speckle, speckle_tail)]
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in SPECKLE_PATH}
+    missing = [name for name in SPECKLE_PATH if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"speckle probe path launched no {missing}")
+    for probe, doc in zip((speckle, speckle_tail), docs):
+        print(f"probe {doc['probe']} ({doc['card']}, {doc['power_limit']}; "
+              f"B={doc['batch']} {doc['h']}x{doc['w']} D={doc['d']}, ms per "
+              f"frame = ms per launch / B):")
+        print(probe.report(doc))
+    return records, launches
+
+
 def main() -> None:
     import torch
 
@@ -661,7 +862,7 @@ def main() -> None:
         from soc_project_stereo_matching_tpu_torch.parallel.dryrun import (
             dryrun_multichip)
 
-        dryrun_multichip(2)
+        dryrun_multichip(2, device="cuda")
     else:
         print("tile phase, multi-card: not run: one CUDA device "
               "(dryrun_multichip(2) needs two)")
@@ -676,7 +877,17 @@ def main() -> None:
               f"ms (cone B={PROBE['batch']} 375x450 D=64, bit-equal; also at "
               f"37x45 D=48)")
 
-    # 7. results
+    # 7. speckle probe phase
+    records, speckle_launches = speckle_phase()
+    cone.update(records)
+    launches.update(speckle_launches)
+    for name in SPECKLE_PATH:
+        rec = cone[name]
+        print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms (cone B={SPECKLE['batch']} 375x450, min_area 50, bit-equal; "
+              f"also at 37x45 B=4 and on hand-made frames)")
+
+    # 8. results
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

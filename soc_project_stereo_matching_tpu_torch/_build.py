@@ -39,12 +39,18 @@ SIGNATURES = {
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "sgm_speckle_union_labels": (_P, _P, _I, _I, _I, _F, _P),
+    "sgm_speckle_count_verdict": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_chain": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "sgm_probe_chainio": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
                           _P),
     "sgm_probe_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
     "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    "sgm_probe_speckle_labels": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "sgm_probe_speckle_hist": (_P, _P, _I, _I, _I, _I, _P),
+    "sgm_probe_speckle_verdict": (_P, _P, _P, _I, _I, _I, _P),
+    "sgm_probe_speckle_fused": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -24,6 +24,11 @@
 //   4. verdict: p becomes +inf iff it is finite and count[label[p]] < min_area.
 // Roots are each component's minimum index, so the labels even equal the
 // JAX op's; only the verdict is required to.
+//
+// Two further entries run the stages apart, for the speckle probes:
+// sgm_speckle_union_labels (steps 1-3 without the count: the flattened
+// labels) and sgm_speckle_count_verdict (the count and step 4 on given
+// labels).  For them alone step 3 is split into a flatten and a count.
 
 #include <cmath>
 #include <cstdint>
@@ -97,6 +102,24 @@ __global__ void flatten_count_kernel(const float* __restrict__ disp,
   if (isfinite(disp[p])) atomicAdd(count + root, 1);
 }
 
+// The two halves of flatten_count_kernel, for the stage entries.
+__global__ void iota_kernel(int* label, int n) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < n) label[p] = p;
+}
+
+__global__ void flatten_kernel(int* label, int n) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < n) label[p] = find_root(label, p);
+}
+
+__global__ void count_kernel(const float* __restrict__ disp,
+                             const int* __restrict__ label, int* count,
+                             int n) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < n && isfinite(disp[p])) atomicAdd(count + label[p], 1);
+}
+
 __global__ void verdict_kernel(const float* __restrict__ disp,
                                const int* __restrict__ label,
                                const int* __restrict__ count,
@@ -125,6 +148,47 @@ extern "C" int sgm_remove_speckles(const void* disp, void* out, void* label,
   init_kernel<<<blocks, kThreads, 0, s>>>(lab, cnt, n);
   union_kernel<<<blocks, kThreads, 0, s>>>(d, lab, n, H, W, diff);
   flatten_count_kernel<<<blocks, kThreads, 0, s>>>(d, lab, cnt, n);
+  verdict_kernel<<<blocks, kThreads, 0, s>>>(d, lab, cnt, (float*)out, n,
+                                             min_area);
+  return (int)cudaGetLastError();
+}
+
+// disp: f32 (B, H, W); label: int32 (B, H, W) out, every pixel's root: the
+// smallest flat index (over the batch) of its component.
+extern "C" int sgm_speckle_union_labels(const void* disp, void* label, int B,
+                                        int H, int W, float diff,
+                                        void* stream) {
+  const long long n64 = (long long)B * H * W;
+  if (n64 == 0) return 0;
+  if (n64 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int n = (int)n64;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  int* lab = (int*)label;
+  iota_kernel<<<blocks, kThreads, 0, s>>>(lab, n);
+  union_kernel<<<blocks, kThreads, 0, s>>>((const float*)disp, lab, n, H, W,
+                                           diff);
+  flatten_kernel<<<blocks, kThreads, 0, s>>>(lab, n);
+  return (int)cudaGetLastError();
+}
+
+// disp, out: f32 (B, H, W); label: int32 flat roots in [0, B*H*W) as
+// sgm_speckle_union_labels gives them; count: int32 scratch of B*H*W.
+extern "C" int sgm_speckle_count_verdict(const void* disp, const void* label,
+                                         void* count, void* out, int B, int H,
+                                         int W, int min_area, void* stream) {
+  const long long n64 = (long long)B * H * W;
+  if (n64 == 0) return 0;
+  if (n64 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int n = (int)n64;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* d = (const float*)disp;
+  const int* lab = (const int*)label;
+  int* cnt = (int*)count;
+  const cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)n, s);
+  if (err != cudaSuccess) return (int)err;
+  count_kernel<<<blocks, kThreads, 0, s>>>(d, lab, cnt, n);
   verdict_kernel<<<blocks, kThreads, 0, s>>>(d, lab, cnt, (float*)out, n,
                                              min_area);
   return (int)cudaGetLastError();

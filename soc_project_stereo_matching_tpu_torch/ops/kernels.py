@@ -13,6 +13,8 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
     wta_reduce              K2 csrc/aggregate.cu    <- wta_reduce_pallas
     lr_check                K3 csrc/lr_check.cu     <- lr_check_pallas
     remove_speckles         K4 csrc/speckle.cu      <- remove_speckles_pallas
+    union_find_labels       K4 csrc/speckle.cu      its label stage alone
+    count_verdict           K4 csrc/speckle.cu      its count and verdict alone
 
 ``aggregate_paths_wta`` chains the two K2 wrappers, like the JAX entry of
 that name.  A wrapper given CPU tensors runs the plain version.  Given CUDA
@@ -20,10 +22,11 @@ tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
 returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
 call.  The counter is the wrapper's name, except that the halo census
-counts as ``census_cost_volume_halo`` and ``horizontal_partial`` and
-``scan_direction`` as ``aggregate_paths``, whose launches they make.  The
-four ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.  There is no
-fallback: any other device raises.
+counts as ``census_cost_volume_halo``, ``horizontal_partial`` and
+``scan_direction`` as ``aggregate_paths``, whose launches they make, and
+``union_find_labels`` and ``count_verdict`` as ``remove_speckles``, whose
+stages they are.  The ``probe_*`` counters belong to the wrappers in
+``probes/kernels.py``.  There is no fallback: any other device raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "census_cost_volume_halo": 0, "directional_scan_group": 0,
             # the probe kernels, launched by probes/kernels.py
             "probe_chain": 0, "probe_chainio": 0, "probe_transpose": 0,
-            "probe_int16": 0}
+            "probe_int16": 0, "probe_speckle_labels": 0,
+            "probe_speckle_hist": 0, "probe_speckle_verdict": 0,
+            "probe_speckle_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -396,19 +401,62 @@ def lr_check(disp_left: torch.Tensor, disp_right: torch.Tensor, thres: float,
 
 # --- K4: speckle removal -------------------------------------------------------------
 
+def _check_speckle(disp: torch.Tensor) -> tuple:
+    _check(disp, "disp", torch.float32, 3)
+    if disp.numel() >= 2 ** 31:
+        raise ValueError("speckle labels are int32: batch too large")
+    return disp.shape
+
+
 def remove_speckles(disp: torch.Tensor, diff_insame: float = 1.0,
                     min_area: int = 50) -> torch.Tensor:
     """f32 (B, H, W), +inf invalid -> the same with small components +inf."""
     if _on_cpu(disp):
         return postprocess.remove_speckles(disp, diff_insame, min_area)
-    _check(disp, "disp", torch.float32, 3)
-    b, h, w = disp.shape
-    if b * h * w >= 2 ** 31:
-        raise ValueError("speckle labels are int32: batch too large")
+    b, h, w = _check_speckle(disp)
     out = torch.empty_like(disp)
     label = torch.empty(disp.shape, dtype=torch.int32, device=disp.device)
     count = torch.empty_like(label)
     _launch("sgm_remove_speckles", "remove_speckles", disp.data_ptr(),
             out.data_ptr(), label.data_ptr(), count.data_ptr(), b, h, w,
             float(np.float32(diff_insame)), min_area, _stream(out))
+    return out
+
+
+def union_find_labels_plain(disp, diff_insame: float = 1.0) -> torch.Tensor:
+    return postprocess.component_labels(disp, diff_insame).to(torch.int32)
+
+
+def union_find_labels(disp: torch.Tensor,
+                      diff_insame: float = 1.0) -> torch.Tensor:
+    """K4's label stage alone (init, union, flatten): f32 (B, H, W) -> int32
+    (B, H, W), every pixel's root, the smallest flat index (over the batch)
+    of its component; a non-finite pixel is its own root."""
+    if _on_cpu(disp):
+        return union_find_labels_plain(disp, diff_insame)
+    b, h, w = _check_speckle(disp)
+    label = torch.empty(disp.shape, dtype=torch.int32, device=disp.device)
+    _launch("sgm_speckle_union_labels", "remove_speckles", disp.data_ptr(),
+            label.data_ptr(), b, h, w, float(np.float32(diff_insame)),
+            _stream(label))
+    return label
+
+
+def count_verdict(disp: torch.Tensor, labels: torch.Tensor,
+                  min_area: int = 50) -> torch.Tensor:
+    """K4's count and verdict alone, on the int32 (B, H, W) roots of
+    ``union_find_labels``: f32 (B, H, W) -> the same with the components of
+    fewer than ``min_area`` finite pixels +inf."""
+    if _on_cpu(disp, labels):
+        return postprocess.small_components_to_inf(disp, labels, min_area)
+    b, h, w = _check_speckle(disp)
+    _check(labels, "labels", torch.int32, 3)
+    if labels.shape != disp.shape:
+        raise ValueError(f"labels {tuple(labels.shape)} != disp "
+                         f"{tuple(disp.shape)}")
+    out = torch.empty_like(disp)
+    count = torch.empty_like(labels)
+    _launch("sgm_speckle_count_verdict", "remove_speckles", disp.data_ptr(),
+            labels.data_ptr(), count.data_ptr(), out.data_ptr(), b, h, w,
+            min_area, _stream(out))
     return out

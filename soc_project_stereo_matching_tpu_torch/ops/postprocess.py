@@ -56,23 +56,15 @@ def _shift2d(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
     return out
 
 
-def remove_speckles(
-    disp: torch.Tensor,
-    diff_insame: float = 1.0,
-    min_area: int = 50,
-) -> torch.Tensor:
-    """Connected-component speckle filter on f32 (..., H, W), +inf invalid.
-
-    8-neighbours connect when both are finite and ``|dd| <= diff`` in f32;
-    a component's area counts its (finite) pixels and components with
-    ``area < min_area`` become +inf.  Labels start as flat pixel indices and
-    converge to each component's minimum index by rounds of neighbour-min
+def component_labels(disp: torch.Tensor, diff_insame: float = 1.0) -> torch.Tensor:
+    """int64 (B, H, W) connected-component labels of f32 (B, H, W): every
+    pixel carries the smallest flat index (over the whole batch) of its
+    component.  8-neighbours connect when both are finite and ``|dd| <=
+    diff`` in f32; a non-finite pixel is a component of its own.  Labels
+    start as flat pixel indices and converge by rounds of neighbour-min
     propagation plus pointer jumping, until a round changes nothing."""
-    shape = disp.shape
-    h, w = shape[-2], shape[-1]
-    flat = disp.reshape(-1, h, w)
-    finite = torch.isfinite(flat)
-    d = torch.where(finite, flat, 0.0)
+    finite = torch.isfinite(disp)
+    d = torch.where(finite, disp, 0.0)
     diff = float(np.float32(diff_insame))
     edges = []
     for dr, dc in _OFFSETS8:
@@ -80,21 +72,42 @@ def remove_speckles(
         nf = _shift2d(finite, dr, dc, False)
         edges.append((dr, dc, finite & nf & ((d - nd).abs() <= diff)))
 
-    n_all = flat.numel()
-    big = n_all
-    labels = torch.arange(n_all, device=disp.device).reshape(flat.shape)
+    big = disp.numel()
+    labels = torch.arange(big, device=disp.device).reshape(disp.shape)
     while True:
         new = labels
         for dr, dc, edge in edges:
             new = torch.minimum(new, torch.where(edge, _shift2d(labels, dr, dc, big), big))
         new = new.reshape(-1)[new]              # pointer jumping
         if torch.equal(new, labels):
-            break
+            return labels
         labels = new
 
-    counts = torch.bincount(labels[finite], minlength=n_all)
+
+def small_components_to_inf(disp: torch.Tensor, labels: torch.Tensor,
+                            min_area: int) -> torch.Tensor:
+    """f32 (B, H, W) with the finite pixels of every component of fewer than
+    ``min_area`` finite pixels set to +inf; ``labels`` as
+    ``component_labels`` gives them (any integer type)."""
+    finite = torch.isfinite(disp)
+    labels = labels.long()
+    counts = torch.bincount(labels[finite], minlength=disp.numel())
     small = counts[labels] < min_area
-    return torch.where(finite & small, torch.inf, flat).reshape(shape)
+    return torch.where(finite & small, torch.inf, disp)
+
+
+def remove_speckles(
+    disp: torch.Tensor,
+    diff_insame: float = 1.0,
+    min_area: int = 50,
+) -> torch.Tensor:
+    """Connected-component speckle filter on f32 (..., H, W), +inf invalid:
+    components (``component_labels``) with fewer than ``min_area`` finite
+    pixels become +inf."""
+    shape = disp.shape
+    flat = disp.reshape(-1, shape[-2], shape[-1])
+    labels = component_labels(flat, diff_insame)
+    return small_components_to_inf(flat, labels, min_area).reshape(shape)
 
 
 def _median9(planes):

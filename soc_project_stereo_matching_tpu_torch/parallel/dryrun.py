@@ -2,10 +2,11 @@
 each result held bit-equal to the single-device engine — counterpart of
 ``__graft_entry__.dryrun_multichip``.
 
-    python -m soc_project_stereo_matching_tpu_torch.parallel.dryrun 4
+    python -m soc_project_stereo_matching_tpu_torch.parallel.dryrun 4 [--device cpu]
 
-spawns one process per rank, over NCCL with one card each when CUDA is
-available (it needs ``n`` cards) and over gloo on the CPU otherwise.
+spawns one process per rank: over NCCL with one card each by default (it
+needs ``n`` cards and raises without them), over gloo on the CPU only when
+``--device cpu`` (``device="cpu"``) asks for it.
 """
 
 from __future__ import annotations
@@ -81,14 +82,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(n_devices: int, timeout_s: float = 600.0) -> None:
+def dryrun_multichip(n_devices: int, device=None,
+                     timeout_s: float = 600.0) -> None:
     """Run ``sweep(n_devices)`` on ``n_devices`` spawned ranks; raises if a
     rank fails, disagrees with the single-device engine or is still running
-    after ``timeout_s``."""
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if backend == "nccl" and torch.cuda.device_count() < n_devices:
+    after ``timeout_s``.  ``device`` None or "cuda": one card per rank over
+    NCCL, and an error without ``n_devices`` cards; "cpu": gloo ranks."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend == "nccl" and cards < n_devices:
         raise RuntimeError(f"{n_devices} ranks need {n_devices} cards; "
-                           f"{torch.cuda.device_count()} visible")
+                           f"{cards} visible (pass device='cpu' to run the "
+                           "ranks over gloo on the CPU)")
     ctx = multiprocessing.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_rank_main,
@@ -119,7 +127,11 @@ def dryrun_multichip(n_devices: int, timeout_s: float = 600.0) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("n", type=int, help="number of ranks (devices)")
-    dryrun_multichip(parser.parse_args(argv).n)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="cuda: NCCL, one card per rank (default); "
+                             "cpu: gloo ranks")
+    args = parser.parse_args(argv)
+    dryrun_multichip(args.n, device=args.device)
 
 
 if __name__ == "__main__":

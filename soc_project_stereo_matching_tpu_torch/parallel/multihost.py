@@ -29,16 +29,21 @@ def initialize(init_method: Optional[str] = None,
     With no arguments, reads the environment (``MASTER_ADDR``,
     ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, as ``torchrun`` sets them); a
     lone process without ``MASTER_ADDR`` is left alone.  The backend is NCCL
-    when CUDA is available, else gloo.  With NCCL each process takes the
-    card of its local rank (``LOCAL_RANK``, else its rank modulo the cards
-    of its host)."""
+    unless one is named, and NCCL raises without a card: ranks on the CPU
+    pass ``backend="gloo"``.  With NCCL each process takes the card of its
+    local rank (``LOCAL_RANK``, else its rank modulo the cards of its
+    host)."""
     if dist.is_initialized():
         return
     if init_method is None and world_size is None \
             and "MASTER_ADDR" not in os.environ:
         return  # single-process run
-    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    backend = backend or "nccl"
     if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("multihost.initialize: the NCCL backend needs "
+                               "a CUDA device (pass backend='gloo' for ranks "
+                               "on the CPU)")
         local = os.environ.get("LOCAL_RANK")
         if local is None:
             local = (int(os.environ["RANK"]) if rank is None else rank) \

@@ -10,20 +10,26 @@
     int16_recurrence   the recurrence in 16-bit lanes: a ladder of single
                        operations, and the packed group scan beside K2's
     ablation           the engine with post stages switched off
+    speckle            the speckle label stage: K4's union-find beside label
+                       propagation to a fixed point and its variants
+    speckle_tail       the speckle count and verdict: K4's beside a histogram
+                       and a gather in two launches or one, with plain or
+                       warp-aggregated atomics
 
 Counterparts of the JAX package's ``scripts/recurrence_floor.py``,
-``aggr_transpose_probe.py``, ``mosaic_int16_probe.py`` and
-``ablation_profile.py``.  Every module has ``run(device=None, ...)``, which
+``aggr_transpose_probe.py``, ``mosaic_int16_probe.py``,
+``ablation_profile.py``, ``speckle_probe.py`` and ``speckle_tail_probe.py``.  Every module has ``run(device=None, ...)``, which
 returns the JSON document: on the card (the default; it raises without one)
 every variant is checked against its plain version and timed with CUDA
 events; with ``device="cpu"`` the plain versions run, everything is checked
 and every time is None, since a time is a device number.  A variant that
 fails to build, launch or compare raises: nothing is recorded and passed
-over.  The helpers below are what the four modules share.
+over.  The helpers below are what the modules share.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Optional
 
@@ -59,6 +65,18 @@ def pair_and_cost(device, batch: int, h: int, w: int, dmax: int,
     cost = ops_kernels.census_cost_volume(left, right, opt.min_disparity,
                                           opt.max_disparity)
     return opt, left, right, cost
+
+
+def prespeckle_disparity(device, batch: int, h: int, w: int, dmax: int,
+                         seed: int = SEED):
+    """(options, f32 (B, H, W) disparity) of the engine's kernel path on the
+    seeded synthetic pair with speckle removal switched off: the speckle
+    stage's input, with the component structure of a real frame."""
+    from ..models.sgm import sgm_forward
+
+    opt, left, right, _ = pair_and_cost(device, batch, h, w, dmax, seed)
+    no_speckle = dataclasses.replace(opt, is_remove_speckles=False)
+    return opt, sgm_forward(left, right, no_speckle, use_kernels=True)
 
 
 def random_tensor(seed: int, low: int, high: int, shape, dtype, device):

@@ -9,12 +9,15 @@ from pathlib import Path
 
 import torch
 
-from . import GEOMETRY, ablation, aggr_transpose, int16_recurrence, recurrence_floor
+from . import (GEOMETRY, ablation, aggr_transpose, int16_recurrence,
+               recurrence_floor, speckle, speckle_tail)
 
 PROBES = {"recurrence_floor": recurrence_floor,
           "aggr_transpose": aggr_transpose,
           "int16_recurrence": int16_recurrence,
-          "ablation": ablation}
+          "ablation": ablation,
+          "speckle": speckle,
+          "speckle_tail": speckle_tail}
 
 
 def main(argv=None) -> dict:

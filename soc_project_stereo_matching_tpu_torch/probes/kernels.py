@@ -1,4 +1,4 @@
-"""Wrappers of the four probe kernels, in the style of ``ops/kernels.py``.
+"""Wrappers of the eight probe kernels, in the style of ``ops/kernels.py``.
 
     chain             P1 csrc/probe_recurrence.cu <- recurrence_floor.py chain_kernel
     chainio           P2 csrc/probe_recurrence.cu <- recurrence_floor.py chainio_kernel
@@ -6,6 +6,11 @@
                          (both bodies of its transpose kernel)
     rung, scan16      P4 csrc/probe_int16.cu      <- mosaic_int16_probe.py rungs
                          and the ``compute16`` group scan
+    speckle_labels    S1 csrc/probe_speckle.cu    <- speckle_probe.py: the label
+                         kernel and its variants (pair, fori16, block4, pyr)
+    speckle_hist      S2 csrc/probe_speckle.cu    <- speckle_tail_probe.py _hist_kernel
+    speckle_verdict   S3 csrc/probe_speckle.cu    <- speckle_tail_probe.py _verdict_kernel
+    speckle_tail_fused S4 csrc/probe_speckle.cu   <- speckle_tail_probe.py _fused_kernel
 
 Beside each stands its plain PyTorch version, which defines the function:
 the tests compare it with the JAX scripts' bodies, and on the card the
@@ -14,8 +19,9 @@ the plain version; given CUDA tensors it checks them, launches on the
 current stream, raises on a CUDA error and adds one to its counter in
 ``ops.kernels.LAUNCHES`` per C entry call (``probe_chain``,
 ``probe_chainio``, ``probe_transpose``; ``rung`` and ``scan16`` share
-``probe_int16``, and ``scan16`` counts one per direction).  There is no
-fallback.
+``probe_int16``, and ``scan16`` counts one per direction; S1-S4 count as
+``probe_speckle_labels``, ``probe_speckle_hist``, ``probe_speckle_verdict``
+and ``probe_speckle_fused``).  There is no fallback.
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ from typing import Sequence
 
 import torch
 
+import numpy as np
+
 from ..ops import kernels as ops_kernels
 from ..ops.kernels import _check, _launch, _on_cpu, _stream
+from ..ops.postprocess import _shift2d
 
 SENTINEL = 255
 CHAIN_P2 = 150                # the constant P2 of `chain`
@@ -299,4 +308,333 @@ def scan16(cost: torch.Tensor, img: torch.Tensor, rolls: Sequence[int],
         _launch("sgm_probe_scan16", "probe_int16", cost.data_ptr(),
                 img.data_ptr(), out.data_ptr(), b, s, d, w, int(reverse), roll,
                 int(restart), p1, p2_init, int(k > 0), _stream(out))
+    return out
+
+
+# --- S1: connected-component labels by min-propagation ------------------------------------
+
+# neighbour (dr, dc) of link-mask bit 0..5; bits 2-5 are the diagonal order
+CC_OFFSETS = ((0, -1), (-1, 0), (-1, -1), (-1, 1), (1, -1), (1, 1))
+LABEL_MODES = {"base": 0, "pair": 1, "fori16": 2, "block4": 3, "pyr": 4}
+BLOCK_FRAMES = 4        # frames per program of ``block4``
+FIXED_ROUNDS = 16       # of ``fori16``: 8 seg+cheap pairs, no check
+SPECKLE_PC = 2048       # pixels per chunk of the tail's grouped label layout
+
+
+def ceil_log2(n: int) -> int:
+    k = 0
+    while (1 << k) < n:
+        k += 1
+    return k
+
+
+def label_bits(w: int) -> int:
+    """Low bits of a label that hold its column: label = (row << bits) | col."""
+    return max(ceil_log2(w), 7)
+
+
+def link_mask(disp: torch.Tensor, diff: float) -> torch.Tensor:
+    """int32 (B, H, W): bit k set where the pixel links to its neighbour
+    ``CC_OFFSETS[k]``: both finite, in the frame, and |dd| <= diff in f32."""
+    finite = torch.isfinite(disp)
+    d = torch.where(finite, disp, 1e30)
+    diff = float(np.float32(diff))
+    mask = torch.zeros(disp.shape, dtype=torch.int32, device=disp.device)
+    for bit, (dr, dc) in enumerate(CC_OFFSETS):
+        nd = _shift2d(d, dr, dc, 0.0)
+        nf = _shift2d(finite, dr, dc, False)
+        mask |= (finite & nf & ((d - nd).abs() <= diff)).to(torch.int32) << bit
+    return mask
+
+
+def _run_min(lab, conn, axis: int, big: int):
+    """Every pixel's minimum over its maximal run of linked pixels along
+    ``axis`` (-1 columns, -2 rows); ``conn`` (bool) links k to k - 1.  By
+    doubling, as the JAX kernel: min-scans from both ends of the run."""
+    def shifted(x, s, fill):        # x[k + s] along axis
+        return _shift2d(x, 0, s, fill) if axis == -1 else _shift2d(x, s, 0, fill)
+
+    fwd_c, fwd_v = conn, lab
+    bwd_c, bwd_v = shifted(conn, 1, False), lab         # links k to k + 1
+    for step in range(ceil_log2(lab.shape[axis])):
+        s = 1 << step
+        fwd_v = torch.minimum(fwd_v, torch.where(fwd_c, shifted(fwd_v, -s, big), big))
+        fwd_c = fwd_c & shifted(fwd_c, -s, False)
+        bwd_v = torch.minimum(bwd_v, torch.where(bwd_c, shifted(bwd_v, s, big), big))
+        bwd_c = bwd_c & shifted(bwd_c, s, False)
+    return torch.minimum(fwd_v, bwd_v)
+
+
+def _bit(mask, k: int):
+    return (mask >> k) & 1 != 0
+
+
+def _diag_pass(new, mask, big: int):
+    """The four diagonal link-mins, each on the plane the last one wrote."""
+    for bit, (dr, dc) in zip((2, 3, 4, 5), CC_OFFSETS[2:]):
+        new = torch.minimum(new, torch.where(_bit(mask, bit),
+                                             _shift2d(new, dr, dc, big), big))
+    return new
+
+
+def seg_round(lab, mask, big: int):
+    """Run-min over horizontal runs, then over vertical runs of that, then
+    the diagonal pass."""
+    new = _run_min(lab, _bit(mask, 0), -1, big)
+    new = _run_min(new, _bit(mask, 1), -2, big)
+    return _diag_pass(new, mask, big)
+
+
+def cheap_round(lab, mask, big: int):
+    """Link-mins with the left, right and upper neighbour of the old plane,
+    with the lower neighbour of the new one, then the diagonal pass."""
+    conn_h, conn_v = _bit(mask, 0), _bit(mask, 1)
+    new = lab
+    for edge, (dr, dc) in ((conn_h, (0, -1)),
+                           (_shift2d(conn_h, 0, 1, False), (0, 1)),
+                           (conn_v, (-1, 0))):
+        new = torch.minimum(new, torch.where(edge, _shift2d(lab, dr, dc, big), big))
+    new = torch.minimum(new, torch.where(_shift2d(conn_v, 1, 0, False),
+                                         _shift2d(new, 1, 0, big), big))
+    return _diag_pass(new, mask, big)
+
+
+def _check_labels_args(disp, mode: str) -> tuple:
+    if mode not in LABEL_MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {sorted(LABEL_MODES)}")
+    if disp.dim() != 3 or disp.dtype != torch.float32:
+        raise TypeError(f"disp: expected f32 (B, H, W), got {disp.dtype} "
+                        f"{tuple(disp.shape)}")
+    b, h, w = disp.shape
+    if mode == "block4" and b % BLOCK_FRAMES:
+        raise ValueError(f"block4 takes batches of a multiple of "
+                         f"{BLOCK_FRAMES} frames, got {b}")
+    if (h + 1) << label_bits(w) >= 2 ** 31 or max(h, w) >= 2 ** 15:
+        raise ValueError(f"a {h}x{w} frame's labels do not fit int32")
+    return b, h, w
+
+
+def speckle_labels_plain(disp, diff: float = 1.0, mode: str = "base"):
+    b, h, w = _check_labels_args(disp, mode)
+    lo_bits = label_bits(w)
+    big = h << lo_bits
+    dev = disp.device
+    mask = link_mask(disp, diff)
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    lab = ((rows << lo_bits) | cols).expand(b, h, w).contiguous()
+    paired = mode in ("pair", "fori16", "block4")
+    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
+    still = torch.zeros(b, dtype=torch.bool, device=dev)
+    it = 0
+    while b:
+        if paired:
+            new = cheap_round(seg_round(lab, mask, big), mask, big)
+            it += 2
+        else:
+            new = (cheap_round if it % 2 else seg_round)(lab, mask, big)
+            it += 1
+        # a frame that is still stays so: both rounds hold a fixed point
+        rounds = torch.where(still, rounds, it)
+        still |= ~(new != lab).flatten(1).any(1)
+        lab = new
+        if it == FIXED_ROUNDS if mode == "fori16" else bool(still.all()):
+            break
+    if mode == "fori16":
+        rounds = torch.full_like(rounds, it)
+    if mode == "block4":    # a program runs until its last frame is still
+        rounds = rounds.view(-1, BLOCK_FRAMES).amax(1)
+    return lab, rounds
+
+
+def speckle_labels(disp: torch.Tensor, diff: float = 1.0, mode: str = "base"):
+    """S1.  f32 (B, H, W) -> (int32 (B, H, W) labels, int32 rounds per
+    program).  Labels start as (row << label_bits(W)) | col and are
+    min-propagated over the links of ``link_mask`` by whole-plane rounds,
+    ``seg_round`` and ``cheap_round`` in turn, so at the fixed point a
+    pixel's label is that of the first pixel (row-major) of its component.
+    ``mode``: ``base`` checks for the fixed point after every round;
+    ``pair`` after every seg+cheap pair; ``fori16`` runs ``FIXED_ROUNDS``
+    rounds unchecked (not a fixed point in general); ``block4`` is ``pair``
+    with ``BLOCK_FRAMES`` frames to a program, which runs until all are
+    still (one round count per program); ``pyr`` is ``base`` with each
+    pixel's run heads found once before the loop.  ``rounds`` counts single
+    rounds, the last, unchanged one included.  One launch."""
+    if _on_cpu(disp):
+        return speckle_labels_plain(disp, diff, mode)
+    b, h, w = _check_labels_args(disp, mode)
+    _check(disp, "disp", torch.float32, 3)
+    programs = b // BLOCK_FRAMES if mode == "block4" else b
+    labels = torch.empty(disp.shape, dtype=torch.int32, device=disp.device)
+    rounds = torch.empty(programs, dtype=torch.int32, device=disp.device)
+    # three label planes and the link mask; pyr: + run heads, two min planes
+    scratch = torch.empty((7 if mode == "pyr" else 4, b, h, w),
+                          dtype=torch.int32, device=disp.device)
+    _launch("sgm_probe_speckle_labels", "probe_speckle_labels",
+            disp.data_ptr(), labels.data_ptr(), rounds.data_ptr(),
+            scratch.data_ptr(), b, h, w, label_bits(w),
+            float(np.float32(diff)), LABEL_MODES[mode], _stream(labels))
+    return labels, rounds
+
+
+def flat_to_root_labels(flat: torch.Tensor) -> torch.Tensor:
+    """Flat batch indices (B, H, W), as ``ops.kernels.union_find_labels``
+    gives them, in S1's format: (row << label_bits(W)) | col of the pixel
+    the index names."""
+    _, h, w = flat.shape
+    p = flat.to(torch.int32) % (h * w)
+    return ((p // w) << label_bits(w)) | (p % w)
+
+
+# --- S2-S4: the histogram / verdict tail -----------------------------------------------------
+
+def speckle_band_geometry(h: int, w: int, min_area: int,
+                          pc: int = SPECKLE_PC) -> tuple:
+    """(chunks per group, row band, padded root rows) of the JAX package's
+    banded tail.  The port's kernels neither band nor group; this only
+    gives the grouped label layout and the root plane's height their JAX
+    shapes, so that either side can be swapped for the other."""
+    h_hist = -(-h // 16) * 16
+    g = 1
+    for cand in range(16, 0, -1):
+        rows = -(-cand * pc // w) + 1
+        if -(-(rows + (min_area - 1) + 16) // 16) * 16 <= 128:
+            g = cand
+            break
+    rows = -(-g * pc // w) + 1
+    band = min(h_hist, -(-(rows + (min_area - 1) + 16) // 16) * 16)
+    return g, band, h_hist
+
+
+def group_labels(disp: torch.Tensor, labels: torch.Tensor, min_area: int,
+                 pc: int = SPECKLE_PC) -> tuple:
+    """The tail's input: (int32 (B, ngroups, 1, g * pc) labels, h_hist,
+    lo_bits).  Non-finite pixels and the padding carry the sentinel
+    ``h_hist << lo_bits``, which counts nowhere."""
+    b, h, w = disp.shape
+    lo_bits = label_bits(w)
+    g, _, h_hist = speckle_band_geometry(h, w, min_area, pc)
+    n, chunk = h * w, g * pc
+    ngroups = -(-n // chunk)
+    sentinel = h_hist << lo_bits
+    flat = torch.where(torch.isfinite(disp), labels, sentinel).reshape(b, n)
+    flat = torch.nn.functional.pad(flat, (0, ngroups * chunk - n), value=sentinel)
+    return flat.reshape(b, ngroups, 1, chunk).contiguous(), h_hist, lo_bits
+
+
+def ungroup_verdict(verdict: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """f32 0/1 (B, ngroups, 1, g * pc) -> bool (B, H, W)."""
+    b = verdict.shape[0]
+    return verdict.reshape(b, -1)[:, :h * w].reshape(b, h, w) > 0
+
+
+def apply_verdict(disp: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(disp) & small, torch.inf, disp)
+
+
+def label_index(labels: torch.Tensor, size: int):
+    """(valid, flat index into a (B, size) root plane) of grouped labels."""
+    b = labels.shape[0]
+    flat = labels.reshape(b, -1).long()
+    return (flat >= 0) & (flat < size), flat.clamp(0, size - 1)
+
+
+def speckle_hist_plain(labels, h_hist: int, lo_bits: int) -> torch.Tensor:
+    b, size = labels.shape[0], h_hist << lo_bits
+    valid, idx = label_index(labels, size)
+    idx = idx + torch.arange(b, device=labels.device)[:, None] * size
+    counts = torch.bincount(idx[valid], minlength=b * size)
+    return counts.reshape(b, h_hist, 1 << lo_bits).to(torch.int32)
+
+
+def _check_grouped(labels: torch.Tensor) -> None:
+    _check(labels, "labels", torch.int32, 4)
+    if labels.shape[2] != 1:
+        raise ValueError(f"labels: expected (B, ngroups, 1, g * pc), got "
+                         f"{tuple(labels.shape)}")
+
+
+def _check_root_plane(h_hist: int, lo_bits: int) -> None:
+    if h_hist < 1 or not 0 <= lo_bits < 31 or (h_hist + 1) << lo_bits >= 2 ** 31:
+        raise ValueError(f"a root plane of {h_hist} rows of 2^{lo_bits} "
+                         f"columns does not fit int32 labels")
+
+
+def speckle_hist(labels: torch.Tensor, h_hist: int, lo_bits: int,
+                 aggregate: bool = False) -> torch.Tensor:
+    """S2.  int32 (B, ngroups, 1, g * pc) labels -> int32 (B, h_hist,
+    1 << lo_bits) pixels per component, stored at the root's (row, col) =
+    (label >> lo_bits, label & (lo - 1)); a label outside the plane (the
+    sentinel) counts nowhere.  Exact for every component; the JAX kernel's
+    banded count is exact below ``min_area`` and at least ``min_area``
+    above.  ``aggregate``: a warp adds once per distinct label among its
+    lanes; the counts are the same.  One launch."""
+    _check_root_plane(h_hist, lo_bits)
+    if _on_cpu(labels):
+        return speckle_hist_plain(labels, h_hist, lo_bits)
+    _check_grouped(labels)
+    b = labels.shape[0]
+    counts = torch.empty((b, h_hist, 1 << lo_bits), dtype=torch.int32,
+                         device=labels.device)
+    _launch("sgm_probe_speckle_hist", "probe_speckle_hist", labels.data_ptr(),
+            counts.data_ptr(), b, labels[0].numel(), h_hist << lo_bits,
+            int(aggregate), _stream(counts))
+    return counts
+
+
+def root_small(counts: torch.Tensor, min_area: int) -> torch.Tensor:
+    """int8 (B, h_hist, lo): 1 at the roots of components under ``min_area``
+    pixels.  The plain op between S2 and S3, as between the JAX launches."""
+    return ((counts > 0) & (counts < min_area)).to(torch.int8)
+
+
+def speckle_verdict_plain(labels, small) -> torch.Tensor:
+    b = labels.shape[0]
+    valid, idx = label_index(labels, small[0].numel())
+    hit = small.reshape(b, -1).gather(1, idx) != 0
+    return (valid & hit).to(torch.float32).reshape(labels.shape)
+
+
+def speckle_verdict(labels: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+    """S3.  int32 (B, ngroups, 1, g * pc) labels + int8 (B, h_hist, lo)
+    ``root_small`` -> f32 0/1 of the labels' shape: ``small`` at the
+    label's root, 0 for a label outside the plane.  One launch."""
+    if _on_cpu(labels, small):
+        return speckle_verdict_plain(labels, small)
+    _check_grouped(labels)
+    _check(small, "small", torch.int8, 3)
+    b = labels.shape[0]
+    if small.shape[0] != b:
+        raise ValueError(f"small {tuple(small.shape)} does not match labels "
+                         f"{tuple(labels.shape)}")
+    out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
+    _launch("sgm_probe_speckle_verdict", "probe_speckle_verdict",
+            labels.data_ptr(), small.data_ptr(), out.data_ptr(), b,
+            labels[0].numel(), small[0].numel(), _stream(out))
+    return out
+
+
+def speckle_tail_fused_plain(labels, min_area: int, h_hist: int,
+                             lo_bits: int) -> torch.Tensor:
+    counts = speckle_hist_plain(labels, h_hist, lo_bits)
+    return speckle_verdict_plain(labels, root_small(counts, min_area))
+
+
+def speckle_tail_fused(labels: torch.Tensor, min_area: int, h_hist: int,
+                       lo_bits: int, aggregate: bool = False) -> torch.Tensor:
+    """S4.  S2, ``root_small`` and S3 in one launch: int32 (B, ngroups, 1,
+    g * pc) labels -> f32 0/1 of the same shape.  The counts stay in a
+    scratch plane that the kernel zeroes itself."""
+    _check_root_plane(h_hist, lo_bits)
+    if _on_cpu(labels):
+        return speckle_tail_fused_plain(labels, min_area, h_hist, lo_bits)
+    _check_grouped(labels)
+    b = labels.shape[0]
+    out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
+    counts = torch.empty((b, h_hist << lo_bits), dtype=torch.int32,
+                         device=labels.device)
+    _launch("sgm_probe_speckle_fused", "probe_speckle_fused",
+            labels.data_ptr(), counts.data_ptr(), out.data_ptr(), b,
+            labels[0].numel(), h_hist << lo_bits, min_area, int(aggregate),
+            _stream(out))
     return out

@@ -277,3 +277,84 @@ def test_probes_run_on_card_and_write_json(cuda, tmp_path):
                         "--dmax", "16", "--reps", "2", "--out", str(out)])
         assert out.exists() and doc["card"]
         assert all(rec["ms_per_frame"] > 0 for rec in doc["variants"].values())
+
+
+# --- the speckle probe kernels (probes/kernels.py, S1-S4) ----------------------
+
+def _speckle_frames(seed, b, h, w, cuda):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 5, (b, h, w)).astype(np.float32)
+    d[rng.random((b, h, w)) < 0.3] = np.inf
+    d[0, :, w // 2] = 2.0                      # a full-height line
+    d[1, 3:6, 3:6] = np.nan
+    d[1, h // 2] = -np.inf
+    d[b - 1] = np.inf                          # no finite pixel
+    return torch.from_numpy(d).to(cuda)
+
+
+@pytest.mark.parametrize("h,w", [(37, 45), (13, 21), (64, 130), (5, 300)])
+def test_speckle_labels_match_plain_on_card(cuda, h, w):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    disp = _speckle_frames(60, 4, h, w, cuda)
+    before = kernels.LAUNCHES["probe_speckle_labels"]
+    base, base_rounds = pk.speckle_labels(disp, 1.0, "base")
+    for mode in pk.LABEL_MODES:
+        got, rounds = pk.speckle_labels(disp, 1.0, mode)
+        want, want_rounds = pk.speckle_labels_plain(disp, 1.0, mode)
+        same(got, want)
+        same(rounds, want_rounds)
+        if mode != "fori16":
+            same(got, base)
+    assert kernels.LAUNCHES["probe_speckle_labels"] == before + 6
+    roots = kernels.union_find_labels(disp, 1.0)
+    same(roots, kernels.union_find_labels_plain(disp, 1.0))
+    same(pk.flat_to_root_labels(roots), base)
+    with pytest.raises(ValueError):
+        pk.speckle_labels(disp[:3], 1.0, "block4")
+    with pytest.raises(ValueError):
+        pk.speckle_labels(disp.transpose(1, 2), 1.0, "base")   # not contiguous
+
+
+@pytest.mark.parametrize("h,w,area,pc", [(37, 45, 8, 2048), (120, 64, 5, 256)])
+def test_speckle_tail_kernels_match_plain_on_card(cuda, h, w, area, pc):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    disp = _speckle_frames(61, 3, h, w, cuda)
+    labels, _ = pk.speckle_labels(disp, 1.0, "pyr")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area, pc)
+    grouped[0, 0, 0, :2] = torch.tensor([-5, 2 ** 30], device=cuda)  # outside
+    before = dict(kernels.LAUNCHES)
+    counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+    same(counts, pk.speckle_hist_plain(grouped, h_hist, lo_bits))
+    same(pk.speckle_hist(grouped, h_hist, lo_bits, aggregate=True), counts)
+    small = pk.root_small(counts, area)
+    verdict = pk.speckle_verdict(grouped, small)
+    same(verdict, pk.speckle_verdict_plain(grouped, small))
+    for aggregate in (False, True):
+        same(pk.speckle_tail_fused(grouped, area, h_hist, lo_bits, aggregate),
+             verdict)
+    assert kernels.LAUNCHES["probe_speckle_hist"] == before["probe_speckle_hist"] + 2
+    assert kernels.LAUNCHES["probe_speckle_verdict"] == \
+        before["probe_speckle_verdict"] + 1
+    assert kernels.LAUNCHES["probe_speckle_fused"] == \
+        before["probe_speckle_fused"] + 2
+    grouped, _, _ = pk.group_labels(disp, labels, area, pc)
+    got = pk.apply_verdict(disp, pk.ungroup_verdict(
+        pk.speckle_tail_fused(grouped, area, h_hist, lo_bits), h, w))
+    same(got, kernels.remove_speckles(disp, 1.0, area))
+    same(got, postprocess.remove_speckles(disp, 1.0, area))
+    same(got, kernels.count_verdict(disp, kernels.union_find_labels(disp), area))
+    with pytest.raises(TypeError):
+        pk.speckle_verdict(grouped, small.float())
+
+
+def test_speckle_probes_run_on_card_and_write_json(cuda, tmp_path):
+    from soc_project_stereo_matching_tpu_torch.probes import __main__ as cli
+
+    for name in ("speckle", "speckle_tail"):
+        out = tmp_path / f"{name}.json"
+        doc = cli.main([name, "--batch", "4", "--h", str(H), "--w", str(W),
+                        "--dmax", "16", "--reps", "2", "--out", str(out)])
+        assert out.exists() and doc["card"]
+        assert all(rec["ms_per_frame"] > 0 for rec in doc["variants"].values())

@@ -139,7 +139,8 @@ def test_port_imports_no_jax():
             "parallel.multihost", "parallel.tiles", "parallel.dryrun",
             "stage_breakdown", "utils.profiling", "probes", "probes.kernels",
             "probes.recurrence_floor", "probes.aggr_transpose",
-            "probes.int16_recurrence", "probes.ablation", "probes.__main__"]
+            "probes.int16_recurrence", "probes.ablation", "probes.speckle",
+            "probes.speckle_tail", "probes.__main__"]
     code = ("import sys; import " + ", ".join(f"{pkg}.{m}" for m in mods) + "; "
             "ref = 'soc_project_stereo_matching_tpu'; "
             "bad = sorted(m for m in sys.modules if m.startswith('jax') "

@@ -1,0 +1,449 @@
+"""The port's speckle probe path (``probes/speckle.py``, ``speckle_tail.py``)
+vs the JAX package, bit for bit.
+
+The plain PyTorch versions of S1-S4 define what the CUDA kernels compute, so
+here each is held against the kernel body it stands for: the package's
+``_speckle_labels_kernel`` and, loaded from ``scripts/``, the label variants
+of ``speckle_probe.py`` and the histogram, verdict and fused kernels of
+``speckle_tail_probe.py``, each through a ``pl.pallas_call`` in interpret
+mode.  Round counts come from the same kernel bodies run eagerly on array
+stand-ins for their refs (one write of the label plane per loop iteration).
+All frames are small, every tolerance is zero.  The kernels themselves run
+only on a card: ``test_torch_cuda.py``.
+"""
+
+import functools
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from soc_project_stereo_matching_tpu.ops import pallas_kernels as pk
+from soc_project_stereo_matching_tpu.ops import postprocess as j_post
+from soc_project_stereo_matching_tpu_torch.ops import kernels, postprocess
+from soc_project_stereo_matching_tpu_torch.probes import speckle, speckle_tail
+from soc_project_stereo_matching_tpu_torch.probes import kernels as probe_kernels
+
+REPO = Path(__file__).resolve().parents[1]
+MODES = ("base", "pair", "fori16", "block4", "pyr")
+B = 4           # a multiple of block4's four frames
+
+
+def load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+sp = load_script("speckle_probe")
+stp = load_script("speckle_tail_probe")
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def same(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.fixture
+def no_launch():
+    before = dict(kernels.LAUNCHES)
+    yield
+    assert kernels.LAUNCHES == before
+
+
+def random_frames(seed, h, w, levels=5, holes=0.3):
+    """Small-integer disparities with +inf holes: many components that
+    touch, so the diagonal links and the round order matter."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, levels, (B, h, w)).astype(np.float32)
+    d[rng.random((B, h, w)) < holes] = np.inf
+    return d
+
+
+def hard_frames(h=40, w=24, area=5):
+    """Four frames of hard cases: a full-height line, components of exactly
+    ``area`` and ``area - 1`` pixels, NaN and -inf pixels inside a region,
+    a frame of a single smooth ramp, and a frame with no finite pixel."""
+    rng = np.random.default_rng(7)
+    d = np.full((B, h, w), np.inf, np.float32)
+    d[0] = rng.integers(0, 6, (h, w)).astype(np.float32)
+    d[0][rng.random((h, w)) < 0.55] = np.inf
+    d[0, :, 9:12] = np.inf
+    d[0, :, 10] = 3.0                       # full-height line, kept
+    d[0, 19:26, 15:18] = np.inf
+    d[0, 20:20 + area, 16] = 3.0            # exactly area: kept
+    d[0, 29:36, 19:22] = np.inf
+    d[0, 30:30 + area - 1, 20] = 3.0        # area - 1: removed
+    d[1] = 2.0
+    d[1, 5:9, 5:9] = np.nan                 # not finite: links nothing
+    d[1, 20, :] = -np.inf                   # cuts the frame in two
+    d[1, 30:33, 3:6] = np.inf
+    d[1, 31, 4] = 7.0                       # a lone pixel in a hole
+    d[2] = (np.arange(h)[:, None] * 0.5 + np.arange(w)[None, :] * 0.25)
+    return d                                # d[3]: no finite pixel
+
+
+def frames_of(name):
+    return {"24x40": lambda: random_frames(60, 24, 40),
+            "13x21": lambda: random_frames(61, 13, 21, levels=3, holes=0.2),
+            "hard": hard_frames}[name]()
+
+
+# --- the JAX side -----------------------------------------------------------------------
+
+def j_labels(disp, mode, diff=1.0):
+    """The JAX label kernel of ``mode`` through pallas_call, interpreted:
+    the launches of scripts/speckle_probe.py ``build_labels_fn``."""
+    b, h, w = disp.shape
+    lo_bits = max(pk._ceil_log2(w), 7)
+    gb = sp.GB if mode == "block4" else 1
+    if mode == "base":
+        body = functools.partial(pk._speckle_labels_kernel, h=h, w=w,
+                                 diff=diff, lo_bits=lo_bits)
+    else:
+        body = functools.partial(sp._labels_kernel_variant, h=h, w=w,
+                                 diff=diff, lo_bits=lo_bits, mode=mode)
+    plane = pl.BlockSpec((gb, h, w), lambda bi: (bi, 0, 0))
+    scratch = (gb, h, w) if mode == "block4" else (h, w)
+    return pl.pallas_call(
+        body, grid=(b // gb,), in_specs=[plane], out_specs=plane,
+        out_shape=jax.ShapeDtypeStruct((b, h, w), jnp.int32),
+        scratch_shapes=[pltpu.VMEM(scratch, jnp.int32)],
+        interpret=True)(jnp.asarray(disp))
+
+
+class ArrayRef:
+    """An array standing in for a kernel ref; counts its writes."""
+
+    def __init__(self, value):
+        self.value = jnp.asarray(value)
+        self.writes = 0
+
+    def __getitem__(self, idx):
+        return self.value[idx]
+
+    def __setitem__(self, idx, v):
+        self.value = self.value.at[idx].set(v)
+        self.writes += 1
+
+
+def j_rounds(disp, mode, monkeypatch, diff=1.0):
+    """(labels, rounds per program) of the JAX kernel body of ``mode`` run
+    eagerly: its loops become Python loops, and every iteration writes the
+    label plane once (after the one write that initialises it)."""
+    b, h, w = disp.shape
+    lo_bits = max(pk._ceil_log2(w), 7)
+    gb = sp.GB if mode == "block4" else 1
+    monkeypatch.setattr(pk, "_roll", lambda x, s, axis: jnp.roll(x, s, axis))
+    labels, rounds = [], []
+    with jax.disable_jit():
+        for p in range(b // gb):
+            block = disp[p * gb:(p + 1) * gb]
+            out = ArrayRef(jnp.zeros(block.shape, jnp.int32))
+            mask = ArrayRef(jnp.zeros(block.shape if gb > 1 else (h, w),
+                                      jnp.int32))
+            if mode == "base":
+                pk._speckle_labels_kernel(ArrayRef(block), out, mask, h=h, w=w,
+                                          diff=diff, lo_bits=lo_bits)
+            else:
+                sp._labels_kernel_variant(ArrayRef(block), out, mask, h=h, w=w,
+                                          diff=diff, lo_bits=lo_bits, mode=mode)
+            labels.append(np.asarray(out.value))
+            iterations = out.writes - 1
+            rounds.append(iterations if mode in ("base", "pyr")
+                          else 2 * iterations)      # an iteration is a pair
+    return np.concatenate(labels), rounds
+
+
+def j_group(disp, labels, area, pc):
+    """The tail's input as scripts/speckle_tail_probe.py:203-212 builds it."""
+    b, h, w = disp.shape
+    lo_bits = max(pk._ceil_log2(w), 7)
+    g, band, h_hist = pk._speckle_band_geometry(h, w, area, pc)
+    n = h * w
+    npad = pk._round_up(n, g * pc)
+    sentinel = h_hist << lo_bits
+    flat = jnp.where(jnp.isfinite(disp), labels, jnp.int32(sentinel))
+    flat = jnp.pad(flat.reshape(b, n), ((0, 0), (0, npad - n)),
+                   constant_values=sentinel)
+    geometry = dict(g=g, pc=pc, band=band, lo_bits=lo_bits, a=area, w=w,
+                    h_hist=h_hist)
+    return flat.reshape(b, npad // (g * pc), 1, g * pc), geometry
+
+
+def j_tail(lab_grp, geometry, area, int8):
+    """(counts, root_small, two-launch verdict, fused verdict) of the JAX
+    tail kernels, interpreted: the launches of speckle_tail_probe.py
+    ``build_hist``, ``build_verdict`` and ``tail_fused``."""
+    b, ngroups, _, chunk = lab_grp.shape
+    h_hist, lo = geometry["h_hist"], 1 << geometry["lo_bits"]
+    cdt = jnp.int32 if int8 else jnp.float32
+    mdt = jnp.int8 if int8 else jnp.bfloat16
+    grp = pl.BlockSpec((1, 1, 1, chunk), lambda bi, gi: (bi, gi, 0, 0))
+    root = pl.BlockSpec((1, h_hist, lo), lambda bi, gi: (bi, 0, 0))
+    verdict_shape = jax.ShapeDtypeStruct(lab_grp.shape, jnp.float32)
+    counts = pl.pallas_call(
+        functools.partial(stp._hist_kernel, int8=int8, **geometry),
+        grid=(b, ngroups), in_specs=[grp], out_specs=root,
+        out_shape=jax.ShapeDtypeStruct((b, h_hist, lo), cdt),
+        interpret=True)(lab_grp)
+    small = ((counts > 0) & (counts < area)).astype(mdt)
+    verdict = pl.pallas_call(
+        functools.partial(stp._verdict_kernel, int8=int8, **geometry),
+        grid=(b, ngroups), in_specs=[grp, root], out_specs=grp,
+        out_shape=verdict_shape, interpret=True)(lab_grp, small)
+    grp2 = pl.BlockSpec((1, 1, 1, chunk),
+                        lambda bi, gi: (bi, jax.lax.rem(gi, ngroups), 0, 0))
+    fused = pl.pallas_call(
+        functools.partial(stp._fused_kernel, ngroups=ngroups, min_area=area,
+                          int8=int8, **geometry),
+        grid=(b, 2 * ngroups), in_specs=[grp2], out_specs=grp2,
+        out_shape=verdict_shape,
+        scratch_shapes=[pltpu.VMEM((h_hist, lo), cdt),
+                        pltpu.VMEM((h_hist, lo), mdt)],
+        interpret=True)(lab_grp)
+    return counts, small, verdict, fused
+
+
+# --- (a) S1: the label kernel and its variants -------------------------------------------
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("frames", ["24x40", "13x21", "hard"])
+def test_labels_plain_matches_the_jax_kernel(frames, mode, no_launch):
+    disp = frames_of(frames)
+    got, rounds = probe_kernels.speckle_labels(t(disp), 1.0, mode)
+    assert got.dtype == torch.int32 and got.shape == disp.shape
+    assert rounds.dtype == torch.int32
+    same(got.numpy(), j_labels(disp, mode))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("frames", ["13x21", "hard"])
+def test_labels_plain_runs_the_jax_kernels_rounds(frames, mode, no_launch,
+                                                  monkeypatch):
+    disp = frames_of(frames)
+    got, rounds = probe_kernels.speckle_labels(t(disp), 1.0, mode)
+    want, want_rounds = j_rounds(disp, mode, monkeypatch)
+    same(got.numpy(), want)
+    assert rounds.tolist() == want_rounds
+    if mode == "fori16":
+        assert want_rounds == [probe_kernels.FIXED_ROUNDS] * B
+
+
+@pytest.mark.parametrize("frames", ["24x40", "hard"])
+def test_exact_label_modes_agree_and_equal_the_union_find_roots(frames,
+                                                                no_launch):
+    disp = t(frames_of(frames))
+    base, rounds = probe_kernels.speckle_labels(disp, 1.0, "base")
+    for mode in speckle.EXACT:
+        lab, r = probe_kernels.speckle_labels(disp, 1.0, mode)
+        same(lab.numpy(), base.numpy())
+        if mode == "pyr":
+            assert r.tolist() == rounds.tolist()
+    # K4's roots are flat batch indices: the same pixels, after the map
+    roots = kernels.union_find_labels(disp, 1.0)
+    assert roots.dtype == torch.int32
+    same(probe_kernels.flat_to_root_labels(roots).numpy(), base.numpy())
+
+
+def test_fori16_stops_short_of_the_fixed_point(no_launch):
+    """A serpentine of 1-pixel corridors needs more than 16 rounds, so the
+    unchecked variant returns labels that are no fixed point, and still
+    the JAX kernel's after the same 16 rounds."""
+    h, w = 33, 40
+    d = np.full((B, h, w), np.inf, np.float32)
+    d[:, ::2, :] = 1.0
+    for r in range(1, h, 2):
+        d[:, r, 0 if (r // 2) % 2 else w - 1] = 1.0
+    base, rounds = probe_kernels.speckle_labels(t(d), 1.0, "base")
+    got, _ = probe_kernels.speckle_labels(t(d), 1.0, "fori16")
+    assert int(rounds.max()) > probe_kernels.FIXED_ROUNDS
+    assert not torch.equal(got, base)
+    same(got.numpy(), j_labels(d, "fori16"))
+    same(base.numpy(), j_labels(d, "base"))
+
+
+def test_label_wrapper_refuses_bad_arguments():
+    disp = torch.zeros((2, 8, 8))
+    with pytest.raises(ValueError, match="unknown mode"):
+        probe_kernels.speckle_labels(disp, 1.0, "quad")
+    with pytest.raises(ValueError, match="multiple"):
+        probe_kernels.speckle_labels(disp, 1.0, "block4")
+    with pytest.raises(TypeError):
+        probe_kernels.speckle_labels(disp.double(), 1.0, "base")
+    with pytest.raises(ValueError):          # neither CPU nor CUDA
+        probe_kernels.speckle_labels(disp.to("meta"), 1.0, "base")
+    assert probe_kernels.label_bits(450) == 9 == max(pk._ceil_log2(450), 7)
+    assert probe_kernels.label_bits(21) == 7
+    assert probe_kernels.CC_OFFSETS == pk._CC_OFFSETS
+
+
+# --- (b) S2-S4: histogram, verdict, fused tail ------------------------------------------------
+
+TAIL_CASES = {"banded": (lambda: hard_frames(120, 64, 5)[:2], 5, 256),
+              "24x40": (lambda: random_frames(62, 24, 40)[:2], 8, 256)}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_plain_matches_the_jax_tail_kernels(case, int8, no_launch):
+    make, area, pc = TAIL_CASES[case]
+    disp = make()
+    b, h, w = disp.shape
+    labels, _ = probe_kernels.speckle_labels(t(disp), 1.0, "base")
+    lab_grp, geometry = j_group(jnp.asarray(disp), jnp.asarray(labels.numpy()),
+                                area, pc)
+    if case == "banded":            # the band really is narrower than the frame
+        assert geometry["band"] < geometry["h_hist"]
+    grouped, h_hist, lo_bits = probe_kernels.group_labels(t(disp), labels, area,
+                                                          pc)
+    same(grouped.numpy(), lab_grp)
+    assert (h_hist, lo_bits) == (geometry["h_hist"], geometry["lo_bits"])
+    assert probe_kernels.speckle_band_geometry(h, w, area, pc) == \
+        pk._speckle_band_geometry(h, w, area, pc)
+
+    j_counts, j_small, j_verdict, j_fused = j_tail(lab_grp, geometry, area, int8)
+    counts = probe_kernels.speckle_hist(grouped, h_hist, lo_bits)
+    assert counts.dtype == torch.int32 and counts.shape == j_counts.shape
+    same(probe_kernels.speckle_hist(grouped, h_hist, lo_bits, aggregate=True)
+         .numpy(), counts.numpy())
+    # the band keeps a count exact below min_area and >= min_area above
+    same(counts.clamp(max=area).numpy(),
+         np.minimum(np.asarray(j_counts).astype(np.int32), area))
+    assert int(counts.sum()) == int(np.isfinite(disp).sum())
+    small = probe_kernels.root_small(counts, area)
+    assert small.dtype == torch.int8
+    same(small.numpy() != 0, np.asarray(j_small.astype(jnp.float32)) != 0)
+    verdict = probe_kernels.speckle_verdict(grouped, small)
+    assert verdict.dtype == torch.float32 and verdict.shape == grouped.shape
+    same(verdict.numpy(), j_verdict)
+    for aggregate in (False, True):
+        same(probe_kernels.speckle_tail_fused(grouped, area, h_hist, lo_bits,
+                                              aggregate).numpy(), j_fused)
+    same(verdict.numpy(), j_fused)
+
+
+# --- (c) the verdict applied to the disparity ---------------------------------------------------
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_verdict_gives_the_speckle_filter(case, no_launch, monkeypatch):
+    make, area, pc = TAIL_CASES[case]
+    disp = make()
+    _, h, w = disp.shape
+    labels, _ = probe_kernels.speckle_labels(t(disp), 1.0, "pyr")
+    grouped, h_hist, lo_bits = probe_kernels.group_labels(t(disp), labels, area,
+                                                          pc)
+    verdict = probe_kernels.speckle_tail_fused(grouped, area, h_hist, lo_bits)
+    got = probe_kernels.apply_verdict(
+        t(disp), probe_kernels.ungroup_verdict(verdict, h, w)).numpy()
+    monkeypatch.setattr(pk, "_SPECKLE_PC", pc)
+    same(got, pk.remove_speckles_pallas(jnp.asarray(disp), 1.0, area))
+    same(got, np.stack([np.asarray(j_post.remove_speckles(jnp.asarray(f), 1.0,
+                                                          area)) for f in disp]))
+    same(got, postprocess.remove_speckles(t(disp), 1.0, area).numpy())
+    same(got, kernels.count_verdict(t(disp), kernels.union_find_labels(t(disp)),
+                                    area).numpy())
+    if case == "banded":
+        assert np.isinf(got[0, 31, 20]) and not np.isinf(got[0, 22, 16])
+        assert not np.isinf(got[0, -1, 10])
+
+
+def test_tail_wrappers_refuse_bad_arguments():
+    labels = torch.zeros((1, 1, 1, 64), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        probe_kernels.speckle_hist(labels, 1 << 20, 12)
+    with pytest.raises(ValueError):
+        probe_kernels.speckle_tail_fused(labels, 5, 0, 7)
+    with pytest.raises(ValueError):          # neither CPU nor CUDA
+        probe_kernels.speckle_hist(labels.to("meta"), 16, 7)
+    # a label outside the root plane counts nowhere and is never small
+    labels[0, 0, 0, :4] = torch.tensor([-1, 16 << 7, 5, 5])
+    counts = probe_kernels.speckle_hist(labels, 16, 7)
+    assert int(counts.sum()) == 62 and int(counts[0, 0, 5]) == 2
+    verdict = probe_kernels.speckle_tail_fused(labels, 3, 16, 7)
+    assert verdict[0, 0, 0, :4].tolist() == [0.0, 0.0, 1.0, 1.0]
+
+
+# --- (d) the probe modules ------------------------------------------------------------------------
+
+SMALL = dict(device="cpu", batch=4, h=24, w=40, dmax=16, reps=1)
+HEAD = {"probe", "timestamp", "device", "card", "power_limit", "reps", "batch",
+        "h", "w", "d", "input", "summary", "variants"}
+
+
+@pytest.mark.parametrize("probe,variants,extra_keys", [
+    (speckle, {"prod", "base", "pair", "fori16", "block4", "pyr"},
+     {"finite_fraction"}),
+    (speckle_tail,
+     {"prod", "prod_whole", "base", "base_agg", "hist_only", "hist_only_agg",
+      "verdict_only", "fused", "fused_agg"},
+     {"min_area", "geometry", "largest_component", "checked"}),
+])
+def test_speckle_probe_run_on_cpu_returns_its_schema_untimed(
+        probe, variants, extra_keys, no_launch):
+    doc = probe.run(**SMALL)
+    json.dumps(doc)
+    assert set(doc) == HEAD | extra_keys
+    assert doc["device"] == "cpu" and doc["card"] is None
+    assert set(doc["variants"]) == variants
+    # a CPU run states no device time
+    assert all(rec["ms_per_frame"] is None and rec["ms_per_call"] is None
+               for rec in doc["variants"].values())
+    assert all(v is None or isinstance(v, str)
+               for v in doc["summary"].values())
+    assert "not measured" in probe.report(doc)
+    if probe is speckle:
+        recs = doc["variants"]
+        assert all(recs[m]["bit_equal_labels"] for m in speckle.EXACT + ("prod",))
+        assert recs["pyr"]["rounds"] == recs["base"]["rounds"]
+        assert len(recs["block4"]["rounds"]) == 1
+        assert recs["fori16"]["rounds"] == [16] * 4
+
+
+def test_speckle_probes_refuse_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for probe in (speckle, speckle_tail):
+        with pytest.raises(RuntimeError, match="need a CUDA device"):
+            probe.run()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for name in ("speckle", "speckle_tail"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "soc_project_stereo_matching_tpu_torch.probes",
+             name], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=120)
+        assert proc.returncode != 0 and "needs a CUDA device" in proc.stderr
+        assert "wrote" not in proc.stdout
+
+
+# --- the repair: no entry point falls to the CPU unasked ------------------------------------------
+
+def test_multi_rank_entry_points_need_a_card_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from soc_project_stereo_matching_tpu_torch.parallel import dryrun, multihost
+
+    with pytest.raises(RuntimeError, match="2 cards"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        multihost.initialize("tcp://127.0.0.1:29999", 2, 0)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError):
+        dryrun.dryrun_multichip(2, device="meta")
+    with pytest.raises(SystemExit):
+        dryrun.main(["2", "--device", "gloo"])

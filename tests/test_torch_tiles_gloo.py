@@ -165,3 +165,22 @@ def test_gloo_exact_schedules_equal_untiled_and_local_differs(gloo_results,
     assert not np.array_equal(res["local"], untiled)   # tiles restart paths
     np.testing.assert_array_equal(res["metrics"], [0.5 + 1.5 + 2.5 + 3.5, 40])
     assert int(res["local_batch"]) == 2
+
+
+def test_dryrun_multichip_runs_gloo_ranks_only_when_asked():
+    """``--device cpu`` runs the sweep on two gloo ranks; without it the dry
+    run means NCCL and refuses when the cards are missing."""
+    import torch
+
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": f"{REPO}:{os.environ.get('PYTHONPATH', '')}"}
+    cmd = [sys.executable, "-m",
+           "soc_project_stereo_matching_tpu_torch.parallel.dryrun", "2"]
+    proc = subprocess.run(cmd + ["--device", "cpu"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "dryrun_multichip OK: 2 ranks over gloo, 3 schedule/mesh" in proc.stdout
+    if torch.cuda.device_count() < 2:
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode != 0 and "2 ranks need 2 cards" in proc.stderr
