@@ -10,13 +10,21 @@ Phases (each raises on failure, so the script exits non-zero):
 3. per kernel: K1-K4 (K2's WTA with and without the inverse view) against
    their plain PyTorch versions on the card, bit for bit, at the cone shape
    (B=2, 375x450, D=64) and an off shape (B=2, 37x53, D=48, dmin=8); median
-   CUDA-event times of kernel and plain version at the cone shape;
+   CUDA-event times of kernel and plain version at the cone shape.  The K2
+   scan is the group kernel (one launch per vertical scan order, the
+   horizontal pair on the transposed volume): it is also held against the
+   sum of the first design's launches (``scan_direction``, one per
+   direction), and the horizontal pair against that design's two launches
+   along W;
 4. slice: ``SGMEngine(SGMOptions(), device="cuda").match_batch`` on a B=8
    synthetic 375x450 pair, with every launch counter reset before and read
-   after; the result must be bit-equal to the plain path on the card, a
-   96x160 crop bit-equal to the same engine on the CPU (the plain ops, which
-   the CPU tests hold bit-equal to the JAX package and its numpy oracle), and
-   most finite pixels within 1 of the pair's true disparity; frames/s at B=32;
+   after (the K2 scans must count 2 vertical groups, 2 horizontal scans and
+   3 transposes); the result must be bit-equal to the plain path on the
+   card, a 96x160 crop bit-equal to the same engine on the CPU (the plain
+   ops, which the CPU tests hold bit-equal to the JAX package and its numpy
+   oracle), and most finite pixels within 1 of the pair's true disparity;
+   frames/s at B=32, and the K2 scan times per group at cone B=2, 8 and 32
+   and at 1000x1500 D=256 B=1, beside the first design's;
 5. tile phase (the spatial-tiling path):
    a. kernels: the halo census and the carry-in/out group scan against their
       plain versions, bit for bit, on the H-tiles of the cone shape (B=2,
@@ -86,6 +94,7 @@ TILE_CONE = dict(CONE, k=3)
 MIDDLEBURY_HALF = dict(batch=1, h=1000, w=1500, dmin=0, dmax=256,
                        levels=(40, 90, 150, 200), k=4)
 GROUPS = (((0, 1, -1), False), ((0, -1, 1), True))   # (rolls, reverse)
+HORIZONTAL_PAIR = (("h", False, 0), ("h", True, 0))  # (axis, reverse, roll)
 CROP = (96, 160)
 MIN_GOOD = 0.95     # finite pixels within 1 of the true disparity, at least
 PROBE = dict(batch=8, h=375, w=450, dmax=64)
@@ -98,7 +107,10 @@ PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
 CSRC = "soc_project_stereo_matching_tpu_torch/csrc"
 KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
     "census_cost_volume": (f"{CSRC}/census_cost.cu", f"{PALLAS}:1619"),
-    "aggregate_paths": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
+    "aggregate_paths": (f"{CSRC}/aggregate.cu", f"{PALLAS}:178"),
+    "horizontal_partial": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
+    "volume_transpose": (f"{CSRC}/transpose.cu",
+                         "scripts/aggr_transpose_probe.py:176"),
     "wta_reduce": (f"{CSRC}/aggregate.cu", f"{PALLAS}:1073"),
     "lr_check": (f"{CSRC}/lr_check.cu", f"{PALLAS}:1754"),
     "remove_speckles": (f"{CSRC}/speckle.cu", f"{PALLAS}:1306"),
@@ -110,8 +122,6 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
                     "scripts/recurrence_floor.py:122"),
     "probe_chainio": (f"{CSRC}/probe_recurrence.cu",
                       "scripts/recurrence_floor.py:202"),
-    "probe_transpose": (f"{CSRC}/probe_transpose.cu",
-                        "scripts/aggr_transpose_probe.py:176"),
     "probe_int16": (f"{CSRC}/probe_int16.cu",
                     "scripts/mosaic_int16_probe.py:102"),
     # the speckle probe path
@@ -124,10 +134,14 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
     "probe_speckle_fused": (f"{CSRC}/probe_speckle.cu",
                             "scripts/speckle_tail_probe.py:110"),
 }
-MAIN_PATH = ("census_cost_volume", "aggregate_paths", "wta_reduce", "lr_check",
-             "remove_speckles")
+MAIN_PATH = ("census_cost_volume", "aggregate_paths", "horizontal_partial",
+             "volume_transpose", "wta_reduce", "lr_check", "remove_speckles")
+# launches of the K2 scans per match_batch: the two vertical group scans, the
+# two scans of the horizontal pair and the three transposes around them
+SCAN_LAUNCHES = {"aggregate_paths": 2, "horizontal_partial": 2,
+                 "volume_transpose": 3}
 TILE_PATH = ("census_cost_volume_halo", "directional_scan_group")
-PROBE_PATH = ("probe_chain", "probe_chainio", "probe_transpose", "probe_int16")
+PROBE_PATH = ("probe_chain", "probe_chainio", "probe_int16")
 SPECKLE_PATH = ("probe_speckle_labels", "probe_speckle_hist",
                 "probe_speckle_verdict", "probe_speckle_fused")
 
@@ -232,12 +246,31 @@ def check_kernels(cfg, timed: bool) -> dict:
                           aggregation.aggregate_paths(cost, left, o, mode).to(torch.int32))
               for o, mode in modes)
     aggr = kernels.aggregate_paths(cost, left, opt)
+    # the group kernel against the first design's kernel, one launch per
+    # direction, and the horizontal pair against that kernel's two launches
+    for o, mode in modes:
+        dirs = (aggregation.DIRECTIONS_8 if o.num_paths == 8
+                else aggregation.DIRECTIONS_4)
+        max_abs_err(kernels.aggregate_paths(cost, left, o, mode),
+                    kernels.scan_directions(cost, left, dirs, o.p1, o.p2_init,
+                                            mode == "restart"))
     record("aggregate_paths", err,
            lambda: kernels.aggregate_paths(cost, left, opt),
            lambda: aggregation.aggregate_paths(cost, left, opt),
            # cost and image in, the uint16 volume out; per element and
            # direction 3 mins, 4 adds, a mask, the min over D, the sum
            vol + px + 2 * vol, 8 * 10 * vol, plain_reps=1)
+    hp = lambda: kernels.horizontal_partial(cost, left, opt.p1, opt.p2_init,
+                                            False)
+    hp_plain = lambda: kernels.horizontal_partial_plain(
+        cost, left, opt.p1, opt.p2_init, False)
+    hp_old = lambda: kernels.scan_directions(cost, left, HORIZONTAL_PAIR,
+                                             opt.p1, opt.p2_init)
+    err = max(max_abs_err(hp(), hp_plain()), max_abs_err(hp_old(), hp()))
+    record("horizontal_partial", err, hp, hp_plain,
+           vol + px + 2 * vol, 2 * 10 * vol, plain_reps=1)
+    if timed:
+        out["horizontal_partial"]["first_design_ms"] = cuda_ms(hp_old, 20)
 
     # K2 WTA, with and without the inverse view
     fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
@@ -298,6 +331,54 @@ def check_kernels(cfg, timed: bool) -> dict:
         if kernels.LAUNCHES[name] <= before[name]:
             raise AssertionError(f"{name}: launch counter did not move")
     return out
+
+
+def scan_ladder() -> None:
+    """Print the K2 scan times per direction group: the group kernel beside
+    the first design's per-direction launches, for the vertical groups and
+    the horizontal pair, and all of ``aggregate_paths``; cone B=2, 8, 32 and 1000x1500
+    D=256 B=1.  The first design is checked equal at every shape."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    shapes = [(dict(CONE, batch=b), 5) for b in (2, 8, 32)]
+    shapes.append((MIDDLEBURY_HALF, 3))
+    for cfg, reps in shapes:
+        opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
+        left, right, _ = pair(cfg, seed=6)
+        cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                          opt.max_disparity)
+        p1, p2 = opt.p1, opt.p2_init
+        acc = kernels.horizontal_partial(cost, left, p1, p2, False)
+        rows = {}
+        for name, (rolls, reverse) in zip(("v_forward", "v_reverse"), GROUPS):
+            new = lambda: kernels.directional_scan_group(
+                cost, left, acc, rolls, reverse, p1, p2, False)
+            dirs = [("v", reverse, roll) for roll in rolls]
+            old = lambda: kernels.scan_directions(cost, left, dirs, p1, p2,
+                                                  out=acc)
+            max_abs_err(
+                kernels.directional_scan_group(cost, left, None, rolls,
+                                               reverse, p1, p2, False),
+                kernels.scan_directions(cost, left, dirs, p1, p2))
+            rows[name] = (cuda_ms(new, reps), cuda_ms(old, reps))
+        rows["horizontal"] = (
+            cuda_ms(lambda: kernels.horizontal_partial(cost, left, p1, p2,
+                                                       False), reps),
+            cuda_ms(lambda: kernels.scan_directions(cost, left,
+                                                    HORIZONTAL_PAIR, p1, p2),
+                    reps))
+        whole = cuda_ms(lambda: kernels.aggregate_paths(cost, left, opt), reps)
+        del acc
+        torch.cuda.empty_cache()
+        print(f"K2 scans, {cfg['h']}x{cfg['w']} D={opt.disp_range} "
+              f"B={cfg['batch']} (ms per launch group: group kernel / first "
+              f"design): " + ", ".join(
+                  f"{name} {new:.4f} / {old:.4f}"
+                  for name, (new, old) in rows.items())
+              + f"; aggregate_paths {whole:.4f}")
 
 
 def halo_tiles(img, k: int) -> list:
@@ -369,8 +450,9 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
     out["census_cost_volume_halo"] = {"max_abs_err": err}
 
     # group scans with carries: each tile vs plain on the same carry-in; the
-    # chain equals the untiled group, and with the tile-local horizontal
-    # pair the sum is the main path's aggregate_paths
+    # chain equals the untiled group and the first design's untiled
+    # launches, and with the tile-local horizontal pair the sum is the main
+    # path's aggregate_paths
     err = 0.0
     for restart in (False, True):
         mode = "restart" if restart else "wrap"
@@ -386,6 +468,10 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
             err = max(err, e)
             max_abs_err(chained, kernels.directional_scan_group(
                 cost, left, None, rolls, reverse, p1, p2, restart))
+            # ... and the first design's launches, one per direction
+            max_abs_err(chained, kernels.scan_directions(
+                cost, left, [("v", reverse, roll) for roll in rolls], p1, p2,
+                restart))
             total += chained.int()
         max_abs_err(total, kernels.aggregate_paths(cost, left, opt, mode).int())
     out["directional_scan_group"] = {"max_abs_err": err}
@@ -453,6 +539,9 @@ def tile_engine_phase() -> dict:
     missing = [name for name in TILE_PATH if launches[name] == 0]
     if missing:
         raise AssertionError(f"tiled path launched no {missing}")
+    if launches["directional_scan_group"] != 2:     # one launch per group
+        raise AssertionError(f"tiled path launched {launches}, want 2 group "
+                             f"scans")
     max_abs_err(got, want)
     valid = torch.isfinite(got)
     good = ((got - field).abs() <= 1.0)[valid].float().mean().item()
@@ -524,16 +613,20 @@ def probe_kernel_checks(cfg, full: bool) -> dict:
                                            pk.chainio_plain(*args)))
     out["probe_chainio"] = {"max_abs_err": err}
 
-    # P3: uint8 and uint16, both ways
+    # P3: uint8 and uint16, both ways, contiguous and with the pitch the
+    # main path gives its transposed volumes
     part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    pitch = kernels.TRANSPOSED_PITCH
     err = 0.0
     for vol in (cost, part):
-        there = pk.volume_transpose(vol)
-        err = max(err, max_abs_err(there, pk.volume_transpose_plain(vol)),
-                  max_abs_err(pk.volume_transpose(there), vol))
+        for pad_to in (1, pitch):
+            there = pk.volume_transpose(vol, pad_to=pad_to)
+            want = pk.volume_transpose_plain(vol, None, pad_to)
+            back = pk.volume_transpose(there, inner=h)
+            err = max(err, max_abs_err(there, want), max_abs_err(back, vol))
     if not full:
         max_abs_err(aggr_transpose.hpart_T(cost, left, p1, p2), part)
-    out["probe_transpose"] = {"max_abs_err": err}
+    out["volume_transpose"] = {"max_abs_err": err}
 
     # P4: every rung, and scan16 vs its plain version and vs the K2 scan
     err = 0.0
@@ -559,6 +652,7 @@ def probe_kernel_checks(cfg, full: bool) -> dict:
     x, steps, rolls = shapes["1"]
     paths, vol = b * h, b * h * d * w
     io_args = (x, *rings["1"], steps, rolls, 1, p1)
+    part_t = pk.volume_transpose(part, pad_to=pitch)
     timed = {
         "probe_chain": (
             lambda: pk.chain(x, steps, rolls, p1),
@@ -570,11 +664,12 @@ def probe_kernel_checks(cfg, full: bool) -> dict:
             # + the rings in; ~14 operations per step and disparity
             bound(4 * b * d * h + 4 * b * ring * (d + 1) * h,
                   14 * paths * steps * d), None),
-        "probe_transpose": (
-            lambda: pk.volume_transpose(part),
-            lambda: pk.volume_transpose_plain(part),
+        # the main path's largest: the padded uint16 sums back to (B, H, D, W)
+        "volume_transpose": (
+            lambda: pk.volume_transpose(part_t, inner=h),
+            lambda: pk.volume_transpose_plain(part_t, h),
             bound(2 * 2 * vol, 0),
-            lambda: part.permute(0, 3, 2, 1).contiguous()),
+            lambda: part_t[..., :h].permute(0, 3, 2, 1).contiguous()),
         "probe_int16": (
             lambda: pk.scan16(cost, left, group, False, p1, p2, False),
             lambda: pk.scan16_plain(cost, left, group, False, p1, p2, False),
@@ -722,6 +817,18 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
     valid, idx = pk.label_index(grouped, size)
     idx = idx + torch.arange(b, device=idx.device)[:, None] * size
     counted = idx[valid]
+
+    def verdict_library():
+        """S3's function by PyTorch calls alone, everything inside the timed
+        call: the range test, the int64 index, one gather, f32 0/1 of the
+        labels' shape, 0 for a label outside the root plane."""
+        lab = grouped.reshape(b, -1)
+        inside = (lab >= 0) & (lab < size)
+        hit = small.reshape(b, size).gather(
+            1, lab.clamp(0, size - 1).to(torch.int64)) != 0
+        return (inside & hit).to(torch.float32).reshape(grouped.shape)
+
+    max_abs_err(verdict_library(), pk.speckle_verdict_plain(grouped, small))
     timed = {
         "probe_speckle_labels": (
             lambda: pk.speckle_labels(disp, 1.0, "base"),
@@ -743,8 +850,7 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
             lambda: pk.speckle_verdict_plain(grouped, small),
             # the labels in, the verdict out; of the int8 root plane only the
             # entries that labels point at are read, which is not counted
-            bound(8 * grp, 2 * grp),
-            lambda: small.flatten()[idx]),
+            bound(8 * grp, 2 * grp), verdict_library),
         "probe_speckle_fused": (
             lambda: pk.speckle_tail_fused(grouped, area, h_hist, lo_bits),
             lambda: pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits),
@@ -814,6 +920,8 @@ def main() -> None:
     for name, rec in cone.items():
         print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
               f"(cone B=2 375x450 D=64, bit-equal)")
+    print(f"the horizontal pair by the first design's two launches along W: "
+          f"{cone['horizontal_partial']['first_design_ms']:.4f} ms")
 
     # 4. slice
     engine = SGMEngine(SGMOptions(), device="cuda")
@@ -825,6 +933,9 @@ def main() -> None:
     missing = [name for name in MAIN_PATH if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
+    scans = {name: launches[name] for name in SCAN_LAUNCHES}
+    if scans != SCAN_LAUNCHES:
+        raise AssertionError(f"K2 scans launched {scans}, want {SCAN_LAUNCHES}")
     if not (disp.is_cuda and disp.dtype == torch.float32
             and disp.shape == left.shape):
         raise AssertionError(f"bad output {disp.dtype} {tuple(disp.shape)} "
@@ -846,8 +957,10 @@ def main() -> None:
     ms = cuda_ms(lambda: engine.match_batch(big_l, big_r), 5)
     print(f"slice: bit-equal to the plain path (B={SLICE_BATCH}) and to the "
           f"CPU engine ({ch}x{cw} crop); finite fraction {finite:.4f}, "
-          f"{good:.4f} of them within 1 of the truth; "
+          f"{good:.4f} of them within 1 of the truth; K2 scan launches "
+          f"{scans}; "
           f"B={FPS_BATCH}: {ms:.3f} ms/batch = {FPS_BATCH / ms * 1e3:.2f} frames/s")
+    scan_ladder()
 
     # 5. tile phase
     check_tile_kernels(MIDDLEBURY_HALF, timed=False)
@@ -871,7 +984,7 @@ def main() -> None:
     records, probe_launches = probe_phase()
     cone.update(records)
     launches.update(probe_launches)
-    for name in PROBE_PATH:
+    for name in PROBE_PATH + ("volume_transpose",):
         rec = cone[name]
         print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
               f"ms (cone B={PROBE['batch']} 375x450 D=64, bit-equal; also at "

@@ -35,7 +35,8 @@ SIGNATURES = {
     "sgm_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_scan_direction": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
-    "sgm_scan_carry": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "sgm_scan_group": (_P,) * 8 + (_I,) * 14 + (_P,),
+    "sgm_scan_group_capacity": (_P, _P, _I, _I, _I, _P),
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
@@ -44,7 +45,7 @@ SIGNATURES = {
     "sgm_probe_chain": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
     "sgm_probe_chainio": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
                           _P),
-    "sgm_probe_transpose": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "sgm_volume_transpose": (_P, _P) + (_I,) * 7 + (_P,),
     "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 10 + (_P,),
     "sgm_probe_speckle_labels": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),

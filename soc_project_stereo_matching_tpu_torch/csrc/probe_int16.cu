@@ -25,7 +25,7 @@
 //   p10  the arithmetic min y + ((x - y) & ((x - y) >> 15))
 //
 // `scan16` is p7: a group of vertical directions over a (B, S, D, W) cost
-// volume, as sgm_scan_carry without carries (aggregate.cu): one warp per
+// volume, as sgm_scan_direction walks it (aggregate.cu): one warp per
 // path, reverse, the wrapping diagonals or restart, P1, and P2 from the two
 // gray values along the path.  Its state is packed: a lane holds 2 NP
 // consecutive disparities in NP registers.  L(d-1) and L(d+1) are each one

@@ -35,7 +35,11 @@
 //   What bounds them: bytes (4 per pixel in, 4 out) and, for S2, atomics on
 //   one word per large component; `aggregate` lets a warp add once per
 //   distinct label (__match_any_sync).  S4 needs every count of a frame
-//   before any verdict: a cluster per frame, cluster.sync() between.
+//   before any verdict: a cluster per frame, cluster.sync() between.  S3 at
+//   the probe's shape moves 11 MB and a launch's latency bounds it; its
+//   design keeps the instruction count down: the frame is a grid axis, a
+//   thread loads four labels in 16 bytes, has its four gathers in flight
+//   together and stores 16 bytes.
 
 #include <cmath>
 #include <cstdint>
@@ -51,7 +55,9 @@ constexpr int kThreads = 1024;            // of a cluster's block
 constexpr int kWarps = kThreads / 32;
 constexpr int kClusterThreads = kClusterBlocks * kThreads;
 constexpr int kClusterWarps = kClusterBlocks * kWarps;
-constexpr int kFlatThreads = 256;         // of S2 and S3
+constexpr int kFlatThreads = 256;         // of S2
+constexpr int kVerdictThreads = 256;      // of S3
+constexpr int kVerdictLabels = 4;         // labels a thread of S3 takes
 constexpr int kFixedRounds = 16;          // of fori16
 constexpr int kBlockFrames = 4;           // of block4
 constexpr int kBatch = 4;                 // pixels a thread has in flight
@@ -503,16 +509,45 @@ __global__ void hist_kernel(const int* __restrict__ lab, int* counts,
   add_count(counts, valid, valid ? (i / per_frame) * size + l : 0, aggregate);
 }
 
-__global__ void verdict_kernel(const int* __restrict__ lab,
-                               const signed char* __restrict__ small,
-                               float* __restrict__ out, int total,
-                               int per_frame, int size) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int l = lab[i];
-  const bool hit = (unsigned)l < (unsigned)size &&
-                   small[(size_t)(i / per_frame) * size + l] != 0;
-  out[i] = hit ? 1.0f : 0.0f;
+// S3.  The frame is blockIdx.y (no division); a thread takes four
+// neighbouring labels (one 16-byte load where `wide`: per_frame a multiple of
+// 4 and both planes 16-byte aligned), issues its four byte gathers into the
+// frame's root plane before it waits for any, and stores four verdicts (one
+// 16-byte store).  The tail of a frame is masked.
+__global__ void __launch_bounds__(kVerdictThreads)
+verdict_kernel(const int* __restrict__ lab,
+               const signed char* __restrict__ small, float* __restrict__ out,
+               int per_frame, int size, int wide) {
+  const int frame = blockIdx.y;
+  lab += (size_t)frame * per_frame;
+  out += (size_t)frame * per_frame;
+  small += (size_t)frame * size;
+  const int i = (blockIdx.x * kVerdictThreads + threadIdx.x) * kVerdictLabels;
+  if (i >= per_frame) return;
+  const bool whole = wide && i + kVerdictLabels <= per_frame;
+  int l[kVerdictLabels];
+  if (whole) {
+    const int4 v = *reinterpret_cast<const int4*>(lab + i);
+    l[0] = v.x, l[1] = v.y, l[2] = v.z, l[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVerdictLabels; ++j)
+      l[j] = i + j < per_frame ? lab[i + j] : -1;
+  }
+  signed char hit[kVerdictLabels];
+#pragma unroll
+  for (int j = 0; j < kVerdictLabels; ++j)
+    hit[j] = (unsigned)l[j] < (unsigned)size ? small[l[j]] : (signed char)0;
+  float r[kVerdictLabels];
+#pragma unroll
+  for (int j = 0; j < kVerdictLabels; ++j) r[j] = hit[j] != 0 ? 1.0f : 0.0f;
+  if (whole) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVerdictLabels; ++j)
+      if (i + j < per_frame) out[i + j] = r[j];
+  }
 }
 
 // A cluster per frame: zero the counts, count, then read the verdicts.
@@ -592,14 +627,16 @@ extern "C" int sgm_probe_speckle_hist(const void* lab, void* counts, int B,
 extern "C" int sgm_probe_speckle_verdict(const void* lab, const void* small,
                                          void* out, int B, int per_frame,
                                          int size, void* stream) {
-  if (!fits_int((long long)B * per_frame + kFlatThreads))
+  if (B == 0 || per_frame == 0) return 0;
+  constexpr int kPerBlock = kVerdictThreads * kVerdictLabels;
+  if (B > 65535 || !fits_int((long long)per_frame + kPerBlock))
     return (int)cudaErrorInvalidValue;
-  const int total = B * per_frame;
-  if (total == 0) return 0;
-  verdict_kernel<<<(total + kFlatThreads - 1) / kFlatThreads, kFlatThreads, 0,
-                   (cudaStream_t)stream>>>(
-      (const int*)lab, (const signed char*)small, (float*)out, total,
-      per_frame, size);
+  const int wide = per_frame % kVerdictLabels == 0 &&
+                   (((uintptr_t)lab | (uintptr_t)out) & 15) == 0;
+  verdict_kernel<<<dim3((per_frame + kPerBlock - 1) / kPerBlock, B),
+                   kVerdictThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)lab, (const signed char*)small, (float*)out, per_frame, size,
+      wide);
   return (int)cudaGetLastError();
 }
 

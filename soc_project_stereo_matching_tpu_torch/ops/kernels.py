@@ -5,11 +5,19 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
 
     census_cost_volume      K1 csrc/census_cost.cu  <- census_cost_volume_pallas
                                (img_has_halo=True: the tiled path's mode)
-    aggregate_paths         K2 csrc/aggregate.cu    <- the DP scan kernels
-    horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial
-    scan_direction          K2 csrc/aggregate.cu    one direction alone
+    aggregate_paths         K2 csrc/aggregate.cu    <- the DP scan kernels: the
+                               horizontal pair, then one group launch per
+                               vertical scan order
+    horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial: three
+                               transposes around two one-direction groups on
+                               the transposed volume
+    volume_transpose        P3 csrc/transpose.cu    <- aggr_transpose_probe.py
+                               (the transposes around the horizontal pair)
     directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group
-                               (with the cross-tile carry-in/out)
+                               (with the cross-tile carry-in/out), one launch
+    scan_direction          K2 csrc/aggregate.cu    one direction alone, the
+                               first design's kernel (a warp per path);
+                               scan_directions sums several such launches
     wta_reduce              K2 csrc/aggregate.cu    <- wta_reduce_pallas
     lr_check                K3 csrc/lr_check.cu     <- lr_check_pallas
     remove_speckles         K4 csrc/speckle.cu      <- remove_speckles_pallas
@@ -21,15 +29,19 @@ that name.  A wrapper given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
 returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
-call.  The counter is the wrapper's name, except that the halo census
-counts as ``census_cost_volume_halo``, ``horizontal_partial`` and
-``scan_direction`` as ``aggregate_paths``, whose launches they make, and
+call that launches (``group_capacity`` only asks).  The counter is the wrapper's name, except that the halo census
+counts as ``census_cost_volume_halo``, ``scan_direction`` as
+``aggregate_paths`` (``aggregate_paths`` itself counts its vertical group
+launches; its horizontal pair counts as ``horizontal_partial``, two scans,
+and ``volume_transpose``, three), and
 ``union_find_labels`` and ``count_verdict`` as ``remove_speckles``, whose
 stages they are.  The ``probe_*`` counters belong to the wrappers in
 ``probes/kernels.py``.  There is no fallback: any other device raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -44,8 +56,9 @@ from .wta import WTAPlanes
 LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "lr_check": 0, "remove_speckles": 0,
             "census_cost_volume_halo": 0, "directional_scan_group": 0,
+            "volume_transpose": 0, "horizontal_partial": 0,
             # the probe kernels, launched by probes/kernels.py
-            "probe_chain": 0, "probe_chainio": 0, "probe_transpose": 0,
+            "probe_chain": 0, "probe_chainio": 0,
             "probe_int16": 0, "probe_speckle_labels": 0,
             "probe_speckle_hist": 0, "probe_speckle_verdict": 0,
             "probe_speckle_fused": 0}
@@ -150,26 +163,133 @@ def _check_scan(cost: torch.Tensor, img: torch.Tensor):
     return b, s, d, w
 
 
+MAX_GROUP = 3       # most directions of one sgm_scan_group launch
+P_CLAMP = 1024      # the kernel clamps P1 and P2': beyond 255 they never win
+# the transposed volumes' rows are padded to this many elements, so that
+# every row starts on a 16-byte boundary (the padding: zero cost, zero gray,
+# paths of their own that the way back drops)
+TRANSPOSED_PITCH = 16
+
+
+def scan_groups(num_paths: int):
+    """The vertical directions of ``DIRECTIONS_8/4`` by scan order:
+    ((rolls, reverse), ...), as the JAX package groups them."""
+    if num_paths == 8:
+        return (((0, 1, -1), False), ((0, -1, 1), True))
+    return (((0,), False), ((0,), True))
+
+
+def p2_table(p1: int, p2_init: int) -> torch.Tensor:
+    """The group kernel's table of P2' by |gray difference| (int64, 256):
+    ``max(P1, P2_init // (diff + 1))``, clamped like the kernel's."""
+    diff = torch.arange(256)
+    return torch.clamp(p2_init // (diff + 1), min=p1, max=P_CLAMP)
+
+
+def _lanes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return lo | (hi << 16)
+
+
+def packed_step_plain(prev, prev_min, prev_gray, cost_row, gray_row, p1: int,
+                      p2_init: int) -> torch.Tensor:
+    """``aggregation._dp_step`` the way the group kernel computes it: two
+    neighbouring columns in the 16-bit lanes of one word, P2' from
+    ``p2_table``, P1 clamped, lane-wise minima, one add-and-min, and
+    ``(cost + m - pmin) & 0x00FF00FF``.  int (..., D, P) rows with P even ->
+    the (..., D, P) int64 step result; for the tests, which hold it against
+    ``_dp_step`` over the uint8 domain."""
+    def pack(x):
+        x = x.to(torch.int64)
+        return _lanes(x[..., 0::2], x[..., 1::2])
+
+    def vmin(a, b):     # per 16-bit lane
+        return _lanes(torch.minimum(a & 0xFFFF, b & 0xFFFF),
+                      torch.minimum(a >> 16, b >> 16))
+
+    sent = _lanes(torch.tensor(aggregation.SENTINEL),
+                  torch.tensor(aggregation.SENTINEL))
+    table = p2_table(p1, p2_init)
+    p2 = table[(gray_row.to(torch.int64) - prev_gray.to(torch.int64)).abs()]
+    pmin = pack(prev_min)
+    pp2 = (pmin + pack(p2))[..., None, :]
+    wc = pack(prev)
+    pad = torch.full_like(wc[..., :1, :], int(sent))
+    wm = torch.cat([pad, wc[..., :-1, :]], dim=-2)
+    wp = torch.cat([wc[..., 1:, :], pad], dim=-2)
+    p1pk = min(p1, P_CLAMP) * 0x00010001
+    near = vmin(vmin(wm, wp) + p1pk, wc)            # __viaddmin_u16x2
+    m = vmin(near, pp2)
+    cur = (pack(cost_row) + m - pmin[..., None, :]) & 0x00FF00FF
+    out = torch.empty(prev.shape, dtype=torch.int64)
+    out[..., 0::2] = cur & 0xFFFF
+    out[..., 1::2] = cur >> 16
+    return out
+
+
+def _check_penalties(p1: int, p2_init: int) -> None:
+    if p1 < 0 or p2_init < 0:
+        raise ValueError(f"penalties must be >= 0, got P1={p1}, "
+                         f"P2_init={p2_init}")
+
+
+def group_capacity(cost: torch.Tensor, out: torch.Tensor) -> int:
+    """The most directions one ``sgm_scan_group`` launch takes for this
+    uint8 (B, S, D, W) cost and uint16 sum on the current card: as many as
+    the kernel's on-chip state has room for, ``MAX_GROUP`` at most."""
+    b, _, d, w = cost.shape
+    dirs = ctypes.c_int(0)
+    err = _build.load().sgm_scan_group_capacity(
+        cost.data_ptr(), out.data_ptr(), b, d, w, ctypes.addressof(dirs))
+    if err != 0:
+        raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
+    if dirs.value < 1:
+        raise ValueError(f"D={d}, W={w}: a row's scan state does not fit "
+                         f"the group kernel's on-chip memory")
+    return dirs.value
+
+
+def _launch_groups(counter: str, cost, img, out, rolls, reverse: bool,
+                   p1: int, p2_init: int, restart: bool, accumulate: bool,
+                   carry_in=(None, None), prev_gray=None,
+                   carry_out=(None, None)) -> None:
+    """``sgm_scan_group`` over ``rolls``, ``group_capacity`` directions a
+    launch (all of them in one, except for rows too large to keep three
+    directions' state on chip): the sum of their contributions stored (or,
+    with ``accumulate``, added) into ``out``."""
+    b, s, d, w = cost.shape
+    n = len(rolls)
+    _check_penalties(p1, p2_init)
+    stream = _stream(out)
+    per_launch = group_capacity(cost, out)
+    for k0 in range(0, n, per_launch):
+        sub = tuple(rolls[k0:k0 + per_launch])
+        _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
+                out.data_ptr(), _ptr(carry_in[0], k0 * d * w),
+                _ptr(carry_in[1], k0 * w), _ptr(prev_gray),
+                _ptr(carry_out[0], k0 * d * w), _ptr(carry_out[1], k0 * w),
+                b, s, d, w, len(sub), *(sub + (0,) * MAX_GROUP)[:MAX_GROUP],
+                n, int(reverse), int(restart), p1, p2_init,
+                int(accumulate or k0 > 0), stream)
+
+
 def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                     options: SGMOptions,
                     diagonal_mode: str = "wrap") -> torch.Tensor:
     """uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> uint16 (B, H, D, W)
-    aggregated volume; one launch per direction of ``DIRECTIONS_8/4``."""
+    aggregated volume: the horizontal pair (``horizontal_partial``), then one
+    group launch per vertical scan order of ``DIRECTIONS_8/4`` added onto
+    it."""
     if _on_cpu(cost, img_left):
         return aggregation.aggregate_paths(cost, img_left, options, diagonal_mode)
-    b, h, d, w = _check_scan(cost, img_left)
+    _check_scan(cost, img_left)
     if diagonal_mode not in ("wrap", "restart"):
         raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
-    out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
-    dirs = (aggregation.DIRECTIONS_8 if options.num_paths == 8
-            else aggregation.DIRECTIONS_4)
-    stream = _stream(out)
-    for i, (axis, reverse, roll) in enumerate(dirs):
-        _launch("sgm_scan_direction", "aggregate_paths", cost.data_ptr(),
-                img_left.data_ptr(), out.data_ptr(), b, h, d, w,
-                int(axis == "v"), int(reverse), roll,
-                int(diagonal_mode == "restart"), options.p1, options.p2_init,
-                int(i > 0), stream)
+    restart = diagonal_mode == "restart"
+    out = horizontal_partial(cost, img_left, options.p1, options.p2_init,
+                             restart)
+    for rolls, reverse in scan_groups(options.num_paths):
+        _launch_groups("aggregate_paths", cost, img_left, out, rolls, reverse,
+                       options.p1, options.p2_init, restart, True)
     return out
 
 
@@ -190,12 +310,13 @@ def scan_direction_plain(cost, img, axis: str, reverse: bool, roll: int,
 def scan_direction(cost: torch.Tensor, img: torch.Tensor, axis: str,
                    reverse: bool, roll: int, p1: int, p2_init: int,
                    restart: bool = False, out=None) -> torch.Tensor:
-    """One direction of ``DIRECTIONS_8`` alone, one launch of the K2 scan:
-    uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> its uint16
-    (B, H, D, W) contribution.  ``axis`` 'h' scans over W, 'v' over H
-    (``roll`` +-1: the diagonals).  With ``out`` (uint16, same shape) the
-    contribution is added onto it in place.  For the measurement tools: the
-    main path goes through ``aggregate_paths``."""
+    """One direction of ``DIRECTIONS_8`` alone, one launch of the first
+    design's scan kernel (a warp per path): uint8 (B, H, D, W) cost + uint8
+    (B, H, W) image -> its uint16 (B, H, D, W) contribution.  ``axis`` 'h'
+    scans over W, 'v' over H (``roll`` +-1: the diagonals).  With ``out``
+    (uint16, same shape) the contribution is added onto it in place.  For
+    the measurement tools and as a second reference for the group kernel:
+    the main path goes through ``aggregate_paths``."""
     if axis not in ("h", "v"):
         raise ValueError(f"unknown axis {axis!r}")
     if _on_cpu(cost, img, *(() if out is None else (out,))):
@@ -220,6 +341,19 @@ def scan_direction(cost: torch.Tensor, img: torch.Tensor, axis: str,
     return out
 
 
+def scan_directions(cost: torch.Tensor, img: torch.Tensor, directions,
+                    p1: int, p2_init: int, restart: bool = False,
+                    out=None) -> torch.Tensor:
+    """The sum over ``directions`` = ((axis, reverse, roll), ...) of
+    ``scan_direction``, one launch of the first design's kernel each, every
+    launch after the first a read-modify-write of the volume (added onto
+    ``out`` if given): what the group kernel is measured against."""
+    for axis, reverse, roll in directions:
+        out = scan_direction(cost, img, axis, reverse, roll, p1, p2_init,
+                             restart, out=out)
+    return out
+
+
 def horizontal_partial_plain(cost, img, p1: int, p2_init: int,
                              restart: bool) -> torch.Tensor:
     mode = "restart" if restart else "wrap"
@@ -230,20 +364,88 @@ def horizontal_partial_plain(cost, img, p1: int, p2_init: int,
     return total.transpose(-1, -3).to(torch.uint16)
 
 
+def _padded(n: int, pad_to: int) -> int:
+    return -(-n // pad_to) * pad_to
+
+
+def volume_transpose_plain(x: torch.Tensor, inner=None,
+                           pad_to: int = 1) -> torch.Tensor:
+    b, a, d, c = x.shape
+    inner = c if inner is None else inner
+    out = x.new_zeros((b, inner, d, _padded(a, pad_to)))
+    out[..., :a] = x[..., :inner].permute(0, 3, 2, 1)
+    return out
+
+
+def volume_transpose(x: torch.Tensor, inner=None,
+                     pad_to: int = 1) -> torch.Tensor:
+    """P3.  (B, A, D, C) -> (B, C, D, A), elements of 1 or 2 bytes: the
+    swap of a volume's outer and inner axis, D kept.  One launch.
+
+    The internal pitch of the transposed volumes: with ``pad_to`` the
+    result's inner axis is padded with zeros to a multiple of it,
+    (B, C, D, A') with A' >= A; with ``inner`` only the first ``inner``
+    columns of ``x`` are read (the way back: ``inner`` = the A of before),
+    giving (B, inner, D, A)."""
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"x: expected a contiguous 4-d volume, got "
+                         f"{tuple(x.shape)}")
+    b, a, d, c = x.shape
+    inner = c if inner is None else inner
+    if not 0 <= inner <= c or pad_to < 1:
+        raise ValueError(f"inner={inner} of {c} columns, pad_to={pad_to}")
+    if _on_cpu(x):
+        return volume_transpose_plain(x, inner, pad_to)
+    if x.element_size() not in (1, 2):
+        raise TypeError(f"x: expected 1- or 2-byte elements, got {x.dtype}")
+    pitch = _padded(a, pad_to)
+    out = torch.empty((b, inner, d, pitch), dtype=x.dtype, device=x.device)
+    _launch("sgm_volume_transpose", "volume_transpose", x.data_ptr(),
+            out.data_ptr(), b, a, d, inner, c, pitch, x.element_size(),
+            _stream(out))
+    return out
+
+
+def image_transpose(img: torch.Tensor, pad_to: int = 1) -> torch.Tensor:
+    """uint8 (B, H, W) -> (B, W, H'), by the volume kernel at D = 1."""
+    return volume_transpose(img[:, :, None, :], pad_to=pad_to).squeeze(2)
+
+
+def horizontal_pair_transposed(cost_t: torch.Tensor, img_t: torch.Tensor,
+                               p1: int, p2_init: int) -> torch.Tensor:
+    """Both horizontal directions on a transposed volume: uint8 (B, W, D, H)
+    cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum.  There a
+    horizontal path is a column: two one-direction groups, forward and
+    reverse, the second adding onto the first."""
+    if _on_cpu(cost_t, img_t):
+        return sum(aggregation.directional_scan(cost_t, img_t, p1, p2_init,
+                                                reverse)[0]
+                   for reverse in (False, True)).to(torch.uint16)
+    _check_scan(cost_t, img_t)
+    part_t = torch.empty(cost_t.shape, dtype=torch.uint16,
+                         device=cost_t.device)
+    for reverse in (False, True):
+        _launch_groups("horizontal_partial", cost_t, img_t, part_t, (0,),
+                       reverse, p1, p2_init, False, reverse)
+    return part_t
+
+
 def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
                        p2_init: int, restart: bool) -> torch.Tensor:
     """Both horizontal directions: uint8 (B, H, D, W) cost + uint8 (B, H, W)
     image -> their uint16 (B, H, D, W) sum.  Tile-local in the H-tiled
-    layout; two launches of the K2 scan."""
+    layout.  Nothing walks the volume along W: the cost and the image are
+    transposed, the pair runs as two one-direction groups along the
+    (B, W, D, H) volume's columns, and the sum is transposed back (3
+    transposes, 2 scans).  ``restart`` changes nothing here (it resets
+    diagonals); the argument mirrors the entry this replaces."""
     if _on_cpu(cost, img):
         return horizontal_partial_plain(cost, img, p1, p2_init, restart)
-    b, h, d, w = _check_scan(cost, img)
-    out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
-    for reverse in (False, True):
-        _launch("sgm_scan_direction", "aggregate_paths", cost.data_ptr(),
-                img.data_ptr(), out.data_ptr(), b, h, d, w, 0, int(reverse), 0,
-                int(restart), p1, p2_init, int(reverse), _stream(out))
-    return out
+    _, h, _, _ = _check_scan(cost, img)
+    part_t = horizontal_pair_transposed(
+        volume_transpose(cost, pad_to=TRANSPOSED_PITCH),
+        image_transpose(img, pad_to=TRANSPOSED_PITCH), p1, p2_init)
+    return volume_transpose(part_t, inner=h)
 
 
 def _edge_gray(img: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -284,7 +486,7 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     (0, 1, -1)) over an H-tile: uint8 (B, S, D, W) cost + uint8 (B, S, W)
     image -> the uint16 (B, S, D, W) sum of their contributions, added in
     place onto ``acc`` (uint16, same shape) and returned when ``acc`` is
-    given.  One launch per direction.
+    given.
 
     Carry mode, with the Pallas entry's layout: ``carry_in`` = int32
     (cost (B, n, D, W), min (B, n, 1, W)) continues the upstream tile's
@@ -292,7 +494,10 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     ``(sum, carry_out)``, the state after the tile's last row (its first
     for ``reverse``).  ``prev_gray``: the upstream tile's uint8 (B, W)
     boundary row, for P2 on the first row (default: the wrapped edge row of
-    ``img``, as the Pallas entry's P2 planes without ``prev_row``)."""
+    ``img``, as the Pallas entry's P2 planes without ``prev_row``).
+
+    One launch (see ``group_capacity``): the group's sum is formed on chip
+    and the uint16 volume is touched once."""
     if prev_gray is None and carry_in is not None:
         prev_gray = _edge_gray(img, reverse)
     extra = [t for t in (acc, prev_gray, *(carry_in or ())) if t is not None]
@@ -326,15 +531,9 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     if has_carry:
         cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
         cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
-    stream = _stream(out)
-    for k, roll in enumerate(rolls):
-        _launch("sgm_scan_carry", "directional_scan_group", cost.data_ptr(),
-                img.data_ptr(), out.data_ptr(), _ptr(cin_cost, k * d * w),
-                _ptr(cin_min, k * w), _ptr(prev_gray),
-                _ptr(cout_cost, k * d * w),
-                _ptr(cout_min, k * w), b, s, d, w, n, int(reverse), roll,
-                int(restart), p1, p2_init, int(acc is not None or k > 0),
-                stream)
+    _launch_groups("directional_scan_group", cost, img, out, tuple(rolls),
+                   reverse, p1, p2_init, restart, acc is not None,
+                   (cin_cost, cin_min), prev_gray, (cout_cost, cout_min))
     return (out, (cout_cost, cout_min)) if has_carry else out
 
 

@@ -209,8 +209,7 @@ def _tiled_forward_kernels(lefts, rights, options: SGMOptions, mesh: Mesh,
         cost[:, border] = fix.to(torch.uint8)
 
     part = kernels.horizontal_partial(cost, lefts, p1, p2i, restart)
-    groups = (((0, 1, -1), False), ((0, -1, 1), True)) \
-        if options.num_paths == 8 else (((0,), False), ((0,), True))
+    groups = kernels.scan_groups(options.num_paths)
     if cross_tile == "local" or mesh.tile == 1:
         for rolls, reverse in groups:
             part = kernels.directional_scan_group(cost, lefts, part, rolls,

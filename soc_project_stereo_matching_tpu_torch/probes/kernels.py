@@ -2,8 +2,11 @@
 
     chain             P1 csrc/probe_recurrence.cu <- recurrence_floor.py chain_kernel
     chainio           P2 csrc/probe_recurrence.cu <- recurrence_floor.py chainio_kernel
-    volume_transpose  P3 csrc/probe_transpose.cu  <- aggr_transpose_probe.py
-                         (both bodies of its transpose kernel)
+    volume_transpose  P3 csrc/transpose.cu        <- aggr_transpose_probe.py
+                         (both bodies of its transpose kernel; a main-path
+                         kernel since the horizontal pair runs on the
+                         transposed volume: it lives in ``ops/kernels.py``
+                         and is imported here)
     rung, scan16      P4 csrc/probe_int16.cu      <- mosaic_int16_probe.py rungs
                          and the ``compute16`` group scan
     speckle_labels    S1 csrc/probe_speckle.cu    <- speckle_probe.py: the label
@@ -18,7 +21,7 @@ kernel is compared with it bit for bit.  A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it checks them, launches on the
 current stream, raises on a CUDA error and adds one to its counter in
 ``ops.kernels.LAUNCHES`` per C entry call (``probe_chain``,
-``probe_chainio``, ``probe_transpose``; ``rung`` and ``scan16`` share
+``probe_chainio``; the transpose counts as ``volume_transpose``; ``rung`` and ``scan16`` share
 ``probe_int16``, and ``scan16`` counts one per direction; S1-S4 count as
 ``probe_speckle_labels``, ``probe_speckle_hist``, ``probe_speckle_verdict``
 and ``probe_speckle_fused``).  There is no fallback.
@@ -34,7 +37,8 @@ import torch
 import numpy as np
 
 from ..ops import kernels as ops_kernels
-from ..ops.kernels import _check, _launch, _on_cpu, _stream
+from ..ops.kernels import (_check, _launch, _on_cpu, _stream,  # noqa: F401
+                           volume_transpose, volume_transpose_plain)
 from ..ops.postprocess import _shift2d
 
 SENTINEL = 255
@@ -193,29 +197,6 @@ def chainio(x: torch.Tensor, cost_ring: torch.Tensor, p2_ring: torch.Tensor,
     _launch("sgm_probe_chainio", "probe_chainio", x.data_ptr(),
             cost_ring.data_ptr(), p2_ring.data_ptr(), out.data_ptr(), b, d, p,
             steps, n, ctypes.addressof(arr), ring, extra_u16, p1, _stream(out))
-    return out
-
-
-# --- P3: the volume transpose -------------------------------------------------------
-
-def volume_transpose_plain(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 2, 1).contiguous()
-
-
-def volume_transpose(x: torch.Tensor) -> torch.Tensor:
-    """P3.  (B, A, D, C) -> (B, C, D, A), elements of 1 or 2 bytes: the
-    swap of a volume's outer and inner axis, D kept.  One launch."""
-    if _on_cpu(x):
-        return volume_transpose_plain(x)
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"x: expected a contiguous 4-d volume, got "
-                         f"{tuple(x.shape)}")
-    if x.element_size() not in (1, 2):
-        raise TypeError(f"x: expected 1- or 2-byte elements, got {x.dtype}")
-    b, a, d, c = x.shape
-    out = torch.empty((b, c, d, a), dtype=x.dtype, device=x.device)
-    _launch("sgm_probe_transpose", "probe_transpose", x.data_ptr(),
-            out.data_ptr(), b, a, d, c, x.element_size(), _stream(out))
     return out
 
 
@@ -610,7 +591,8 @@ def speckle_verdict(labels: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
     _launch("sgm_probe_speckle_verdict", "probe_speckle_verdict",
             labels.data_ptr(), small.data_ptr(), out.data_ptr(), b,
-            labels[0].numel(), small[0].numel(), _stream(out))
+            labels.shape[1] * labels.shape[3], small.shape[1] * small.shape[2],
+            _stream(out))
     return out
 
 

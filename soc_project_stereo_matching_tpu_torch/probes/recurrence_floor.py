@@ -19,10 +19,15 @@ what the recurrence itself allows:
                  P2 load, row store), m = + one uint16 row read-add (a pass
                  that accumulates), b = + two (the backward pass of a group
                  that also carries a parked sum)
-    prod1        the shipped horizontal launch (ops.kernels.scan_direction)
-    prod1v       one shipped vertical launch
-    prod3        the shipped vertical group, three launches
+    prod1        one horizontal launch of the first design's kernel, a warp
+                 per path (ops.kernels.scan_direction)
+    prod1v       one vertical launch of the same kernel
+    prod3_old    a vertical group by that kernel, three launches
+                 (ops.kernels.scan_directions)
+    prod3        the shipped vertical group, one launch of the group kernel
                  (ops.kernels.directional_scan_group)
+    hpart        the shipped horizontal pair: three transposes and two group
+                 launches (ops.kernels.horizontal_partial)
     bw_stream    x + 1 on an int16 (B, H, D, W) volume: the memory stream a
                  launch's loads and stores can draw on, in GB/s
 
@@ -34,7 +39,8 @@ launches (two horizontal, six vertical):
 
     floor        2 chain1 + 6 chain1v
     achievable   sum over the eight launches of max(chainio, bytes / stream)
-    prod         2 prod1 + 2 prod3
+    prod         hpart + 2 prod3: the shipped aggregation
+    prod_old     2 prod1 + 2 prod3_old: the first design's eight launches
 
 A launch's mandatory bytes: the cost volume read once and the uint16 sum
 read and written (the first launch only writes it).
@@ -110,16 +116,26 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
                               note=note)
 
     production = {
-        "prod1": ("the shipped horizontal launch",
+        "prod1": ("first design (a warp per path), one horizontal launch",
                   lambda: ops_kernels.scan_direction(cost, left, "h", False,
                                                      0, p1, p2)),
-        "prod1v": ("one shipped vertical launch",
+        "prod1v": ("first design, one vertical launch",
                    lambda: ops_kernels.scan_direction(cost, left, "v", False,
                                                       0, p1, p2)),
-        "prod3": ("the shipped vertical group, three launches",
+        "prod3_old": ("first design, the vertical group in three launches",
+                      lambda: ops_kernels.scan_directions(
+                          cost, left, [("v", False, roll) for roll in GROUP],
+                          p1, p2)),
+        "prod3": ("group kernel, the shipped vertical group in one launch",
                   lambda: ops_kernels.directional_scan_group(
                       cost, left, None, GROUP, False, p1, p2, False)),
+        "hpart": ("group kernel, the shipped horizontal pair: 3 transposes "
+                  "and 2 launches",
+                  lambda: ops_kernels.horizontal_partial(cost, left, p1, p2,
+                                                         False)),
     }
+    require_equal("prod3", production["prod3"][1](),
+                  production["prod3_old"][1]())
     for name, (note, fn) in production.items():
         variants[name] = dict(measure(fn, device, reps, batch), note=note)
 
@@ -156,8 +172,8 @@ def _summary(variants: dict, gb_s, frame_elements: int) -> dict:
     ms = {name: rec["ms_per_frame"] for name, rec in variants.items()}
     if gb_s is None or any(v is None for v in ms.values()):
         return {"floor_ms_per_frame": None, "achievable_ms_per_frame": None,
-                "prod_ms_per_frame": None, "prod_over_floor": None,
-                "prod_over_achievable": None}
+                "prod_ms_per_frame": None, "prod_old_ms_per_frame": None,
+                "prod_over_floor": None, "prod_over_achievable": None}
 
     def stream_ms(bytes_per_element):
         return frame_elements * bytes_per_element / gb_s / 1e6
@@ -167,11 +183,13 @@ def _summary(variants: dict, gb_s, frame_elements: int) -> dict:
     floor = 2 * ms["chain1"] + 6 * ms["chain1v"]
     achievable = sum(max(ms[name], stream_ms(nbytes))
                      for name, nbytes in launches)
-    prod = 2 * ms["prod1"] + 2 * ms["prod3"]
+    prod = ms["hpart"] + 2 * ms["prod3"]
+    prod_old = 2 * ms["prod1"] + 2 * ms["prod3_old"]
     return {
         "floor_ms_per_frame": floor,
         "achievable_ms_per_frame": achievable,
         "prod_ms_per_frame": prod,
+        "prod_old_ms_per_frame": prod_old,
         "prod_over_floor": prod / floor,
         "prod_over_achievable": prod / achievable,
         "note": ("floor = 2 chain1 + 6 chain1v (the main path's two horizontal "
@@ -179,7 +197,8 @@ def _summary(variants: dict, gb_s, frame_elements: int) -> dict:
                  "the sum over those launches of max(chainio, mandatory bytes "
                  "/ bw_stream): 3 bytes per element for the first launch "
                  "(cost read, sum written), 5 for the others (sum read too); "
-                 "prod = 2 prod1 + 2 prod3"),
+                 "prod = hpart + 2 prod3 (the shipped group kernel); "
+                 "prod_old = 2 prod1 + 2 prod3_old (the first design)"),
     }
 
 
@@ -195,7 +214,8 @@ def report(doc: dict) -> str:
     s = doc["summary"]
     lines.append(f"floor {fmt(s['floor_ms_per_frame'])}, achievable "
                  f"{fmt(s['achievable_ms_per_frame'])}, prod "
-                 f"{fmt(s['prod_ms_per_frame'])} ms/frame; prod/floor "
+                 f"{fmt(s['prod_ms_per_frame'])} (first design "
+                 f"{fmt(s['prod_old_ms_per_frame'])}) ms/frame; prod/floor "
                  f"{fmt(s['prod_over_floor'])}, prod/achievable "
                  f"{fmt(s['prod_over_achievable'])}")
     return "\n".join(lines)

@@ -16,9 +16,13 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
 * the device idle share over a three-batch ``torch.profiler`` window:
   1 - (union of the device activity intervals) / (CUDA-event window); the
   window's Chrome trace is written to ``<--out without .json>/trace.json``;
-* each of the eight K2 scan directions alone, median of five launches, and
-  the bytes one direction must move (1 cost byte read + a 2-byte read and a
-  2-byte write of the uint16 sum per volume element).
+* the K2 scans per launch group as the main path runs them (the group
+  kernel: the horizontal pair with its three transposes, the vertical
+  forward and reverse groups), median of five launches, and beside them each
+  of the eight directions alone by the first design's kernel
+  (``scan_direction``, a warp per path), with the bytes one such direction
+  must move (1 cost byte read + a 2-byte read and a 2-byte write of the
+  uint16 sum per volume element).
 
 Prints one line per figure and writes all of them as JSON to ``--out``.
 """
@@ -47,7 +51,7 @@ def staged_forward(left, right, opt: SGMOptions, timer: StageTimer):
         with timer.span("census_cost (K1)"):
             cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                               opt.max_disparity)
-        with timer.span("scan, 8 launches (K2)"):
+        with timer.span("scan groups (K2)"):
             aggr = kernels.aggregate_paths(cost, left, opt)
         with timer.span("wta (K2)"):
             fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
@@ -115,7 +119,8 @@ def idle_share(engine, left, right, trace_dir, batches=3):
 
 
 def scan_directions(left, right, opt, reps=5):
-    """Milliseconds of each DIRECTIONS_8 scan launched alone."""
+    """Milliseconds of each DIRECTIONS_8 scan launched alone, by the first
+    design's kernel (one warp per path)."""
     cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                       opt.max_disparity)
     aggr = torch.zeros(cost.shape, dtype=torch.uint16, device=cost.device)
@@ -126,6 +131,31 @@ def scan_directions(left, right, opt, reps=5):
                                            opt.p1, opt.p2_init, out=aggr),
             reps)["median"]
     return out, cost.numel() * 5
+
+
+def scan_groups(left, right, opt, reps=5):
+    """Milliseconds of each launch group of ``kernels.aggregate_paths``: the
+    horizontal pair (and its transposes alone), then each vertical group
+    adding onto its sum."""
+    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                      opt.max_disparity)
+    p1, p2 = opt.p1, opt.p2_init
+    out = {"horizontal pair (3 transposes, 2 scans)": cuda_time(
+        lambda: kernels.horizontal_partial(cost, left, p1, p2, False),
+        reps)["median"]}
+    aggr = kernels.horizontal_partial(cost, left, p1, p2, False)
+    pitch, h = kernels.TRANSPOSED_PITCH, cost.shape[1]
+    aggr_t = kernels.volume_transpose(aggr, pad_to=pitch)
+    out["its transposes alone (cost, image, sum)"] = cuda_time(
+        lambda: (kernels.volume_transpose(cost, pad_to=pitch),
+                 kernels.image_transpose(left, pad_to=pitch),
+                 kernels.volume_transpose(aggr_t, inner=h)), reps)["median"]
+    for rolls, reverse in kernels.scan_groups(opt.num_paths):
+        out[f"vertical rolls={rolls} reverse={reverse}"] = cuda_time(
+            lambda: kernels.directional_scan_group(cost, left, aggr, rolls,
+                                                   reverse, p1, p2, False),
+            reps)["median"]
+    return out
 
 
 def main(argv=None) -> dict:
@@ -155,12 +185,14 @@ def main(argv=None) -> dict:
     batch, enqueue = batch_and_enqueue(engine, left, right, args.reps)
     idle, busy, window = idle_share(engine, left, right,
                                     Path(args.out).with_suffix(""))
+    groups = scan_groups(left, right, opt)
     scans, scan_bytes = scan_directions(left, right, opt)
 
     result = {"card": name_and_limit, "batch": args.batch, "h": args.h, "w": args.w,
               "d": args.dmax, "stages_ms": stages, "batch_ms": batch,
               "enqueue_ms": enqueue, "idle_share": idle,
               "device_busy_ms": busy, "profiler_window_ms": window,
+              "scan_group_ms": groups,
               "scan_direction_ms": scans, "scan_direction_bytes": scan_bytes}
     print(name_and_limit)
     total = stages["total"]["median"]
@@ -170,9 +202,12 @@ def main(argv=None) -> dict:
     print(f"batch {batch['median']:.4f} ms, host enqueue "
           f"{enqueue['median']:.4f} ms; idle share {idle} "
           f"(device {busy:.3f} of {window:.3f} ms)")
+    for name, ms in groups.items():
+        print(f"scan group {name}: {ms:.4f} ms")
     for name, ms in scans.items():
-        print(f"scan {name}: {ms:.4f} ms")
-    print(f"bytes per scan direction: {scan_bytes / 1e9:.4f} GB")
+        print(f"scan direction alone, first design, {name}: {ms:.4f} ms")
+    print(f"bytes per scan direction of the first design: "
+          f"{scan_bytes / 1e9:.4f} GB")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     return result

@@ -20,8 +20,8 @@ from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                        postprocess, wta)
 
 H, W = 37, 53
-MAIN_PATH = ("census_cost_volume", "aggregate_paths", "wta_reduce",
-             "lr_check", "remove_speckles")
+MAIN_PATH = ("census_cost_volume", "aggregate_paths", "horizontal_partial",
+             "volume_transpose", "wta_reduce", "lr_check", "remove_speckles")
 pytestmark = pytest.mark.cuda
 
 
@@ -36,6 +36,25 @@ def same(got, want):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+def first_design_aggregate(cost, img, opt, mode="wrap"):
+    """``aggregate_paths`` as the sum of ``scan_direction`` launches: the
+    first design's kernel (a warp per path), one launch per direction."""
+    dirs = (aggregation.DIRECTIONS_8 if opt.num_paths == 8
+            else aggregation.DIRECTIONS_4)
+    return kernels.scan_directions(cost, img, dirs, opt.p1, opt.p2_init,
+                                   mode == "restart")
+
+
+def first_design_group(cost, img, rolls, reverse, restart):
+    """A vertical group as ``scan_direction`` launches, one per roll."""
+    return kernels.scan_directions(cost, img,
+                                   [("v", reverse, roll) for roll in rolls],
+                                   10, 150, restart)
+
+
+HORIZONTAL_PAIR = (("h", False, 0), ("h", True, 0))
+
+
 @pytest.mark.parametrize("dmin,dmax", [(0, 16), (8, 56), (3, 4), (0, 256)])
 def test_kernels_match_plain_on_card(cuda, dmin, dmax):
     left, right, _ = synthetic_pair(0, 2, H, W, (3, 5, 7))
@@ -45,9 +64,16 @@ def test_kernels_match_plain_on_card(cuda, dmin, dmax):
     cost = kernels.census_cost_volume(il, ir, dmin, dmax)
     same(cost, kernels.census_cost_volume_plain(il, ir, dmin, dmax))
     for mode in ("wrap", "restart"):
-        same(kernels.aggregate_paths(cost, il, opt, mode).to(torch.int32),
+        got = kernels.aggregate_paths(cost, il, opt, mode)
+        same(got.to(torch.int32),
              aggregation.aggregate_paths(cost, il, opt, mode).to(torch.int32))
+        same(got, first_design_aggregate(cost, il, opt, mode))
     aggr = kernels.aggregate_paths(cost, il, opt)
+    part = kernels.horizontal_partial(cost, il, opt.p1, opt.p2_init, False)
+    same(part, kernels.horizontal_partial_plain(cost, il, opt.p1, opt.p2_init,
+                                                False))
+    same(part, kernels.scan_directions(cost, il, HORIZONTAL_PAIR, opt.p1,
+                                       opt.p2_init))
     got, want = kernels.wta_reduce(aggr, opt), kernels.wta_reduce_plain(aggr, opt)
     for g, w_ in zip(got[0] + got[1], want[0] + want[1]):
         same(g, w_)
@@ -109,6 +135,7 @@ def test_stage_breakdown_runs_and_matches_the_engine(cuda, tmp_path):
                                    "--dmax", "16", "--reps", "2",
                                    "--out", str(out)])
     assert out.exists() and len(result["scan_direction_ms"]) == 8
+    assert len(result["scan_group_ms"]) == 4
     assert result["stages_ms"]["total"]["median"] > 0
 
 
@@ -156,6 +183,8 @@ def test_tile_chain_on_card_matches_plain_and_untiled(cuda, rolls, reverse,
         same(parts[i], want)
         for c, wc in zip(carry, want_carry):
             same(c, wc)
+    same(torch.cat(parts, dim=1),
+         first_design_group(cost, img, rolls, reverse, restart))
     acc = torch.full(cost.shape, 7, dtype=torch.uint16, device=cuda)
     whole = kernels.directional_scan_group(cost, img, acc, rolls, reverse, 10,
                                            150, restart)
@@ -180,7 +209,85 @@ def test_tiled_engine_on_card_matches_untiled(cuda):
                         mesh=make_mesh(1, 1)).match_batch(left, right)
         same(got, want)
         assert kernels.LAUNCHES["census_cost_volume_halo"] == 1
-        assert kernels.LAUNCHES["directional_scan_group"] == 6
+        assert kernels.LAUNCHES["directional_scan_group"] == 2  # one a group
+        assert kernels.LAUNCHES["horizontal_partial"] == 2
+        assert kernels.LAUNCHES["volume_transpose"] == 3
+
+
+@pytest.mark.parametrize("b,h,d,w", [(2, 5, 16, 300), (2, 12, 1, 20),
+                                     (2, 9, 5, 31), (1, 7, 3, 1),
+                                     (1, 6, 9, 2), (0, 8, 16, 24),
+                                     (3, 20, 64, 450)])
+def test_group_kernel_matches_plain_and_first_design_on_card(cuda, b, h, d, w):
+    """The group kernel at shapes that stress its strips (W < 32, odd W, one
+    and two columns, D = 1, an empty batch, the cone width): every grouping
+    of rolls, forward and reverse, wrap and restart, stored and added onto
+    an accumulator, against the plain version and against the first
+    design's per-direction launches; ``aggregate_paths`` for 4 and 8 paths
+    and the horizontal pair."""
+    cost = _rand(70, 0, 256, (b, h, d, w), np.uint8, cuda)
+    img = _rand(71, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(72, 0, 1000, (b, h, d, w), np.uint16, cuda)
+    for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True),
+                           ((0,), True), ((1,), False), ((-1, 0), True)):
+        for restart in (False, True):
+            args = (rolls, reverse, 10, 150, restart)
+            got = kernels.directional_scan_group(cost, img, None, *args)
+            same(got, kernels.directional_scan_group_plain(cost, img, None,
+                                                           *args))
+            if b:
+                same(got, first_design_group(cost, img, rolls, reverse,
+                                             restart))
+            added = kernels.directional_scan_group(cost, img, acc.clone(),
+                                                   *args)
+            same(added.int(), got.int() + acc.int())
+    part = kernels.horizontal_partial(cost, img, 10, 150, False)
+    same(part, kernels.horizontal_partial_plain(cost, img, 10, 150, False))
+    if b:
+        same(part, kernels.scan_directions(cost, img, HORIZONTAL_PAIR, 10,
+                                           150))
+    for paths in (4, 8):
+        opt = SGMOptions(max_disparity=d, num_paths=paths)
+        got = kernels.aggregate_paths(cost, img, opt, "restart")
+        same(got.int(), aggregation.aggregate_paths(cost, img, opt,
+                                                    "restart").int())
+        if b:
+            same(got, first_design_aggregate(cost, img, opt, "restart"))
+    with pytest.raises(ValueError, match="penalties"):
+        kernels.directional_scan_group(cost, img, None, (0,), False, -1, 150,
+                                       False)
+
+
+def test_group_kernel_on_one_big_tile_on_card(cuda):
+    """D = 256 at 1500 columns, the widest cluster: an H-tile of 16 rows with
+    the carry of the 8 rows before it in and its own out, against the plain
+    version; the two tiles together against the untiled launch and the first
+    design's; one launch per group as long as ``group_capacity`` says 3."""
+    cost = _rand(73, 0, 256, (1, 24, 256, 1500), np.uint8, cuda)
+    img = _rand(74, 0, 256, (1, 24, 1500), np.uint8, cuda)
+    for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True)):
+        first, rows = (slice(16, 24), slice(0, 16)) if reverse else \
+            (slice(0, 8), slice(8, 24))
+        up, carry = kernels.directional_scan_group(
+            cost[:, first].contiguous(), img[:, first].contiguous(), None,
+            rolls, reverse, 10, 150, False, want_carry=True)
+        prev = img[:, 16 if reverse else 7].contiguous()
+        args = (cost[:, rows].contiguous(), img[:, rows].contiguous(), None,
+                rolls, reverse, 10, 150, False)
+        kw = dict(carry_in=carry, want_carry=True, prev_gray=prev)
+        before = kernels.LAUNCHES["directional_scan_group"]
+        got, got_carry = kernels.directional_scan_group(*args, **kw)
+        per_launch = kernels.group_capacity(args[0], got)
+        assert kernels.LAUNCHES["directional_scan_group"] - before == \
+            -(-len(rolls) // per_launch)
+        want, want_carry = kernels.directional_scan_group_plain(*args, **kw)
+        same(got, want)
+        for c, wc in zip(got_carry, want_carry):
+            same(c, wc)
+        whole = kernels.directional_scan_group(cost, img, None, rolls,
+                                               reverse, 10, 150, False)
+        same(torch.cat([got, up] if reverse else [up, got], dim=1), whole)
+        same(whole, first_design_group(cost, img, rolls, reverse, False))
 
 
 # --- the probe kernels (probes/kernels.py) ------------------------------------
@@ -219,18 +326,35 @@ def test_chain_kernels_match_plain_on_card(cuda, d, p, steps, rolls):
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16])
-@pytest.mark.parametrize("shape", [(2, 37, 48, 45), (1, 32, 1, 64), (3, 5, 7, 100)])
+@pytest.mark.parametrize("shape", [(2, 37, 48, 45), (1, 32, 1, 64), (3, 5, 7, 100),
+                                   (1, 375, 3, 450), (2, 129, 3, 65), (1, 257, 1, 31)])
 def test_volume_transpose_matches_permute_on_card(cuda, dtype, shape):
     from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
 
-    x = _rand(53, 0, 256, shape, dtype, cuda)
+    hi = 256 if dtype == np.uint8 else 32768
+    x = _rand(53, 0, hi, shape, dtype, cuda)
     got = pk.volume_transpose(x)
     same(got, x.permute(0, 3, 2, 1).contiguous())
     same(pk.volume_transpose(got), x)
+    # the internal pitch: zeros in the padding, the first columns back
+    b, a, d, c = shape
+    for pad_to in (16, 3):
+        padded = pk.volume_transpose(x, pad_to=pad_to)
+        assert padded.shape == (b, c, d, -(-a // pad_to) * pad_to)
+        same(padded, pk.volume_transpose_plain(x, None, pad_to))
+        same(pk.volume_transpose(padded, inner=a), x)
+    # a volume that starts off every 16-byte boundary, up to the last byte of
+    # its storage
+    for off in (1, 3, 8):
+        flat = _rand(54, 0, hi, (x.numel() + off,), dtype, cuda)
+        view = flat[off:].view(shape)
+        same(pk.volume_transpose(view), view.permute(0, 3, 2, 1).contiguous())
     with pytest.raises(TypeError):
         pk.volume_transpose(x.float())
     with pytest.raises(ValueError):
         pk.volume_transpose(x[..., ::2])            # not contiguous
+    with pytest.raises(ValueError, match="inner"):
+        pk.volume_transpose(x, inner=c + 1)
 
 
 def test_rungs_and_scan16_match_plain_on_card(cuda):
@@ -257,12 +381,17 @@ def test_rungs_and_scan16_match_plain_on_card(cuda):
 
 
 def test_hpart_T_matches_the_shipped_horizontal_pair_on_card(cuda):
+    """The probe's ``hpart_T`` (transposes and group scans assembled launch
+    by launch) against the shipped ``horizontal_partial`` (which takes that
+    route itself) and against the first design's strided pair (two launches
+    of the warp-per-path kernel along W)."""
     from soc_project_stereo_matching_tpu_torch.probes import aggr_transpose
 
     cost = _rand(57, 0, 128, (2, 37, 48, 45), np.uint8, cuda)
     img = _rand(58, 0, 256, (2, 37, 45), np.uint8, cuda)
-    same(aggr_transpose.hpart_T(cost, img, 10, 150),
-         kernels.horizontal_partial(cost, img, 10, 150, False))
+    shipped = kernels.horizontal_partial(cost, img, 10, 150, False)
+    same(aggr_transpose.hpart_T(cost, img, 10, 150), shipped)
+    same(aggr_transpose.hpart_strided(cost, img, 10, 150), shipped)
     same(kernels.scan_direction(cost, img, "h", True, 0, 10, 150),
          kernels.scan_direction_plain(cost, img, "h", True, 0, 10, 150))
 
@@ -331,12 +460,19 @@ def test_speckle_tail_kernels_match_plain_on_card(cuda, h, w, area, pc):
     small = pk.root_small(counts, area)
     verdict = pk.speckle_verdict(grouped, small)
     same(verdict, pk.speckle_verdict_plain(grouped, small))
+    # an empty batch, and a frame length that is no multiple of 4 (the
+    # kernel's masked tail, scalar loads)
+    empty = pk.speckle_verdict(grouped[:0], small[:0])
+    assert empty.shape == (0,) + grouped.shape[1:]
+    ragged = grouped.reshape(grouped.shape[0], 1, 1, -1)[..., :-3].contiguous()
+    same(pk.speckle_verdict(ragged, small),
+         pk.speckle_verdict_plain(ragged, small))
     for aggregate in (False, True):
         same(pk.speckle_tail_fused(grouped, area, h_hist, lo_bits, aggregate),
              verdict)
     assert kernels.LAUNCHES["probe_speckle_hist"] == before["probe_speckle_hist"] + 2
     assert kernels.LAUNCHES["probe_speckle_verdict"] == \
-        before["probe_speckle_verdict"] + 1
+        before["probe_speckle_verdict"] + 3
     assert kernels.LAUNCHES["probe_speckle_fused"] == \
         before["probe_speckle_fused"] + 2
     grouped, _, _ = pk.group_labels(disp, labels, area, pc)

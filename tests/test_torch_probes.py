@@ -400,11 +400,12 @@ HEAD = {"probe", "timestamp", "device", "card", "power_limit", "reps", "batch",
     (recurrence_floor,
      {"chain1", "chain1v", "chain3", "chainio3_f", "chainio3_m", "chainio3_b",
       "chainio1_f", "chainio1_b", "chainio1v_f", "chainio1v_m", "prod1",
-      "prod1v", "prod3", "bw_stream"},
+      "prod1v", "prod3_old", "prod3", "hpart", "bw_stream"},
      {"summary", "chain1_steps_scaling", "ring"}),
     (aggr_transpose,
-     {"full", "xin8", "xout16", "ktrans8", "ktrans16", "hpart", "hpart_not",
-      "hpart_T"}, {"summary", "checked"}),
+     {"full", "xin8", "xout16", "ktrans8", "ktrans16", "hpart",
+      "hpart_strided", "hpart_not", "hpart_T"},
+     {"summary", "checked", "kernels"}),
     (int16_recurrence, {"scan16", "prod3"}, {"summary", "probes", "ladder_shape"}),
     (ablation, {"full", "no_speckle", "no_lr", "no_lr_no_speckle", "no_unique"},
      {"deltas_ms_per_frame", "noise_floor_ms"}),
