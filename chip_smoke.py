@@ -9,7 +9,9 @@ Phases (each raises on failure, so the script exits non-zero):
 2. build: compile ``csrc/*.cu`` with nvcc and load it; print the seconds;
 3. per kernel: K1-K4 (K2's WTA with and without the inverse view) against
    their plain PyTorch versions on the card, bit for bit, at the cone shape
-   (B=2, 375x450, D=64) and an off shape (B=2, 37x53, D=48, dmin=8); median
+   (B=2, 375x450, D=64) and an off shape (B=2, 37x53, D=48, dmin=8; there
+   K4 also on ``data.synthetic.speckle_frames``: tile corners, a snake
+   across every tile, NaN / -inf, frames that must not connect); median
    CUDA-event times of kernel and plain version at the cone shape.  The K2
    scan is the group kernel (one launch per vertical scan order, the
    horizontal pair on the transposed volume): it is also held against the
@@ -24,7 +26,11 @@ Phases (each raises on failure, so the script exits non-zero):
    ops, which the CPU tests hold bit-equal to the JAX package and its numpy
    oracle), and most finite pixels within 1 of the pair's true disparity;
    frames/s at B=32, and the K2 scan times per group at cone B=2, 8 and 32
-   and at 1000x1500 D=256 B=1, beside the first design's;
+   and at 1000x1500 D=256 B=1, beside the first design's; the launches of
+   every main-path entry per ``match_batch`` are asserted (K1, the WTA, K3
+   and K4 once each); K1 and K4 at the same four shapes (K1 at 1000x1500
+   also in the halo mode), each bit-equal to its plain version, with its
+   time beside its bound;
 5. tile phase (the spatial-tiling path):
    a. kernels: the halo census and the carry-in/out group scan against their
       plain versions, bit for bit, on the H-tiles of the cone shape (B=2,
@@ -66,7 +72,8 @@ Phases (each raises on failure, so the script exits non-zero):
       ``speckle_tail_fused`` (both adds) against S2 -> ``root_small`` -> S3;
       the verdict applied to the disparity against K4
       (``kernels.remove_speckles``) and its plain version; K4's two stage
-      entries against theirs.  Tolerance zero;
+      entries (the tile-local label stage and the aggregated tail) against
+      theirs, each counted once.  Tolerance zero;
    b. the path: ``probes.speckle.run`` and ``probes.speckle_tail.run``
       (counters reset before, read after), their ladders printed with the
       card's name and power limit;
@@ -140,6 +147,10 @@ MAIN_PATH = ("census_cost_volume", "aggregate_paths", "horizontal_partial",
 # two scans of the horizontal pair and the three transposes around them
 SCAN_LAUNCHES = {"aggregate_paths": 2, "horizontal_partial": 2,
                  "volume_transpose": 3}
+# C entry calls per match_batch of every main-path wrapper: one each for K1,
+# the WTA, K3 and K4 (whose entry makes its four launches)
+MAIN_LAUNCHES = {"census_cost_volume": 1, **SCAN_LAUNCHES, "wta_reduce": 1,
+                 "lr_check": 1, "remove_speckles": 1}
 TILE_PATH = ("census_cost_volume_halo", "directional_scan_group")
 PROBE_PATH = ("probe_chain", "probe_chainio", "probe_int16")
 SPECKLE_PATH = ("probe_speckle_labels", "probe_speckle_hist",
@@ -207,6 +218,8 @@ def check_kernels(cfg, timed: bool) -> dict:
     import torch
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.data.synthetic import (
+        speckle_frames)
     from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                            postprocess, wta)
 
@@ -312,13 +325,18 @@ def check_kernels(cfg, timed: bool) -> dict:
            lambda: postprocess.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity),
            12 * px, 8 * px)       # two f32 maps in, one out
 
-    # K4 on the checked map, and on a noisy small-integer map
+    # K4 on the checked map, on a noisy small-integer map and on the
+    # hand-made frames (tile corners, a snake across every tile, NaN / -inf,
+    # two frames that must not connect)
     g = torch.Generator().manual_seed(4)
     rough = torch.randint(0, 8, checked.shape, generator=g).float()
     rough[torch.rand(checked.shape, generator=g) < 0.35] = float("inf")
+    cases = [(checked, opt.min_speckle_area), (rough.cuda(), 9)]
+    if not timed:
+        cases += [(torch.from_numpy(speckle_frames(40, 70, 8)).cuda(), 8)]
     err = max(max_abs_err(kernels.remove_speckles(m, 1.0, area),
                           postprocess.remove_speckles(m, 1.0, area))
-              for m, area in ((checked, opt.min_speckle_area), (rough.cuda(), 9)))
+              for m, area in cases)
     record("remove_speckles", err,
            lambda: kernels.remove_speckles(checked, 1.0, opt.min_speckle_area),
            lambda: postprocess.remove_speckles(checked, 1.0, opt.min_speckle_area),
@@ -379,6 +397,49 @@ def scan_ladder() -> None:
                   f"{name} {new:.4f} / {old:.4f}"
                   for name, (new, old) in rows.items())
               + f"; aggregate_paths {whole:.4f}")
+
+
+def k1_k4_ladder() -> None:
+    """Print K1's and K4's times beside their bounds at cone B=2, 8, 32 and
+    at 1000x1500 D=256 B=1 (there K1 also in the halo mode the tiled engine
+    runs on a 1x1 mesh), each output held bit-equal to its plain version
+    first.  K4's input is the engine's own pre-speckle disparity."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels, postprocess
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        prespeckle_disparity)
+
+    for cfg in [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]:
+        b, h, w, dmax = cfg["batch"], cfg["h"], cfg["w"], cfg["dmax"]
+        left, right, _ = pair(cfg, seed=7)
+        runs = [("", left, right)]
+        if h == MIDDLEBURY_HALF["h"]:
+            runs.append(("halo ", *(torch.nn.functional.pad(x, (0, 0, 2, 2))
+                                    for x in (left, right))))
+        px, vol = b * h * w, b * h * w * dmax
+        k1_bound = bound(2 * px + vol, 2 * px * 48 + 2 * vol)["bound_ms"]
+        for mode, il, ir in runs:
+            halo = bool(mode)
+            fn = lambda: kernels.census_cost_volume(il, ir, 0, dmax, halo)
+            max_abs_err(fn(), kernels.census_cost_volume_plain(il, ir, 0, dmax,
+                                                               halo))
+            ms = cuda_ms(fn, 20)
+            print(f"K1 census_cost_volume {mode}{h}x{w} D={dmax} B={b}: "
+                  f"{ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_bound / ms:.1%} "
+                  f"of it), bit-equal")
+        del left, right, runs
+        opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, dmax)
+        area = opt.min_speckle_area
+        max_abs_err(kernels.remove_speckles(disp, 1.0, area),
+                    postprocess.remove_speckles(disp, 1.0, area))
+        ms = cuda_ms(lambda: kernels.remove_speckles(disp, 1.0, area), 20)
+        k4_bound = bound(8 * px, 32 * px)["bound_ms"]
+        print(f"K4 remove_speckles {h}x{w} B={b} (pre-speckle disparity, "
+              f"min_area {area}): {ms:.4f} ms, bound {k4_bound:.4f} ms, "
+              f"bit-equal")
+        del disp
+        torch.cuda.empty_cache()
 
 
 def halo_tiles(img, k: int) -> list:
@@ -763,7 +824,8 @@ def check_speckle_input(disp, area: int) -> dict:
     for mode in EXACT:
         hold(s1, labels[mode], labels["base"])
     hold(s1, rounds["pyr"], rounds["base"])
-    flat = kernels.union_find_labels(disp, 1.0)
+    before = kernels.LAUNCHES["remove_speckles"]
+    flat = kernels.union_find_labels(disp, 1.0)      # K4's label stage
     max_abs_err(flat, kernels.union_find_labels_plain(disp, 1.0))
     hold(s1, pk.flat_to_root_labels(flat), labels["base"])
 
@@ -782,8 +844,11 @@ def check_speckle_input(disp, area: int) -> dict:
     got = pk.apply_verdict(disp, pk.ungroup_verdict(verdict, h, w))
     hold(s3, got, kernels.remove_speckles(disp, 1.0, area))
     hold(s3, got, postprocess.remove_speckles(disp, 1.0, area))
-    max_abs_err(kernels.count_verdict(disp, flat, area), got)
+    max_abs_err(kernels.count_verdict(disp, flat, area), got)  # its tail
     torch.cuda.synchronize()
+    # the label stage, the tail and K4 whole: one count per C entry call
+    if kernels.LAUNCHES["remove_speckles"] != before + 3:
+        raise AssertionError("K4's entries did not count one launch each")
     return {"labels": labels["base"], "grouped": grouped, "h_hist": h_hist,
             "lo_bits": lo_bits, "small": small, "rounds": rounds["base"],
             "err": err}
@@ -934,8 +999,9 @@ def main() -> None:
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     scans = {name: launches[name] for name in SCAN_LAUNCHES}
-    if scans != SCAN_LAUNCHES:
-        raise AssertionError(f"K2 scans launched {scans}, want {SCAN_LAUNCHES}")
+    if launches != MAIN_LAUNCHES:
+        raise AssertionError(f"main path launched {launches}, want "
+                             f"{MAIN_LAUNCHES}")
     if not (disp.is_cuda and disp.dtype == torch.float32
             and disp.shape == left.shape):
         raise AssertionError(f"bad output {disp.dtype} {tuple(disp.shape)} "
@@ -961,6 +1027,7 @@ def main() -> None:
           f"{scans}; "
           f"B={FPS_BATCH}: {ms:.3f} ms/batch = {FPS_BATCH / ms * 1e3:.2f} frames/s")
     scan_ladder()
+    k1_k4_ladder()
 
     # 5. tile phase
     check_tile_kernels(MIDDLEBURY_HALF, timed=False)

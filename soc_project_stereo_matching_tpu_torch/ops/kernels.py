@@ -125,7 +125,9 @@ def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
 
     ``img_has_halo``: the images are (B, H+4, W) H-tiles with 2 neighbour
     rows on each side; the output has H rows and no row-border masking (the
-    tiled caller fixes the image's global border rows)."""
+    tiled caller fixes the image's global border rows).  On the card a block
+    holds one row's image slab, census codes and staging rings in shared
+    memory, which bounds W at about 8,900 columns (D = 64); a wider image raises."""
     if _on_cpu(img_left, img_right):
         return census_cost_volume_plain(img_left, img_right, min_disparity,
                                         max_disparity, img_has_halo)
@@ -628,7 +630,8 @@ def union_find_labels_plain(disp, diff_insame: float = 1.0) -> torch.Tensor:
 
 def union_find_labels(disp: torch.Tensor,
                       diff_insame: float = 1.0) -> torch.Tensor:
-    """K4's label stage alone (init, union, flatten): f32 (B, H, W) -> int32
+    """K4's label stage alone (tiles labelled in shared memory, unions
+    across tile borders, flatten): f32 (B, H, W) -> int32
     (B, H, W), every pixel's root, the smallest flat index (over the batch)
     of its component; a non-finite pixel is its own root."""
     if _on_cpu(disp):

@@ -7,7 +7,9 @@ the cone geometry, B=8, 375x450, D=64), ``diff`` 1.0.  Variants, each one
 launch over the batch:
 
     prod      K4's label stage as shipped (``ops.kernels.union_find_labels``:
-              init, lock-free union, flatten)
+              three launches: each 32 x 16 tile labelled in shared memory,
+              the unions across tile borders in device memory, every pixel
+              flattened to its root)
     base      S1 ``probes.kernels.speckle_labels``: seg and cheap rounds in
               turn, the fixed-point test after every round
     pair      a seg+cheap pair per iteration, one test per pair

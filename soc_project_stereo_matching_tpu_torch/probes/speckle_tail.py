@@ -8,8 +8,11 @@ package's grouped layout (``probes.kernels.group_labels``), ``min_area`` 50.
 Variants:
 
     prod            K4's count and verdict as shipped
-                    (``ops.kernels.count_verdict``, on K4's own labels)
-    prod_whole      K4 whole, as the main path calls it (labels included)
+                    (``ops.kernels.count_verdict``, on K4's own labels: one
+                    add per distinct root of a warp, then the verdict four
+                    pixels a thread)
+    prod_whole      K4 whole, as the main path calls it (labels included:
+                    four launches, the count folded into the flatten)
     base            S2 histogram -> the plain ``root_small`` op -> S3 gather
     base_agg        the same, S2 adding once per distinct label of a warp
     hist_only       S2 alone

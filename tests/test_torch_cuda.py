@@ -494,3 +494,91 @@ def test_speckle_probes_run_on_card_and_write_json(cuda, tmp_path):
                         "--dmax", "16", "--reps", "2", "--out", str(out)])
         assert out.exists() and doc["card"]
         assert all(rec["ms_per_frame"] > 0 for rec in doc["variants"].values())
+
+
+# --- K4 (tile-local union-find) and K1 (16-byte stores) on the shapes that
+# stress their designs -----------------------------------------------------------
+
+def _random_speckle_input(seed, b, h, w, cuda):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 5, (b, h, w)).astype(np.float32)
+    d[rng.random((b, h, w)) < 0.3] = np.inf
+    d[rng.random((b, h, w)) < 0.02] = np.nan
+    d[rng.random((b, h, w)) < 0.02] = -np.inf
+    return torch.from_numpy(d).to(cuda)
+
+
+def _speckle_stages_match_plain(disp, area):
+    """K4 whole and its two stage entries against the plain versions, each
+    entry counted once as remove_speckles."""
+    before = kernels.LAUNCHES["remove_speckles"]
+    got = kernels.remove_speckles(disp, 1.0, area)
+    same(got, postprocess.remove_speckles(disp, 1.0, area))
+    roots = kernels.union_find_labels(disp, 1.0)
+    same(roots, kernels.union_find_labels_plain(disp, 1.0))
+    same(kernels.count_verdict(disp, roots, area), got)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["remove_speckles"] == before + 3
+    return got
+
+
+@pytest.mark.parametrize("h,w,area", [(40, 70, 8), (48, 80, 40), (45, 71, 2)])
+def test_speckle_kernel_on_hand_made_frames_on_card(cuda, h, w, area):
+    from soc_project_stereo_matching_tpu_torch.data.synthetic import (
+        speckle_frames)
+
+    d = speckle_frames(h, w, area)
+    got = _speckle_stages_match_plain(torch.from_numpy(d).to(cuda), area).cpu()
+    assert int(torch.isfinite(got[2]).sum()) == area   # min_area - 1 went
+    assert bool(torch.isinf(got[6:]).all())            # frames never connect
+    assert torch.equal(got[5], torch.from_numpy(d[5]))  # one component
+    assert torch.equal(torch.isfinite(got[1]), torch.from_numpy(np.isfinite(d[1])))
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 37, 45), (1, 1, 300), (1, 300, 1),
+                                   (3, 17, 33), (2, 16, 32), (2, 33, 65),
+                                   (1, 1, 1), (4, 5, 31)])
+@pytest.mark.parametrize("area", [1, 4, 9])
+def test_speckle_kernel_at_awkward_sizes_on_card(cuda, b, h, w, area):
+    _speckle_stages_match_plain(_random_speckle_input(70, b, h, w, cuda), area)
+
+
+def test_speckle_kernel_at_middlebury_half_on_card(cuda):
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        prespeckle_disparity)
+
+    opt, disp = prespeckle_disparity(cuda, 1, 1000, 1500, 256)
+    _speckle_stages_match_plain(disp, opt.min_speckle_area)
+    _speckle_stages_match_plain(_random_speckle_input(71, 1, 1000, 1500, cuda),
+                                9)
+
+
+@pytest.mark.parametrize("h,w,dmin,dmax,halo", [
+    (37, 45, 3, 10, 0),       # D*W = 315: no row starts on 16 bytes
+    (37, 45, 3, 10, 1),
+    (5, 40, 0, 16, 0), (40, 5, 0, 16, 0),    # one interior row / column
+    (4, 30, 0, 8, 0), (30, 4, 0, 8, 0),      # none
+    (3, 20, 0, 3, 0), (20, 3, 0, 3, 0),
+    (4, 30, 0, 8, 1), (5, 30, 0, 8, 1), (30, 5, 0, 8, 1),
+    (37, 53, 8, 56, 1), (9, 1, 0, 1, 0), (250, 1500, 0, 256, 1)])
+def test_census_cost_kernel_at_odd_shapes_on_card(cuda, h, w, dmin, dmax, halo):
+    rng = np.random.default_rng(80)
+    il, ir = (torch.from_numpy(rng.integers(0, 256, (2, h + 4 * halo, w),
+                                            dtype=np.uint8)).to(cuda)
+              for _ in range(2))
+    got = kernels.census_cost_volume(il, ir, dmin, dmax, img_has_halo=bool(halo))
+    assert got.shape == (2, h, dmax - dmin, w)
+    same(got, kernels.census_cost_volume_plain(il, ir, dmin, dmax,
+                                               img_has_halo=bool(halo)))
+
+
+def test_main_path_launches_each_entry_once_per_batch(cuda):
+    left, right, _ = synthetic_pair(7, 2, H, W, (3, 6, 10))
+    engine = SGMEngine(SGMOptions(max_disparity=16, min_speckle_area=8),
+                       device="cuda")
+    kernels.reset_launch_counts()
+    engine.match_batch(left, right)
+    torch.cuda.synchronize()
+    for name in ("census_cost_volume", "wta_reduce", "lr_check",
+                 "remove_speckles"):
+        assert kernels.LAUNCHES[name] == 1, (name, kernels.LAUNCHES[name])

@@ -18,7 +18,7 @@ import torch
 
 from soc_project_stereo_matching_tpu import SGMOptions, oracle
 from soc_project_stereo_matching_tpu.ops import pallas_kernels as pk
-from soc_project_stereo_matching_tpu_torch import _build
+from soc_project_stereo_matching_tpu_torch import _build, kernel_ab
 from soc_project_stereo_matching_tpu_torch.config import from_jax
 from soc_project_stereo_matching_tpu_torch.ops import kernels, wta
 
@@ -198,3 +198,34 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     assert _build.library_path() != path
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("ablation", sorted(kernel_ab.ABLATIONS))
+def test_kernel_ab_ablations_still_apply_to_the_census_source(ablation):
+    """Each of kernel_ab's K1 ablations changes csrc/census_cost.cu, each
+    of its edits matching exactly one place."""
+    text = (_build.CSRC / "census_cost.cu").read_text()
+    out = kernel_ab.patched(text, kernel_ab.ABLATIONS[ablation])
+    assert out is not None and out != text
+    assert kernel_ab.patched("x x", [("x", "y")]) is None     # twice
+    assert kernel_ab.patched("x", [("z", "y")]) is None       # nowhere
+
+
+@pytest.mark.parametrize("key,name", [
+    ("void (anonymous namespace)::tile_kernel(float const*, int*, int)",
+     "tile_kernel"),
+    ("(anonymous namespace)::union_kernel(float const*, int*, int, int)",
+     "union_kernel"),
+    ("void at::native::fill_kernel<4, unsigned char>(int, char*)",
+     "fill_kernel")])
+def test_kernel_ab_names_profiler_kernels(key, name):
+    assert kernel_ab.kernel_name(key) == name
+
+
+def test_kernel_ab_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the refusal without one")
+    with pytest.raises(SystemExit):
+        kernel_ab.main(["--parent", str(tmp_path), "--out",
+                        str(tmp_path / "ab.json")])
+    assert not (tmp_path / "ab.json").exists()

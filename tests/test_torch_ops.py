@@ -21,6 +21,7 @@ from soc_project_stereo_matching_tpu.ops import exact_math as j_exact
 from soc_project_stereo_matching_tpu.ops import postprocess as j_post
 from soc_project_stereo_matching_tpu.ops import wta as j_wta
 from soc_project_stereo_matching_tpu_torch.config import from_jax
+from soc_project_stereo_matching_tpu_torch.data.synthetic import speckle_frames
 from soc_project_stereo_matching_tpu_torch.ops import (aggregation, census,
                                                        cost_volume, exact_math,
                                                        postprocess, wta)
@@ -67,6 +68,31 @@ def test_census_matches_jax_and_oracle():
     assert got.dtype == np.int32
     same(got, np.asarray(j_census.census_5x5(jnp.asarray(imgs))).astype(np.int32),
          np.stack([oracle.census_5x5(i) for i in imgs]).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(5, 17), (17, 5), (4, 17), (17, 4),
+                                   (3, 17), (17, 3)])
+def test_census_at_five_or_fewer_rows_or_columns(shape):
+    """Where the two contracts part.  With 5 rows or columns the port's op
+    computes the one interior row or column, as the jnp op does, while
+    ``oracle.census_5x5`` returns zeros (it tests ``h <= 5 or w <= 5``).
+    With 4 all three give zeros.  With 3 the jnp op raises (its shifted
+    views no longer broadcast) and the port gives zeros, as the oracle
+    does."""
+    img = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
+    got = census.census_5x5(t(img)).numpy()
+    want_oracle = oracle.census_5x5(img).astype(np.int32)
+    assert not want_oracle.any()
+    if min(shape) == 3:
+        with pytest.raises(TypeError):
+            j_census.census_5x5(jnp.asarray(img))
+        same(got, want_oracle)
+        return
+    same(got, np.asarray(j_census.census_5x5(jnp.asarray(img))).astype(np.int32))
+    if min(shape) == 5:
+        assert got.any()                    # the interior line, not zeros
+    else:
+        same(got, want_oracle)
 
 
 @pytest.mark.parametrize("dmin,dmax", RANGES)
@@ -260,6 +286,23 @@ def test_remove_speckles_matches_jax_and_oracle(min_area):
                         for x in d]),
          np.stack([oracle.remove_speckles(x, 1.0, min_area) for x in d]))
     assert np.isinf(got).sum() > np.isinf(d).sum()
+
+
+@pytest.mark.parametrize("h,w,min_area", [(40, 70, 8), (48, 80, 40)])
+def test_remove_speckles_on_hand_made_frames_matches_jax_and_oracle(h, w,
+                                                                  min_area):
+    """The hand-made frames of the card tests (a full-height line, a snake
+    across every tile, components of ``min_area`` and ``min_area - 1``
+    pixels around tile corners, NaN / -inf / +inf, an empty and a constant
+    frame, two strips facing each other across a frame boundary)."""
+    d = speckle_frames(h, w, min_area)
+    got = postprocess.remove_speckles(t(d), 1.0, min_area).numpy()
+    same(got, np.stack([j_post.remove_speckles(jnp.asarray(x), 1.0, min_area)
+                        for x in d]),
+         np.stack([oracle.remove_speckles(x, 1.0, min_area) for x in d]))
+    assert np.isfinite(got[2]).sum() == min_area      # the smaller one went
+    assert np.isinf(got[6:]).all()                    # frames never connect
+    same(got[5], d[5])
 
 
 def test_speckle_connectivity_is_f32():
