@@ -29,8 +29,10 @@ Phases (each raises on failure, so the script exits non-zero):
    and at 1000x1500 D=256 B=1, beside the first design's; the launches of
    every main-path entry per ``match_batch`` are asserted (K1, the WTA, K3
    and K4 once each); K1 and K4 at the same four shapes (K1 at 1000x1500
-   also in the halo mode), each bit-equal to its plain version, with its
-   time beside its bound;
+   also in the halo mode) and the WTA (both views, on the volume the
+   engine's scans make), each bit-equal to its plain version, with its time
+   beside its bound; beside the WTA, ``amin`` over D of the same volume, a
+   PyTorch call that reads it once (a read floor, not the same function);
 5. tile phase (the spatial-tiling path):
    a. kernels: the halo census and the carry-in/out group scan against their
       plain versions, bit for bit, on the H-tiles of the cone shape (B=2,
@@ -108,6 +110,7 @@ PROBE = dict(batch=8, h=375, w=450, dmax=64)
 PROBE_OFF = dict(batch=2, h=37, w=45, dmax=48)
 SPECKLE = dict(PROBE, min_area=50)
 SPECKLE_OFF = dict(PROBE_OFF, batch=4, min_area=8)   # block4 takes 4 frames
+RUN = 10            # back-to-back launches between two events (WTA ladder)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, device memory
 OPS_PER_S = 67e12           # H100 SXM, 32-bit operations outside the tensor cores
 PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
@@ -118,7 +121,7 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
     "horizontal_partial": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
     "volume_transpose": (f"{CSRC}/transpose.cu",
                          "scripts/aggr_transpose_probe.py:176"),
-    "wta_reduce": (f"{CSRC}/aggregate.cu", f"{PALLAS}:1073"),
+    "wta_reduce": (f"{CSRC}/wta.cu", f"{PALLAS}:1073"),
     "lr_check": (f"{CSRC}/lr_check.cu", f"{PALLAS}:1754"),
     "remove_speckles": (f"{CSRC}/speckle.cu", f"{PALLAS}:1306"),
     # the tiled path's modes: mask_rows=False, and the cin_*/cout_* refs
@@ -439,6 +442,46 @@ def k1_k4_ladder() -> None:
               f"min_area {area}): {ms:.4f} ms, bound {k4_bound:.4f} ms, "
               f"bit-equal")
         del disp
+        torch.cuda.empty_cache()
+
+
+def wta_ladder() -> None:
+    """Print the WTA's time beside its bound at cone B=2, 8, 32 and at
+    1000x1500 D=256 B=1, on the volume ``aggregate_paths`` makes of a
+    synthetic pair, both views held bit-equal to the plain version first;
+    beside it the min over D of the volume by one PyTorch call, which reads
+    the volume once (a read floor; the WTA does more).  A call's events also
+    hold the wrapper's host time when the card waits for it, so the time a
+    launch takes in a run of RUN back-to-back launches is printed too."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    for cfg in [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]:
+        opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
+        left, right, _ = pair(cfg, seed=8)
+        cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                          opt.max_disparity)
+        aggr = kernels.aggregate_paths(cost, left, opt)
+        del cost
+        b, h, d, w = aggr.shape
+        fn = lambda: kernels.wta_reduce(aggr, opt, include_inverse=True)
+        got = fn()
+        want = kernels.wta_reduce_plain(aggr, opt, include_inverse=True)
+        max_abs_err(torch.stack(got[0] + got[1]), torch.stack(want[0] + want[1]))
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(fn, 20)
+        run = cuda_ms(lambda: [fn() for _ in range(RUN)], 5) / RUN
+        floor = cuda_ms(lambda: aggr.view(torch.int16).amin(dim=2), 20)
+        px, vol = b * h * w, b * h * w * d
+        lim = bound(2 * vol + 40 * px, 2 * 3 * vol)["bound_ms"]
+        print(f"WTA wta_reduce {h}x{w} D={d} B={b}: {ms:.4f} ms a call, "
+              f"{run:.4f} a launch in runs of {RUN}; bound {lim:.4f} ms "
+              f"({lim / ms:.1%} / {lim / run:.1%} of it); read floor "
+              f"aggr.amin(dim=2) {floor:.4f} ms; both views bit-equal")
+        del aggr, left, right
         torch.cuda.empty_cache()
 
 
@@ -1028,6 +1071,7 @@ def main() -> None:
           f"B={FPS_BATCH}: {ms:.3f} ms/batch = {FPS_BATCH / ms * 1e3:.2f} frames/s")
     scan_ladder()
     k1_k4_ladder()
+    wta_ladder()
 
     # 5. tile phase
     check_tile_kernels(MIDDLEBURY_HALF, timed=False)

@@ -1,12 +1,11 @@
-// K2: SGM path aggregation (one launch per direction group) and the WTA
-// reduction.
+// K2: SGM path aggregation (one launch per direction group).
 //
 // Replaces: soc_project_stereo_matching_tpu/ops/pallas_kernels.py:
 //   _directional_scan_group / _scan_group_kernel (with and without its
 //   cross-tile carry-in/out refs) and
 //   _directional_scan_group_bidir / _bidir_kernel, as driven by
-//   aggregate_paths, aggregate_paths_wta and parallel/tiles.py, and
-//   wta_reduce_pallas / _wta_kernel / _wta_reduce_block.
+//   aggregate_paths, aggregate_paths_wta and parallel/tiles.py.  The WTA
+//   reduction that follows is csrc/wta.cu.
 //
 // Two scan kernels live here.  `group_kernel` (sgm_scan_group) is the one the
 // port runs: up to three directions that share a scan order in one launch.
@@ -126,11 +125,6 @@
 // scan takes the carry at the tile's last row and emits it at the first.
 // Only a first step without a carry-in starts fresh; a zero carry-in is
 // neutral (m = 0, so the first row contributes its raw cost).
-//
-// WTA design: one thread per pixel, looping over d with w fastest across
-// threads (coalesced).  A single pass keeps the first argmin, the min and
-// the min over d != best; c1/c2 are re-read at clip(best -+ 1).  The inverse
-// view samples plane k at column j + dmin + k (65535 outside the image).
 
 #include <climits>
 #include <cstdint>
@@ -140,8 +134,6 @@
 namespace {
 
 constexpr int kSentinel = 255;
-constexpr int kBig = 1 << 30;
-constexpr int kUint16Max = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -985,57 +977,6 @@ bool even_access(const GroupArgs& a) {
          (uintptr_t)a.out % 4 == 0;
 }
 
-struct Best {
-  int idx, min1, min2;
-};
-
-// First argmin, min and min over k != argmin of f(0..D-1).
-template <typename F>
-__device__ __forceinline__ Best reduce_planes(int D, F f) {
-  Best r{0, f(0), kBig};
-  for (int k = 1; k < D; ++k) {
-    const int v = f(k);
-    if (v < r.min1) {
-      r.min2 = r.min1;
-      r.min1 = v;
-      r.idx = k;
-    } else if (v < r.min2) {
-      r.min2 = v;
-    }
-  }
-  return r;
-}
-
-__global__ void wta_kernel(const uint16_t* __restrict__ aggr,
-                           int* __restrict__ out, int B, int H, int D, int W,
-                           int dmin, int include_inverse) {
-  const size_t n = (size_t)B * H * W;
-  const size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int j = (int)(idx % W);
-  const uint16_t* a = aggr + (idx / W) * D * W;
-
-  auto fwd = [&](int k) { return (int)a[(size_t)k * W + j]; };
-  Best r = reduce_planes(D, fwd);
-  out[idx] = r.idx;
-  out[n + idx] = r.min1;
-  out[2 * n + idx] = r.min2;
-  out[3 * n + idx] = fwd(max(r.idx - 1, 0));
-  out[4 * n + idx] = fwd(min(r.idx + 1, D - 1));
-  if (!include_inverse) return;
-
-  auto inv = [&](int k) {
-    const int col = j + dmin + k;
-    return (col >= 0 && col < W) ? (int)a[(size_t)k * W + col] : kUint16Max;
-  };
-  r = reduce_planes(D, inv);
-  out[5 * n + idx] = r.idx;
-  out[6 * n + idx] = r.min1;
-  out[7 * n + idx] = r.min2;
-  out[8 * n + idx] = inv(max(r.idx - 1, 0));
-  out[9 * n + idx] = inv(min(r.idx + 1, D - 1));
-}
-
 }  // namespace
 
 // One direction of the aggregation: vertical (scan over H; roll -1/0/+1
@@ -1111,19 +1052,4 @@ extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
     }
   }
   return 0;
-}
-
-// WTA planes of a uint16 (B, H, D, W) volume into out = int32 (5 or 10, B,
-// H, W): best, min, sec_min, c1, c2 of the forward view, then of the inverse.
-extern "C" int sgm_wta_reduce(const void* aggr, void* out, int B, int H,
-                              int D, int W, int dmin, int include_inverse,
-                              void* stream) {
-  const long long n = (long long)B * H * W;
-  if (n == 0) return 0;
-  if (D < 1) return (int)cudaErrorInvalidValue;
-  constexpr int kThreads = 256;
-  wta_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-               (cudaStream_t)stream>>>((const uint16_t*)aggr, (int*)out, B, H,
-                                       D, W, dmin, include_inverse);
-  return (int)cudaGetLastError();
 }

@@ -1,14 +1,15 @@
-"""K1 and K4 of this checkout against those of another checkout, on one card.
+"""K1, K4 and the WTA of this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
         [--reps 20] [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
 ``git archive <commit> | tar -x -C build/parent`` (``build/`` is
-git-ignored).  Its ``csrc/speckle.cu`` and ``csrc/census_cost.cu`` are built
-into a library of their own; their C entries have this checkout's names and
-signatures.  At the cone geometry (375x450, D=64, B=2, 8, 32) and at
-Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
+git-ignored).  Its sources that define ``sgm_remove_speckles``,
+``sgm_census_cost`` and ``sgm_wta_reduce`` are built into a library of their
+own; those C entries have this checkout's names and signatures.  At the cone
+geometry (375x450, D=64, B=2, 8, 32) and at Middlebury-half (1000x1500,
+D=256, B=1), on seeded synthetic pairs:
 
 * K4 (``sgm_remove_speckles``, on the engine's pre-speckle disparity) and K1
   (``sgm_census_cost``; at Middlebury-half also in halo mode) of both
@@ -24,7 +25,18 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   by its centre pixel, the popcounts by a constant, or the 16-byte stores
   left out (each a text patch; a patch that no longer applies is reported
   as such), and ``Tensor.fill_`` on the same volume, a PyTorch call that
-  writes the same bytes and nothing else.
+  writes the same bytes and nothing else;
+* the WTA (``sgm_wta_reduce``, both views, on the volume this checkout's
+  ``aggregate_paths`` makes of the pair) of both checkouts, held bit-equal
+  to each other and to the plain version, then timed in turns as above,
+  a call at a time and, since a call's events also hold host time while
+  the card waits, a launch at a time in runs of ``RUN`` back-to-back
+  launches, beside its byte bound; this checkout's forward view alone and its
+  ablations: the reduction replaced by one xor a plane (the staging and
+  the loads are left), and the copies left out (the reduction on whatever
+  the buffers hold: the compute alone; whole-row blocks only);
+* K3 (``lr_check``) on the two views' disparities: its device time from
+  ``torch.profiler`` beside its byte bound (12 bytes a pixel).
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -43,13 +55,15 @@ from pathlib import Path
 import torch
 
 from . import _build
+from .config import SGMOptions
 from .data.synthetic import synthetic_pair
 from .ops import kernels, postprocess
+from .ops.wta import WTAPlanes, finalize_disparity
 from .probes import kernels as pk
 from .probes import prespeckle_disparity
 from .utils.profiling import card
 
-SOURCES = ("speckle.cu", "census_cost.cu")
+ENTRIES = ("sgm_remove_speckles", "sgm_census_cost", "sgm_wta_reduce")
 SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
           ("cone B=32", 32, 375, 450, 64),
           ("Middlebury-half B=1", 1, 1000, 1500, 256))
@@ -63,7 +77,22 @@ ABLATIONS = {
         ("*reinterpret_cast<uint4*>(base + c) =",
          "if (c < 0) *reinterpret_cast<uint4*>(base + c) =")],
 }
+# WTA ablations: (text in csrc/wta.cu, its replacement)
+WTA_ABLATIONS = {
+    "wta loads only": [
+        ("__device__ __forceinline__ void pair_step(Pair& p, unsigned vp, int v0,\n"
+         "                                          int v1, int k) {\n",
+         "__device__ __forceinline__ void pair_step(Pair& p, unsigned vp, int v0,\n"
+         "                                          int v1, int k) {\n"
+         "  p.m1 ^= vp + v0 + v1;\n  return;\n")],
+    "wta no copies": [
+        ("        mbar_expect(smem_addr(full + b), bytes);\n"
+         "        bulk_copy(smem_addr(smem + base), (const unsigned char*)g - lead,\n"
+         "                  bytes, smem_addr(full + b));",
+         "        mbar_expect(smem_addr(full + b), 0);")],
+}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+RUN = 10    # back-to-back WTA launches between two events
 
 
 def patched(text: str, edits) -> str | None:
@@ -98,7 +127,7 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
                                f"{proc.stderr}")
     handle = ctypes.CDLL(str(lib))
-    for entry in ("sgm_remove_speckles", "sgm_census_cost"):
+    for entry in ENTRIES:
         if hasattr(handle, entry):
             getattr(handle, entry).argtypes = _build.SIGNATURES[entry]
             getattr(handle, entry).restype = ctypes.c_int
@@ -128,6 +157,29 @@ def k1(lib, left, right, dmax, halo=False):
     if lib.sgm_census_cost(left.data_ptr(), right.data_ptr(), out.data_ptr(),
                            b, h, w, 0, dmax, int(halo), _stream()):
         raise RuntimeError("sgm_census_cost failed")
+    return out
+
+
+def wta(lib, aggr, dmin: int, inverse: bool = True):
+    b, h, d, w = aggr.shape
+    out = torch.empty((10 if inverse else 5, b, h, w), dtype=torch.int32,
+                      device=aggr.device)
+    if lib.sgm_wta_reduce(aggr.data_ptr(), out.data_ptr(), b, h, d, w, dmin,
+                          int(inverse), _stream()):
+        raise RuntimeError("sgm_wta_reduce failed")
+    return out
+
+
+def sources_defining(csrc: Path, entries) -> dict:
+    """{file name: text} of the sources in ``csrc`` that define the C
+    entries (each must be defined somewhere)."""
+    out = {}
+    for entry in entries:
+        found = [src for src in sorted(csrc.glob("*.cu"))
+                 if f'extern "C" int {entry}(' in src.read_text()]
+        if not found:
+            raise SystemExit(f"kernel_ab: no source in {csrc} defines {entry}")
+        out[found[0].name] = found[0].read_text()
     return out
 
 
@@ -197,9 +249,14 @@ def main(argv=None) -> dict:
         raise SystemExit("kernel_ab: needs a CUDA device")
     csrc_other = (Path(args.parent) / "soc_project_stereo_matching_tpu_torch"
                   / "csrc")
-    other = build_library("parent", {f: (csrc_other / f).read_text()
-                                      for f in SOURCES})
+    other = build_library("parent", sources_defining(csrc_other, ENTRIES))
     this = _build.load()
+    wta_text = (_build.CSRC / "wta.cu").read_text()
+    wta_ablated = {name: patched(wta_text, edits)
+                   for name, edits in WTA_ABLATIONS.items()}
+    wta_ablated = {name: None if text is None else
+                   build_library(name.replace(" ", "-"), {"wta.cu": text})
+                   for name, text in wta_ablated.items()}
     k1_text = (_build.CSRC / "census_cost.cu").read_text()
     ablated = {name: patched(k1_text, edits)
                for name, edits in ABLATIONS.items()}
@@ -269,7 +326,48 @@ def main(argv=None) -> dict:
                                                      args.reps)
         rec["k1_ablations_ms"] = abl
         print(f"{label} K1 ablations ms {json.dumps(abl)}")
-        del left, right, runs, vol
+        del runs, vol
+
+        # the WTA on the volume the main path's scans make, then K3
+        opt = SGMOptions(max_disparity=dmax)
+        aggr = kernels.aggregate_paths(
+            kernels.census_cost_volume(left, right, 0, dmax), left, opt)
+        want = torch.stack(sum(kernels.wta_reduce_plain(aggr, opt, True), ()))
+        for name, lib in (("parent", other), ("this", this)):
+            same(wta(lib, aggr, 0), want, f"WTA {name} {label}")
+        del want
+        px, vol = b * h * w, b * h * w * dmax
+        rec["wta_bound_ms"] = (2 * vol + 40 * px) / HBM_BYTES_PER_S * 1e3
+        ms = rec["wta_ms"] = in_turns({
+            "parent": lambda: wta(other, aggr, 0),
+            "this": lambda: wta(this, aggr, 0)}, args.reps)
+        rec["wta_run_ms"] = {name: [t / RUN for t in v] for name, v in in_turns({
+            "parent": lambda: [wta(other, aggr, 0) for _ in range(RUN)],
+            "this": lambda: [wta(this, aggr, 0) for _ in range(RUN)]},
+            args.reps).items()}
+        extra = {"forward view alone": event_ms(
+            lambda: wta(this, aggr, 0, False), args.reps)}
+        extra.update({name: None if lib is None else
+                      event_ms(lambda lib=lib: wta(lib, aggr, 0), args.reps)
+                      for name, lib in wta_ablated.items()})
+        extra["aggr.amin(dim=2), a read of the volume"] = event_ms(
+            lambda: aggr.view(torch.int16).amin(dim=2), args.reps)
+        rec["wta_ablations_ms"] = extra
+        run = rec["wta_run_ms"]
+        print(f"{label} WTA ms parent {ms['parent']} this {ms['this']}; a "
+              f"launch in runs of {RUN}: parent {run['parent']} this "
+              f"{run['this']}; bound {rec['wta_bound_ms']:.4f} ms; "
+              f"{json.dumps(extra)}")
+        planes = wta(this, aggr, 0)
+        dl = finalize_disparity(WTAPlanes(*planes[:5]), opt)
+        dr = finalize_disparity(WTAPlanes(*planes[5:]), opt)
+        k3 = lambda: kernels.lr_check(dl, dr, opt.lrcheck_thres, dmax)
+        rec["k3_bound_ms"] = 12 * px / HBM_BYTES_PER_S * 1e3
+        rec["k3_kernels_ms"] = kernel_ms(k3)
+        rec["k3_event_ms"] = event_ms(k3, args.reps)
+        print(f"{label} K3 device ms {json.dumps(rec['k3_kernels_ms'])}, "
+              f"events {rec['k3_event_ms']}, bound {rec['k3_bound_ms']:.4f} ms")
+        del left, right, aggr, planes, dl, dr
         torch.cuda.empty_cache()
 
     out = Path(args.out)

@@ -18,7 +18,9 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
     scan_direction          K2 csrc/aggregate.cu    one direction alone, the
                                first design's kernel (a warp per path);
                                scan_directions sums several such launches
-    wta_reduce              K2 csrc/aggregate.cu    <- wta_reduce_pallas
+    wta_reduce              K2 csrc/wta.cu          <- wta_reduce_pallas (both
+                               views from one read; wta_online_plain
+                               transcribes its online reduction)
     lr_check                K3 csrc/lr_check.cu     <- lr_check_pallas
     remove_speckles         K4 csrc/speckle.cu      <- remove_speckles_pallas
     union_find_labels       K4 csrc/speckle.cu      its label stage alone
@@ -237,7 +239,11 @@ def _check_penalties(p1: int, p2_init: int) -> None:
 def group_capacity(cost: torch.Tensor, out: torch.Tensor) -> int:
     """The most directions one ``sgm_scan_group`` launch takes for this
     uint8 (B, S, D, W) cost and uint16 sum on the current card: as many as
-    the kernel's on-chip state has room for, ``MAX_GROUP`` at most."""
+    the kernel's on-chip state has room for, ``MAX_GROUP`` at most.  On an
+    NVIDIA H100 80GB HBM3 a launch takes no direction, and this raises, for
+    rows wider than 13,824 columns at D = 64, 6,720 at D = 128 and 3,264 at
+    D = 256 (a cluster of 16 blocks; ``tests/test_torch_cuda.py`` finds
+    these limits on the card)."""
     b, _, d, w = cost.shape
     dirs = ctypes.c_int(0)
     err = _build.load().sgm_scan_group_capacity(
@@ -546,14 +552,93 @@ def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
     return fwd, inv
 
 
+WTA_KEY_SHIFT = 8       # the kernel's latch: cost << 8 | k, so D <= 256
+WTA_MAX_WIDTH = 32768   # columns of a row the kernel takes (kMaxWidth)
+
+
+class _Track:
+    """One view's online reduction, all columns at once, with the kernel's
+    arithmetic for a column: the min and the min over the planes that lost
+    to it (ties lose, so the first plane keeps the min), the latch
+    ``prev << 8 | k`` (c1 and best) where the min changes hands, c2 of the
+    plane after one that took the min, and the cost at the plane before.
+    Plane 0 starts it."""
+
+    def __init__(self, first: torch.Tensor):
+        self.m1 = first
+        self.m2 = torch.full_like(first, wta_ops.UINT16_MAX)
+        self.rk = first << WTA_KEY_SHIFT     # c1 = cost[clip(-1)], best 0
+        self.rc2 = torch.zeros_like(first)
+        self.prev = first
+        self.took = torch.ones_like(first, dtype=torch.bool)
+
+    def step(self, v: torch.Tensor, k: int) -> None:
+        keep = self.m1 <= v
+        self.m2 = torch.minimum(self.m2, torch.maximum(self.m1, v))
+        self.m1 = torch.minimum(self.m1, v)
+        self.rk = torch.where(keep, self.rk, (self.prev << WTA_KEY_SHIFT) | k)
+        self.rc2 = torch.where(self.took, v, self.rc2)
+        self.prev, self.took = v, ~keep
+
+    def planes(self, d: int) -> WTAPlanes:
+        best = self.rk & 0xFF
+        sec = self.m2 if d > 1 else torch.full_like(best, wta_ops.BIG)
+        return WTAPlanes(best, self.m1, sec, self.rk >> WTA_KEY_SHIFT,
+                         torch.where(best == d - 1, self.prev, self.rc2))
+
+
+def wta_online_plain(aggr, options: SGMOptions, include_inverse: bool = True,
+                     chunk: int = 16):
+    """The WTA kernel's reduction, transcribed: the planes of each row are
+    staged ``chunk`` at a time, each staged plane followed by 65535 where
+    the inverse view's reads leave the row, and both views are reduced in
+    one pass over the planes with the kernel's running minima and latches
+    (no second read for c1 and c2).  Same result as ``wta_reduce_plain``;
+    for the tests, which hold the kernel's algorithm against the JAX op."""
+    b, h, d, w = aggr.shape
+    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
+        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    dmin = options.min_disparity
+    a = aggr.to(torch.int32)
+    reach = min(dmin + d - 1, w)       # how far right the inverse view reads
+    tracks = None
+    for k0 in range(0, d, chunk):
+        staged = torch.full((b, h, min(chunk, d - k0), w + reach),
+                            wta_ops.UINT16_MAX, dtype=torch.int32,
+                            device=a.device)
+        staged[..., :w] = a[:, :, k0:k0 + chunk]
+        for kk in range(staged.shape[2]):
+            k = k0 + kk
+            shift = min(dmin + k, w)
+            views = [staged[:, :, kk, :w]]
+            if include_inverse:
+                views.append(staged[:, :, kk, shift:shift + w])
+            if tracks is None:
+                tracks = [_Track(v) for v in views]
+                continue
+            for track, v in zip(tracks, views):
+                track.step(v, k)
+    fwd = tracks[0].planes(d)
+    return fwd, tracks[1].planes(d) if include_inverse else None
+
+
 def wta_reduce(aggr: torch.Tensor, options: SGMOptions,
                include_inverse: bool = True):
     """uint16 (B, H, D, W) -> (forward WTAPlanes, inverse WTAPlanes or None),
-    int32 (B, H, W) planes, like ``wta_reduce_pallas``."""
+    int32 (B, H, W) planes, like ``wta_reduce_pallas``.  On the card the
+    kernel takes D in 1..256 and rows of up to ``WTA_MAX_WIDTH`` columns,
+    wider than the group scan kernel takes at any D; beyond that it raises."""
     if _on_cpu(aggr):
         return wta_reduce_plain(aggr, options, include_inverse)
     _check(aggr, "aggr", torch.uint16, 4)
     b, h, d, w = aggr.shape
+    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
+        raise ValueError(f"disparity range {d} outside the WTA kernel's 1..256")
+    if w > WTA_MAX_WIDTH:
+        raise ValueError(f"W={w}: the WTA kernel takes rows of at most "
+                         f"{WTA_MAX_WIDTH} columns")
     n_out = 10 if include_inverse else 5
     out = torch.empty((n_out, b, h, w), dtype=torch.int32, device=aggr.device)
     _launch("sgm_wta_reduce", "wta_reduce", aggr.data_ptr(), out.data_ptr(),

@@ -582,3 +582,94 @@ def test_main_path_launches_each_entry_once_per_batch(cuda):
     for name in ("census_cost_volume", "wta_reduce", "lr_check",
                  "remove_speckles"):
         assert kernels.LAUNCHES[name] == 1, (name, kernels.LAUNCHES[name])
+
+
+# --- K2 WTA (csrc/wta.cu) -------------------------------------------------------
+
+def _wta_volume_on_card(b, h, d, w, pattern, offset, cuda):
+    """A seeded uint16 (B, H, D, W) volume on the card ("random", "ties":
+    costs 0..3, "flat": half the columns one cost on every plane, "max":
+    real 65535 beside small costs), starting ``offset`` elements into its
+    storage (a data pointer off the 16-byte grid)."""
+    g = torch.Generator(device=cuda).manual_seed(b * h * d + w)
+    n = b * h * d * w
+    hi = 4 if pattern == "ties" else 60000
+    flat = torch.randint(0, hi, (n + offset,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    aggr = flat[offset:].view(b, h, d, w)
+    if pattern == "flat":
+        aggr[..., : w // 2] = 7
+    elif pattern == "max":
+        aggr = torch.where(torch.rand(aggr.shape, generator=g, device=cuda)
+                           < 0.4, 65535, aggr % 8)
+        aggr[..., 0] = 65535
+    store = torch.empty(n + offset, dtype=torch.uint16, device=cuda)
+    out = store[offset:].view(b, h, d, w)
+    out.copy_(aggr.to(torch.uint16))
+    return out
+
+
+@pytest.mark.parametrize("b,h,d,w,dmin,pattern,offset", [
+    (2, 375, 64, 450, 0, "random", 0),       # cone B=2
+    (1, 1000, 256, 1500, 0, "random", 0),    # Middlebury-half
+    (2, 37, 48, 45, 8, "random", 1),         # odd W
+    (2, 9, 16, 5, 0, "random", 0),           # W < 16
+    (2, 9, 1, 53, 0, "random", 3),           # D = 1
+    (2, 9, 3, 53, 2, "ties", 0),             # D = 3
+    (1, 8, 128, 1242, 24, "random", 0),      # KITTI-2012's range
+    (2, 9, 64, 450, 0, "ties", 5),
+    (2, 9, 64, 450, 0, "flat", 0),
+    (2, 9, 64, 450, 3, "max", 7),
+    (1, 3, 128, 4100, 24, "random", 1),      # rows cut into segments
+    (1, 3, 16, 2049, 0, "max", 0),
+    (2, 5, 16, 45, 100, "random", 0),        # the inverse view all off the row
+    (1, 2, 256, kernels.WTA_MAX_WIDTH, 0, "random", 0)])   # the widest row
+def test_wta_kernel_matches_plain_on_card(cuda, b, h, d, w, dmin, pattern,
+                                          offset):
+    opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+    aggr = _wta_volume_on_card(b, h, d, w, pattern, offset, cuda)
+    for inverse in (True, False):
+        before = kernels.LAUNCHES["wta_reduce"]
+        got = kernels.wta_reduce(aggr, opt, inverse)
+        assert kernels.LAUNCHES["wta_reduce"] == before + 1
+        want = kernels.wta_reduce_plain(aggr, opt, inverse)
+        for g, w_ in zip(got[0] + (got[1] or ()), want[0] + (want[1] or ())):
+            same(g, w_)
+        assert (got[1] is None) == (not inverse)
+
+
+def test_wta_kernel_refuses_beyond_its_limits(cuda):
+    opt = SGMOptions(max_disparity=256)
+    wide = torch.zeros((1, 1, 256, kernels.WTA_MAX_WIDTH + 1),
+                       dtype=torch.uint16, device=cuda)
+    with pytest.raises(ValueError, match=str(kernels.WTA_MAX_WIDTH)):
+        kernels.wta_reduce(wide, opt)
+    deep = torch.zeros((1, 1, 257, 8), dtype=torch.uint16, device=cuda)
+    with pytest.raises(ValueError, match="1..256"):
+        kernels.wta_reduce(deep, SGMOptions(max_disparity=257))
+
+
+# the widest row one sgm_scan_group launch takes (one direction) by D on one
+# H100 80GB HBM3: kernels.group_capacity's docstring states the same
+GROUP_WIDTH_LIMIT = {64: 13824, 128: 6720, 256: 3264}
+
+
+@pytest.mark.parametrize("d", sorted(GROUP_WIDTH_LIMIT))
+def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
+    """Where ``group_capacity`` starts to refuse a row: the widest W that
+    still takes a direction, found by bisection and checked on both sides."""
+    def takes(w):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        out = torch.zeros((1, 1, d, w), dtype=torch.uint16, device=cuda)
+        try:
+            return kernels.group_capacity(cost, out) >= 1
+        except ValueError:
+            return False
+
+    lo, hi = 16, 1 << 16
+    assert takes(lo) and not takes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    assert (d, lo) == (d, GROUP_WIDTH_LIMIT[d])
+    assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")

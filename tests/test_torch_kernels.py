@@ -121,6 +121,74 @@ def test_wta_reduce_matches_pallas(dmin, dmax, no_launch):
     same_planes(only_f, want_f)
 
 
+def _wta_volume(d: int, w: int, pattern: str) -> np.ndarray:
+    """A seeded (2, 3, D, W) uint16 volume: "random"; "ties" (costs 0..3,
+    so the min repeats inside and across chunks); "flat" (half the columns
+    one cost on every plane: the first plane wins); "max" (real costs of
+    65535 beside small ones, and a column of 65535 only, beside the inverse
+    view's 65535 off the row)."""
+    rng = np.random.default_rng(d * 1000 + w)
+    shape = (2, 3, d, w)
+    if pattern == "ties":
+        return rng.integers(0, 4, shape).astype(np.uint16)
+    aggr = rng.integers(0, 60000, shape)
+    if pattern == "flat":
+        aggr[..., : w // 2] = 7
+    elif pattern == "max":
+        aggr = np.where(rng.random(shape) < 0.4, 65535, aggr % 8)
+        aggr[..., 0] = 65535
+    return aggr.astype(np.uint16)
+
+
+@pytest.mark.parametrize("d,dmin,w,chunk,inverse,pattern", [
+    (1, 0, 24, 1, True, "random"), (1, 5, 24, 8, False, "max"),
+    (3, 0, 17, 1, True, "ties"), (3, 2, 17, 2, True, "max"),
+    (16, 0, 40, 8, True, "ties"), (16, 8, 40, 5, True, "flat"),
+    (16, 0, 40, 16, False, "random"), (48, 8, 53, 16, True, "random"),
+    (48, 0, 53, 7, True, "ties"), (48, 30, 40, 8, True, "max"),
+    (256, 0, 24, 16, True, "random"), (256, 3, 24, 1, True, "flat"),
+    (256, 0, 24, 100, False, "ties"), (256, 2, 24, 9, True, "max")])
+def test_wta_online_plain_matches_pallas_and_plain(d, dmin, w, chunk, inverse,
+                                                   pattern, no_launch):
+    """The WTA kernel's reduction (``wta_online_plain``: planes staged in
+    chunks, packed keys and latches, both views in one pass) against the
+    Pallas entry (interpret mode) and ``ops/wta.wta_reduce``, bit for bit:
+    D = 1 (sec_min 1<<30) to 256 (D > W), dmin = 0 and > 0 (also with the
+    whole inverse view off the row), chunks of 1, of D and that do not
+    divide D."""
+    opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+    aggr = _wta_volume(d, w, pattern)
+    got_f, got_i = kernels.wta_online_plain(t(aggr), from_jax(opt), inverse,
+                                            chunk)
+    want_f, want_i = pk.wta_reduce_pallas(jnp.asarray(aggr), opt,
+                                          include_inverse=inverse,
+                                          block_rows=8)
+    plain_f, plain_i = kernels.wta_reduce_plain(t(aggr), from_jax(opt), inverse)
+    same_planes(got_f, want_f)
+    same_planes(got_f, [p.numpy() for p in plain_f])
+    if inverse:
+        same_planes(got_i, want_i)
+        same_planes(got_i, [p.numpy() for p in plain_i])
+    else:
+        assert got_i is None and want_i is None and plain_i is None
+    if d == 1:
+        assert (got_f.sec_min == 1 << 30).all()
+
+
+def test_wta_kernel_width_limit_matches_the_source():
+    """The wrapper's row limit and key shift are the kernel's (``kMaxWidth``,
+    ``kShift`` in csrc/wta.cu); the transcription refuses D > 256 as the
+    wrapper does."""
+    text = (_build.CSRC / "wta.cu").read_text()
+    assert re.search(r"constexpr int kMaxWidth = (\d+);", text).group(1) == \
+        str(kernels.WTA_MAX_WIDTH)
+    assert re.search(r"constexpr int kShift = (\d+);", text).group(1) == \
+        str(kernels.WTA_KEY_SHIFT)
+    with pytest.raises(ValueError, match="1..256"):
+        kernels.wta_online_plain(torch.zeros((1, 1, 257, 4), dtype=torch.int32),
+                                 from_jax(SGMOptions(max_disparity=257)))
+
+
 def test_lr_check_matches_pallas_and_oracle(no_launch):
     rng = np.random.default_rng(17)
     dl = rng.uniform(0, 16, (2, 45, 83)).astype(np.float32)
@@ -209,6 +277,31 @@ def test_kernel_ab_ablations_still_apply_to_the_census_source(ablation):
     assert out is not None and out != text
     assert kernel_ab.patched("x x", [("x", "y")]) is None     # twice
     assert kernel_ab.patched("x", [("z", "y")]) is None       # nowhere
+
+
+@pytest.mark.parametrize("ablation", sorted(kernel_ab.WTA_ABLATIONS))
+def test_kernel_ab_wta_ablations_still_apply_to_the_wta_source(ablation):
+    text = (_build.CSRC / "wta.cu").read_text()
+    out = kernel_ab.patched(text, kernel_ab.WTA_ABLATIONS[ablation])
+    assert out is not None and out != text
+
+
+def test_kernel_ab_finds_the_sources_of_its_entries(tmp_path):
+    """Each compared C entry is found in the source that defines it, in
+    this checkout (the WTA in wta.cu) and in one where the WTA still lives
+    beside the scans; a checkout without it is refused."""
+    found = kernel_ab.sources_defining(_build.CSRC, kernel_ab.ENTRIES)
+    assert sorted(found) == ["census_cost.cu", "speckle.cu", "wta.cu"]
+    (tmp_path / "aggregate.cu").write_text(
+        'extern "C" int sgm_wta_reduce(const void* a) { return 0; }')
+    (tmp_path / "speckle.cu").write_text(
+        'extern "C" int sgm_remove_speckles(const void* a) { return 0; }\n'
+        'extern "C" int sgm_census_cost(const void* a) { return 0; }')
+    assert sorted(kernel_ab.sources_defining(tmp_path, kernel_ab.ENTRIES)) == \
+        ["aggregate.cu", "speckle.cu"]
+    (tmp_path / "aggregate.cu").unlink()
+    with pytest.raises(SystemExit, match="sgm_wta_reduce"):
+        kernel_ab.sources_defining(tmp_path, kernel_ab.ENTRIES)
 
 
 @pytest.mark.parametrize("key,name", [
