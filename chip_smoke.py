@@ -61,6 +61,11 @@ Phases (each raises on failure, so the script exits non-zero):
       ``int16_recurrence.run`` (counters reset before, read after), which
       hold ``hpart_T`` and ``scan16`` against the shipped kernels at the cone
       pair; each printed with the card's name and power limit;
+   c. the "scan16" ladder: ``scan16`` (one launch per group where its 16-bit
+      state fits, the capacity split where it does not) beside the shipped
+      group scan (``prod3``) and the chain floor (P1 ``chain3``) on the
+      vertical forward group, at cone B=2, 8, 32 and 1000x1500 D=256 B=1,
+      in turns, each held bit-equal to the group scan first;
 7. speckle probe phase (the speckle probe path, cone pair B=8, 375x450, D=64,
    ``min_area`` 50, and an off shape 37x45, D=48, B=4, ``min_area`` 8; at each
    shape the engine's pre-speckle disparity and four hand-made frames: a
@@ -79,6 +84,10 @@ Phases (each raises on failure, so the script exits non-zero):
    b. the path: ``probes.speckle.run`` and ``probes.speckle_tail.run``
       (counters reset before, read after), their ladders printed with the
       card's name and power limit;
+   c. the "S1" ladder: S1 in every mode (block4 where B is a multiple of 4)
+      beside K4 whole and K4's label stage, on the engine's pre-speckle
+      disparity at cone B=2, 8, 32 and 1000x1500 D=256 B=1, S1's labels held
+      equal to K4's first;
 8. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time), then the contract line
@@ -778,7 +787,9 @@ def probe_kernel_checks(cfg, full: bool) -> dict:
             lambda: pk.scan16(cost, left, group, False, p1, p2, False),
             lambda: pk.scan16_plain(cost, left, group, False, p1, p2, False),
             # cost and image in, the uint16 sum out; 3 directions of ~10
-            # operations per element, two elements to an operation
+            # operations per element, two elements to an operation.  Its
+            # dependent chain (P1 chain3, the "scan16" ladder) is a floor the
+            # card's rates do not count
             bound(vol + b * h * w + 2 * vol, 3 * 5 * vol), None),
     }
     for name, (fn, plain, bnd, library) in timed.items():
@@ -811,7 +822,94 @@ def probe_phase() -> tuple:
               f"B={doc['batch']} {doc['h']}x{doc['w']} D={doc['d']}, ms per "
               f"frame = ms per launch / B):")
         print(probe.report(doc))
+    scan16_ladder()
     return records, launches
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """{name: median ms}: each timed twice in the order a, b, ..., b, a and
+    the two medians averaged."""
+    order = list(fns) + list(fns)[::-1]
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(cuda_ms(fns[name], reps))
+    return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def scan16_ladder() -> None:
+    """Print ``scan16`` beside the group scan (``prod3``) and the chain
+    floor (``chain3``, three directions of H dependent steps) per launch
+    group at cone B=2, 8, 32 and 1000x1500 D=256 B=1, in turns."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import pair_and_cost
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    rolls = (0, 1, -1)
+    shapes = [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]
+    for cfg in shapes:
+        b, h, w, dmax = cfg["batch"], cfg["h"], cfg["w"], cfg["dmax"]
+        opt, left, _, cost = pair_and_cost(torch.device("cuda"), b, h, w, dmax)
+        p1, p2 = opt.p1, opt.p2_init
+        max_abs_err(pk.scan16(cost, left, rolls, False, p1, p2, False),
+                    kernels.directional_scan_group(cost, left, None, rolls,
+                                                   False, p1, p2, False))
+        x = torch.zeros((b, dmax, w), dtype=torch.uint16, device=cost.device)
+        ms = in_turns({
+            "scan16": lambda: pk.scan16(cost, left, rolls, False, p1, p2,
+                                        False),
+            "prod3": lambda: kernels.directional_scan_group(
+                cost, left, None, rolls, False, p1, p2, False),
+            "chain3": lambda: pk.chain(x, h, rolls, p1),
+            # one diagonal alone: one launch of each kernel at every shape
+            "scan16 (1,)": lambda: pk.scan16(cost, left, (1,), False, p1, p2,
+                                             False),
+            "group scan (1,)": lambda: kernels.directional_scan_group(
+                cost, left, None, (1,), False, p1, p2, False)}, 5)
+        launches = -(-len(rolls) // pk.scan16_capacity(cost))
+        print(f"scan16 ladder, {h}x{w} D={dmax} B={b} (ms per launch group, "
+              f"in turns): scan16 {ms['scan16']:.4f} ({launches} launch"
+              f"{'es' if launches > 1 else ''}), prod3 {ms['prod3']:.4f}, "
+              f"chain3 {ms['chain3']:.4f}; scan16 / prod3 "
+              f"{ms['scan16'] / ms['prod3']:.3f}; one diagonal: scan16 "
+              f"{ms['scan16 (1,)']:.4f}, group scan "
+              f"{ms['group scan (1,)']:.4f}; bit-equal")
+        del cost, left, x
+        torch.cuda.empty_cache()
+
+
+def speckle_ladder() -> None:
+    """Print S1 in every mode beside K4 whole and K4's label stage on the
+    engine's pre-speckle disparity at cone B=2, 8, 32 and 1000x1500 D=256
+    B=1, S1's labels held equal to K4's first."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        prespeckle_disparity)
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    shapes = [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]
+    for cfg in shapes:
+        b, h, w = cfg["batch"], cfg["h"], cfg["w"]
+        opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w,
+                                         cfg["dmax"])
+        area = opt.min_speckle_area
+        labels, rounds = pk.speckle_labels(disp, 1.0, "base")
+        max_abs_err(labels, pk.flat_to_root_labels(
+            kernels.union_find_labels(disp, 1.0)))
+        modes = [m for m in pk.LABEL_MODES
+                 if m != "block4" or b % pk.BLOCK_FRAMES == 0]
+        fns = {m: (lambda m=m: pk.speckle_labels(disp, 1.0, m)) for m in modes}
+        fns["K4 labels"] = lambda: kernels.union_find_labels(disp, 1.0)
+        fns["K4"] = lambda: kernels.remove_speckles(disp, 1.0, area)
+        ms = in_turns(fns, 10)
+        print(f"S1 ladder, {h}x{w} B={b} (ms per launch, in turns; base "
+              f"rounds up to {int(rounds.max())}): " + ", ".join(
+                  f"{name} {t:.4f}" for name, t in ms.items()))
+        del disp, labels
+        torch.cuda.empty_cache()
 
 
 def hard_frames(b: int, h: int, w: int, area: int):
@@ -944,8 +1042,9 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
             # the disparity in, the labels out; per pixel and round about 20
             # operations, for the rounds this input's frames ran: that count
             # is the propagation's own, not the least any labelling needs.
-            # Neither bounds it: a round is 6 steps of a barrier and a trip
-            # to the L2
+            # Neither bounds it: a round pair is 4 steps between cluster
+            # barriers, each a chain of dependent trips to the L2 and to
+            # shared memory
             bound(8 * px, 20 * h * w * int(real["rounds"].sum())), None),
         "probe_speckle_hist": (
             lambda: pk.speckle_hist(grouped, h_hist, lo_bits),
@@ -997,6 +1096,7 @@ def speckle_phase() -> tuple:
               f"B={doc['batch']} {doc['h']}x{doc['w']} D={doc['d']}, ms per "
               f"frame = ms per launch / B):")
         print(probe.report(doc))
+    speckle_ladder()
     return records, launches
 
 

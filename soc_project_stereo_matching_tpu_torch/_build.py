@@ -47,7 +47,8 @@ SIGNATURES = {
                           _P),
     "sgm_volume_transpose": (_P, _P) + (_I,) * 7 + (_P,),
     "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
-    "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 13 + (_P,),
+    "sgm_probe_scan16_capacity": (_I, _I, _I, _P),
     "sgm_probe_speckle_labels": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "sgm_probe_speckle_hist": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_speckle_verdict": (_P, _P, _P, _I, _I, _I, _P),

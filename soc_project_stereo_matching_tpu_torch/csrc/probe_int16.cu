@@ -24,32 +24,33 @@
 //   p9   compare and select: __vcmpltu2 and a mask
 //   p10  the arithmetic min y + ((x - y) & ((x - y) >> 15))
 //
-// `scan16` is p7: a group of vertical directions over a (B, S, D, W) cost
-// volume, as sgm_scan_direction walks it (aggregate.cu): one warp per
-// path, reverse, the wrapping diagonals or restart, P1, and P2 from the two
-// gray values along the path.  Its state is packed: a lane holds 2 NP
-// consecutive disparities in NP registers.  L(d-1) and L(d+1) are each one
-// __byte_perm of two neighbouring registers (the neighbour lane's through a
-// shuffle), the three mins, the two adds and the subtract are one sub-word
-// SIMD instruction for two disparities (__vminu2, __vadd2, __vsub2), and the
-// min over D is a butterfly of packed mins with one min of the two halves at
-// the end.  Every intermediate is at most 255 + 255 + max(P1, P2), and
-// `& 0xFF` is a mask of both halves, so 16 bits are exact; the wrapper
-// refuses penalties that could overflow.
+// `scan16` is p7: a group of up to three vertical directions that share a
+// scan order over a (B, S, D, W) cost volume, in one launch on the frame of
+// the shipped group scan (group_kernel in csrc/aggregate.cu: a cluster of
+// blocks per image with column strips, the cost slab staged by cp.async, the
+// strip-edge column handed over by st.async onto transaction barriers, the
+// sum written once), with the TPU's packing: a thread owns one column and a
+// chunk of D, two disparities to a 32-bit register, the state 16-bit in
+// shared memory.  L(d-1) and L(d+1) are each one __byte_perm of neighbouring
+// registers, the three mins, the adds and the subtract are two-lane
+// instructions (__vminu2, __viaddmin_u16x2), and P2' and the path minimum,
+// which belong to the column, are the same in both halves.  Every
+// intermediate is at most 255 + 255 + max(P1, P2), and `& 0xFF` is a mask of
+// both halves, so 16 bits are exact; the wrapper refuses penalties that
+// could overflow.  The shipped kernel packs two COLUMNS to a register and
+// keeps byte state in shared memory; that difference is what the probe
+// measures.
 //
-// What bounds it on the H100: what bounds the K2 scan, memory access (a byte
-// per cost element, a uint16 read-modify-write per volume element and
-// direction, D planes at stride W).  Packing halves the integer instructions
-// of a step, which the K2 scan does not wait for; so `scan16` is a probe, its
-// time stands beside the K2 scan's in PERF.md, and the main path keeps the
-// K2 scan.
+// What bounds it on the H100: what bounds the group scan, a step's fixed
+// latency (a block-wide barrier, the hand-off, the set-up of a step) times S
+// steps, not bytes; see PERF.md for its time beside the group scan's.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kSentinel2 = 0x00FF00FFu;  // 255 in both halves
 constexpr unsigned kLow = 0x0000FFFFu;
 constexpr unsigned kHigh = 0xFFFF0000u;
@@ -181,119 +182,592 @@ int launch_plane(const uint8_t* x, uint16_t* out, int B, int D, int W,
   return (int)cudaGetLastError();
 }
 
-// ---- scan16 ---------------------------------------------------------------------
+// ---- scan16: the group scan on the cluster frame, packed along D ----------
+//
+// The frame is group_kernel's (csrc/aggregate.cu): a cluster of CS blocks per
+// image, block r owning the column strip [r*TW, (r+1)*TW); the cost slab of a
+// step staged by 16-byte cp.async from aligned-down addresses into a ring of
+// NST buffers; the one column of state that crosses a strip edge handed to the
+// neighbour by st.async onto a transaction barrier (three slots, a token per
+// step); the sum of the group written once.  What differs is the packing: a
+// thread owns ONE column and a chunk of PC disparity pairs, a pair (2p, 2p+1)
+// in the halves of a 32-bit word, as the TPU packs a sublane pair.  The state
+// is that word in shared memory, (2 buffers, n, D/2 + 2 rows, TW + 2 words):
+// rows 0 and D/2 + 1 are 255 sentinels, so L(d - 1) and L(d + 1) of a pair
+// are weave(word[p - 1], word[p]) and weave(word[p], word[p + 1]) of a
+// sliding window, with no edge case.  P2' and the path minimum belong to the
+// column, so both halves share them.  For odd D the high half of the last
+// pair is a dead lane held at 255.
+//
+// 16-bit state takes twice the shared memory of group_kernel's byte state:
+// at 1000x1500, D = 256 one direction fills a block of a 16-cluster, so the
+// capacity entry says how many directions a launch takes and the wrapper
+// splits the group.  Where the grid has more blocks than the card has SMs,
+// a block takes fewer chunks so that two fit on an SM (one wave at cone
+// B = 32).  The cp.async, mbarrier and st.async helpers repeat
+// aggregate.cu's: a header shared with the main path's scan would change
+// that file's build, which this probe leaves as it is.
 
-template <int NP>
-__global__ void scan16_kernel(const uint8_t* __restrict__ cost,
-                              const uint8_t* __restrict__ img,
-                              uint16_t* __restrict__ aggr, int B, int S, int D,
-                              int W, int reverse, int roll, int restart,
-                              int p1, int p2_init, int accumulate) {
-  const int warp = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  if (warp >= B * W) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const int b = warp / W;
-  const int path = warp - b * W;
-  const size_t plane = (size_t)W;
-  const uint8_t* cost_b = cost + (size_t)b * S * D * W;
-  const uint8_t* img_b = img + (size_t)b * S * W;
-  uint16_t* aggr_b = aggr + (size_t)b * S * D * W;
+namespace cg = cooperative_groups;
 
-  const int d0 = lane * 2 * NP;
-  unsigned valid[NP], last[NP];  // per half: d < D, d >= D - 1
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    const int lo = d0 + 2 * j, hi = lo + 1;
-    valid[j] = (lo < D ? kLow : 0u) | (hi < D ? kHigh : 0u);
-    last[j] = (lo >= D - 1 ? kLow : 0u) | (hi >= D - 1 ? kHigh : 0u);
-  }
-  const unsigned first = lane == 0 ? kLow : 0u;  // d == 0: register 0, low
+constexpr int kMaxDirs = 3;          // directions of one launch
+constexpr int kMaxCluster = 16;      // 8 is the portable limit
+constexpr int kMaxStages = 4;        // cost slabs in flight
+constexpr int kMaxChunks = 8;        // chunks of a column's pairs
+constexpr int kScanThreads = 768;    // most threads of a block
+constexpr int kClampP = 1024;        // P1, P2' beyond 255 never win a min
+constexpr long long kWaitCycles = 1LL << 32;   // about 2 s
+constexpr long long kHeavyStrip = 16384;       // columns x D of a strip
+constexpr int kSmemMax = 232448;     // 227 KB, the most a block can take
+constexpr int kSlots = 3;            // hand-off buffers
+constexpr int kHeader = 576;         // table, barriers, tokens
 
-  unsigned prev[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) prev[j] = 0u;
-  int prev_min = 0, prev_gray = 0;
-  const unsigned p1p1 = both(p1);
+struct Scan16Args {
+  const uint8_t* cost;   // (B, S, D, W)
+  const uint8_t* img;    // (B, S, W)
+  uint16_t* out;         // (B, S, D, W)
+  int B, S, D, W;
+  int rolls[kMaxDirs];
+  int reverse, restart, p1, p2_init, accumulate;
+  int sms;       // of the card
+  // the launch shape
+  int TW;        // columns of a strip
+  int NCH, PC;   // chunks of a column's D2 = ceil(D / 2) pairs, pairs each
+  int NST;       // cost slabs in the ring
+  int pitchC;    // bytes of a slab row (multiple of 16)
+  int pitchS;    // words of a state row: TW + 2, the strip at word 1
+  int pitchM;    // uint16 of a partial-min row: TW + 2, the strip at 1
+  int stage_off; // the staged outgoing columns, (n, col_bytes)
+  int col_bytes; // a handed-over column's words: NCH * PC, in sixteens
+  int recv_off;  // the hand-off buffers, (slots, n, recv_dir)
+  int recv_dir;  // 16 sentinel bytes, the column, 16 sentinel bytes, mins
+  int smem_bytes;
+};
 
-  for (int s = 0; s < S; ++s) {
-    const int row = reverse ? S - 1 - s : s;
-    int col = path;
-    if (roll) {
-      col = (path + roll * (s % W)) % W;
-      if (col < 0) col += W;
-    }
-    const int gray = img_b[row * W + col];
-    const size_t base = (size_t)row * D * W + col;
-    unsigned c[NP];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int lo = d0 + 2 * j;
-      c[j] = (lo < D ? (unsigned)cost_b[base + lo * plane] : 0u) |
-             (lo + 1 < D ? (unsigned)cost_b[base + (lo + 1) * plane] << 16 : 0u);
-    }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-    unsigned cur[NP];
-    const bool fresh =
-        s == 0 || (restart && roll &&
-                   ((roll > 0 && col == 0) || (roll < 0 && col == W - 1)));
-    if (fresh) {
-#pragma unroll
-      for (int j = 0; j < NP; ++j) cur[j] = c[j];
-    } else {
-      const int p2 = max(p1, p2_init / (abs(gray - prev_gray) + 1));
-      const unsigned min_p2 = both(prev_min + p2);
-      const unsigned min2 = both(prev_min);
-      const unsigned below = __shfl_up_sync(kFull, prev[NP - 1], 1);
-      const unsigned above = __shfl_down_sync(kFull, prev[0], 1);
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const unsigned a = j > 0 ? prev[j - 1] : below;
-        const unsigned z = j < NP - 1 ? prev[j + 1] : above;
-        unsigned up = weave(a, prev[j]);   // L(d-1) of both halves
-        unsigned dn = weave(prev[j], z);   // L(d+1) of both halves
-        if (j == 0) up = (up & ~first) | (kSentinel2 & first);
-        dn = (dn & ~last[j]) | (kSentinel2 & last[j]);
-        const unsigned m = __vminu2(
-            __vminu2(prev[j], __vadd2(__vminu2(up, dn), p1p1)), min_p2);
-        cur[j] = __vsub2(__vadd2(c[j], m), min2) & kSentinel2;
-      }
-    }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(bytes));
+}
 
-    unsigned packed_min = 0xFFFFFFFFu;
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int lo = d0 + 2 * j;
-      if (lo < D) {
-        uint16_t* a = aggr_b + base + lo * plane;
-        const unsigned v = cur[j] & kLow;
-        *a = (uint16_t)(accumulate ? *a + v : v);
-      }
-      if (lo + 1 < D) {
-        uint16_t* a = aggr_b + base + (lo + 1) * plane;
-        const unsigned v = cur[j] >> 16;
-        *a = (uint16_t)(accumulate ? *a + v : v);
-      }
-      packed_min = __vminu2(packed_min, cur[j] | ~valid[j]);
-      prev[j] = cur[j];
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      packed_min = __vminu2(packed_min, __shfl_xor_sync(kFull, packed_min, off));
-    prev_min = (int)min(packed_min & kLow, packed_min >> 16);
-    prev_gray = gray;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` (0..2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::);
+}
+
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins; a peer that never answers is a fault of the protocol, and the
+// kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  unsigned done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > kWaitCycles) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-template <int NP>
-int launch_scan16(const uint8_t* cost, const uint8_t* img, uint16_t* aggr,
-                  int B, int S, int D, int W, int reverse, int roll,
-                  int restart, int p1, int p2_init, int accumulate,
-                  cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long blocks = ((long long)B * W * 32 + kThreads - 1) / kThreads;
-  scan16_kernel<NP><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      cost, img, aggr, B, S, D, W, reverse, roll, restart, p1, p2_init,
-      accumulate);
-  return (int)cudaGetLastError();
+// One word into a peer's shared memory, counted on the peer's barrier.
+__device__ __forceinline__ void send_word(unsigned peer_dst, unsigned value,
+                                          unsigned peer_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];\n" ::"r"(peer_dst),
+      "r"(value), "r"(peer_bar)
+      : "memory");
+}
+
+// Sixteen bytes into a peer's shared memory (16-byte aligned there).
+__device__ __forceinline__ void send_vec(unsigned peer_dst, const unsigned* w,
+                                         unsigned peer_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(peer_dst),
+      "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(peer_bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ int strip_cols(int rank, int TW, int W) {
+  return min(W, (rank + 1) * TW) - rank * TW;
+}
+
+// ODD: D is odd, so the high half of the last pair is a dead lane.
+template <int N, bool ODD>
+__global__ void __launch_bounds__(kScanThreads)
+scan16_kernel(const Scan16Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / CS;
+  const int tid = threadIdx.x;
+  const int D = a.D, W = a.W, S = a.S;
+  const int D2 = (D + 1) / 2;
+  const int pitchS = a.pitchS, pitchC = a.pitchC, pitchM = a.pitchM;
+
+  // shared memory, by byte offset (Scan16Args and scan16_shape agree on it)
+  uint16_t* lut = (uint16_t*)smem;                              // 256
+  unsigned long long* bars = (unsigned long long*)(smem + 512); // kSlots
+  unsigned* tokens = (unsigned*)(smem + 544);                   // kSlots x 2
+  const int slab_bytes = D * pitchC;
+  unsigned* state = (unsigned*)(smem + kHeader + a.NST * slab_bytes);
+  const int state_dir = (D2 + 2) * pitchS, state_buf = N * state_dir;  // words
+  uint16_t* pm = (uint16_t*)(state + 2 * state_buf);            // (2, N, NCH)
+  const int pm_buf = N * a.NCH * pitchM;
+  unsigned* stage = (unsigned*)(smem + a.stage_off);            // (N, col)
+  const int col_words = a.col_bytes / 4;
+  const int recv = a.recv_off, recv_dir = a.recv_dir, recv_slot = N * recv_dir;
+  const int recv_pm = 32 + a.col_bytes;
+
+  const int cstart = rank * a.TW;
+  const int Lb = strip_cols(rank, a.TW, W);
+  const uint8_t* cost_b = a.cost + (size_t)b * S * D * W;
+  const uint8_t* cost_end = a.cost + (size_t)a.B * S * D * W;
+  const uint8_t* img_b = a.img + (size_t)b * S * W;
+  uint16_t* out_b = a.out + (size_t)b * S * D * W;
+
+  int diagonals = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) diagonals += a.rolls[k] != 0;
+  // bytes a step's hand-off brings in: a token from each neighbour, and per
+  // diagonal direction a column's words and its chunks' partial minima
+  const int step_bytes = 8 + diagonals * (a.NCH * a.PC * 4 + 4 * a.NCH);
+
+  for (int i = tid; i < 256; i += blockDim.x)
+    lut[i] = (uint16_t)min(max(a.p1, a.p2_init / (i + 1)), kClampP);
+  if (tid == 0)
+    for (int i = 0; i < kSlots; ++i) mbar_init(smem_addr(bars + i), 1);
+  const unsigned p1pk = (unsigned)min(a.p1, kClampP) * 0x00010001u;
+  // the sentinel rows of both buffers and every direction
+  for (int i = tid; i < 2 * N * 2 * pitchS; i += blockDim.x) {
+    const int row = i / pitchS;   // (buffer and direction, first or last)
+    state[(row >> 1) * state_dir + (row & 1) * (D2 + 1) * pitchS +
+          i % pitchS] = kSentinel2;
+  }
+  // the staged and the received columns start as sentinels: what no message
+  // writes (p = -1, p >= D2) stays one
+  for (int i = tid; i < (a.smem_bytes - a.stage_off) / 4; i += blockDim.x)
+    stage[i] = kSentinel2;
+
+  // One row's (D, Lb) cost slab into a ring buffer: per d, the 16-byte
+  // chunks that cover the segment, from its aligned-down address.
+  const int cpr = pitchC / 16;
+  auto stage_row = [&](int step) {
+    const int t = a.reverse ? S - 1 - step : step;
+    uint8_t* slab = smem + kHeader + (step % a.NST) * slab_bytes;
+    const uint8_t* g_row = cost_b + (size_t)t * D * W + cstart;
+    for (int idx = tid; idx < D * cpr; idx += blockDim.x) {
+      const int d = idx / cpr, j = idx - d * cpr;
+      const uint8_t* g = g_row + (size_t)d * W;
+      const int o = (int)((uintptr_t)g & 15);
+      if (j * 16 < o + Lb) {
+        const uint8_t* src = g - o + j * 16;
+        const long long left = cost_end - src;
+        cp_async16(slab + d * pitchC + j * 16, src,
+                   left >= 16 ? 16 : (int)left);
+      }
+    }
+  };
+  for (int st = 0; st < a.NST - 1; ++st) {
+    if (st < S) stage_row(st);
+    cp_async_commit();
+  }
+
+  // This thread's column and chunk of pairs.
+  const int j = tid % a.TW, ch = tid / a.TW;
+  const int c0 = cstart + j;
+  const bool active = ch < a.NCH && j < Lb;
+  const int p_lo = ch * a.PC, p_hi = min(D2, p_lo + a.PC);
+  // the pair whose high half is the dead lane, if this chunk holds it
+  const int dead_at = ODD && p_hi == D2 ? D2 - 1 : -1;
+  const int cm1 = (c0 + W - 1) % W, cp1 = (c0 + 1) % W;
+  const int Wmod = W & 15;
+
+  const int right = (rank + 1) % CS, left = (rank + CS - 1) % CS;
+  const unsigned recv_right = peer_addr(smem_addr(smem + recv), right);
+  const unsigned recv_left = peer_addr(smem_addr(smem + recv), left);
+  const unsigned bars_right = peer_addr(smem_addr(bars), right);
+  const unsigned bars_left = peer_addr(smem_addr(bars), left);
+  const unsigned tokens_right = peer_addr(smem_addr(tokens), right);
+  const unsigned tokens_left = peer_addr(smem_addr(tokens), left);
+  // Per direction: the restart column, and whether this thread hands its
+  // chunk of the edge column to a peer or takes the halo column from one.
+  unsigned restart_mask[N];
+  bool sends[N], takes[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int roll = a.rolls[k];
+    restart_mask[k] = 0u;
+    sends[k] = takes[k] = false;
+    if (!active || roll == 0) continue;
+    if (a.restart && c0 == (roll > 0 ? 0 : W - 1)) restart_mask[k] = ~0u;
+    sends[k] = roll > 0 ? j == Lb - 1 : j == 0;   // to the right / left peer
+    takes[k] = roll > 0 ? j == 0 : j == Lb - 1;   // from the left / right
+  }
+
+  // the gray values of the first step: this column's, and the previous
+  // row's at c - 1, c, c + 1
+  int gc = 0, gm = 0, g0 = 0, gp = 0;
+  if (active && S > 0) gc = img_b[(size_t)(a.reverse ? S - 1 : 0) * W + c0];
+  // two rows ahead of a sum's element, for the L2 prefetch of the read-add
+  const long long ahead2 =
+      2 * (a.reverse ? -(long long)D * W : (long long)D * W);
+
+  cp_async_wait(a.NST - 2);
+  cluster.sync();   // once: barriers initialised, every block resident
+
+  int buf = 0;
+  for (int s = 0; s < S; ++s) {
+    const int t = a.reverse ? S - 1 - s : s;
+    const bool hand_off = diagonals > 0 && s + 1 < S;   // this step sends
+    const int slot = s % kSlots;
+    if (s + a.NST - 1 < S) stage_row(s + a.NST - 1);
+    cp_async_commit();
+    if (hand_off && tid == 0) {
+      // arm this step's barrier; tell both peers that this block has left
+      // step s - 1 behind (a peer never runs more than a step ahead)
+      mbar_expect(smem_addr(bars + slot), step_bytes);
+      send_word(tokens_right + 4 * (slot * 2), (unsigned)s,
+                bars_right + 8 * slot);
+      send_word(tokens_left + 4 * (slot * 2 + 1), (unsigned)s,
+                bars_left + 8 * slot);
+    }
+    const bool handed = diagonals > 0 && s > 0;
+    if (handed) {
+      if (tid == 0)
+        mbar_wait(smem_addr(bars + (s - 1) % kSlots), ((s - 1) / kSlots) & 1);
+      __syncthreads();
+    }
+
+    if (active) {
+      const unsigned* st_prev = state + buf * state_buf;
+      unsigned* st_next = state + (buf ^ 1) * state_buf;
+      const uint16_t* pm_prev = pm + buf * pm_buf;
+      uint16_t* pm_next = pm + (buf ^ 1) * pm_buf;
+
+      // the next step's gray values, and the image rows a few steps ahead
+      // asked into the L2
+      int n_gc = 0, n_gm = 0, n_gp = 0;
+      if (s + 1 < S) {
+        const uint8_t* next = img_b + (size_t)(a.reverse ? t - 1 : t + 1) * W;
+        const uint8_t* here = img_b + (size_t)t * W;
+        n_gc = next[c0];
+        n_gm = here[cm1], n_gp = here[cp1];
+        if (s + 4 < S && ch == 0)
+          prefetch_l2(img_b + (size_t)(a.reverse ? t - 4 : t + 4) * W + c0);
+      }
+      const uint8_t* from =
+          smem + recv + ((s + kSlots - 1) % kSlots) * recv_slot;
+
+      // the slab rows of pair p_lo at this column, and the sums' rows
+      const uint8_t* cp =
+          smem + kHeader + (s % a.NST) * slab_bytes + 2 * p_lo * pitchC + j;
+      const size_t row_off = (size_t)t * D * W + c0;
+      int coff =
+          (int)(((uintptr_t)(cost_b + (row_off - j)) + 2 * p_lo * W) & 15);
+      uint16_t* o = out_b + row_off + (size_t)2 * p_lo * W;
+      auto load_cost = [&]() -> unsigned {
+        const unsigned lo = cp[coff];
+        const unsigned hi = cp[pitchC + ((coff + Wmod) & 15)];
+        cp += 2 * pitchC;
+        coff = (coff + 2 * Wmod) & 15;
+        return lo | (hi << 16);
+      };
+      // the old sums of pair p (its high plane only if it exists)
+      auto load_old = [&](const uint16_t* at, int p) -> unsigned {
+        return (unsigned)at[0] |
+               (ODD && p == dead_at ? 0u : (unsigned)at[W] << 16);
+      };
+      auto store_sum = [&](unsigned sum, int p) {
+        o[0] = (uint16_t)sum;
+        if (!ODD || p != dead_at) o[W] = (uint16_t)(sum >> 16);
+        o += 2 * (size_t)W;
+      };
+      unsigned runmin[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) runmin[k] = 0xFFFFFFFFu;
+      const int out_at = 1 + j;   // this column's word in a state row
+
+      if (s == 0) {   // a path's first pixel contributes its raw cost
+        for (int p = p_lo; p < p_hi; ++p) {
+          const unsigned dead = ODD && p == dead_at ? kHigh : 0u;
+          const unsigned cst = (load_cost() & ~dead) | (kSentinel2 & dead);
+          unsigned sum = cst * N;
+          if (a.accumulate) sum += load_old(o, p);
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            st_next[k * state_dir + (p + 1) * pitchS + out_at] = cst;
+            runmin[k] = __vminu2(runmin[k], cst | dead);
+            if (sends[k]) stage[k * col_words + p] = cst;
+          }
+          store_sum(sum, p);
+        }
+      } else {
+        unsigned pminb[N], pp2[N], wm[N], wc[N];
+        const unsigned* pa[N];   // the previous state's word of pair p + 1
+        int sa[N];               // and its stride, in words
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const int roll = a.rolls[k];
+          const int prev_gray = roll > 0 ? gm : roll < 0 ? gp : g0;
+          const unsigned p2 = lut[abs(gc - prev_gray)];
+          unsigned m = 0xFFFFu;
+          if (takes[k]) {   // the halo column comes from the neighbour
+            const unsigned* mins =
+                (const unsigned*)(from + k * recv_dir + recv_pm);
+            for (int c = 0; c < a.NCH; ++c) m = min(m, mins[c]);
+            pa[k] = (const unsigned*)(from + k * recv_dir + 16) + p_lo - 1;
+            sa[k] = 1;
+          } else {
+            const uint16_t* q = pm_prev + k * a.NCH * pitchM + out_at - roll;
+            for (int c = 0; c < a.NCH; ++c) m = min(m, (unsigned)q[c * pitchM]);
+            pa[k] = st_prev + k * state_dir + p_lo * pitchS + out_at - roll;
+            sa[k] = pitchS;
+          }
+          pminb[k] = m * 0x00010001u;
+          pp2[k] = (m + p2) * 0x00010001u;
+          wm[k] = pa[k][0];
+          pa[k] += sa[k];
+          wc[k] = pa[k][0];
+        }
+        const bool far = s + 2 < S;
+        unsigned old = a.accumulate && p_lo < p_hi ? load_old(o, p_lo) : 0u;
+#pragma unroll 2
+        for (int p = p_lo; p < p_hi; ++p) {
+          const unsigned dead = ODD && p == dead_at ? kHigh : 0u;
+          const unsigned cst = load_cost();
+          unsigned sum = old;
+          if (a.accumulate) {
+            if (p + 1 < p_hi) old = load_old(o + 2 * (size_t)W, p + 1);
+            if (far) prefetch_l2(o + ahead2);
+          }
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            pa[k] += sa[k];
+            const unsigned wp = pa[k][0];
+            const unsigned up = weave(wm[k], wc[k]);   // L(d - 1), both halves
+            const unsigned dn = weave(wc[k], wp);      // L(d + 1)
+            const unsigned nb = __viaddmin_u16x2(__vminu2(up, dn), p1pk, wc[k]);
+            const unsigned m = __vminu2(nb, pp2[k]);
+            unsigned cur = (cst + m - pminb[k]) & kSentinel2;
+            cur = (cur & ~restart_mask[k]) | (cst & restart_mask[k]);
+            cur = (cur & ~dead) | (kSentinel2 & dead);
+            wm[k] = wc[k];
+            wc[k] = wp;
+            runmin[k] = __vminu2(runmin[k], cur | dead);
+            sum += cur;
+            st_next[k * state_dir + (p + 1) * pitchS + out_at] = cur;
+            if (sends[k]) stage[k * col_words + p] = cur;
+          }
+          store_sum(sum, p);
+        }
+      }
+
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const unsigned mn = min(runmin[k] & kLow, runmin[k] >> 16);
+        pm_next[(k * a.NCH + ch) * pitchM + out_at] = (uint16_t)mn;
+        if (sends[k] && hand_off) {
+          // this chunk of the column that crosses the strip edge, then its
+          // partial minimum, into the peer's buffer of this step
+          const bool to_right = a.rolls[k] > 0;
+          const unsigned* src = stage + k * col_words + p_lo;
+          const unsigned dst = (to_right ? recv_right : recv_left) +
+                               slot * recv_slot + k * recv_dir;
+          const unsigned bar = (to_right ? bars_right : bars_left) + 8 * slot;
+          if (a.PC % 4 == 0) {
+            for (int i = 0; i < a.PC; i += 4)
+              send_vec(dst + 16 + 4 * (p_lo + i), src + i, bar);
+          } else {
+#pragma unroll 1
+            for (int i = 0; i < a.PC; ++i)
+              send_word(dst + 16 + 4 * (p_lo + i), src[i], bar);
+          }
+          send_word(dst + recv_pm + 4 * ch, mn, bar);
+        }
+      }
+      gm = n_gm, g0 = gc, gp = n_gp, gc = n_gc;
+    }
+    cp_async_wait(a.NST - 2);
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// The launch shape for a cluster of `cs` blocks per image; returns the
+// dynamic shared memory it needs, or -1 if `cs` strips leave a block empty.
+// Where the grid has more blocks than the card has SMs, a block takes at
+// most its share of an SM's threads, so that all of them are resident at
+// once (80 registers a thread: 768 threads fill an SM's register file).
+int scan16_shape(Scan16Args& a, int n, int cs) {
+  a.TW = (a.W + cs - 1) / cs;
+  if ((cs - 1) * a.TW >= a.W) return -1;
+  if (a.TW > kScanThreads) return kSmemMax + 1;   // a wider cluster
+  const int d2 = (a.D + 1) / 2;
+  const long long per_sm = ((long long)a.B * cs + a.sms - 1) / a.sms;
+  int nch = (int)(kScanThreads / per_sm) / a.TW;
+  nch = nch < 1 ? 1 : nch;
+  nch = nch > kMaxChunks ? kMaxChunks : nch;
+  nch = nch > d2 ? d2 : nch;
+  a.PC = (d2 + nch - 1) / nch;
+  a.NCH = (d2 + a.PC - 1) / a.PC;
+  a.pitchC = round_up(a.TW + 15, 16);
+  a.pitchS = a.TW + 2;
+  a.pitchM = a.TW + 2;
+  a.col_bytes = round_up(a.NCH * a.PC * 4, 16);
+  a.recv_dir = 32 + a.col_bytes + round_up(4 * a.NCH, 16);
+  const long long body =
+      round_up(2 * n * (d2 + 2) * a.pitchS * 4 + 2 * n * a.NCH * a.pitchM * 2,
+               16);
+  const long long tail = (long long)n * a.col_bytes + 3LL * n * a.recv_dir;
+  for (a.NST = kMaxStages; a.NST >= 2; --a.NST) {
+    const long long at = kHeader + (long long)a.NST * a.D * a.pitchC + body;
+    if (at + tail <= kSmemMax) {
+      a.stage_off = (int)at;
+      a.recv_off = a.stage_off + n * a.col_bytes;
+      a.smem_bytes = (int)(at + tail);
+      return a.smem_bytes;
+    }
+  }
+  return kSmemMax + 1;
+}
+
+// A launch of `cs` blocks per image; `bytes` from scan16_shape at that size.
+template <int N, bool ODD>
+cudaError_t scan16_config(const Scan16Args& a, int cs, int bytes,
+                          cudaLaunchAttribute* attr,
+                          cudaLaunchConfig_t* config) {
+  cudaError_t err = cudaFuncSetAttribute(
+      scan16_kernel<N, ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(scan16_kernel<N, ODD>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             cs > 8);
+  if (err != cudaSuccess) return err;
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3((unsigned)(a.B * cs));
+  config->blockDim = dim3((unsigned)round_up(a.TW * a.NCH, 32));
+  config->dynamicSmemBytes = (size_t)bytes;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// The cluster size of a launch, decided before it, by group_kernel's rule:
+// the smallest whose state fits shared memory, grown while the card has idle
+// SMs; 16 blocks only if nothing smaller fits or a strip of 8 would still be
+// heavy, and only if the card says it can place such a cluster.  *chosen = 0:
+// no size takes N directions at this shape.
+template <int N, bool ODD>
+cudaError_t choose_cluster(const Scan16Args& a, int* chosen) {
+  *chosen = 0;
+  int cs = 0;
+  cudaError_t err = cudaSuccess;
+  for (int c = 1; c <= kMaxCluster; c *= 2) {
+    Scan16Args trial = a;
+    const int need = scan16_shape(trial, N, c);
+    if (need < 0) break;
+    if (need > kSmemMax) continue;
+    if (cs != 0 && (long long)a.B * cs >= a.sms) break;
+    if (c > 8) {
+      if (cs != 0 && (long long)((a.W + 7) / 8) * a.D < kHeavyStrip) break;
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t config;
+      err = scan16_config<N, ODD>(trial, c, need, attr, &config);
+      if (err != cudaSuccess) return err;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, scan16_kernel<N, ODD>,
+                                           &config);
+      if (err != cudaSuccess) return err;
+      if (clusters < 1) break;
+    }
+    cs = c;
+  }
+  *chosen = cs;
+  return cudaSuccess;
+}
+
+template <int N, bool ODD>
+int launch_scan16(Scan16Args a, cudaStream_t stream) {
+  int cs = 0;
+  cudaError_t err = choose_cluster<N, ODD>(a, &cs);
+  if (err != cudaSuccess) return (int)err;
+  if (cs == 0) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = scan16_shape(a, N, cs);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config;
+  err = scan16_config<N, ODD>(a, cs, bytes, attr, &config);
+  if (err != cudaSuccess) return (int)err;
+  config.stream = stream;
+  return (int)cudaLaunchKernelEx(&config, scan16_kernel<N, ODD>, a);
+}
+
+using Chooser = cudaError_t (*)(const Scan16Args&, int*);
+using Launcher = int (*)(Scan16Args, cudaStream_t);
+constexpr Chooser kChoose[kMaxDirs][2] = {
+    {choose_cluster<1, false>, choose_cluster<1, true>},
+    {choose_cluster<2, false>, choose_cluster<2, true>},
+    {choose_cluster<3, false>, choose_cluster<3, true>}};
+constexpr Launcher kLaunch[kMaxDirs][2] = {
+    {launch_scan16<1, false>, launch_scan16<1, true>},
+    {launch_scan16<2, false>, launch_scan16<2, true>},
+    {launch_scan16<3, false>, launch_scan16<3, true>}};
+
+// The card's SM count, which the launch shape depends on.
+cudaError_t card_sms(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 }  // namespace
@@ -329,28 +803,56 @@ extern "C" int sgm_probe_rung(const void* x, void* out, int rung, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-// One vertical direction of a group scan with packed 16-bit state; the
-// arguments of sgm_scan_direction, without `vertical`.
+// A group of up to 3 vertical directions that share a scan order, in one
+// launch with packed 16-bit state (rolls r0..r2, the first n count): the sum
+// of their contributions stored (accumulate=0) or added (1) to the uint16
+// volume; the arguments of sgm_scan_group without the carries.  A group that
+// no cluster takes at this shape is refused (cudaErrorInvalidConfiguration;
+// see sgm_probe_scan16_capacity).
 extern "C" int sgm_probe_scan16(const void* cost, const void* img, void* aggr,
-                                int B, int S, int D, int W, int reverse,
-                                int roll, int restart, int p1, int p2_init,
-                                int accumulate, void* stream) {
-  if (B * S * W == 0) return 0;
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
-  const uint8_t* c = (const uint8_t*)cost;
-  const uint8_t* g = (const uint8_t*)img;
-  uint16_t* a = (uint16_t*)aggr;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch ((D + 63) / 64) {
-#define SGM_SCAN16_CASE(N)                                                   \
-  case N:                                                                    \
-    return launch_scan16<N>(c, g, a, B, S, D, W, reverse, roll, restart, p1, \
-                            p2_init, accumulate, s);
-    SGM_SCAN16_CASE(1)
-    SGM_SCAN16_CASE(2)
-    SGM_SCAN16_CASE(3)
-    SGM_SCAN16_CASE(4)
-#undef SGM_SCAN16_CASE
+                                int B, int S, int D, int W, int n, int r0,
+                                int r1, int r2, int reverse, int restart,
+                                int p1, int p2_init, int accumulate,
+                                void* stream) {
+  if ((long long)B * S * W == 0) return 0;
+  if (D < 1 || D > 256 || n < 1 || n > kMaxDirs || p1 < 0 || p2_init < 0)
+    return (int)cudaErrorInvalidValue;
+  const int rolls[kMaxDirs] = {r0, r1, r2};
+  Scan16Args a{};
+  a.cost = (const uint8_t*)cost;
+  a.img = (const uint8_t*)img;
+  a.out = (uint16_t*)aggr;
+  a.B = B, a.S = S, a.D = D, a.W = W;
+  for (int k = 0; k < n; ++k) {
+    if (rolls[k] < -1 || rolls[k] > 1) return (int)cudaErrorInvalidValue;
+    a.rolls[k] = rolls[k];
   }
-  return (int)cudaErrorInvalidValue;
+  a.reverse = reverse, a.restart = restart;
+  a.p1 = p1, a.p2_init = p2_init, a.accumulate = accumulate;
+  const cudaError_t err = card_sms(&a.sms);
+  if (err != cudaSuccess) return (int)err;
+  return kLaunch[n - 1][D % 2](a, (cudaStream_t)stream);
+}
+
+// The most directions (0..3) one sgm_probe_scan16 launch takes at this shape
+// on the current card, into the host int *dirs (3 for an empty volume).
+extern "C" int sgm_probe_scan16_capacity(int B, int D, int W, void* dirs) {
+  *(int*)dirs = kMaxDirs;
+  if ((long long)B * W == 0) return 0;
+  *(int*)dirs = 0;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  Scan16Args a{};
+  a.B = B, a.D = D, a.W = W;
+  cudaError_t err = card_sms(&a.sms);
+  if (err != cudaSuccess) return (int)err;
+  for (int n = kMaxDirs; n >= 1; --n) {
+    int cs = 0;
+    err = kChoose[n - 1][D % 2](a, &cs);
+    if (err != cudaSuccess) return (int)err;
+    if (cs != 0) {
+      *(int*)dirs = n;
+      break;
+    }
+  }
+  return 0;
 }

@@ -15,17 +15,50 @@
 // (fori16) must equal the plain version, so every step reads one plane and
 // writes another, with a barrier between steps.
 //   What bounds it: neither bytes nor operations but the number of steps
-//   (6 to 8 a round) times a barrier's latency plus one trip to the L2.
-//   Design: a frame's planes (3 label planes that rotate, the link mask)
-//   do not fit one SM's shared memory, so they live in global memory (the
-//   L2 holds them) and one thread-block cluster of 8 blocks owns a frame
-//   (block4: four frames); cluster.sync() is the barrier between steps, and
-//   the convergence flag is reduced through distributed shared memory.  No
-//   host read per round.  A horizontal run-min is a warp per row: a
-//   segmented min-scan with shuffles from the left, one from the right.  A
-//   vertical run-min is a thread per column walking down, then up.  pyr
-//   finds every pixel's run heads once before the loop; its run-min is then
-//   an atomicMin into the head's slot of a scratch plane and a load back.
+//   between barriers times a step's chain of dependent trips to the L2 and
+//   to shared memory (PERF.md: a barrier costs 1-3 us, a step 5-40 us).
+//   Design: a frame's planes (3 label planes that rotate, the link mask in
+//   bytes) do not fit one SM's shared memory (675 KB each at the cone
+//   shape, 6 MB at 1000x1500), so they live in global memory, read through
+//   the L2, and one thread-block cluster owns a frame (block4: four
+//   frames).  Its size is chosen before the launch from the card's own
+//   answer, asked once for every size from 1 to 16 blocks: the fewest waves
+//   of programs, a wave being as many clusters as the card holds at once
+//   but no more than keep their planes in the L2, then the largest size.
+//   On an NVIDIA H100 80GB HBM3, which holds seven clusters of 16 such
+//   blocks at once, that is 9 blocks a frame at B = 8, at B = 32 six in two
+//   waves of 16 frames, for a 37x45 frame one block, whose barrier is a
+//   __syncthreads.  Between steps a cluster's blocks
+//   meet at cluster.sync(); the convergence flag is reduced through
+//   distributed shared memory.  No host read per round.
+//   A round takes fewer steps than the whole-plane steps it is made of:
+//   the steps that look at neighbours only (all six of a cheap round, the
+//   four diagonal ones of a seg round) are fused into one, a block taking
+//   32x64 tiles with a halo of 4 into shared memory (cp.async, the next
+//   tile's copies in flight while the current one's steps run) and running
+//   the steps there one after the other, each exactly as the whole-plane
+//   step would leave the tile's own pixels.  So a seg round is three steps
+//   (horizontal run-min, vertical run-min, the fused diagonals) and a cheap
+//   round one, where the first design took six each.
+//   A horizontal run-min is a warp per row, a lane eight neighbouring
+//   columns: each lane's run-min within its columns, then a segmented
+//   min-scan over the lanes with shuffles for what enters each lane, from
+//   the left and then from the right.  A vertical run-min is a block per
+//   strip of 32 columns: each warp takes a chunk of ceil(H / 32) rows (a
+//   lane a column), scans it down, leaves the chunk's summary in shared
+//   memory (the min of its first and of its last run, whether its first
+//   row links up, whether it is one run), a segmented min-scan over the
+//   chunks gives each what enters it from above and below, and a walk up
+//   the chunk writes the run-min; no walk is longer than a chunk (the first
+//   design gave each column to one thread: 15 warps of 256 at the cone
+//   shape walking 375 rows down and up).  pyr finds every pixel's run heads
+//   once before the loop, the vertical ones by the same chunks; its
+//   run-min is an atomicMin into the head's slot of a scratch plane and a
+//   load back.
+//   Each pass is a function of its own (__noinline__): inlined into one
+//   kernel they shared one allocation of 64 registers and spilled about a
+//   kilobyte, whose reloads after every cluster barrier (which invalidates
+//   the L1) stalled each step.
 //
 // S2 speckle_hist, S3 speckle_verdict, S4 speckle_tail_fused: the TPU builds
 // one-hot matrices and contracts them on the MXU because a scatter-add is
@@ -35,12 +68,13 @@
 //   What bounds them: bytes (4 per pixel in, 4 out) and, for S2, atomics on
 //   one word per large component; `aggregate` lets a warp add once per
 //   distinct label (__match_any_sync).  S4 needs every count of a frame
-//   before any verdict: a cluster per frame, cluster.sync() between.  S3 at
-//   the probe's shape moves 11 MB and a launch's latency bounds it; its
-//   design keeps the instruction count down: the frame is a grid axis, a
-//   thread loads four labels in 16 bytes, has its four gathers in flight
-//   together and stores 16 bytes.
+//   before any verdict: a cluster of 8 blocks per frame, cluster.sync()
+//   between.  S3 at the probe's shape moves 11 MB and a launch's latency
+//   bounds it; its design keeps the instruction count down: the frame is a
+//   grid axis, a thread loads four labels in 16 bytes, has its four gathers
+//   in flight together and stores 16 bytes.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -50,17 +84,30 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kClusterBlocks = 8;
-constexpr int kThreads = 1024;            // of a cluster's block
-constexpr int kWarps = kThreads / 32;
+constexpr int kClusterBlocks = 8;         // of S4
+constexpr int kThreads = 1024;            // of S4's block
 constexpr int kClusterThreads = kClusterBlocks * kThreads;
-constexpr int kClusterWarps = kClusterBlocks * kWarps;
+constexpr int kLabelThreads = 1024;       // of an S1 block
+constexpr int kLabelWarps = kLabelThreads / 32;
+constexpr int kMaxLabelCluster = 16;      // blocks of an S1 cluster, at most
+constexpr int kMinPixels = 1;             // an S1 thread's pixels, at least
 constexpr int kFlatThreads = 256;         // of S2
 constexpr int kVerdictThreads = 256;      // of S3
 constexpr int kVerdictLabels = 4;         // labels a thread of S3 takes
 constexpr int kFixedRounds = 16;          // of fori16
 constexpr int kBlockFrames = 4;           // of block4
 constexpr int kBatch = 4;                 // pixels a thread has in flight
+constexpr int kRows = 8;                  // rows a column walk loads at once
+constexpr int kLaneCols = 8;              // columns a lane of a row walk takes
+constexpr int kSegCols = 32 * kLaneCols;  // and its warp at once
+constexpr int kTileH = 32, kTileW = 64;   // a fused step's tile
+constexpr int kHalo = 4;                  // its halo: 3 the steps reach, + 1
+constexpr int kTileRows = kTileH + 2 * kHalo, kTileCols = kTileW + 2 * kHalo;
+constexpr int kTileCells = kTileRows * kTileCols;
+constexpr int kCellsPerThread = (kTileCells + kLabelThreads - 1) / kLabelThreads;
+constexpr int kTilePixels = kTileH * kTileW;
+constexpr int kPixelsPerThread = kTilePixels / kLabelThreads;
+static_assert(kTilePixels % kLabelThreads == 0, "a tile's pixels split evenly");
 constexpr unsigned kFull = 0xffffffffu;
 enum Mode { kBase = 0, kPair = 1, kFori16 = 2, kBlock4 = 3, kPyr = 4 };
 
@@ -74,29 +121,81 @@ struct Who {
   int tid;    // thread of the cluster: neighbouring threads, neighbouring pixels
   int lane;
   int warp;   // warp of the cluster, round-robin over its blocks
+  int rank;   // block of the cluster
 };
 
-// One program's planes: F frames side by side, npx = F * H * W pixels.
+// One program's planes: F frames side by side, npx = F * H * W pixels; the
+// cluster's blocks, threads and warps.
 struct Planes {
   int npx, rows, H, W;
+  int blocks, threads, warps;
 };
+
+// A vertical run-min's chunk summaries, a row per chunk of rows (a warp)
+// and a column per lane, padded against bank conflicts when read by column.
+struct ColumnScratch {
+  int top[kLabelWarps][33];     // min of the chunk's first run
+  int bot[kLabelWarps][33];     // min of its last run
+  int flags[kLabelWarps][33];   // 1: its first row links up; 2: one run
+  int from_above[kLabelWarps][33];
+  int from_below[kLabelWarps][33];
+};
+
+// A fused step's tiles: two sets of copies in flight (the tile with its
+// halo, the round's input at the tile's own pixels, the link-mask rows from
+// their 4-byte aligned-down addresses), and two planes the steps write in
+// turn.
+constexpr int kMaskPitch = (kTileCols + 3 + 3) / 4 * 4;   // bytes of a row
+struct TileCopy {
+  int val[kTileCells];
+  int before[kTilePixels];
+  uint8_t mask[kTileRows * kMaskPitch];
+};
+struct TileScratch {
+  TileCopy copy[2];
+  int work[2][kTileCells];
+};
+
+union BlockScratch {
+  ColumnScratch col;
+  TileScratch tile;
+};
+
+// A block's scratch (dynamic shared memory: more than 48 KB), at namespace
+// scope so that the passes, which are functions of their own, address it
+// as shared memory.
+extern __shared__ __align__(16) unsigned char block_smem[];
+
+__device__ __forceinline__ BlockScratch& block_scratch() {
+  return *reinterpret_cast<BlockScratch*>(block_smem);
+}
 
 __device__ __forceinline__ int ld(const int* p) { return __ldcg(p); }
 
-// The elementwise steps take kBatch pixels a thread at a time: first every
-// pixel's own loads, then every neighbour's, so that a thread waits for the
-// L2 twice per batch and not twice per pixel.
+// pyr's scatter and gather steps take kBatch pixels a thread at a time:
+// first every pixel's own loads, then every neighbour's, so that a thread
+// waits for the L2 twice per batch and not twice per pixel.
 #define FOR_PIXEL_BATCH(i0) \
-  for (int i0 = w.tid; i0 < g.npx; i0 += kBatch * kClusterThreads)
+  for (int i0 = w.tid; i0 < g.npx; i0 += kBatch * g.threads)
 #define FOR_BATCH_PIXEL(k, i, i0)                                           \
   _Pragma("unroll") for (int k = 0, i = i0; k < kBatch;                     \
-                         ++k, i += kClusterThreads) if (i < g.npx)
+                         ++k, i += g.threads) if (i < g.npx)
+
+// The barrier between two steps: every write of the step is seen by every
+// block of the cluster after it (planes are read through the L2).
+__device__ __forceinline__ void step_sync(cg::cluster_group& cluster,
+                                          const Planes& g) {
+  if (g.blocks == 1)
+    __syncthreads();
+  else
+    cluster.sync();
+}
 
 // mask and initial labels of every pixel
-__device__ void init_pass(const Who& w, const Planes& g,
-                          const float* __restrict__ disp, int* mask, int* lab,
-                          int lo_bits, float diff) {
-  for (int i = w.tid; i < g.npx; i += kClusterThreads) {
+__device__ __noinline__ void
+init_pass(const Who w, const Planes g, const float* __restrict__ disp,
+          uint8_t* mask, int* lab, int lo_bits, float diff) {
+  for (int i = w.tid; i < g.npx; i += g.threads) {
     const int row = i / g.W;
     const int c = i - row * g.W;
     const int r = row % g.H;
@@ -116,7 +215,7 @@ __device__ void init_pass(const Who& w, const Planes& g,
   }
 }
 
-// One 32-pixel chunk's segmented min-scan over the lanes, towards higher
+// One 32-element chunk's segmented min-scan over the lanes, towards higher
 // lanes (`up`) or lower; f marks the lanes where a run starts in that
 // direction.  `carry` is the running min of the run that enters the chunk.
 template <bool up>
@@ -135,102 +234,200 @@ __device__ __forceinline__ int chunk_scan(int v, int f, int lane, int& carry) {
   return v;
 }
 
-// dst = run-min of src over horizontal runs.  A warp per row: a segmented
-// min-scan from the left writes dst, one from the right folds into it (each
-// lane reads back what it wrote itself).  kChunks chunks' loads go first.
-__device__ void hrun_pass(const Who& w, const Planes& g,
-                          const int* __restrict__ mask, const int* src,
-                          int* dst, int big) {
-  constexpr int kChunks = 4;
+// dst = run-min of src over horizontal runs.  A warp per row, in segments
+// of kSegCols columns, a lane kLaneCols neighbouring columns of a segment.
+// Left to right: each lane's run-min from the left within its columns, a
+// segmented min-scan over the lanes' last runs (what enters each lane from
+// the left, the previous segments included), into dst.  Then right to left
+// the same from the right, folded into dst.  The rows were written by other
+// blocks before the barrier, whose acquire leaves no stale line in the L1,
+// so the loads go through it and a lane's columns are whole sectors.
+__device__ __noinline__ void
+hrun_pass(const Who w, const Planes g, const uint8_t* __restrict__ mask,
+          const int* src, int* dst, int big) {
   const int lane = w.lane;
-  for (int row = w.warp; row < g.rows; row += kClusterWarps) {
-    const int base = row * g.W;
+  const int segs = (g.W + kSegCols - 1) / kSegCols;
+  for (int row = w.warp; row < g.rows; row += g.warps) {
+    const int* s = src + row * g.W;
+    const uint8_t* m = mask + row * g.W;
+    int* d = dst + row * g.W;
     int carry = big;
-    for (int c0 = 0; c0 < g.W; c0 += 32 * kChunks) {
-      int v[kChunks], f[kChunks];
+    for (int seg = 0; seg < segs; ++seg) {
+      const int c0 = seg * kSegCols + lane * kLaneCols;
+      int v[kLaneCols];
+      unsigned link = 0;   // bit j: column c0 + j links to its left
 #pragma unroll
-      for (int k = 0; k < kChunks; ++k) {
-        const int c = c0 + 32 * k + lane;
-        v[k] = c < g.W ? ld(src + base + c) : big;
-        // a pixel without a link to its left starts a run (column 0 has none)
-        f[k] = c < g.W ? !(mask[base + c] & 1) : 1;
+      for (int j = 0; j < kLaneCols; ++j) {
+        const bool in = c0 + j < g.W;
+        v[j] = in ? s[c0 + j] : big;
+        link |= (in ? (unsigned)(m[c0 + j] & 1) : 0u) << j;
       }
+      int brk = kLaneCols;   // the lane's first column that starts a run
 #pragma unroll
-      for (int k = 0; k < kChunks; ++k) {
-        const int c = c0 + 32 * k + lane;
-        const int m = chunk_scan<true>(v[k], f[k], lane, carry);
-        if (c < g.W) dst[base + c] = m;
+      for (int j = 1; j < kLaneCols; ++j) {
+        if (!(link >> j & 1) && brk == kLaneCols) brk = j;
+        v[j] = link >> j & 1 ? min(v[j], v[j - 1]) : v[j];
       }
+      const int whole = brk == kLaneCols, head = link & 1;
+      const int entering = carry;
+      const int left = __shfl_up_sync(
+          kFull, chunk_scan<true>(v[kLaneCols - 1], !(whole && head), lane,
+                                  carry), 1);
+      const int from_left = head ? (lane > 0 ? left : entering) : big;
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j)
+        if (c0 + j < g.W) d[c0 + j] = j < brk ? min(v[j], from_left) : v[j];
     }
     carry = big;
-    for (int c0 = ((g.W - 1) / 32) * 32; c0 >= 0; c0 -= 32 * kChunks) {
-      int v[kChunks], f[kChunks], left[kChunks];
+    for (int seg = segs - 1; seg >= 0; --seg) {
+      const int c0 = seg * kSegCols + lane * kLaneCols;
+      int v[kLaneCols], fw[kLaneCols];
+      unsigned link = 0;   // bit j: column c0 + j + 1 links to its left
 #pragma unroll
-      for (int k = 0; k < kChunks; ++k) {
-        const int c = c0 - 32 * k + lane;
-        const bool in = c >= 0 && c < g.W;
-        v[k] = in ? ld(src + base + c) : big;
-        left[k] = in ? dst[base + c] : big;
-        // a pixel whose right neighbour has no link to it ends a run
-        f[k] = (!in || c == g.W - 1) ? 1 : !(mask[base + c + 1] & 1);
+      for (int j = 0; j < kLaneCols; ++j) {
+        const int c = c0 + j;
+        const bool in = c < g.W;
+        v[j] = in ? s[c] : big;
+        fw[j] = in ? d[c] : big;   // what this lane wrote going right
+        link |= (c + 1 < g.W ? (unsigned)(m[c + 1] & 1) : 0u) << j;
       }
+      int brk = -1;   // the lane's last column that ends a run
 #pragma unroll
-      for (int k = 0; k < kChunks; ++k) {
-        const int c = c0 - 32 * k + lane;
-        const int m = chunk_scan<false>(v[k], f[k], lane, carry);
-        if (c >= 0 && c < g.W) dst[base + c] = min(m, left[k]);
+      for (int j = kLaneCols - 2; j >= 0; --j) {
+        if (!(link >> j & 1) && brk < 0) brk = j;
+        v[j] = link >> j & 1 ? min(v[j], v[j + 1]) : v[j];
       }
+      const int whole = brk < 0, tail = link >> (kLaneCols - 1) & 1;
+      const int entering = carry;
+      const int right = __shfl_down_sync(
+          kFull, chunk_scan<false>(v[0], !(whole && tail), lane, carry), 1);
+      const int from_right = tail ? (lane < 31 ? right : entering) : big;
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j)
+        if (c0 + j < g.W)
+          d[c0 + j] = min(fw[j], j > brk ? min(v[j], from_right) : v[j]);
     }
   }
 }
 
-// dst = run-min of src over vertical runs.  A thread per column (a warp per
-// strip of 32 columns of one frame): down, then up.
-__device__ void vrun_pass(const Who& w, const Planes& g,
-                          const int* __restrict__ mask, const int* src,
-                          int* dst, int big) {
+// A block's share of the column strips of a program: (frame, strip) items,
+// block-uniform.  Warp k of the block takes rows [r0, r1) of the strip,
+// lane l its column c.
+struct ColumnWalk {
+  int r0, r1, c, top;   // top: the pixel index of the frame's row 0 at c
+  bool in;              // c < W
+};
+
+__device__ __forceinline__ ColumnWalk column_walk(const Who& w, const Planes& g,
+                                                  int item) {
   const int strips = (g.W + 31) / 32;
-  const int frames = g.rows / g.H;
-  for (int s = w.warp; s < frames * strips; s += kClusterWarps) {
-    const int f = s / strips;
-    const int c = (s - f * strips) * 32 + w.lane;
-    if (c >= g.W) continue;
-    const int top = f * g.H * g.W + c;
-    // kRows rows at a time: their loads first, then the chain, then stores
-    constexpr int kRows = 8;
-    int run = big;
-    for (int r0 = 0; r0 < g.H; r0 += kRows) {
-      int v[kRows], m[kRows];
+  const int f = item / strips;
+  const int R = (g.H + kLabelWarps - 1) / kLabelWarps;
+  const int k = threadIdx.x >> 5;
+  ColumnWalk cw;
+  cw.r0 = min(g.H, k * R);
+  cw.r1 = min(g.H, cw.r0 + R);
+  cw.c = (item - f * strips) * 32 + w.lane;
+  cw.in = cw.c < g.W;
+  cw.top = f * g.H * g.W + cw.c;
+  return cw;
+}
+
+// dst = run-min of src over vertical runs, a block per strip of 32 columns
+// (see the header): down each chunk, the chunks' carries by a segmented
+// scan over them, up each chunk.
+__device__ __noinline__ void
+vrun_pass(const Who w, const Planes g, const uint8_t* __restrict__ mask,
+          const int* src, int* dst, int big) {
+  ColumnScratch& sc = block_scratch().col;
+  const int items = g.rows / g.H * ((g.W + 31) / 32);
+  const int k = threadIdx.x >> 5, lane = w.lane;
+  for (int item = w.rank; item < items; item += g.blocks) {
+    const ColumnWalk cw = column_walk(w, g, item);
+    const int* s = src + cw.top;
+    const uint8_t* m = mask + cw.top;
+    int* d = dst + cw.top;
+    // down: the run-min from above within the chunk, into dst
+    int run = big, first = big, head = 0, one_run = 1, brk = cw.r1;
+    for (int rb = cw.r0; rb < cw.r1; rb += kRows) {
+      int v[kRows];
+      unsigned ups = 0;   // bit j: row rb + j links up
 #pragma unroll
-      for (int k = 0; k < kRows; ++k)
-        if (r0 + k < g.H) {
-          v[k] = ld(src + top + (r0 + k) * g.W);
-          m[k] = mask[top + (r0 + k) * g.W];
+      for (int j = 0; j < kRows; ++j)
+        if (cw.in && rb + j < cw.r1) {
+          v[j] = ld(s + (rb + j) * g.W);
+          ups |= (unsigned)(m[(rb + j) * g.W] >> 1 & 1) << j;
         }
 #pragma unroll
-      for (int k = 0; k < kRows; ++k)
-        if (r0 + k < g.H) {
-          run = (m[k] & 2) ? min(run, v[k]) : v[k];
-          dst[top + (r0 + k) * g.W] = run;
+      for (int j = 0; j < kRows; ++j)
+        if (cw.in && rb + j < cw.r1) {
+          const int r = rb + j;
+          const bool up = ups >> j & 1;
+          if (r == cw.r0) {
+            head = up;
+          } else if (!up && one_run) {   // the chunk's first run ends
+            one_run = 0;
+            brk = r;
+            first = run;
+          }
+          run = up && r > cw.r0 ? min(run, v[j]) : v[j];
+          d[r * g.W] = run;
         }
     }
-    run = big;
-    for (int r0 = g.H - 1; r0 >= 0; r0 -= kRows) {
-      int v[kRows], m[kRows], down[kRows];
+    if (one_run) first = run;
+    sc.top[k][lane] = first;
+    sc.bot[k][lane] = run;
+    sc.flags[k][lane] = head | (one_run << 1);
+    __syncthreads();
+    // warp k scans columns k, k + kLabelWarps, ... of the strip over the
+    // chunks, lane = chunk (lanes past the last chunk: empty chunks)
+    for (int col = k; col < 32; col += kLabelWarps) {
+      const bool chunk = lane < kLabelWarps;
+      const int top = chunk ? sc.top[lane][col] : big;
+      const int bot = chunk ? sc.bot[lane][col] : big;
+      const int fl = chunk ? sc.flags[lane][col] : 2;
+      const int hd = fl & 1, whole = fl >> 1;
+      const int hn = __shfl_down_sync(kFull, hd, 1);
+      const int next_head = lane < 31 ? hn : 0;
+      int carry = big;
+      // what leaves the chunk at its last row, going down
+      const int down = chunk_scan<true>(bot, !(whole && hd), lane, carry);
+      carry = big;
+      // what leaves it at its first row, going up
+      const int up = chunk_scan<false>(top, !(whole && next_head), lane, carry);
+      const int above = __shfl_up_sync(kFull, down, 1);
+      const int below = __shfl_down_sync(kFull, up, 1);
+      if (chunk) {
+        sc.from_above[lane][col] = lane > 0 && hd ? above : big;
+        sc.from_below[lane][col] = lane < 31 && next_head ? below : big;
+      }
+    }
+    __syncthreads();
+    // up: the run-min from below, with what enters the chunk at both ends
+    const int above = sc.from_above[k][lane];
+    int run_up = sc.from_below[k][lane];
+    for (int rb = cw.r1 - 1; rb >= cw.r0; rb -= kRows) {
+      int v[kRows], fw[kRows];
+      unsigned links = 0;   // bit j: row rb - j is linked to the row below
 #pragma unroll
-      for (int k = 0; k < kRows; ++k)
-        if (r0 - k >= 0) {
-          const int i = top + (r0 - k) * g.W;
-          v[k] = ld(src + i);
-          down[k] = dst[i];       // what this thread wrote on its way down
-          // linked to the pixel below iff that pixel links up (row H-1: none)
-          m[k] = r0 - k < g.H - 1 ? mask[i + g.W] : 0;
+      for (int j = 0; j < kRows; ++j)
+        if (cw.in && rb - j >= cw.r0) {
+          const int r = rb - j;
+          v[j] = ld(s + r * g.W);
+          fw[j] = d[r * g.W];     // what this thread wrote on its way down
+          // linked to the pixel below iff that pixel links up; the chunk's
+          // last row takes what enters from below (big if nothing links)
+          links |= (r + 1 < cw.r1 ? (unsigned)(m[(r + 1) * g.W] >> 1 & 1)
+                                  : 1u) << j;
         }
 #pragma unroll
-      for (int k = 0; k < kRows; ++k)
-        if (r0 - k >= 0) {
-          run = (m[k] & 2) ? min(run, v[k]) : v[k];
-          dst[top + (r0 - k) * g.W] = min(run, down[k]);
+      for (int j = 0; j < kRows; ++j)
+        if (cw.in && rb - j >= cw.r0) {
+          const int r = rb - j;
+          run_up = links >> j & 1 ? min(run_up, v[j]) : v[j];
+          int out = min(run_up, fw[j]);
+          if (r < brk) out = min(out, above);
+          d[r * g.W] = out;
         }
     }
   }
@@ -238,9 +435,10 @@ __device__ void vrun_pass(const Who& w, const Planes& g,
 
 // pyr, once: head[i] = (row of the vertical run's head in its frame) << 16
 // | (column of the horizontal run's head).
-__device__ void hhead_pass(const Who& w, const Planes& g,
-                           const int* __restrict__ mask, int* head) {
-  for (int row = w.warp; row < g.rows; row += kClusterWarps) {
+__device__ __noinline__ void
+hhead_pass(const Who w, const Planes g, const uint8_t* __restrict__ mask,
+           int* head) {
+  for (int row = w.warp; row < g.rows; row += g.warps) {
     const int base = row * g.W;
     int carry = 0;
     for (int c0 = 0; c0 < g.W; c0 += 32) {
@@ -259,21 +457,29 @@ __device__ void hhead_pass(const Who& w, const Planes& g,
   }
 }
 
-__device__ void vhead_pass(const Who& w, const Planes& g,
-                           const int* __restrict__ mask, int* head) {
-  const int strips = (g.W + 31) / 32;
-  const int frames = g.rows / g.H;
-  for (int s = w.warp; s < frames * strips; s += kClusterWarps) {
-    const int f = s / strips;
-    const int c = (s - f * strips) * 32 + w.lane;
-    if (c >= g.W) continue;
-    const int top = f * g.H * g.W + c;
+// The vertical heads, by the chunks of vrun_pass: a running max of the rows
+// that start a run, the chunks above entering as their max.
+__device__ __noinline__ void
+vhead_pass(const Who w, const Planes g, const uint8_t* __restrict__ mask,
+           int* head) {
+  ColumnScratch& sc = block_scratch().col;
+  const int items = g.rows / g.H * ((g.W + 31) / 32);
+  const int k = threadIdx.x >> 5, lane = w.lane;
+  for (int item = w.rank; item < items; item += g.blocks) {
+    const ColumnWalk cw = column_walk(w, g, item);
+    int last = 0;   // the chunk's last row that starts a run
+    for (int r = cw.r0; cw.in && r < cw.r1; ++r)
+      if (!(mask[cw.top + r * g.W] & 2)) last = r;
+    sc.top[k][lane] = last;
+    __syncthreads();
     int cur = 0;
-    for (int r = 0; r < g.H; ++r) {
-      const int i = top + r * g.W;
+    for (int j = 0; j < k; ++j) cur = max(cur, sc.top[j][lane]);
+    for (int r = cw.r0; cw.in && r < cw.r1; ++r) {
+      const int i = cw.top + r * g.W;
       if (!(mask[i] & 2)) cur = r;
       head[i] |= cur << 16;
     }
+    __syncthreads();   // sc.top is the next item's
   }
 }
 
@@ -287,9 +493,9 @@ __device__ __forceinline__ int head_slot(const Planes& g, int i, int packed,
 }
 
 // pyr: slot[head] = min over the run; the slots hold `big` on entry
-__device__ void scatter_pass(const Who& w, const Planes& g,
-                             const int* __restrict__ head, const int* src,
-                             int* slot, bool vertical) {
+__device__ __noinline__ void
+scatter_pass(const Who w, const Planes g, const int* __restrict__ head,
+             const int* src, int* slot, bool vertical) {
   FOR_PIXEL_BATCH(i0) {
     int v[kBatch], at[kBatch];
     FOR_BATCH_PIXEL(k, i, i0) {
@@ -301,9 +507,9 @@ __device__ void scatter_pass(const Who& w, const Planes& g,
 }
 
 // pyr: dst = the run's min; and the other slot plane back to `big`
-__device__ void gather_pass(const Who& w, const Planes& g,
-                            const int* __restrict__ head, const int* slot,
-                            int* dst, int* other, bool vertical, int big) {
+__device__ __noinline__ void
+gather_pass(const Who w, const Planes g, const int* __restrict__ head,
+            const int* slot, int* dst, int* other, bool vertical, int big) {
   FOR_PIXEL_BATCH(i0) {
     int at[kBatch], v[kBatch];
     FOR_BATCH_PIXEL(k, i, i0) at[k] = head_slot(g, i, head[i], vertical);
@@ -315,96 +521,222 @@ __device__ void gather_pass(const Who& w, const Planes& g,
   }
 }
 
-// the link-mins with the left, right and upper neighbour
-__device__ void cheap_a_pass(const Who& w, const Planes& g,
-                             const int* __restrict__ mask, const int* src,
-                             int* dst) {
-  FOR_PIXEL_BATCH(i0) {
-    int v[kBatch], m[kBatch];
-    FOR_BATCH_PIXEL(k, i, i0) {
-      v[k] = ld(src + i);
-      // bit 2 here: the right neighbour links back (a row's first pixel
-      // never links left)
-      m[k] = (mask[i] & 3) | ((i + 1 < g.npx && (mask[i + 1] & 1)) ? 4 : 0);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` (0 or 1) of this thread's groups fly.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Start the copies of a tile into `c`: its cells (`big` beyond the frame),
+// for the seg round the round's input at its own pixels, and its rows of
+// the link mask, whole 4-byte words from the aligned-down address of the
+// halo's first column (the byte of cell (hr, hc) is at hr * kMaskPitch +
+// hc + the row's offset; `mask_off` below).  Bytes beyond the frame's
+// columns belong to other rows and are masked when read.
+template <bool CHEAP>
+__device__ __forceinline__ void copy_tile(TileCopy& c, const Planes& g,
+                                          const uint8_t* mask, const int* src,
+                                          const int* before, int big,
+                                          int tile, int tiles_c) {
+  const int r0 = tile / tiles_c * kTileH - kHalo;
+  const int c0 = tile % tiles_c * kTileW - kHalo;
+  for (int x = threadIdx.x; x < kTileCells; x += kLabelThreads) {
+    const int row = r0 + x / kTileCols, col = c0 + x % kTileCols;
+    if (row >= 0 && row < g.rows && col >= 0 && col < g.W)
+      cp_async4(&c.val[x], src + row * g.W + col);
+    else
+      c.val[x] = big;
+  }
+  if (!CHEAP && before != nullptr) {
+    for (int x = threadIdx.x; x < kTilePixels; x += kLabelThreads) {
+      const int row = r0 + kHalo + x / kTileW, col = c0 + kHalo + x % kTileW;
+      if (row < g.rows && col < g.W)
+        cp_async4(&c.before[x], before + row * g.W + col);
     }
-    FOR_BATCH_PIXEL(k, i, i0) {
-      const int left = (m[k] & 1) ? ld(src + i - 1) : v[k];
-      const int right = (m[k] & 4) ? ld(src + i + 1) : v[k];
-      const int up = (m[k] & 2) ? ld(src + i - g.W) : v[k];
-      v[k] = min(min(v[k], left), min(right, up));
-    }
-    FOR_BATCH_PIXEL(k, i, i0) dst[i] = v[k];
+  }
+  constexpr int kWords = kMaskPitch / 4;
+  for (int x = threadIdx.x; x < kTileRows * kWords; x += kLabelThreads) {
+    const int hr = x / kWords, row = r0 + hr;
+    if (row < 0 || row >= g.rows) continue;
+    const uintptr_t first = (uintptr_t)(mask + row * g.W + c0) & ~(uintptr_t)3;
+    cp_async4(&c.mask[hr * kMaskPitch + 4 * (x % kWords)],
+              (const void*)(first + 4 * (x % kWords)));
   }
 }
 
-// the link-min with the lower neighbour (a frame's first row never links up)
-__device__ void cheap_b_pass(const Who& w, const Planes& g,
-                             const int* __restrict__ mask, const int* src,
-                             int* dst) {
-  FOR_PIXEL_BATCH(i0) {
-    int v[kBatch], down[kBatch];
-    FOR_BATCH_PIXEL(k, i, i0) {
-      v[k] = ld(src + i);
-      down[k] = i + g.W < g.npx && (mask[i + g.W] & 2);
-    }
-    FOR_BATCH_PIXEL(k, i, i0)
-      if (down[k]) v[k] = min(v[k], ld(src + i + g.W));
-    FOR_BATCH_PIXEL(k, i, i0) dst[i] = v[k];
-  }
+// The offset of a tile row's first mask byte in its copy.
+__device__ __forceinline__ int mask_off(const uint8_t* mask, const Planes& g,
+                                        int row, int c0) {
+  return (int)((uintptr_t)(mask + row * g.W + c0) & 3);
 }
 
-// one diagonal link-min; with `before`, returns whether any of this
-// thread's pixels differs from it (the round's input plane)
-__device__ int diag_pass(const Who& w, const Planes& g,
-                         const int* __restrict__ mask, const int* src,
-                         int* dst, int bit, const int* before) {
-  const int off = kDr[bit] * g.W + kDc[bit];
+// The steps of a round that look at neighbours only, fused into one: the
+// cheap round's six (with CHEAP: the link-mins with the left, right and
+// upper neighbour of the old plane, then with the lower neighbour of the
+// new one, then the four diagonal link-mins, each on the plane the last one
+// wrote), or the seg round's last four (the diagonals).  Each is still a
+// whole-plane step: a block takes kTileH x kTileW tiles with a halo of
+// kHalo pixels, and runs the steps one after the other in shared memory on
+// all but the halo's outer ring; the steps reach at most 3 pixels, so the
+// tile's own pixels come out as the whole-plane steps would leave them.
+// With `before` (the round's input), returns whether any of this thread's
+// pixels differs from it.
+template <bool CHEAP>
+__device__ __noinline__ int
+tile_pass(const Who w, const Planes g, const uint8_t* __restrict__ mask,
+          const int* src, int* dst, const int* before, int big) {
+  TileScratch& t = block_scratch().tile;
+  const int tiles_c = (g.W + kTileW - 1) / kTileW;
+  const int tiles = (g.rows + kTileH - 1) / kTileH * tiles_c;
   int changed = 0;
-  FOR_PIXEL_BATCH(i0) {
-    int v[kBatch], was[kBatch], link[kBatch];
-    FOR_BATCH_PIXEL(k, i, i0) {
-      v[k] = ld(src + i);
-      link[k] = mask[i] & (1 << bit);
-      if (before != nullptr) was[k] = ld(before + i);
-    }
-    FOR_BATCH_PIXEL(k, i, i0)
-      if (link[k]) v[k] = min(v[k], ld(src + i + off));
-    FOR_BATCH_PIXEL(k, i, i0) {
-      dst[i] = v[k];
-      if (before != nullptr) changed |= v[k] != was[k];
-    }
+  // which of this thread's cells a step computes: all but the outer ring
+  bool inner[kCellsPerThread];
+#pragma unroll
+  for (int j = 0; j < kCellsPerThread; ++j) {
+    const int x = threadIdx.x + j * kLabelThreads;
+    const int hr = x / kTileCols, hc = x % kTileCols;
+    inner[j] = x < kTileCells && hr > 0 && hr < kTileRows - 1 && hc > 0 &&
+               hc < kTileCols - 1;
   }
+  if (w.rank < tiles)
+    copy_tile<CHEAP>(t.copy[0], g, mask, src, before, big, w.rank, tiles_c);
+  cp_async_commit();
+  int set = 0;
+  for (int tile = w.rank; tile < tiles; tile += g.blocks) {   // block-uniform
+    const int r0 = tile / tiles_c * kTileH, c0 = tile % tiles_c * kTileW;
+    // the next tile's copies fly while this one's steps run
+    const bool next = tile + g.blocks < tiles;
+    if (next)
+      copy_tile<CHEAP>(t.copy[set ^ 1], g, mask, src, before, big,
+                       tile + g.blocks, tiles_c);
+    cp_async_commit();
+    cp_async_wait(1);
+    __syncthreads();
+    const TileCopy& c = t.copy[set];
+    // this thread's cells: the value and the links in registers, bits 0-5
+    // the mask's, 6 the right neighbour's link to it, 7 the lower one's (a
+    // cell of the outer ring has none)
+    int own[kCellsPerThread], links[kCellsPerThread];
+#pragma unroll
+    for (int j = 0; j < kCellsPerThread; ++j) {
+      const int x = threadIdx.x + j * kLabelThreads;
+      own[j] = x < kTileCells ? c.val[x] : big;
+      links[j] = 0;
+      if (inner[j]) {
+        const int hr = x / kTileCols, hc = x % kTileCols;
+        const int row = r0 - kHalo + hr, col = c0 - kHalo + hc;
+        const uint8_t* mrow =
+            c.mask + hr * kMaskPitch + mask_off(mask, g, row, c0 - kHalo);
+        const uint8_t* mdown = c.mask + (hr + 1) * kMaskPitch +
+                               mask_off(mask, g, row + 1, c0 - kHalo);
+        const bool in = row >= 0 && row < g.rows && col >= 0 && col < g.W;
+        const bool right = row >= 0 && row < g.rows && col + 1 < g.W;
+        const bool down = row + 1 < g.rows && col >= 0 && col < g.W;
+        links[j] = (in ? mrow[hc] : 0) | (right ? mrow[hc + 1] & 1 : 0) << 6 |
+                   (down ? mdown[hc] & 2 : 0) << 6;
+      }
+    }
+    // the steps: `kind` 0 the left, right and upper links, 1 the lower,
+    // 2-5 the diagonal of that mask bit; the first reads the copy, the
+    // others the plane the last one wrote.  A ring cell has no links and
+    // keeps its value.  Every cell's loads go before any of its mins.
+    const int* sv = c.val;
+    int cur = 0;
+#pragma unroll
+    for (int kind = CHEAP ? 0 : 2; kind < 6; ++kind) {
+      int* dv = t.work[cur];
+      int n[kCellsPerThread][3];
+#pragma unroll
+      for (int j = 0; j < kCellsPerThread; ++j) {
+        const int x = threadIdx.x + j * kLabelThreads;
+        const int lk = links[j];
+        if (kind == 0) {
+          n[j][0] = lk & 1 ? sv[x - 1] : big;
+          n[j][1] = lk & 64 ? sv[x + 1] : big;
+          n[j][2] = lk & 2 ? sv[x - kTileCols] : big;
+        } else if (kind == 1) {
+          n[j][0] = lk & 128 ? sv[x + kTileCols] : big;
+        } else {
+          n[j][0] = lk & (1 << kind)
+                        ? sv[x + kDr[kind] * kTileCols + kDc[kind]] : big;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kCellsPerThread; ++j) {
+        const int x = threadIdx.x + j * kLabelThreads;
+        own[j] = min(own[j], n[j][0]);
+        if (kind == 0) own[j] = min(own[j], min(n[j][1], n[j][2]));
+        if (x < kTileCells) dv[x] = own[j];
+      }
+      __syncthreads();
+      sv = dv;
+      cur ^= 1;
+    }
+#pragma unroll
+    for (int j = 0; j < kPixelsPerThread; ++j) {
+      const int x = threadIdx.x + j * kLabelThreads;
+      const int row = r0 + x / kTileW, col = c0 + x % kTileW;
+      if (row < g.rows && col < g.W) {
+        const int cell = (x / kTileW + kHalo) * kTileCols + x % kTileW + kHalo;
+        const int val = sv[cell];
+        dst[row * g.W + col] = val;
+        if (before != nullptr)
+          changed |= val != (CHEAP ? c.val[cell] : c.before[x]);
+      }
+    }
+    __syncthreads();   // this set and the planes are read: both may refill
+    set ^= 1;
+  }
+  cp_async_wait(0);
   return changed;
 }
 
-// scratch: int32 (4 or 7, B, H, W): label planes 0-2, the mask; pyr: the
-// run heads and two slot planes.
-__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
-__launch_bounds__(kThreads)
+// scratch: int32 (4, B, H, W): label planes 0-2, the link mask (bytes);
+// pyr (7, B, H, W): + the run heads and two slot planes.  A cluster of any size the
+// launch gives (labels_launch).
+__global__ void __launch_bounds__(kLabelThreads)
 labels_kernel(const float* __restrict__ disp, int* __restrict__ out,
               int* __restrict__ rounds, int* scratch, int B, int H, int W,
               int lo_bits, float diff, int mode) {
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ int block_changed[2];
+  const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int program = blockIdx.x / kClusterBlocks;
+  const int program = blockIdx.x / CS;
   const int frames = mode == kBlock4 ? kBlockFrames : 1;
-  Who w;
-  w.tid = rank * kThreads + threadIdx.x;
-  w.lane = threadIdx.x & 31;
-  w.warp = (threadIdx.x >> 5) * kClusterBlocks + rank;
   Planes g;
   g.H = H;
   g.W = W;
   g.rows = frames * H;
   g.npx = g.rows * W;
+  g.blocks = CS;
+  g.threads = CS * kLabelThreads;
+  g.warps = CS * kLabelWarps;
+  Who w;
+  w.tid = rank * kLabelThreads + threadIdx.x;
+  w.lane = threadIdx.x & 31;
+  w.warp = (threadIdx.x >> 5) * CS + rank;
+  w.rank = rank;
   const size_t plane = (size_t)B * H * W;
   const size_t first = (size_t)program * g.npx;
   disp += first;
   out += first;
   int* lab[3] = {scratch + first, scratch + plane + first,
                  scratch + 2 * plane + first};
-  int* mask = scratch + 3 * plane + first;
+  // the link mask, a byte a pixel, in the fourth plane
+  uint8_t* mask = (uint8_t*)(scratch + 3 * plane) + first;
   int* head = scratch + 4 * plane + first;                 // pyr only
   int* slot[2] = {scratch + 5 * plane + first, scratch + 6 * plane + first};
   const int big = H << lo_bits;
@@ -412,56 +744,49 @@ labels_kernel(const float* __restrict__ disp, int* __restrict__ out,
   const bool checked = mode != kFori16;
 
   init_pass(w, g, disp, mask, lab[0], lo_bits, diff);
-  cluster.sync();
+  step_sync(cluster, g);
   if (mode == kPyr) {
     hhead_pass(w, g, mask, head);
-    for (int i = w.tid; i < g.npx; i += kClusterThreads)
+    for (int i = w.tid; i < g.npx; i += g.threads)
       slot[0][i] = slot[1][i] = big;
-    cluster.sync();
+    step_sync(cluster, g);
     vhead_pass(w, g, mask, head);
-    cluster.sync();
+    step_sync(cluster, g);
   }
 
   int a = 0, b = 1, c = 2;      // lab[a]: the round's input; b, c: free
   int it = 0, changed = 0, flag = 0;
   for (;;) {
     for (int k = 0; k < (paired ? 2 : 1); ++k) {
-      if (k > 0) cluster.sync();
+      if (k > 0) step_sync(cluster, g);
       const bool seg = paired ? k == 0 : !(it & 1);
+      const int* input = checked ? lab[a] : nullptr;
       if (!seg) {
-        cheap_a_pass(w, g, mask, lab[a], lab[b]);
-        cluster.sync();
-        cheap_b_pass(w, g, mask, lab[b], lab[c]);
-      } else if (mode == kPyr) {
-        scatter_pass(w, g, head, lab[a], slot[0], false);
-        cluster.sync();
-        gather_pass(w, g, head, slot[0], lab[b], slot[1], false, big);
-        cluster.sync();
-        scatter_pass(w, g, head, lab[b], slot[1], true);
-        cluster.sync();
-        gather_pass(w, g, head, slot[1], lab[c], slot[0], true, big);
+        changed |= tile_pass<true>(w, g, mask, lab[a], lab[b], input, big);
       } else {
-        hrun_pass(w, g, mask, lab[a], lab[b], big);
-        cluster.sync();
-        vrun_pass(w, g, mask, lab[b], lab[c], big);
+        if (mode == kPyr) {
+          scatter_pass(w, g, head, lab[a], slot[0], false);
+          step_sync(cluster, g);
+          gather_pass(w, g, head, slot[0], lab[b], slot[1], false, big);
+          step_sync(cluster, g);
+          scatter_pass(w, g, head, lab[b], slot[1], true);
+          step_sync(cluster, g);
+          gather_pass(w, g, head, slot[1], lab[c], slot[0], true, big);
+        } else {
+          hrun_pass(w, g, mask, lab[a], lab[b], big);
+          step_sync(cluster, g);
+          vrun_pass(w, g, mask, lab[b], lab[c], big);
+        }
+        step_sync(cluster, g);
+        changed |= tile_pass<false>(w, g, mask, lab[c], lab[b], input, big);
       }
-      cluster.sync();
-      diag_pass(w, g, mask, lab[c], lab[b], 2, nullptr);
-      cluster.sync();
-      diag_pass(w, g, mask, lab[b], lab[c], 3, nullptr);
-      cluster.sync();
-      diag_pass(w, g, mask, lab[c], lab[b], 4, nullptr);
-      cluster.sync();
-      changed |= diag_pass(w, g, mask, lab[b], lab[c], 5,
-                           checked ? lab[a] : nullptr);
       ++it;
-      const int t = a;      // the result becomes the next round's input
-      a = c;
-      c = b;
+      const int t = a;      // the result (in b) is the next round's input
+      a = b;
       b = t;
     }
     if (!checked) {
-      cluster.sync();
+      step_sync(cluster, g);
       if (it >= kFixedRounds) break;
       continue;
     }
@@ -470,17 +795,100 @@ labels_kernel(const float* __restrict__ disp, int* __restrict__ out,
     const int any = __syncthreads_or(changed);
     changed = 0;
     if (threadIdx.x == 0) block_changed[flag] = any;
-    cluster.sync();
+    step_sync(cluster, g);
     int total = 0;
-    for (int peer = 0; peer < kClusterBlocks; ++peer)
+    for (int peer = 0; peer < CS; ++peer)
       total |= *cluster.map_shared_rank(&block_changed[flag], peer);
     flag ^= 1;
     if (!total) break;
   }
 
-  for (int i = w.tid; i < g.npx; i += kClusterThreads) out[i] = ld(lab[a] + i);
+  for (int i = w.tid; i < g.npx; i += g.threads) out[i] = ld(lab[a] + i);
   if (w.tid == 0) rounds[program] = it;
-  cluster.sync();   // no block leaves while a peer may still read its flag
+  step_sync(cluster, g);   // no block leaves while a peer may still read its flag
+}
+
+// What a launch asks the card once per device: its L2 size and, per
+// cluster size, how many such clusters it holds at once (the answer depends
+// on the card's layout, not the data); the kernel's attributes are set on
+// the first ask.  Asking on every call cost a 37x45 frame more host time
+// than its kernel takes.
+constexpr int kDevices = 16;
+struct CardFacts {
+  int l2;
+  int resident[kMaxLabelCluster + 1];
+};
+
+// The launch of `programs` clusters of `cs` blocks.
+void labels_config(int programs, int cs, cudaLaunchAttribute* attr,
+                   cudaLaunchConfig_t* config) {
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3((unsigned)(programs * cs));
+  config->blockDim = dim3(kLabelThreads);
+  config->dynamicSmemBytes = sizeof(BlockScratch);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+}
+
+cudaError_t card_facts(const CardFacts** facts) {
+  static CardFacts known[kDevices];
+  static bool asked[kDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kDevices) return cudaErrorInvalidDevice;
+  CardFacts& f = known[device];
+  *facts = &f;
+  if (asked[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(labels_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(BlockScratch));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      labels_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&f.l2, cudaDevAttrL2CacheSize, device);
+  if (err != cudaSuccess) return err;
+  for (int c = 1; c <= kMaxLabelCluster; ++c) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t config;
+    labels_config(1, c, attr, &config);
+    err = cudaOccupancyMaxActiveClusters(&f.resident[c], labels_kernel,
+                                         &config);
+    if (err != cudaSuccess) return err;
+  }
+  asked[device] = true;
+  return cudaSuccess;
+}
+
+// The cluster size of a launch, decided before it, among 1..16 blocks with
+// at least kMinPixels pixels a thread: the fewest waves of programs, where a
+// wave is as many programs as the card holds at once, but no more than
+// keep their planes (`bytes` each) in three quarters of the L2 (a step
+// reads and writes every pixel of a program, and planes that stay in the L2
+// make it several times faster than planes in device memory); among those,
+// the largest.  Sizes that are not powers of two count: an NVIDIA H100 80GB
+// HBM3 holds seven clusters of 16 such blocks at once but eight of 9.
+int labels_cluster(const CardFacts& card, int programs, long long pixels,
+                   long long bytes) {
+  const long long cap = std::max<long long>(1, 3LL * card.l2 / 4 / bytes);
+  const long long widest = pixels / ((long long)kMinPixels * kLabelThreads);
+  long long best = -1;
+  int chosen = 1;
+  for (int c = 1; c <= kMaxLabelCluster && (c == 1 || c <= widest); ++c) {
+    const long long wave = std::min<long long>(card.resident[c], cap);
+    if (wave < 1) continue;
+    const long long waves = (programs + wave - 1) / wave;
+    if (best < 0 || waves <= best) {
+      best = waves;
+      chosen = c;
+    }
+  }
+  return chosen;
 }
 
 // --- S2-S4 ---------------------------------------------------------------------
@@ -597,11 +1005,21 @@ extern "C" int sgm_probe_speckle_labels(const void* disp, void* out,
       (mode == kBlock4 && B % kBlockFrames != 0))
     return (int)cudaErrorInvalidValue;
   const int programs = mode == kBlock4 ? B / kBlockFrames : B;
-  labels_kernel<<<programs * kClusterBlocks, kThreads, 0,
-                  (cudaStream_t)stream>>>(
-      (const float*)disp, (int*)out, (int*)rounds, (int*)scratch, B, H, W,
-      lo_bits, diff, mode);
-  return (int)cudaGetLastError();
+  // a program's planes: three int32 label planes and the byte mask; pyr
+  // also the heads and two slot planes
+  const long long pixels = (long long)B * H * W / programs;
+  const CardFacts* card = nullptr;
+  const cudaError_t err = card_facts(&card);
+  if (err != cudaSuccess) return (int)err;
+  const int cs = labels_cluster(*card, programs, pixels,
+                                pixels * (mode == kPyr ? 25 : 13));
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config;
+  labels_config(programs, cs, attr, &config);
+  config.stream = (cudaStream_t)stream;
+  return (int)cudaLaunchKernelEx(&config, labels_kernel, (const float*)disp,
+                                 (int*)out, (int*)rounds, (int*)scratch, B, H,
+                                 W, lo_bits, diff, mode);
 }
 
 // lab: int32 (B, per_frame); counts: int32 (B, size) out.

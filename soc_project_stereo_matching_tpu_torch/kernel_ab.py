@@ -1,15 +1,20 @@
-"""K1, K4 and the WTA of this checkout against another checkout's, on one card.
+"""K1, K4, the WTA and the probe kernels P4 ``scan16`` and S1
+``speckle_labels`` of this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--out chiprun_out/kernel_ab.json]
+        [--reps 20] [--only k4,k1,wta,scan16,s1] \
+        [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
 ``git archive <commit> | tar -x -C build/parent`` (``build/`` is
 git-ignored).  Its sources that define ``sgm_remove_speckles``,
-``sgm_census_cost`` and ``sgm_wta_reduce`` are built into a library of their
-own; those C entries have this checkout's names and signatures.  At the cone
-geometry (375x450, D=64, B=2, 8, 32) and at Middlebury-half (1000x1500,
-D=256, B=1), on seeded synthetic pairs:
+``sgm_census_cost``, ``sgm_wta_reduce``, ``sgm_probe_scan16`` and
+``sgm_probe_speckle_labels`` are built into a library of their own; those C
+entries have this checkout's names and signatures, except ``scan16``'s,
+which took one direction a launch before its capacity entry existed (both
+are called).  ``--only`` picks the groups (default: all; K3 rides with the
+WTA).  At the cone geometry (375x450, D=64, B=2, 8, 32) and at
+Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
 
 * K4 (``sgm_remove_speckles``, on the engine's pre-speckle disparity) and K1
   (``sgm_census_cost``; at Middlebury-half also in halo mode) of both
@@ -36,7 +41,22 @@ D=256, B=1), on seeded synthetic pairs:
   the loads are left), and the copies left out (the reduction on whatever
   the buffers hold: the compute alone; whole-row blocks only);
 * K3 (``lr_check``) on the two views' disparities: its device time from
-  ``torch.profiler`` beside its byte bound (12 bytes a pixel).
+  ``torch.profiler`` beside its byte bound (12 bytes a pixel);
+* P4 ``scan16`` (the vertical group (0, 1, -1), forward, on the pair's cost
+  volume) of both checkouts, held bit-equal to each other and to the group
+  scan, timed in turns with the shipped group scan
+  (``ops.kernels.directional_scan_group``) and, as the floor of its
+  dependent chain, ``recurrence_floor``'s ``chain3`` (P1, three directions,
+  H steps) at the same shape;
+* S1 ``speckle_labels`` in its five modes (block4 where B is a multiple of
+  four) on the engine's pre-speckle disparity, both checkouts held
+  bit-equal to the plain version (labels and rounds) and timed in turns,
+  beside K4 (``ops.kernels.remove_speckles``) and K4's label stage
+  (``union_find_labels``); and this checkout's S1 ``base`` with the passes
+  of its loop taken out ("barriers only": the steps' barriers and the
+  fixed-point test, the rounds the real run took) and with the vertical
+  run-min taken out ("no vertical pass", the same rounds), each a text
+  patch of the call sites; S1 also at 37x45 B=4 (D=48).
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -63,10 +83,19 @@ from .probes import kernels as pk
 from .probes import prespeckle_disparity
 from .utils.profiling import card
 
-ENTRIES = ("sgm_remove_speckles", "sgm_census_cost", "sgm_wta_reduce")
+# the C entry each group compares, in the order they run
+GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
+                 "wta": "sgm_wta_reduce", "scan16": "sgm_probe_scan16",
+                 "s1": "sgm_probe_speckle_labels"}
+GROUPS = tuple(GROUP_ENTRIES)
+ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
+# scan16's entry before it took a group: one direction a launch
+SCAN16_ONE_DIRECTION = ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, \
+    *(ctypes.c_int,) * 10, ctypes.c_void_p
 SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
           ("cone B=32", 32, 375, 450, 64),
           ("Middlebury-half B=1", 1, 1000, 1500, 256))
+S1_SHAPES = SHAPES + (("37x45 B=4", 4, 37, 45, 48),)   # S1 also here
 # K1 ablations: (text in csrc/census_cost.cu, its replacement)
 ABLATIONS = {
     "no census window": [
@@ -90,6 +119,24 @@ WTA_ABLATIONS = {
          "        bulk_copy(smem_addr(smem + base), (const unsigned char*)g - lead,\n"
          "                  bytes, smem_addr(full + b));",
          "        mbar_expect(smem_addr(full + b), 0);")],
+}
+# S1 ablations: (text in csrc/probe_speckle.cu, its replacement).  Each
+# stops after the rounds the real run took, which the caller puts in
+# ``rounds`` before the launch.
+_S1_STOP = ("    if (!total) break;\n",
+            "    if (it >= __ldcg(rounds + program)) break;\n")
+_S1_PASS_CALLS = (
+    "        changed |= tile_pass<true>(w, g, mask, lab[a], lab[b], input, big);\n",
+    "          scatter_pass(w, g, head, lab[a], slot[0], false);\n",
+    "          gather_pass(w, g, head, slot[0], lab[b], slot[1], false, big);\n",
+    "          scatter_pass(w, g, head, lab[b], slot[1], true);\n",
+    "          gather_pass(w, g, head, slot[1], lab[c], slot[0], true, big);\n",
+    "          hrun_pass(w, g, mask, lab[a], lab[b], big);\n",
+    "          vrun_pass(w, g, mask, lab[b], lab[c], big);\n",
+    "        changed |= tile_pass<false>(w, g, mask, lab[c], lab[b], input, big);\n")
+S1_ABLATIONS = {
+    "barriers only": [_S1_STOP] + [(call, "") for call in _S1_PASS_CALLS],
+    "no vertical pass": [_S1_STOP, (_S1_PASS_CALLS[6], "")],
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 RUN = 10    # back-to-back WTA launches between two events
@@ -127,10 +174,13 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
                                f"{proc.stderr}")
     handle = ctypes.CDLL(str(lib))
-    for entry in ENTRIES:
+    for entry, argtypes in _build.SIGNATURES.items():
         if hasattr(handle, entry):
-            getattr(handle, entry).argtypes = _build.SIGNATURES[entry]
+            getattr(handle, entry).argtypes = argtypes
             getattr(handle, entry).restype = ctypes.c_int
+    if (hasattr(handle, "sgm_probe_scan16")
+            and not hasattr(handle, "sgm_probe_scan16_capacity")):
+        handle.sgm_probe_scan16.argtypes = SCAN16_ONE_DIRECTION
     return handle
 
 
@@ -168,6 +218,48 @@ def wta(lib, aggr, dmin: int, inverse: bool = True):
                           int(inverse), _stream()):
         raise RuntimeError("sgm_wta_reduce failed")
     return out
+
+
+def scan16(lib, cost, img, rolls, p1, p2):
+    """The group (rolls), forward, no restart, by ``lib``'s scan16: as many
+    directions a launch as its capacity entry says, or one a direction
+    where the entry takes one (a checkout without that entry)."""
+    b, s, d, w = cost.shape
+    out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
+    args = (cost.data_ptr(), img.data_ptr(), out.data_ptr(), b, s, d, w)
+    if hasattr(lib, "sgm_probe_scan16_capacity"):
+        dirs = ctypes.c_int(0)
+        if (lib.sgm_probe_scan16_capacity(b, d, w, ctypes.addressof(dirs))
+                or dirs.value < 1):
+            raise RuntimeError("sgm_probe_scan16_capacity failed")
+        n = dirs.value
+        calls = [(len(rolls[k0:k0 + n]), *(rolls[k0:k0 + n] + (0, 0))[:3], 0,
+                  0, p1, p2, int(k0 > 0)) for k0 in range(0, len(rolls), n)]
+    else:
+        calls = [(0, roll, 0, p1, p2, int(k > 0))
+                 for k, roll in enumerate(rolls)]
+    for extra in calls:
+        if lib.sgm_probe_scan16(*args, *extra, _stream()):
+            raise RuntimeError("sgm_probe_scan16 failed")
+    return out
+
+
+def speckle_labels(lib, disp, mode: str, rounds=None):
+    """(labels, rounds) of ``lib``'s S1; ``rounds``, if given, is the
+    rounds buffer (an ablation reads the rounds to run from it)."""
+    b, h, w = disp.shape
+    programs = b // pk.BLOCK_FRAMES if mode == "block4" else b
+    labels = torch.empty(disp.shape, dtype=torch.int32, device=disp.device)
+    if rounds is None:
+        rounds = torch.empty(programs, dtype=torch.int32, device=disp.device)
+    scratch = torch.empty((7 if mode == "pyr" else 4, b, h, w),
+                          dtype=torch.int32, device=disp.device)
+    if lib.sgm_probe_speckle_labels(disp.data_ptr(), labels.data_ptr(),
+                                    rounds.data_ptr(), scratch.data_ptr(), b,
+                                    h, w, pk.label_bits(w), 1.0,
+                                    pk.LABEL_MODES[mode], _stream()):
+        raise RuntimeError("sgm_probe_speckle_labels failed")
+    return labels, rounds
 
 
 def sources_defining(csrc: Path, entries) -> dict:
@@ -238,136 +330,243 @@ def same(got, want, what: str) -> None:
         raise AssertionError(f"{what}: results differ")
 
 
+def k4_shape(rec, label, b, h, w, dmax, other, this, reps):
+    """K4 of both checkouts in turns, by kernel, and S1 pyr + S4 fused_agg."""
+    dev = torch.device("cuda")
+    opt, disp = prespeckle_disparity(dev, b, h, w, dmax)
+    area = opt.min_speckle_area
+    want = postprocess.remove_speckles(disp, 1.0, area)
+    for name, lib in (("parent", other), ("this", this)):
+        same(k4(lib, disp, area), want, f"K4 {name} {label}")
+    rec["k4_ms"] = in_turns({
+        "parent": lambda: k4(other, disp, area),
+        "this": lambda: k4(this, disp, area)}, reps)
+    rec["k4_kernels_ms"] = {
+        name: kernel_ms(lambda lib=lib: k4(lib, disp, area))
+        for name, lib in (("parent", other), ("this", this))}
+    labels, _ = pk.speckle_labels(disp, 1.0, "pyr")
+    same(labels, pk.flat_to_root_labels(kernels.union_find_labels(disp)),
+         f"S1 pyr labels {label}")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+    verdict = pk.speckle_tail_fused(grouped, area, h_hist, lo_bits, True)
+    same(pk.apply_verdict(disp, pk.ungroup_verdict(verdict, h, w)), want,
+         f"S1 pyr + S4 fused_agg {label}")
+    rec["cluster_design_ms"] = {
+        "pyr": event_ms(lambda: pk.speckle_labels(disp, 1.0, "pyr"),
+                        reps),
+        "fused_agg": event_ms(lambda: pk.speckle_tail_fused(
+            grouped, area, h_hist, lo_bits, True), reps)}
+    ms = {name: statistics.median(v) for name, v in rec["k4_ms"].items()}
+    print(f"{label} K4 ms parent {rec['k4_ms']['parent']} this "
+          f"{rec['k4_ms']['this']} ({ms['parent'] / ms['this']:.1f}x); "
+          f"by kernel {json.dumps(rec['k4_kernels_ms'])}; S1 pyr + S4 "
+          f"fused_agg {json.dumps(rec['cluster_design_ms'])}")
+    del disp, want, labels, grouped, verdict
+
+
+def k1_shape(rec, label, b, h, w, dmax, left, right, other, this, ablated,
+             reps):
+    """K1 of both checkouts in turns (and in halo mode at 1000 rows), and
+    this checkout's ablations."""
+    runs = {"untiled": (left, right, False)}
+    if h == 1000:       # the tiled engine's halo census on a 1x1 mesh
+        runs["halo"] = tuple(torch.nn.functional.pad(x, (0, 0, 2, 2))
+                             for x in (left, right)) + (True,)
+    bound = (2 * b * h * w + b * h * w * dmax) / HBM_BYTES_PER_S * 1e3
+    rec["k1_bound_ms"] = bound
+    for mode, (il, ir, halo) in runs.items():
+        want = kernels.census_cost_volume_plain(il, ir, 0, dmax, halo)
+        for name, lib in (("parent", other), ("this", this)):
+            same(k1(lib, il, ir, dmax, halo), want, f"K1 {name} {label}")
+        ms = rec[f"k1_{mode}_ms"] = in_turns({
+            "parent": lambda: k1(other, il, ir, dmax, halo),
+            "this": lambda: k1(this, il, ir, dmax, halo)}, reps)
+        print(f"{label} K1 {mode} ms parent {ms['parent']} this "
+              f"{ms['this']}, bound {bound:.4f} ms")
+    vol = k1(this, left, right, dmax)
+    abl = {name: None if lib is None else
+           event_ms(lambda lib=lib: k1(lib, left, right, dmax), reps)
+           for name, lib in ablated.items()}
+    abl["Tensor.fill_ of the volume"] = event_ms(lambda: vol.fill_(7),
+                                                 reps)
+    rec["k1_ablations_ms"] = abl
+    print(f"{label} K1 ablations ms {json.dumps(abl)}")
+    del runs, vol
+
+
+def wta_shape(rec, label, b, h, w, dmax, left, right, other, this,
+              wta_ablated, reps):
+    """The WTA of both checkouts in turns, a call and a launch at a time,
+    its ablations, then K3 on the two views' disparities."""
+    # the WTA on the volume the main path's scans make, then K3
+    opt = SGMOptions(max_disparity=dmax)
+    aggr = kernels.aggregate_paths(
+        kernels.census_cost_volume(left, right, 0, dmax), left, opt)
+    want = torch.stack(sum(kernels.wta_reduce_plain(aggr, opt, True), ()))
+    for name, lib in (("parent", other), ("this", this)):
+        same(wta(lib, aggr, 0), want, f"WTA {name} {label}")
+    del want
+    px, vol = b * h * w, b * h * w * dmax
+    rec["wta_bound_ms"] = (2 * vol + 40 * px) / HBM_BYTES_PER_S * 1e3
+    ms = rec["wta_ms"] = in_turns({
+        "parent": lambda: wta(other, aggr, 0),
+        "this": lambda: wta(this, aggr, 0)}, reps)
+    rec["wta_run_ms"] = {name: [t / RUN for t in v] for name, v in in_turns({
+        "parent": lambda: [wta(other, aggr, 0) for _ in range(RUN)],
+        "this": lambda: [wta(this, aggr, 0) for _ in range(RUN)]},
+        reps).items()}
+    extra = {"forward view alone": event_ms(
+        lambda: wta(this, aggr, 0, False), reps)}
+    extra.update({name: None if lib is None else
+                  event_ms(lambda lib=lib: wta(lib, aggr, 0), reps)
+                  for name, lib in wta_ablated.items()})
+    extra["aggr.amin(dim=2), a read of the volume"] = event_ms(
+        lambda: aggr.view(torch.int16).amin(dim=2), reps)
+    rec["wta_ablations_ms"] = extra
+    run = rec["wta_run_ms"]
+    print(f"{label} WTA ms parent {ms['parent']} this {ms['this']}; a "
+          f"launch in runs of {RUN}: parent {run['parent']} this "
+          f"{run['this']}; bound {rec['wta_bound_ms']:.4f} ms; "
+          f"{json.dumps(extra)}")
+    planes = wta(this, aggr, 0)
+    dl = finalize_disparity(WTAPlanes(*planes[:5]), opt)
+    dr = finalize_disparity(WTAPlanes(*planes[5:]), opt)
+    k3 = lambda: kernels.lr_check(dl, dr, opt.lrcheck_thres, dmax)
+    rec["k3_bound_ms"] = 12 * px / HBM_BYTES_PER_S * 1e3
+    rec["k3_kernels_ms"] = kernel_ms(k3)
+    rec["k3_event_ms"] = event_ms(k3, reps)
+    print(f"{label} K3 device ms {json.dumps(rec['k3_kernels_ms'])}, "
+          f"events {rec['k3_event_ms']}, bound {rec['k3_bound_ms']:.4f} ms")
+
+
+def scan16_shape(rec, label, left, right, dmax, other, this, reps):
+    """P4 scan16 of both checkouts in turns with the shipped group scan and
+    the chain floor (P1 chain3), on the vertical forward group."""
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    rolls = (0, 1, -1)
+    want = kernels.directional_scan_group(cost, left, None, rolls, False, p1,
+                                          p2, False)
+    for name, lib in (("parent", other), ("this", this)):
+        same(scan16(lib, cost, left, rolls, p1, p2), want,
+             f"scan16 {name} {label}")
+    b, h, d, w = cost.shape
+    x = torch.zeros((b, d, w), dtype=torch.uint16, device=cost.device)
+    ms = rec["scan16_ms"] = in_turns({
+        "parent": lambda: scan16(other, cost, left, rolls, p1, p2),
+        "this": lambda: scan16(this, cost, left, rolls, p1, p2),
+        "group scan": lambda: kernels.directional_scan_group(
+            cost, left, None, rolls, False, p1, p2, False),
+        "chain3": lambda: pk.chain(x, h, rolls, p1)}, reps)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    rec["scan16_over_group_scan"] = med["this"] / med["group scan"]
+    print(f"{label} scan16 ms parent {ms['parent']} this {ms['this']}; group "
+          f"scan {ms['group scan']}; chain3 {ms['chain3']}; this over the "
+          f"group scan {rec['scan16_over_group_scan']:.3f}, over the parent "
+          f"{med['this'] / med['parent']:.3f}")
+
+
+def s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated, reps):
+    """S1 of both checkouts in every mode, in turns; K4 and its label stage
+    beside them; this checkout's ablations at the real run's rounds."""
+    opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, dmax)
+    modes = [m for m in pk.LABEL_MODES
+             if m != "block4" or b % pk.BLOCK_FRAMES == 0]
+    fns = {}
+    for mode in modes:
+        want, want_rounds = pk.speckle_labels_plain(disp, 1.0, mode)
+        for name, lib in (("parent", other), ("this", this)):
+            got, rounds = speckle_labels(lib, disp, mode)
+            same(got, want, f"S1 {mode} {name} {label}")
+            same(rounds, want_rounds, f"S1 {mode} rounds {name} {label}")
+            fns[f"{name} {mode}"] = (
+                lambda lib=lib, mode=mode: speckle_labels(lib, disp, mode))
+    ms = rec["s1_ms"] = in_turns(fns, reps)
+    area = opt.min_speckle_area
+    rec["k4_label_stage_ms"] = event_ms(
+        lambda: kernels.union_find_labels(disp, 1.0), reps)
+    rec["k4_whole_ms"] = event_ms(
+        lambda: kernels.remove_speckles(disp, 1.0, area), reps)
+    _, rounds = speckle_labels(this, disp, "base")
+    abl = {}
+    for name, lib in s1_ablated.items():
+        abl[name] = None if lib is None else event_ms(
+            lambda lib=lib: speckle_labels(lib, disp, "base", rounds.clone()),
+            reps)
+    rec["s1_ablations_ms"] = abl
+    rec["s1_rounds"] = rounds.tolist()
+    for mode in modes:
+        p = statistics.median(ms[f"parent {mode}"])
+        t = statistics.median(ms[f"this {mode}"])
+        print(f"{label} S1 {mode} ms parent {ms[f'parent {mode}']} this "
+              f"{ms[f'this {mode}']} ({p / t:.2f}x)")
+    print(f"{label} K4 label stage {rec['k4_label_stage_ms']:.4f} ms, K4 "
+          f"{rec['k4_whole_ms']:.4f} ms; S1 base ablations (rounds "
+          f"{rec['s1_rounds']}) {json.dumps(abl)}")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="an unpacked checkout of the commit to compare with")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups: " + ", ".join(GROUPS))
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        raise SystemExit(f"kernel_ab: --only takes {', '.join(GROUPS)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
     csrc_other = (Path(args.parent) / "soc_project_stereo_matching_tpu_torch"
                   / "csrc")
-    other = build_library("parent", sources_defining(csrc_other, ENTRIES))
+    entries = [GROUP_ENTRIES[g] for g in GROUPS if g in only]
+    other = build_library("parent", sources_defining(csrc_other, entries))
     this = _build.load()
-    wta_text = (_build.CSRC / "wta.cu").read_text()
-    wta_ablated = {name: patched(wta_text, edits)
-                   for name, edits in WTA_ABLATIONS.items()}
-    wta_ablated = {name: None if text is None else
-                   build_library(name.replace(" ", "-"), {"wta.cu": text})
-                   for name, text in wta_ablated.items()}
-    k1_text = (_build.CSRC / "census_cost.cu").read_text()
-    ablated = {name: patched(k1_text, edits)
-               for name, edits in ABLATIONS.items()}
-    ablated = {name: None if text is None else
-               build_library("k1-" + name.replace(" ", "-"),
-                             {"census_cost.cu": text})
-               for name, text in ablated.items()}
+
+    def ablations(prefix, fname, table, group):
+        """{name: library or None (the patch no longer applies)}."""
+        if group not in only:
+            return {}
+        text = (_build.CSRC / fname).read_text()
+        texts = {name: patched(text, edits) for name, edits in table.items()}
+        return {name: None if t is None else
+                build_library(prefix + name.replace(" ", "-"), {fname: t})
+                for name, t in texts.items()}
+
+    wta_ablated = ablations("", "wta.cu", WTA_ABLATIONS, "wta")
+    s1_ablated = ablations("s1-", "probe_speckle.cu", S1_ABLATIONS, "s1")
+    ablated = ablations("k1-", "census_cost.cu", ABLATIONS, "k1")
     dev = torch.device("cuda")
     result = {"card": ", ".join(card()), "shapes": {}}
     print(result["card"])
 
-    for label, b, h, w, dmax in SHAPES:
+    for label, b, h, w, dmax in S1_SHAPES:
         rec = result["shapes"].setdefault(label, {})
-        opt, disp = prespeckle_disparity(dev, b, h, w, dmax)
-        area = opt.min_speckle_area
-        want = postprocess.remove_speckles(disp, 1.0, area)
-        for name, lib in (("parent", other), ("this", this)):
-            same(k4(lib, disp, area), want, f"K4 {name} {label}")
-        rec["k4_ms"] = in_turns({
-            "parent": lambda: k4(other, disp, area),
-            "this": lambda: k4(this, disp, area)}, args.reps)
-        rec["k4_kernels_ms"] = {
-            name: kernel_ms(lambda lib=lib: k4(lib, disp, area))
-            for name, lib in (("parent", other), ("this", this))}
-        labels, _ = pk.speckle_labels(disp, 1.0, "pyr")
-        same(labels, pk.flat_to_root_labels(kernels.union_find_labels(disp)),
-             f"S1 pyr labels {label}")
-        grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
-        verdict = pk.speckle_tail_fused(grouped, area, h_hist, lo_bits, True)
-        same(pk.apply_verdict(disp, pk.ungroup_verdict(verdict, h, w)), want,
-             f"S1 pyr + S4 fused_agg {label}")
-        rec["cluster_design_ms"] = {
-            "pyr": event_ms(lambda: pk.speckle_labels(disp, 1.0, "pyr"),
-                            args.reps),
-            "fused_agg": event_ms(lambda: pk.speckle_tail_fused(
-                grouped, area, h_hist, lo_bits, True), args.reps)}
-        ms = {name: statistics.median(v) for name, v in rec["k4_ms"].items()}
-        print(f"{label} K4 ms parent {rec['k4_ms']['parent']} this "
-              f"{rec['k4_ms']['this']} ({ms['parent'] / ms['this']:.1f}x); "
-              f"by kernel {json.dumps(rec['k4_kernels_ms'])}; S1 pyr + S4 "
-              f"fused_agg {json.dumps(rec['cluster_design_ms'])}")
-        del disp, want, labels, grouped, verdict
-
+        if (label, b, h, w, dmax) not in SHAPES:
+            if "s1" in only:
+                s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated,
+                         args.reps)
+            continue
         levels = tuple(dmax * f // 64 for f in (10, 20, 35))
         left, right, _ = synthetic_pair(2, b, h, w, levels)
         left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
-        runs = {"untiled": (left, right, False)}
-        if h == 1000:       # the tiled engine's halo census on a 1x1 mesh
-            runs["halo"] = tuple(torch.nn.functional.pad(x, (0, 0, 2, 2))
-                                 for x in (left, right)) + (True,)
-        bound = (2 * b * h * w + b * h * w * dmax) / HBM_BYTES_PER_S * 1e3
-        rec["k1_bound_ms"] = bound
-        for mode, (il, ir, halo) in runs.items():
-            want = kernels.census_cost_volume_plain(il, ir, 0, dmax, halo)
-            for name, lib in (("parent", other), ("this", this)):
-                same(k1(lib, il, ir, dmax, halo), want, f"K1 {name} {label}")
-            ms = rec[f"k1_{mode}_ms"] = in_turns({
-                "parent": lambda: k1(other, il, ir, dmax, halo),
-                "this": lambda: k1(this, il, ir, dmax, halo)}, args.reps)
-            print(f"{label} K1 {mode} ms parent {ms['parent']} this "
-                  f"{ms['this']}, bound {bound:.4f} ms")
-        vol = k1(this, left, right, dmax)
-        abl = {name: None if lib is None else
-               event_ms(lambda lib=lib: k1(lib, left, right, dmax), args.reps)
-               for name, lib in ablated.items()}
-        abl["Tensor.fill_ of the volume"] = event_ms(lambda: vol.fill_(7),
-                                                     args.reps)
-        rec["k1_ablations_ms"] = abl
-        print(f"{label} K1 ablations ms {json.dumps(abl)}")
-        del runs, vol
-
-        # the WTA on the volume the main path's scans make, then K3
-        opt = SGMOptions(max_disparity=dmax)
-        aggr = kernels.aggregate_paths(
-            kernels.census_cost_volume(left, right, 0, dmax), left, opt)
-        want = torch.stack(sum(kernels.wta_reduce_plain(aggr, opt, True), ()))
-        for name, lib in (("parent", other), ("this", this)):
-            same(wta(lib, aggr, 0), want, f"WTA {name} {label}")
-        del want
-        px, vol = b * h * w, b * h * w * dmax
-        rec["wta_bound_ms"] = (2 * vol + 40 * px) / HBM_BYTES_PER_S * 1e3
-        ms = rec["wta_ms"] = in_turns({
-            "parent": lambda: wta(other, aggr, 0),
-            "this": lambda: wta(this, aggr, 0)}, args.reps)
-        rec["wta_run_ms"] = {name: [t / RUN for t in v] for name, v in in_turns({
-            "parent": lambda: [wta(other, aggr, 0) for _ in range(RUN)],
-            "this": lambda: [wta(this, aggr, 0) for _ in range(RUN)]},
-            args.reps).items()}
-        extra = {"forward view alone": event_ms(
-            lambda: wta(this, aggr, 0, False), args.reps)}
-        extra.update({name: None if lib is None else
-                      event_ms(lambda lib=lib: wta(lib, aggr, 0), args.reps)
-                      for name, lib in wta_ablated.items()})
-        extra["aggr.amin(dim=2), a read of the volume"] = event_ms(
-            lambda: aggr.view(torch.int16).amin(dim=2), args.reps)
-        rec["wta_ablations_ms"] = extra
-        run = rec["wta_run_ms"]
-        print(f"{label} WTA ms parent {ms['parent']} this {ms['this']}; a "
-              f"launch in runs of {RUN}: parent {run['parent']} this "
-              f"{run['this']}; bound {rec['wta_bound_ms']:.4f} ms; "
-              f"{json.dumps(extra)}")
-        planes = wta(this, aggr, 0)
-        dl = finalize_disparity(WTAPlanes(*planes[:5]), opt)
-        dr = finalize_disparity(WTAPlanes(*planes[5:]), opt)
-        k3 = lambda: kernels.lr_check(dl, dr, opt.lrcheck_thres, dmax)
-        rec["k3_bound_ms"] = 12 * px / HBM_BYTES_PER_S * 1e3
-        rec["k3_kernels_ms"] = kernel_ms(k3)
-        rec["k3_event_ms"] = event_ms(k3, args.reps)
-        print(f"{label} K3 device ms {json.dumps(rec['k3_kernels_ms'])}, "
-              f"events {rec['k3_event_ms']}, bound {rec['k3_bound_ms']:.4f} ms")
-        del left, right, aggr, planes, dl, dr
+        if "k4" in only:
+            k4_shape(rec, label, b, h, w, dmax, other, this, args.reps)
+        if "s1" in only:
+            s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated,
+                     args.reps)
+        if "k1" in only:
+            k1_shape(rec, label, b, h, w, dmax, left, right, other, this,
+                     ablated, args.reps)
+        if "scan16" in only:
+            scan16_shape(rec, label, left, right, dmax, other, this, args.reps)
+        if "wta" in only:
+            wta_shape(rec, label, b, h, w, dmax, left, right, other, this,
+                      wta_ablated, args.reps)
+        del left, right
         torch.cuda.empty_cache()
 
     out = Path(args.out)

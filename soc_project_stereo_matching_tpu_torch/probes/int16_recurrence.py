@@ -7,8 +7,9 @@ TPU compiler crashed on.  On this card a rung is a kernel that must give the
 right numbers: each runs (``probes/kernels.rung``) on the script's shapes,
 uint8 (1, 16, 256) planes and (1, 8, 256) rows for the loop rungs, and is
 compared with its plain version; p7 is the whole group scan with packed
-16-bit state (``probes/kernels.scan16``) on a (1, 8, 16, 256) volume,
-directions (0, 1, -1).
+16-bit state (``probes/kernels.scan16``: one launch per group on the shipped
+group scan's cluster frame, two disparities to a register) on a
+(1, 8, 16, 256) volume, directions (0, 1, -1).
 
 Then ``scan16`` is held against the shipped K2 group scan
 (``ops.kernels.directional_scan_group``) at the production geometry

@@ -22,7 +22,8 @@ the plain version; given CUDA tensors it checks them, launches on the
 current stream, raises on a CUDA error and adds one to its counter in
 ``ops.kernels.LAUNCHES`` per C entry call (``probe_chain``,
 ``probe_chainio``; the transpose counts as ``volume_transpose``; ``rung`` and ``scan16`` share
-``probe_int16``, and ``scan16`` counts one per direction; S1-S4 count as
+``probe_int16``, and ``scan16`` counts one per launch of up to three
+directions; S1-S4 count as
 ``probe_speckle_labels``, ``probe_speckle_hist``, ``probe_speckle_verdict``
 and ``probe_speckle_fused``).  There is no fallback.
 """
@@ -36,6 +37,7 @@ import torch
 
 import numpy as np
 
+from .. import _build
 from ..ops import kernels as ops_kernels
 from ..ops.kernels import (_check, _launch, _on_cpu, _stream,  # noqa: F401
                            volume_transpose, volume_transpose_plain)
@@ -273,22 +275,94 @@ def scan16_plain(cost, img, rolls, reverse: bool, p1: int, p2_init: int,
         cost, img, None, rolls, reverse, p1, p2_init, restart)
 
 
+def _weave(a, b):
+    """(a's high half, b's low half): the packed pair one disparity on."""
+    return (a >> 16) | ((b & 0xFFFF) << 16)
+
+
+def scan16_step_plain(prev, prev_min, prev_gray, cost_row, gray_row, p1: int,
+                      p2_init: int) -> torch.Tensor:
+    """``aggregation._dp_step`` the way ``scan16`` computes it: two
+    neighbouring disparities in the 16-bit lanes of a word (the even one
+    low; for odd D the high half of the last word a dead lane held at 255),
+    L(d - 1) and L(d + 1) woven from neighbouring words with 255-sentinel
+    words beyond both ends, P2' from ``p2_table`` and the path minimum the
+    same in both halves (they belong to the column), lane-wise minima, one
+    add-and-min, and ``(cost + m - pmin) & 0x00FF00FF``.  int (..., D, P)
+    rows -> the (..., D, P) int64 step result; for the tests, which hold it
+    against ``_dp_step`` over the uint8 domain."""
+    d = prev.shape[-2]
+
+    def pack(x):
+        x = x.to(torch.int64)
+        if d % 2:
+            x = torch.cat([x, torch.full_like(x[..., :1, :], SENTINEL)], -2)
+        return ops_kernels._lanes(x[..., 0::2, :], x[..., 1::2, :])
+
+    def vmin(a, b):     # per 16-bit lane
+        return ops_kernels._lanes(torch.minimum(a & 0xFFFF, b & 0xFFFF),
+                                  torch.minimum(a >> 16, b >> 16))
+
+    def both(v):
+        return (v * 0x00010001)[..., None, :]
+
+    wc = pack(prev)
+    pad = torch.full_like(wc[..., :1, :], SENTINEL * 0x00010001)
+    wm = torch.cat([pad, wc[..., :-1, :]], dim=-2)
+    wp = torch.cat([wc[..., 1:, :], pad], dim=-2)
+    table = ops_kernels.p2_table(p1, p2_init)
+    p2 = table[(gray_row.to(torch.int64) - prev_gray.to(torch.int64)).abs()]
+    pmin = prev_min.to(torch.int64)
+    p1pk = min(p1, ops_kernels.P_CLAMP) * 0x00010001
+    near = vmin(vmin(_weave(wm, wc), _weave(wc, wp)) + p1pk, wc)
+    m = vmin(near, both(pmin + p2))
+    cur = (pack(cost_row) + m - both(pmin)) & 0x00FF00FF
+    out = torch.stack([cur & 0xFFFF, cur >> 16], dim=-2)   # (..., D2, 2, P)
+    return out.flatten(-3, -2)[..., :d, :]
+
+
+def scan16_capacity(cost: torch.Tensor) -> int:
+    """The most directions one ``sgm_probe_scan16`` launch takes for this
+    uint8 (B, S, D, W) cost on the current card (``MAX_GROUP`` at most): its
+    16-bit state takes twice the shared memory of the group scan's bytes, so
+    at 1000x1500, D = 256 a launch takes one."""
+    b, _, d, w = cost.shape
+    dirs = ctypes.c_int(0)
+    err = _build.load().sgm_probe_scan16_capacity(b, d, w,
+                                                  ctypes.addressof(dirs))
+    if err != 0:
+        raise RuntimeError(f"sgm_probe_scan16_capacity: CUDA error {err}")
+    if dirs.value < 1:
+        raise ValueError(f"D={d}, W={w}: a row's 16-bit scan state does not "
+                         f"fit the kernel's on-chip memory")
+    return dirs.value
+
+
 def scan16(cost: torch.Tensor, img: torch.Tensor, rolls: Sequence[int],
            reverse: bool, p1: int, p2_init: int, restart: bool) -> torch.Tensor:
     """P4, rung p7: ``ops.kernels.directional_scan_group`` without carries,
     its state in packed 16-bit lanes.  uint8 (B, S, D, W) cost + uint8
     (B, S, W) image -> the uint16 (B, S, D, W) sum of the directions'
-    contributions.  One launch per direction."""
+    contributions.  One launch for the group where ``scan16_capacity``
+    takes it whole, else one per part (each counted)."""
     if not int16_safe(p1, p2_init):
         raise ValueError(f"p1={p1}, p2_init={p2_init} could overflow 16 bits")
+    rolls = tuple(rolls)
+    if not rolls or any(r not in (-1, 0, 1) for r in rolls):
+        raise ValueError(f"rolls {rolls}: need one or more of -1, 0, 1")
     if _on_cpu(cost, img):
         return scan16_plain(cost, img, rolls, reverse, p1, p2_init, restart)
     b, s, d, w = ops_kernels._check_scan(cost, img)
+    ops_kernels._check_penalties(p1, p2_init)
     out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
-    for k, roll in enumerate(rolls):
+    per_launch = scan16_capacity(cost)
+    group = ops_kernels.MAX_GROUP
+    for k0 in range(0, len(rolls), per_launch):
+        sub = rolls[k0:k0 + per_launch]
         _launch("sgm_probe_scan16", "probe_int16", cost.data_ptr(),
-                img.data_ptr(), out.data_ptr(), b, s, d, w, int(reverse), roll,
-                int(restart), p1, p2_init, int(k > 0), _stream(out))
+                img.data_ptr(), out.data_ptr(), b, s, d, w, len(sub),
+                *(sub + (0,) * group)[:group], int(reverse), int(restart), p1,
+                p2_init, int(k0 > 0), _stream(out))
     return out
 
 
@@ -378,6 +452,156 @@ def cheap_round(lab, mask, big: int):
     new = torch.minimum(new, torch.where(_shift2d(conn_v, 1, 0, False),
                                          _shift2d(new, 1, 0, big), big))
     return _diag_pass(new, mask, big)
+
+
+# how S1's kernel decomposes a round (csrc/probe_speckle.cu)
+VRUN_CHUNKS = 32                  # chunks of rows of a vertical run-min
+HRUN_LANE_COLS = 8                # columns a lane of a horizontal one takes
+TILE = (32, 64)                   # rows, columns of a fused step's tile
+TILE_HALO = 4
+
+
+def run_min_chunked(lab, mask, axis: int, big: int,
+                    length: int) -> torch.Tensor:
+    """``_run_min`` along ``axis`` (-1 columns with link bit 0, -2 rows
+    with bit 1) the way S1's kernel takes it: the axis cut into chunks of
+    ``length``; along each chunk, the run-min from the start within it;
+    the chunks' summaries (the min of the first and of the last run,
+    whether the chunk's first pixel links back, whether the chunk is one
+    run) scanned over the chunks for what enters each from either end;
+    then back along each chunk.  int32 (..., H, W) labels and link mask ->
+    (..., H, W)."""
+    if axis == -1:
+        return run_min_chunked(lab.transpose(-1, -2),
+                               (mask.transpose(-1, -2) & 1) << 1, -2, big,
+                               length).transpose(-1, -2)
+    n = lab.shape[-2]
+    up = _bit(mask, 1)
+    fwd = torch.empty_like(lab)
+    out = torch.empty_like(lab)
+    full = torch.full_like(lab[..., 0, :], big)
+    spans, summary = [], []
+    for r0 in range(0, n, length):
+        r1 = min(n, r0 + length)
+        run, first = full, full
+        head = torch.zeros_like(up[..., 0, :])
+        whole = ~head
+        brk = torch.full_like(lab[..., 0, :], r1)
+        for r in range(r0, r1):
+            u, v = up[..., r, :], lab[..., r, :]
+            if r == r0:
+                head = u
+                run = v
+            else:
+                ends = whole & ~u           # the chunk's first run ends here
+                first = torch.where(ends, run, first)
+                brk = torch.where(ends, r, brk)
+                whole = whole & u
+                run = torch.where(u, torch.minimum(run, v), v)
+            fwd[..., r, :] = run
+        spans.append((r0, r1))
+        summary.append((torch.where(whole, run, first), run, head, whole, brk))
+    chunks = len(spans)
+    above, below = [None] * chunks, [None] * chunks
+    carry = full
+    for k, (_, bot, head, whole, _) in enumerate(summary):
+        above[k] = torch.where(head, carry, big)
+        carry = torch.where(whole & head, torch.minimum(bot, carry), bot)
+    carry, next_head = full, torch.zeros_like(up[..., 0, :])
+    for k in reversed(range(chunks)):
+        top, _, head, whole, _ = summary[k]
+        below[k] = torch.where(next_head, carry, big)
+        carry = torch.where(whole & next_head, torch.minimum(top, carry), top)
+        next_head = head
+    for k, (r0, r1) in enumerate(spans):
+        run = below[k]
+        for r in reversed(range(r0, r1)):
+            v = lab[..., r, :]
+            run = torch.minimum(run, v) if r + 1 == r1 else torch.where(
+                up[..., r + 1, :], torch.minimum(run, v), v)
+            o = torch.minimum(run, fwd[..., r, :])
+            out[..., r, :] = torch.where(r < summary[k][4],
+                                         torch.minimum(o, above[k]), o)
+    return out
+
+
+def _tile_step(val, mask, kind: int) -> torch.Tensor:
+    """One of a fused step's steps on (..., R, C) tile arrays, every cell
+    but the outer ring: kind 0 the left, right and upper link-mins, 1 the
+    lower one, 2-5 the diagonal of that mask bit."""
+    new = val.clone()
+    core = (..., slice(1, -1), slice(1, -1))
+
+    def at(dr, dc):
+        return val[..., 1 + dr:val.shape[-2] - 1 + dr,
+                   1 + dc:val.shape[-1] - 1 + dc]
+
+    def bits(m, k):
+        return (m >> k) & 1 != 0
+
+    def mk(dr, dc):
+        return mask[..., 1 + dr:mask.shape[-2] - 1 + dr,
+                    1 + dc:mask.shape[-1] - 1 + dc]
+
+    v = val[core]
+    if kind == 0:
+        for link, (dr, dc) in ((bits(mk(0, 0), 0), (0, -1)),
+                               (bits(mk(0, 1), 0), (0, 1)),
+                               (bits(mk(0, 0), 1), (-1, 0))):
+            v = torch.where(link, torch.minimum(v, at(dr, dc)), v)
+    elif kind == 1:
+        v = torch.where(bits(mk(1, 0), 1), torch.minimum(v, at(1, 0)), v)
+    else:
+        dr, dc = CC_OFFSETS[kind]
+        v = torch.where(bits(mk(0, 0), kind), torch.minimum(v, at(dr, dc)), v)
+    new[core] = v
+    return new
+
+
+def fused_steps_tiled(lab, mask, big: int, cheap: bool, tile=TILE,
+                      halo: int = TILE_HALO) -> torch.Tensor:
+    """The steps of a round that look at neighbours only, the way S1's
+    kernel fuses them: with ``cheap`` all of ``cheap_round``, else the four
+    diagonal steps of ``_diag_pass``, run on tiles of ``tile`` pixels with
+    ``halo`` pixels around them (``big`` and no links beyond the frame),
+    each step on all but the tile's outer ring, the tile's own pixels kept.
+    int32 (..., H, W) labels and link mask -> (..., H, W)."""
+    h, w = lab.shape[-2:]
+    th, tw = tile
+    padded_lab = torch.nn.functional.pad(lab, (halo, halo + tw, halo, halo + th),
+                                         value=big)
+    padded_mask = torch.nn.functional.pad(mask, (halo, halo + tw, halo,
+                                                 halo + th), value=0)
+    out = torch.empty_like(lab)
+    kinds = ((0, 1) if cheap else ()) + (2, 3, 4, 5)
+    for r0 in range(0, h, th):
+        for c0 in range(0, w, tw):
+            rows = slice(r0, r0 + th + 2 * halo)
+            cols = slice(c0, c0 + tw + 2 * halo)
+            val, m = padded_lab[..., rows, cols], padded_mask[..., rows, cols]
+            for kind in kinds:
+                val = _tile_step(val, m, kind)
+            inner = val[..., halo:halo + th, halo:halo + tw]
+            rr, cc = min(th, h - r0), min(tw, w - c0)
+            out[..., r0:r0 + rr, c0:c0 + cc] = inner[..., :rr, :cc]
+    return out
+
+
+def kernel_round_plain(lab, mask, big: int, seg: bool,
+                       chunks: int = VRUN_CHUNKS,
+                       lane_cols: int = HRUN_LANE_COLS, tile=TILE,
+                       halo: int = TILE_HALO) -> torch.Tensor:
+    """``seg_round`` or ``cheap_round`` as S1's kernel decomposes it: a seg
+    round is ``run_min_chunked`` along the rows (chunks of ``lane_cols``
+    columns, a lane's) and along the columns (``chunks`` chunks of rows, a
+    warp's), then the fused diagonal steps; a cheap round one fused
+    step."""
+    if not seg:
+        return fused_steps_tiled(lab, mask, big, True, tile, halo)
+    h = lab.shape[-2]
+    new = run_min_chunked(lab, mask, -1, big, lane_cols)
+    new = run_min_chunked(new, mask, -2, big, -(-h // chunks))
+    return fused_steps_tiled(new, mask, big, False, tile, halo)
 
 
 def _check_labels_args(disp, mode: str) -> tuple:

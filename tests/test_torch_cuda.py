@@ -380,6 +380,48 @@ def test_rungs_and_scan16_match_plain_on_card(cuda):
                     cost, img, None, rolls, reverse, 10, 150, restart))
 
 
+@pytest.mark.parametrize("b,s,d,w", [(2, 11, 1, 45), (2, 11, 7, 33),
+                                     (2, 13, 64, 451), (1, 9, 256, 300),
+                                     (3, 375, 64, 450)])
+def test_scan16_matches_plain_and_the_group_scan_on_card(cuda, b, s, d, w):
+    """P4 ``scan16`` (a group launch on the group scan's cluster frame, two
+    disparities to a register) at D = 1, 7, 64, 256, odd W and the cone
+    geometry, both scan orders, wrap and restart: bit-equal to its plain
+    version and to the shipped group scan, one launch per group where the
+    state fits (below D = 256 always)."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    cost = _rand(80 + d, 0, 256, (b, s, d, w), np.uint8, cuda)
+    img = _rand(81, 0, 256, (b, s, w), np.uint8, cuda)
+    launches = -(-3 // pk.scan16_capacity(cost))
+    assert launches == 1 or d == 256
+    for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True)):
+        for restart in (False, True):
+            args = (cost, img, rolls, reverse, 10, 150, restart)
+            before = kernels.LAUNCHES["probe_int16"]
+            got = pk.scan16(*args)
+            assert kernels.LAUNCHES["probe_int16"] == before + launches
+            same(got, pk.scan16_plain(*args))
+            same(got, kernels.directional_scan_group(
+                cost, img, None, rolls, reverse, 10, 150, restart))
+
+
+def test_scan16_splits_a_group_its_state_cannot_hold_on_card(cuda):
+    """At 1500 columns and D = 256 one direction's 16-bit state fills a
+    block of a 16-cluster: ``scan16_capacity`` says 1 and the wrapper makes
+    three launches (three counts), the sum still bit-equal."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    cost = _rand(82, 0, 256, (1, 7, 256, 1500), np.uint8, cuda)
+    img = _rand(83, 0, 256, (1, 7, 1500), np.uint8, cuda)
+    assert pk.scan16_capacity(cost) == 1
+    for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True)):
+        before = kernels.LAUNCHES["probe_int16"]
+        got = pk.scan16(cost, img, rolls, reverse, 10, 150, True)
+        assert kernels.LAUNCHES["probe_int16"] == before + 3
+        same(got, pk.scan16_plain(cost, img, rolls, reverse, 10, 150, True))
+
+
 def test_hpart_T_matches_the_shipped_horizontal_pair_on_card(cuda):
     """The probe's ``hpart_T`` (transposes and group scans assembled launch
     by launch) against the shipped ``horizontal_partial`` (which takes that
@@ -443,6 +485,49 @@ def test_speckle_labels_match_plain_on_card(cuda, h, w):
         pk.speckle_labels(disp[:3], 1.0, "block4")
     with pytest.raises(ValueError):
         pk.speckle_labels(disp.transpose(1, 2), 1.0, "base")   # not contiguous
+
+
+def _labels_match_plain_in_every_mode(disp):
+    """S1 in its five modes (block4 where B is a multiple of four) against
+    its plain version, labels and rounds; the exact modes against base."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    base, base_rounds = pk.speckle_labels(disp, 1.0, "base")
+    for mode in pk.LABEL_MODES:
+        if mode == "block4" and disp.shape[0] % pk.BLOCK_FRAMES:
+            continue
+        got, rounds = pk.speckle_labels(disp, 1.0, mode)
+        want, want_rounds = pk.speckle_labels_plain(disp, 1.0, mode)
+        same(got, want)
+        same(rounds, want_rounds)
+        if mode != "fori16":
+            same(got, base)
+    return base, base_rounds
+
+
+@pytest.mark.parametrize("b,h,w,dmax", [(8, 375, 450, 64), (32, 375, 450, 64),
+                                        (4, 37, 45, 48), (1, 1000, 1500, 256)])
+def test_speckle_labels_on_the_engines_disparity_on_card(cuda, b, h, w, dmax):
+    """S1 (cluster size chosen per launch, the vertical run-min by chunks,
+    the neighbour steps fused on tiles) on the engine's pre-speckle
+    disparity at cone B=8 and B=32, 37x45 and Middlebury-half: every mode
+    bit-equal to its plain version with the plain version's rounds, and
+    the labels those of K4's union-find."""
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        kernels as pk, prespeckle_disparity)
+
+    _, disp = prespeckle_disparity(cuda, b, h, w, dmax)
+    base, _ = _labels_match_plain_in_every_mode(disp)
+    same(pk.flat_to_root_labels(kernels.union_find_labels(disp, 1.0)), base)
+
+
+@pytest.mark.parametrize("h,w,area", [(40, 70, 8), (48, 80, 40), (45, 71, 2)])
+def test_speckle_labels_on_hand_made_frames_on_card(cuda, h, w, area):
+    from soc_project_stereo_matching_tpu_torch.data.synthetic import (
+        speckle_frames)
+
+    disp = torch.from_numpy(speckle_frames(h, w, area)).to(cuda)
+    _labels_match_plain_in_every_mode(disp)
 
 
 @pytest.mark.parametrize("h,w,area,pc", [(37, 45, 8, 2048), (120, 64, 5, 256)])

@@ -286,6 +286,28 @@ def test_kernel_ab_wta_ablations_still_apply_to_the_wta_source(ablation):
     assert out is not None and out != text
 
 
+@pytest.mark.parametrize("ablation", sorted(kernel_ab.S1_ABLATIONS))
+def test_kernel_ab_s1_ablations_still_apply_to_the_probe_source(ablation):
+    """Each S1 ablation stops at the rounds the caller gives and takes out
+    its passes at their call sites, each edit matching exactly one place."""
+    text = (_build.CSRC / "probe_speckle.cu").read_text()
+    out = kernel_ab.patched(text, kernel_ab.S1_ABLATIONS[ablation])
+    assert out is not None and out != text
+    assert "if (it >= __ldcg(rounds + program)) break;" in out
+    assert all(text.count(call) == 1 for call in kernel_ab._S1_PASS_CALLS)
+
+
+def test_kernel_ab_groups_and_the_probe_entries():
+    """``--only`` picks among the groups, each comparing one C entry; the
+    probe kernels' entries are found in their sources."""
+    assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1"}
+    found = kernel_ab.sources_defining(
+        _build.CSRC, [kernel_ab.GROUP_ENTRIES[g] for g in ("scan16", "s1")])
+    assert sorted(found) == ["probe_int16.cu", "probe_speckle.cu"]
+    with pytest.raises(SystemExit, match="--only"):
+        kernel_ab.main(["--parent", ".", "--only", "k2"])
+
+
 def test_kernel_ab_finds_the_sources_of_its_entries(tmp_path):
     """Each compared C entry is found in the source that defines it, in
     this checkout (the WTA in wta.cu) and in one where the WTA still lives

@@ -367,10 +367,14 @@ def test_rung_plain_matches_the_script_rung(name, no_launch):
         same(got[b].numpy(), j_rung(name, jnp.asarray(x[b].view(np.int8))))
 
 
+@pytest.mark.parametrize("compute16", [False, True])
 @pytest.mark.parametrize("reverse,restart", [(False, False), (True, False),
                                              (False, True), (True, True)])
 def test_scan16_plain_matches_pallas_group_scan_at_the_p7_shape(reverse, restart,
+                                                                compute16,
                                                                 no_launch):
+    """P4 replaces the ``compute16=True`` branch of the Pallas group scan
+    (16-bit state); the ``False`` branch is the same function."""
     rng = np.random.default_rng(0)
     rows, d, w = 8, 16, 256
     cost = rng.integers(0, 128, (1, rows, d, w), dtype=np.int8)
@@ -380,13 +384,50 @@ def test_scan16_plain_matches_pallas_group_scan_at_the_p7_shape(reverse, restart
                        P2_INIT)
     want = pk._directional_scan_group(jnp.asarray(cost), p2, None, rolls,
                                       reverse, P1, restart, rows,
-                                      compute16=False)
+                                      compute16=compute16)
     got = probe_kernels.scan16(t(cost.view(np.uint8)), t(img.astype(np.uint8)),
                                rolls, reverse, P1, P2_INIT, restart)
     same(got.numpy(), want)
     with pytest.raises(ValueError, match="overflow"):
         probe_kernels.scan16(t(cost.view(np.uint8)), t(img.astype(np.uint8)),
                              rolls, reverse, P1, 40000, restart)
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 33, 256])
+@pytest.mark.parametrize("p1,p2_init", [(10, 150), (0, 0), (7, 10_000),
+                                        (300, 2_000), (255, 255)])
+def test_scan16_step_matches_dp_step_over_the_uint8_domain(d, p1, p2_init):
+    """The step of ``scan16``'s kernel (two disparities in the 16-bit lanes
+    of a word, a dead high lane at 255 for odd D, L(d +- 1) woven from
+    neighbouring words, P2' and the path minimum shared by both halves)
+    against the jnp ``_dp_step``: every value of L(d), of its neighbours and
+    of the cost, every gray difference, penalties beyond 255."""
+    rng = np.random.default_rng(71)
+    p = 512
+    ramp = (np.arange(d)[:, None] + np.arange(p)[None, :]) % 256
+    noise = rng.integers(0, 256, (d, p))
+    for prev in (ramp, noise, np.full((d, p), 255), np.zeros((d, p), int)):
+        prev_min = prev.min(axis=0)
+        cost = rng.integers(0, 256, (d, p))
+        gray = rng.integers(0, 256, p)
+        prev_gray = (np.arange(p) // 2) % 256
+        carry = j_agg.ScanCarry(jnp.asarray(prev, jnp.int32),
+                                jnp.asarray(prev_min, jnp.int32),
+                                jnp.asarray(prev_gray, jnp.int32))
+        want = j_agg._dp_step(carry, jnp.asarray(cost, jnp.int32),
+                              jnp.asarray(gray, jnp.int32), p1, p2_init)
+        got = probe_kernels.scan16_step_plain(
+            *(t(x.astype(np.int32)) for x in (prev, prev_min, prev_gray,
+                                              cost, gray)), p1, p2_init)
+        same(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("rolls", [(), (2,), (0, 1, -2)])
+def test_scan16_wrapper_refuses_rolls_the_kernel_does_not_take(rolls):
+    cost = torch.zeros((1, 3, 4, 8), dtype=torch.uint8)
+    img = torch.zeros((1, 3, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="rolls"):
+        probe_kernels.scan16(cost, img, rolls, False, P1, P2_INIT, False)
 
 
 # --- (d) the probe modules ----------------------------------------------------------------

@@ -293,6 +293,93 @@ def test_label_wrapper_refuses_bad_arguments():
     assert probe_kernels.CC_OFFSETS == pk._CC_OFFSETS
 
 
+# how S1's kernel decomposes a round: transcriptions held against the round
+
+def frame_planes(frames):
+    """(labels, link mask, big) of a frame set: labels scattered over
+    0..big, so that every run and link is exercised."""
+    disp = t(frames_of(frames))
+    b, h, w = disp.shape
+    big = h << probe_kernels.label_bits(w)
+    rng = np.random.default_rng(5)
+    lab = t(rng.integers(0, big, (b, h, w)).astype(np.int32))
+    return lab, probe_kernels.link_mask(disp, 1.0), big
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 8, 12, 64])
+@pytest.mark.parametrize("frames", ["24x40", "13x21", "hard"])
+def test_chunked_run_min_is_the_run_min(frames, length, no_launch):
+    """``run_min_chunked`` (chunks along the axis, their summaries scanned,
+    what enters each chunk from either end) equals ``_run_min``, the
+    doubling run-min of the plain version, along rows and columns, at
+    lengths from one pixel to longer than the axis."""
+    lab, mask, big = frame_planes(frames)
+    for axis, bit in ((-1, 0), (-2, 1)):
+        same(probe_kernels.run_min_chunked(lab, mask, axis, big, length),
+             probe_kernels._run_min(lab, probe_kernels._bit(mask, bit), axis,
+                                    big))
+
+
+@pytest.mark.parametrize("tile", [probe_kernels.TILE, (4, 8), (3, 5), (7, 3)])
+@pytest.mark.parametrize("frames", ["24x40", "13x21", "hard"])
+def test_tiled_fused_steps_are_the_whole_plane_steps(frames, tile, no_launch):
+    """The fused steps on tiles with a halo of ``TILE_HALO`` (each step on
+    all but the tile's outer ring) equal the whole-plane steps: all of
+    ``cheap_round``, and the four diagonal steps of a seg round, at the
+    kernel's tile and at tiles small enough to put many tile corners in
+    each frame."""
+    lab, mask, big = frame_planes(frames)
+    same(probe_kernels.fused_steps_tiled(lab, mask, big, True, tile),
+         probe_kernels.cheap_round(lab, mask, big))
+    same(probe_kernels.fused_steps_tiled(lab, mask, big, False, tile),
+         probe_kernels._diag_pass(lab, mask, big))
+
+
+def test_fused_cheap_round_needs_its_halo_of_four(no_launch):
+    """The cheap round's six steps reach three pixels, and a step skips the
+    tile's outer ring, so a halo of three leaves wrong pixels at tile edges:
+    the reason for ``TILE_HALO`` = 4.  On a flat frame every link is set."""
+    mask = probe_kernels.link_mask(torch.zeros((2, 24, 40)), 1.0)
+    big = 24 << probe_kernels.label_bits(40)
+    rng = np.random.default_rng(6)
+    lab = t(rng.integers(0, big, (2, 24, 40)).astype(np.int32))
+    want = probe_kernels.cheap_round(lab, mask, big)
+    assert not torch.equal(
+        probe_kernels.fused_steps_tiled(lab, mask, big, True, (7, 3), 3), want)
+    same(probe_kernels.fused_steps_tiled(lab, mask, big, True, (7, 3), 4), want)
+
+
+@pytest.mark.parametrize("frames", ["24x40", "13x21", "hard"])
+def test_kernel_rounds_reach_the_jax_kernels_labels(frames, no_launch):
+    """Rounds as S1's kernel decomposes them (``kernel_round_plain``: the
+    chunked run-mins along rows and columns, the fused steps on tiles),
+    seg and cheap in turn to the fixed point, give the JAX label kernel's
+    labels (pallas_call, interpreted) in the plain version's rounds; each
+    round equals ``seg_round`` / ``cheap_round`` on the way."""
+    disp = frames_of(frames)
+    b, h, w = disp.shape
+    mask = probe_kernels.link_mask(t(disp), 1.0)
+    lo = probe_kernels.label_bits(w)
+    big = h << lo
+    lab = ((torch.arange(h, dtype=torch.int32)[:, None] << lo)
+           | torch.arange(w, dtype=torch.int32)[None, :]).expand(b, h, w)
+    lab = lab.contiguous()
+    rounds = 0
+    while True:
+        seg = rounds % 2 == 0
+        new = probe_kernels.kernel_round_plain(lab, mask, big, seg,
+                                               tile=(8, 16))
+        same(new, (probe_kernels.seg_round if seg
+                   else probe_kernels.cheap_round)(lab, mask, big))
+        rounds += 1
+        if torch.equal(new, lab):
+            break
+        lab = new
+    same(lab.numpy(), j_labels(disp, "base"))
+    _, want_rounds = probe_kernels.speckle_labels(t(disp), 1.0, "base")
+    assert rounds == int(want_rounds.max())
+
+
 # --- (b) S2-S4: histogram, verdict, fused tail ------------------------------------------------
 
 TAIL_CASES = {"banded": (lambda: hard_frames(120, 64, 5)[:2], 5, 256),
