@@ -973,7 +973,7 @@ def check_speckle_input(disp, area: int) -> dict:
     grouped, h_hist, lo_bits = pk.group_labels(disp, labels["base"], area)
     counts = pk.speckle_hist(grouped, h_hist, lo_bits)
     hold(s2, counts, pk.speckle_hist_plain(grouped, h_hist, lo_bits))
-    hold(s2, pk.speckle_hist(grouped, h_hist, lo_bits, True), counts)
+    hold(s2, pk.speckle_hist(grouped, h_hist, lo_bits, False), counts)
     small = pk.root_small(counts, area)
     verdict = pk.speckle_verdict(grouped, small)
     hold(s3, verdict, pk.speckle_verdict_plain(grouped, small))
@@ -1067,6 +1067,11 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
     for name, (fn, plain, bnd, library) in timed.items():
         out[name].update(bnd, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
                          library_ms=cuda_ms(library, 20) if library else None)
+    control = cuda_ms(lambda: pk.speckle_hist(grouped, h_hist, lo_bits, False),
+                      20)
+    print(f"S2 speckle_hist, B={b} {h}x{w}: merged (the default) "
+          f"{out['probe_speckle_hist']['ms']:.4f} ms a call, one add a pixel "
+          f"(the control) {control:.4f}")
     return out
 
 

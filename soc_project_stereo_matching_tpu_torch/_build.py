@@ -42,9 +42,9 @@ SIGNATURES = {
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_speckle_union_labels": (_P, _P, _I, _I, _I, _F, _P),
     "sgm_speckle_count_verdict": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "sgm_probe_chain": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P),
+    "sgm_probe_chain": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     "sgm_probe_chainio": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
-                          _P),
+                          _I, _P),
     "sgm_volume_transpose": (_P, _P) + (_I,) * 7 + (_P,),
     "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 13 + (_P,),

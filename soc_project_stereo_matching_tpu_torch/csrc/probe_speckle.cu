@@ -66,8 +66,18 @@
 // count is an atomicAdd at the label's own address and a verdict a load
 // from it, so neither the products nor the band are carried over.
 //   What bounds them: bytes (4 per pixel in, 4 out) and, for S2, atomics on
-//   one word per large component; `aggregate` lets a warp add once per
-//   distinct label (__match_any_sync).  S4 needs every count of a frame
+//   one word per large component.  S2 (redesigned) takes four labels a
+//   thread in one 16-byte load, merges equal neighbours into runs in
+//   registers, the runs that start at one position of the quad across the
+//   warp (__match_any_sync, __reduce_add_sync), the warp's leaders into an
+//   open-addressing table in shared memory (atomicCAS on the key, atomicAdd
+//   on the count; 2048 slots for the 1024 labels a block takes, so it
+//   cannot fill), and adds once per distinct label of the block; its
+//   zeroing of the counts is a memset before it.  `aggregate` false keeps
+//   one device-memory add per pixel, the probe's control for what
+//   contention on a large component's word costs.  S4 (first design) lets
+//   a warp add once per distinct label (__match_any_sync, add_count).  S4
+//   needs every count of a frame
 //   before any verdict: a cluster of 8 blocks per frame, cluster.sync()
 //   between.  S3 at the probe's shape moves 11 MB and a launch's latency
 //   bounds it; its design keeps the instruction count down: the frame is a
@@ -91,7 +101,11 @@ constexpr int kLabelThreads = 1024;       // of an S1 block
 constexpr int kLabelWarps = kLabelThreads / 32;
 constexpr int kMaxLabelCluster = 16;      // blocks of an S1 cluster, at most
 constexpr int kMinPixels = 1;             // an S1 thread's pixels, at least
-constexpr int kFlatThreads = 256;         // of S2
+constexpr int kHistThreads = 256;         // of an S2 block
+constexpr int kHistLabels = 4;            // labels a thread of S2 takes
+constexpr int kHistTile = kHistThreads * kHistLabels;  // an S2 block's
+constexpr int kHistSlotBits = 11;         // its table: twice the keys
+constexpr int kHistSlots = 1 << kHistSlotBits;         // it can meet
 constexpr int kVerdictThreads = 256;      // of S3
 constexpr int kVerdictLabels = 4;         // labels a thread of S3 takes
 constexpr int kFixedRounds = 16;          // of fori16
@@ -906,15 +920,94 @@ __device__ __forceinline__ void add_count(int* counts, bool valid, int key,
     atomicAdd(counts + key, __popc(peers));
 }
 
-// lab: int32 (B, per_frame); counts: int32 (B, size), zero on entry.
-__global__ void hist_kernel(const int* __restrict__ lab, int* counts,
-                            int total, int per_frame, int size,
-                            int aggregate) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < total;
-  const int l = in ? lab[i] : -1;
-  const bool valid = in && (unsigned)l < (unsigned)size;
-  add_count(counts, valid, valid ? (i / per_frame) * size + l : 0, aggregate);
+// S2's block table: open addressing with linear probing, a key -1 while its
+// slot is empty.  The slot's count is zero before the key is set (the
+// table is cleared before a barrier), so an add may follow either.  A
+// block meets at most kHistTile keys, half the slots: an insert always
+// finds its key or an empty slot.
+__device__ __forceinline__ void table_add(int* keys, int* vals, int* order,
+                                          int* used, int key, int n) {
+  unsigned h = ((unsigned)key * 2654435761u) >> (32 - kHistSlotBits);
+  for (;;) {
+    const int seen = atomicCAS(keys + h, -1, key);
+    if (seen == -1) order[atomicAdd(used, 1)] = (int)h;
+    if (seen == -1 || seen == key) {
+      atomicAdd(vals + h, n);
+      return;
+    }
+    h = (h + 1) & (kHistSlots - 1);
+  }
+}
+
+// S2.  The frame is blockIdx.y; a block takes kHistTile labels, a thread
+// four neighbouring ones (one 16-byte load where `wide`, the tail masked as
+// S3 does).  AGG false: one device-memory add per pixel (the probe's
+// control).  AGG true: equal neighbours of a thread merge into runs; the
+// runs that start at the same position of a quad merge across the warp
+// (__match_any_sync on the run's label, __reduce_add_sync on its
+// length; a position no lane starts a run at is skipped); the warp's
+// leaders add into the block's table in shared memory; then one
+// device-memory add per distinct label of the block.  A label outside the
+// root plane counts nowhere.  counts: int32 (B, size), zero on entry.
+template <bool AGG>
+__global__ void __launch_bounds__(kHistThreads)
+hist_kernel(const int* __restrict__ lab, int* counts, int per_frame, int size,
+            int wide) {
+  __shared__ int keys[AGG ? kHistSlots : 1];
+  __shared__ int vals[AGG ? kHistSlots : 1];
+  __shared__ int order[AGG ? kHistTile : 1];
+  __shared__ int used;
+  const int frame = blockIdx.y;
+  lab += (size_t)frame * per_frame;
+  counts += (size_t)frame * size;
+  const int t = threadIdx.x;
+  const int i = (blockIdx.x * kHistThreads + t) * kHistLabels;
+  int key[kHistLabels];
+  if (wide && i + kHistLabels <= per_frame) {
+    const int4 v = *reinterpret_cast<const int4*>(lab + i);
+    key[0] = v.x, key[1] = v.y, key[2] = v.z, key[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kHistLabels; ++j)
+      key[j] = i + j < per_frame ? lab[i + j] : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < kHistLabels; ++j)
+    if ((unsigned)key[j] >= (unsigned)size) key[j] = -1;
+  if (!AGG) {
+#pragma unroll
+    for (int j = 0; j < kHistLabels; ++j)
+      if (key[j] >= 0) atomicAdd(counts + key[j], 1);
+    return;
+  }
+
+  for (int s = t; s < kHistSlots; s += kHistThreads) {
+    keys[s] = -1;
+    vals[s] = 0;
+  }
+  if (t == 0) used = 0;
+  // runs: the length of the run that starts at j, for the j that start one
+  int len[kHistLabels];
+  len[kHistLabels - 1] = 1;
+#pragma unroll
+  for (int j = kHistLabels - 2; j >= 0; --j)
+    len[j] = key[j] == key[j + 1] ? len[j + 1] + 1 : 1;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kHistLabels; ++j) {
+    const bool head = key[j] >= 0 && (j == 0 || key[j] != key[j - 1]);
+    if (!__any_sync(kFull, head)) continue;  // the same for the whole warp
+    const int k = head ? key[j] : -1;
+    const unsigned peers = __match_any_sync(kFull, k);
+    const int total = __reduce_add_sync(peers, head ? len[j] : 0);
+    if (head && (t & 31) == __ffs(peers) - 1)
+      table_add(keys, vals, order, &used, k, total);
+  }
+  __syncthreads();
+  for (int s = t; s < used; s += kHistThreads) {
+    const int h = order[s];
+    atomicAdd(counts + keys[h], vals[h]);
+  }
 }
 
 // S3.  The frame is blockIdx.y (no division); a thread takes four
@@ -1022,22 +1115,27 @@ extern "C" int sgm_probe_speckle_labels(const void* disp, void* out,
                                  W, lo_bits, diff, mode);
 }
 
-// lab: int32 (B, per_frame); counts: int32 (B, size) out.
+// lab: int32 (B, per_frame); counts: int32 (B, size) out.  Two launches:
+// the zeroing of the counts and the count.
 extern "C" int sgm_probe_speckle_hist(const void* lab, void* counts, int B,
                                       int per_frame, int size, int aggregate,
                                       void* stream) {
-  if (!fits_int((long long)B * per_frame + kFlatThreads) ||
+  if (B > 65535 || !fits_int((long long)per_frame + kHistTile) ||
       !fits_int((long long)B * size))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)B * size, s);
   if (err != cudaSuccess) return (int)err;
-  const int total = B * per_frame;
-  if (total == 0) return 0;
-  hist_kernel<<<(total + kFlatThreads - 1) / kFlatThreads, kFlatThreads, 0,
-                s>>>((const int*)lab, (int*)counts, total, per_frame, size,
-                     aggregate);
+  if (B == 0 || per_frame == 0) return 0;
+  const int wide = per_frame % kHistLabels == 0 && ((uintptr_t)lab & 15) == 0;
+  const dim3 grid((per_frame + kHistTile - 1) / kHistTile, B);
+  if (aggregate)
+    hist_kernel<true><<<grid, kHistThreads, 0, s>>>(
+        (const int*)lab, (int*)counts, per_frame, size, wide);
+  else
+    hist_kernel<false><<<grid, kHistThreads, 0, s>>>(
+        (const int*)lab, (int*)counts, per_frame, size, wide);
   return (int)cudaGetLastError();
 }
 

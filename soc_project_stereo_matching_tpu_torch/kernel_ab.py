@@ -86,12 +86,21 @@ from .utils.profiling import card
 # the C entry each group compares, in the order they run
 GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "wta": "sgm_wta_reduce", "scan16": "sgm_probe_scan16",
-                 "s1": "sgm_probe_speckle_labels"}
+                 "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
+                 "s2": "sgm_probe_speckle_hist"}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
 SCAN16_ONE_DIRECTION = ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, \
     *(ctypes.c_int,) * 10, ctypes.c_void_p
+# P1/P2's entries before they took a path's lanes (a warp per path)
+CHAIN_WARP_PER_PATH = {
+    "sgm_probe_chain": _build.SIGNATURES["sgm_probe_chain"][:9] + (
+        ctypes.c_void_p,),
+    "sgm_probe_chainio": _build.SIGNATURES["sgm_probe_chainio"][:13] + (
+        ctypes.c_void_p,)}
+CHAIN_GROUP = (0, 1, -1)    # the vertical group
+CHAIN_RING = 4              # recurrence_floor's ring
 SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
           ("cone B=32", 32, 375, 450, 64),
           ("Middlebury-half B=1", 1, 1000, 1500, 256))
@@ -134,6 +143,27 @@ _S1_PASS_CALLS = (
     "          hrun_pass(w, g, mask, lab[a], lab[b], big);\n",
     "          vrun_pass(w, g, mask, lab[b], lab[c], big);\n",
     "        changed |= tile_pass<false>(w, g, mask, lab[c], lab[b], input, big);\n")
+# P1/P2 ablations: (text in csrc/probe_recurrence.cu, its replacement).
+# Each changes the result (not compared), to show what a step's time is
+# made of: the lanes' shuffles for the path minimum, the neighbour lanes'
+# end words, the rings' traffic of `chainio`.
+CHAIN_ABLATIONS = {
+    "no lane minimum": [
+        ("  if (L >= 4) {\n    const unsigned a = __shfl_xor_sync",
+         "  if (L >= 64) {\n    const unsigned a = __shfl_xor_sync"),
+        ("  if (L == 8) m = __vminu2(m, __shfl_xor_sync(kFull, m, 4, L));\n",
+         "")],
+    "no neighbour lanes": [
+        ("      const unsigned up = __shfl_up_sync(kFull, cur[W - 1], 1, L);\n"
+         "      const unsigned dn = __shfl_down_sync(kFull, cur[0], 1, L);\n",
+         "      const unsigned up = cur[W - 1], dn = cur[0];\n")],
+    "no ring traffic": [
+        ("      store_slot<W>(oring, slot, T, t, total);\n", ""),
+        ("      load_slot<W>(cring, slot, T, t, cb);  // the next step's\n", ""),
+        ("      p2 = pring[slot * PB + p];\n", ""),
+        ("      if (extra > 0) load_parked<W>(oring, slot, T, t, park0);\n", ""),
+        ("      if (extra > 1) load_parked<W>(oring, slot, T, t, park1);\n", "")],
+}
 S1_ABLATIONS = {
     "barriers only": [_S1_STOP] + [(call, "") for call in _S1_PASS_CALLS],
     "no vertical pass": [_S1_STOP, (_S1_PASS_CALLS[6], "")],
@@ -181,6 +211,10 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
     if (hasattr(handle, "sgm_probe_scan16")
             and not hasattr(handle, "sgm_probe_scan16_capacity")):
         handle.sgm_probe_scan16.argtypes = SCAN16_ONE_DIRECTION
+    if hasattr(handle, "sgm_probe_chain") and not any(
+            "int lanes" in text for text in sources.values()):
+        for entry, argtypes in CHAIN_WARP_PER_PATH.items():
+            getattr(handle, entry).argtypes = argtypes
     return handle
 
 
@@ -260,6 +294,40 @@ def speckle_labels(lib, disp, mode: str, rounds=None):
                                     pk.LABEL_MODES[mode], _stream()):
         raise RuntimeError("sgm_probe_speckle_labels failed")
     return labels, rounds
+
+
+def chain_call(lib, x, steps, rolls, p1, rings=None, extra=0, lanes=None):
+    """``lib``'s P1 (``rings`` None) or P2 on (x, rings); ``lanes`` None for
+    an entry that takes none (a warp per path), else the lanes a path
+    takes."""
+    b, d, p = x.shape
+    out = torch.empty_like(x)
+    arr = (ctypes.c_int * len(rolls))(*rolls)
+    tail = (() if lanes is None else (lanes,)) + (_stream(),)
+    if rings is None:
+        err = lib.sgm_probe_chain(x.data_ptr(), out.data_ptr(), b, d, p, steps,
+                                  len(rolls), ctypes.addressof(arr), p1, *tail)
+    else:
+        cost, p2 = rings
+        err = lib.sgm_probe_chainio(
+            x.data_ptr(), cost.data_ptr(), p2.data_ptr(), out.data_ptr(), b, d,
+            p, steps, len(rolls), ctypes.addressof(arr), cost.shape[1], extra,
+            p1, *tail)
+    if err:
+        raise RuntimeError(f"sgm_probe_chain{'io' if rings else ''} failed")
+    return out
+
+
+def hist(lib, grouped, h_hist, lo_bits, aggregate: bool):
+    """``lib``'s S2 (its zeroing of the counts included)."""
+    b = grouped.shape[0]
+    counts = torch.empty((b, h_hist, 1 << lo_bits), dtype=torch.int32,
+                         device=grouped.device)
+    if lib.sgm_probe_speckle_hist(grouped.data_ptr(), counts.data_ptr(), b,
+                                  grouped[0].numel(), h_hist << lo_bits,
+                                  int(aggregate), _stream()):
+        raise RuntimeError("sgm_probe_speckle_hist failed")
+    return counts
 
 
 def sources_defining(csrc: Path, entries) -> dict:
@@ -467,6 +535,128 @@ def scan16_shape(rec, label, left, right, dmax, other, this, reps):
           f"{med['this'] / med['parent']:.3f}")
 
 
+def chain_shape(rec, label, b, h, w, dmax, other, this, chain_ablated, reps):
+    """P1 ``chain1``/``chain3`` and P2 ``chainio1_b``/``chainio3_b`` (the
+    recurrence_floor ladder's shapes: B*H paths of W steps, and the vertical
+    group, 3*B*W paths of H steps) of both checkouts, bit-equal to the plain
+    versions, then in turns; this checkout's P1 also with each lane count
+    the kernel takes, against the one its rule picks."""
+    dev = torch.device("cuda")
+    opt = SGMOptions(max_disparity=dmax)
+    p1, d = opt.p1, dmax
+    gen = torch.Generator(device="cpu").manual_seed(9)
+
+    def rand(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen).to(dtype).to(dev)
+
+    shapes = {"1": (rand(0, 65536, (b, d, h), torch.uint16), w, (0,), 1),
+              "3": (rand(0, 65536, (b, d, w), torch.uint16), h, CHAIN_GROUP,
+                    2)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fns, lanes_of = {}, {}
+    for key, (x, steps, rolls, extra) in shapes.items():
+        n, p = len(rolls), x.shape[2]
+        rings = (rand(0, 128, (b, CHAIN_RING, d, p), torch.int32),
+                 rand(opt.p1, opt.p2_init + 1, (b, n, CHAIN_RING, p),
+                      torch.int32))
+        lanes = lanes_of[key] = pk.chain_lanes(d, b * p * n, sms)
+        want = {"chain": pk.chain_plain(x, steps, rolls, p1),
+                "chainio": pk.chainio_plain(x, *rings, steps, rolls, extra,
+                                            p1)}
+        for name, lib, ln in (("parent", other, None), ("this", this, lanes)):
+            same(chain_call(lib, x, steps, rolls, p1, lanes=ln), want["chain"],
+                 f"chain{key} {name} {label}")
+            same(chain_call(lib, x, steps, rolls, p1, rings, extra, ln),
+                 want["chainio"], f"chainio{key}_b {name} {label}")
+            fns[f"{name} chain{key}"] = (
+                lambda lib=lib, a=(x, steps, rolls, p1), ln=ln:
+                chain_call(lib, *a, lanes=ln))
+            fns[f"{name} chainio{key}_b"] = (
+                lambda lib=lib, a=(x, steps, rolls, p1, rings, extra), ln=ln:
+                chain_call(lib, *a, lanes=ln))
+    ms = rec["chain_ms"] = in_turns(fns, reps)
+    # a launch at a time in runs of RUN: the wrapper's host time hidden
+    run = rec["chain_run_ms"] = {
+        name: [v / RUN for v in times] for name, times in in_turns(
+            {name: lambda fn=fn: [fn() for _ in range(RUN)]
+             for name, fn in fns.items()}, reps).items()}
+    rec["chain_lanes"] = lanes_of
+    by_lanes = {}
+    for key, (x, steps, rolls, _) in shapes.items():
+        for ln in (1, 2, 4, 8):
+            if 32 * ln >= d:
+                by_lanes[f"chain{key} lanes={ln}"] = event_ms(
+                    lambda a=(x, steps, rolls, p1), ln=ln:
+                    chain_call(this, *a, lanes=ln), reps)
+    rec["chain_by_lanes_ms"] = by_lanes
+    # this checkout's P1 and P2 with parts of the step taken out, in runs
+    x, steps, rolls, extra = shapes["1"]
+    rings = (rand(0, 128, (b, CHAIN_RING, d, x.shape[2]), torch.int32),
+             rand(opt.p1, opt.p2_init + 1, (b, 1, CHAIN_RING, x.shape[2]),
+                  torch.int32))
+    abl = {}
+    for name, lib in {"whole": this, **chain_ablated}.items():
+        if lib is None:
+            abl[name] = None
+            continue
+        for v, io in (("chain1", None), ("chainio1_b", rings)):
+            abl[f"{v} {name}"] = event_ms(
+                lambda lib=lib, io=io: [chain_call(
+                    lib, x, steps, rolls, p1, io, extra, lanes_of["1"])
+                    for _ in range(RUN)], reps) / RUN
+    rec["chain_ablations_run_ms"] = abl
+    for v in ("chain1", "chain3", "chainio1_b", "chainio3_b"):
+        par = statistics.median(ms[f"parent {v}"])
+        new = statistics.median(ms[f"this {v}"])
+        rpar = statistics.median(run[f"parent {v}"])
+        rnew = statistics.median(run[f"this {v}"])
+        print(f"{label} {v} ms parent {ms[f'parent {v}']} this "
+              f"{ms[f'this {v}']} ({par / new:.2f}x); a launch in runs of "
+              f"{RUN}: parent {run[f'parent {v}']} this {run[f'this {v}']} "
+              f"({rpar / rnew:.2f}x)")
+    print(f"{label} chain lanes {lanes_of}; by lanes "
+          f"{json.dumps(by_lanes)}; ablations, a launch in runs of {RUN}: "
+          f"{json.dumps(abl)}")
+
+
+def s2_shape(rec, label, b, h, w, dmax, other, this, reps):
+    """S2 of both checkouts in both modes on the labels of the engine's
+    pre-speckle disparity, bit-equal to the plain version, in turns; the
+    device time of this checkout's default call (zeroing and count) and of
+    the parent's aggregated one by kernel, beside the byte bound."""
+    opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, dmax)
+    area = opt.min_speckle_area
+    labels, _ = pk.speckle_labels(disp, 1.0, "base")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+    want = pk.speckle_hist_plain(grouped, h_hist, lo_bits)
+    fns = {}
+    for name, lib in (("parent", other), ("this", this)):
+        for agg in (False, True):
+            same(hist(lib, grouped, h_hist, lo_bits, agg), want,
+                 f"S2 {name} aggregate={agg} {label}")
+            fns[f"{name} aggregate={agg}"] = (
+                lambda lib=lib, agg=agg: hist(lib, grouped, h_hist, lo_bits,
+                                              agg))
+    ms = rec["s2_ms"] = in_turns(fns, reps)
+    nbytes = 4 * grouped.numel() + 4 * want.numel()
+    rec["s2_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    rec["s2_device_ms"] = {
+        "this default": kernel_ms(lambda: hist(this, grouped, h_hist, lo_bits,
+                                               True)),
+        "parent aggregated": kernel_ms(lambda: hist(other, grouped, h_hist,
+                                                    lo_bits, True))}
+    total = sum(rec["s2_device_ms"]["this default"].values())
+    rec["s2_share_of_bound"] = rec["s2_bound_ms"] / total if total else None
+    for mode in ("aggregate=True", "aggregate=False"):
+        print(f"{label} S2 {mode} ms parent {ms[f'parent {mode}']} this "
+              f"{ms[f'this {mode}']}")
+    print(f"{label} S2 device ms {json.dumps(rec['s2_device_ms'])}; bound "
+          f"{rec['s2_bound_ms']:.4f} ms ({nbytes} bytes); this default's "
+          f"device time {total:.4f} ms = {100 * rec['s2_share_of_bound']:.0f}% "
+          f"of the bound" if total else f"{label} S2: no device time")
+    del disp, labels, grouped, want
+
+
 def s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated, reps):
     """S1 of both checkouts in every mode, in turns; K4 and its label stage
     beside them; this checkout's ablations at the real run's rounds."""
@@ -538,6 +728,8 @@ def main(argv=None) -> dict:
 
     wta_ablated = ablations("", "wta.cu", WTA_ABLATIONS, "wta")
     s1_ablated = ablations("s1-", "probe_speckle.cu", S1_ABLATIONS, "s1")
+    chain_ablated = ablations("chain-", "probe_recurrence.cu", CHAIN_ABLATIONS,
+                              "chain")
     ablated = ablations("k1-", "census_cost.cu", ABLATIONS, "k1")
     dev = torch.device("cuda")
     result = {"card": ", ".join(card()), "shapes": {}}
@@ -566,6 +758,11 @@ def main(argv=None) -> dict:
         if "wta" in only:
             wta_shape(rec, label, b, h, w, dmax, left, right, other, this,
                       wta_ablated, args.reps)
+        if "chain" in only:
+            chain_shape(rec, label, b, h, w, dmax, other, this,
+                        chain_ablated, args.reps)
+        if "s2" in only:
+            s2_shape(rec, label, b, h, w, dmax, other, this, args.reps)
         del left, right
         torch.cuda.empty_cache()
 

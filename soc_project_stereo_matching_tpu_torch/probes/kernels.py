@@ -31,6 +31,7 @@ and ``probe_speckle_fused``).  There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -116,7 +117,162 @@ def chain_plain(x, steps: int, rolls: Sequence[int] = (0,),
     return _recurrence_plain(x, steps, rolls, p1)
 
 
-def _check_chain(x, steps: int, rolls) -> tuple:
+def chain_lanes(d: int, paths: int, sms: int) -> int:
+    """The lanes of a warp that walk one path in ``chain``/``chainio``:
+    four (eight where D > 128: a lane holds at most 32 disparities), and
+    eight also where four would give the launch fewer warps than half the
+    schedulers of a card with ``sms`` SMs (four an SM).  More lanes cut a
+    step's instructions and add a shuffle to its dependent chain; on an
+    H100 four won at every cone shape of the recurrence-floor ladder and
+    eight only where the paths are few (PERF.md section 6)."""
+    if d > 128 or paths * 4 < sms * 4 * 32 // 2:
+        return 8
+    return 4
+
+
+def chain_words(d: int, lanes: int) -> int:
+    """32-bit words (two disparities each) a lane holds: the smallest power
+    of two with 2 * words * lanes >= D."""
+    words = 1
+    while 2 * words * lanes < d:
+        words *= 2
+    return words
+
+
+def chain_block(n: int, lanes: int) -> tuple:
+    """(threads, columns) of a block: the n directions of each column, each
+    ``lanes`` threads, in whole warps of 64 threads (128 where n * lanes >
+    16)."""
+    target = 64 if n * lanes <= 16 else 128
+    cols = max(1, target // (n * lanes))
+    return -(-cols * n * lanes // 32) * 32, cols
+
+
+def _u16x2(fn, *words):
+    """fn applied to the low and the high 16-bit lanes of int64 words."""
+    lo = fn(*(w & 0xFFFF for w in words)) & 0xFFFF
+    hi = fn(*(w >> 16 for w in words)) & 0xFFFF
+    return lo | (hi << 16)
+
+
+def chain_pack(rows, lanes: int, fill: int) -> torch.Tensor:
+    """int (..., D, P) rows -> int64 (..., lanes, words, P) as the kernel of
+    ``chain`` holds them: lane g's word i has disparity 2 g W + i in its low
+    16 bits and 2 g W + W + i in its high 16 bits; disparities >= D (the
+    dead lanes) hold ``fill``."""
+    d = rows.shape[-2]
+    words = chain_words(d, lanes)
+    pad = 2 * words * lanes - d
+    x = rows.to(torch.int64)
+    if pad:
+        x = torch.cat([x, torch.full_like(x[..., :1, :], fill).expand(
+            *x.shape[:-2], pad, x.shape[-1])], -2)
+    x = x.reshape(*x.shape[:-2], lanes, 2, words, x.shape[-1])
+    return x[..., 0, :, :] | (x[..., 1, :, :] << 16)
+
+
+def chain_unpack(words: torch.Tensor, d: int) -> torch.Tensor:
+    """The inverse of ``chain_pack``: int64 (..., D, P) rows."""
+    x = torch.stack([words & 0xFFFF, words >> 16], -3)   # (..., L, 2, W, P)
+    return x.flatten(-4, -2)[..., :d, :]
+
+
+def chain_step_packed(prev, pmin, cost, p1: int, p2, d: int) -> tuple:
+    """One step of the kernel of ``chain``/``chainio`` on packed words
+    (``chain_pack``; ``prev`` with its dead lanes at 255, ``cost`` at 0) and
+    the path minima ``pmin`` (..., P); ``p2`` an int or int (..., P).  The
+    kernel's own instructions: L(d -+ 1) of a word are the words before and
+    after it, the lane's end words joined by __byte_perm(a, b, 0x5432) with
+    the neighbour lane's end word or a 255-sentinel word;
+    min(L(d -+ 1) + P1, L(d)) as __viaddmin_u16x2 with P1 clamped to 255;
+    the min with q = pmin + min(P2, 255) in both halves, or, for
+    t = pmin + P2 < 0 (int32, wrapping), with 0 and t mod 256 added; one
+    add of m, cost + 256 and -pmin, the & 0x00FF00FF and the dead lanes set
+    to 255; the new pmin as a min over the words, the two halves and the
+    lanes.  -> (words, pmin)."""
+    lanes, nwords = prev.shape[-3], prev.shape[-2]
+    both = 0x00010001
+    lead, cols = prev.shape[:-3], prev.shape[-1]
+    sentinel = torch.full((*lead, 1, 1, cols), SENTINEL * both,
+                          dtype=torch.int64)
+    g = torch.arange(lanes)[:, None]
+    low = 2 * g * nwords + torch.arange(nwords)[None, :]        # (L, W)
+    dead = ((low >= d).long() * 0xFF | (low + nwords >= d).long() * 0xFF0000)
+    dead = dead[..., None]
+    p1x2 = min(p1, 255) * both
+    pmin = pmin.to(torch.int64)
+    p2 = (p2.to(torch.int64) if torch.is_tensor(p2)
+          else torch.full_like(pmin, p2))
+    tm = (pmin + p2 + 2 ** 31) % 2 ** 32 - 2 ** 31            # int32 wrap
+    q = torch.where(p2 < 0, tm.clamp(0, 255), pmin + p2.clamp(max=255))
+    adj = torch.where(tm < 0, tm & 0xFF, torch.zeros_like(tm))
+    q2 = (q * both)[..., None, None, :]
+    sub = ((pmin - adj) * both)[..., None, None, :]
+    # the words before and after each word; the lane's end words join the
+    # halves that meet there, with lane g - 1's last word and g + 1's first
+    below = torch.cat([sentinel, prev[..., :-1, -1:, :]], -3)
+    above = torch.cat([prev[..., 1:, :1, :], sentinel], -3)
+
+    def perm5432(a, b):
+        return (a >> 16) | ((b & 0xFFFF) << 16)
+
+    left = torch.cat([perm5432(below, prev[..., -1:, :]), prev[..., :-1, :]],
+                     -2)
+    right = torch.cat([prev[..., 1:, :], perm5432(prev[..., :1, :], above)],
+                      -2)
+
+    def viaddmin(a, b, c):
+        return _u16x2(lambda x, y, z: torch.minimum((x + y) & 0xFFFF, z), a,
+                      torch.full_like(a, b), c)
+
+    def vmin(a, b):
+        return _u16x2(torch.minimum, a, b.expand_as(a))
+
+    near = viaddmin(right, p1x2, viaddmin(left, p1x2, prev))
+    cur = (((vmin(near, q2) + cost + 0x01000100 - sub) & 0xFFFFFFFF)
+           & 0x00FF00FF) | dead
+    mn = cur[..., 0, :]
+    for i in range(1, nwords):
+        mn = vmin(mn, cur[..., i, :])
+    mn = vmin(mn, (mn >> 16) | ((mn & 0xFFFF) << 16))
+    new_min = mn[..., 0, :]
+    for lane in range(1, lanes):
+        new_min = vmin(new_min, mn[..., lane, :])
+    return cur, new_min & 0xFFFF
+
+
+def chain_step_plain(prev, pmin, cost, p1: int, p2, lanes: int) -> tuple:
+    """``chain_step_packed`` on int (..., D, P) rows, for the tests, which
+    hold it against the step of the JAX script's ``chain_kernel`` over the
+    uint8 domain: -> (int64 (..., D, P) rows, int64 (..., P) minima)."""
+    d = prev.shape[-2]
+    cur, new_min = chain_step_packed(chain_pack(prev, lanes, SENTINEL),
+                                     pmin.to(torch.int64),
+                                     chain_pack(cost, lanes, 0), p1, p2, d)
+    return chain_unpack(cur, d), new_min
+
+
+def chain_packed_plain(x, steps: int, p1: int, lanes: int) -> torch.Tensor:
+    """``chain`` for one straight direction as its kernel runs it: the
+    packed state carried from step to step with its dead lanes, the cost
+    row packed once.  -> the same uint16 (B, D, P) row as ``chain_plain``."""
+    d = x.shape[-2]
+    cost = ((torch.arange(d, dtype=torch.int64) * 7 + 13) & 0x7F)[None, :, None]
+    cost = chain_pack(cost ^ (x.to(torch.int64) & 1), lanes, 0)
+    prev = chain_pack(torch.zeros(x.shape, dtype=torch.int64), lanes, SENTINEL)
+    pmin = torch.zeros((x.shape[0], x.shape[-1]), dtype=torch.int64)
+    for _ in range(steps):
+        prev, pmin = chain_step_packed(prev, pmin, cost, p1, CHAIN_P2, d)
+    row = chain_unpack(prev, d) + pmin[:, None, :]
+    return (row & 0xFFFF).to(torch.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_chain(x, steps: int, rolls, p1: int, lanes) -> tuple:
     _check(x, "x", torch.uint16, 3)
     b, d, p = x.shape
     if not 1 <= d <= 256:
@@ -125,24 +281,34 @@ def _check_chain(x, steps: int, rolls) -> tuple:
         raise ValueError(f"steps={steps}: need at least one")
     if not 1 <= len(rolls) <= MAX_ROLLS:
         raise ValueError(f"{len(rolls)} directions: the kernel takes 1..{MAX_ROLLS}")
-    return b, d, p
+    if not 0 <= p1 <= 0x7FFFFF00:
+        raise ValueError(f"p1={p1}: the kernel takes 0..2**31 - 256, where "
+                         f"min(up, dn) + p1 cannot wrap")
+    if lanes is None:
+        lanes = chain_lanes(d, b * p * len(rolls), _sm_count(x.device.index))
+    elif lanes not in (1, 2, 4, 8) or 32 * lanes < d:
+        raise ValueError(f"lanes={lanes}: 1, 2, 4 or 8, at least D / 32")
+    return b, d, p, lanes
 
 
 def chain(x: torch.Tensor, steps: int, rolls: Sequence[int] = (0,),
-          p1: int = 10) -> torch.Tensor:
+          p1: int = 10, lanes: int | None = None) -> torch.Tensor:
     """P1.  uint16 (B, D, P) -> uint16 (B, D, P): ``steps`` steps of the SGM
     recurrence on every one of the B * P paths and every direction of
     ``rolls`` (0 straight, +-1 the wrapping diagonals), from a zero state,
     with the cost row ((7 d + 13) & 0x7F) ^ (x & 1) of the path's first pixel
     and P2 = 150; the row is the sum over the directions of state + min at
-    the paths' last pixels.  One launch."""
+    the paths' last pixels.  One launch; on the card ``p1`` >= 0.
+    ``lanes``: the lanes a path takes; None (the rule of ``chain_lanes``)
+    except where a measurement compares the choices."""
     if _on_cpu(x):
         return chain_plain(x, steps, rolls, p1)
-    b, d, p = _check_chain(x, steps, rolls)
+    b, d, p, lanes = _check_chain(x, steps, rolls, p1, lanes)
     out = torch.empty_like(x)
     arr = (ctypes.c_int * len(rolls))(*rolls)
     _launch("sgm_probe_chain", "probe_chain", x.data_ptr(), out.data_ptr(), b,
-            d, p, steps, len(rolls), ctypes.addressof(arr), p1, _stream(out))
+            d, p, steps, len(rolls), ctypes.addressof(arr), p1, lanes,
+            _stream(out))
     return out
 
 
@@ -152,18 +318,20 @@ def chainio_plain(x, cost_ring, p2_ring, steps: int,
     return _recurrence_plain(x, steps, rolls, p1, cost_ring, p2_ring, extra_u16)
 
 
-def chainio_shared_bytes(d: int, n: int, ring: int) -> int:
+def chainio_shared_bytes(d: int, n: int, ring: int, lanes: int) -> int:
     """Dynamic shared memory of a ``chainio`` block, as the kernel lays it
-    out: per warp a row to sum, and ``ring`` slots of an int32 cost row, a
-    P2 word and a uint16 output row."""
-    row = 32 * ((d + 31) // 32)
-    warps = max(1, min(8, 32 // n)) * n
-    return warps * (row * 4 + ring * (row * 6 + 4))
+    out: per path an int32 row to sum (its 2 * words * lanes disparities),
+    and ``ring`` slots of the cost row and of the uint16 output row (a word
+    per two disparities, each) and a P2 word."""
+    words = chain_words(d, lanes)
+    threads, _ = chain_block(n, lanes)
+    paths, dpad = threads // lanes, 2 * words * lanes
+    return paths * dpad * 4 + ring * (2 * 4 * threads * words + 4 * paths)
 
 
 def chainio(x: torch.Tensor, cost_ring: torch.Tensor, p2_ring: torch.Tensor,
             steps: int, rolls: Sequence[int] = (0,), extra_u16: int = 0,
-            p1: int = 10) -> torch.Tensor:
+            p1: int = 10, lanes: int | None = None) -> torch.Tensor:
     """P2.  ``chain`` plus a production pass's per-step traffic from on-chip
     memory.  ``cost_ring`` int32 (B, R, D, P) and ``p2_ring`` int32
     (B, n, R, P) are R steps of a cost volume and of the directions' P2
@@ -173,10 +341,11 @@ def chainio(x: torch.Tensor, cost_ring: torch.Tensor, p2_ring: torch.Tensor,
     is read and added (plus 0, 1, ...), and the row is stored.  A ring
     travels with its path (see ``_recurrence_plain``); with R = steps it is
     the whole volume.  The result row is the sum of the directions' last
-    output rows plus direction 0's state.  One launch."""
+    output rows plus direction 0's state.  One launch; on the card ``p1``
+    >= 0 (P2 may be any int32); ``lanes`` as for ``chain``."""
     if _on_cpu(x, cost_ring, p2_ring):
         return chainio_plain(x, cost_ring, p2_ring, steps, rolls, extra_u16, p1)
-    b, d, p = _check_chain(x, steps, rolls)
+    b, d, p, lanes = _check_chain(x, steps, rolls, p1, lanes)
     n = len(rolls)
     _check(cost_ring, "cost_ring", torch.int32, 4)
     _check(p2_ring, "p2_ring", torch.int32, 4)
@@ -187,9 +356,9 @@ def chainio(x: torch.Tensor, cost_ring: torch.Tensor, p2_ring: torch.Tensor,
     if p2_ring.shape != (b, n, ring, p):
         raise ValueError(f"p2_ring: expected {(b, n, ring, p)}, got "
                          f"{tuple(p2_ring.shape)}")
-    if extra_u16 < 0:
-        raise ValueError(f"extra_u16={extra_u16} is negative")
-    need = chainio_shared_bytes(d, n, ring)
+    if not 0 <= extra_u16 <= 0xFFFF:
+        raise ValueError(f"extra_u16={extra_u16} outside 0..65535")
+    need = chainio_shared_bytes(d, n, ring, lanes)
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"a ring of {ring} steps at D={d}, {n} directions "
                          f"needs {need} bytes of shared memory, over the "
@@ -198,7 +367,8 @@ def chainio(x: torch.Tensor, cost_ring: torch.Tensor, p2_ring: torch.Tensor,
     arr = (ctypes.c_int * n)(*rolls)
     _launch("sgm_probe_chainio", "probe_chainio", x.data_ptr(),
             cost_ring.data_ptr(), p2_ring.data_ptr(), out.data_ptr(), b, d, p,
-            steps, n, ctypes.addressof(arr), ring, extra_u16, p1, _stream(out))
+            steps, n, ctypes.addressof(arr), ring, extra_u16, p1, lanes,
+            _stream(out))
     return out
 
 
@@ -766,14 +936,18 @@ def _check_root_plane(h_hist: int, lo_bits: int) -> None:
 
 
 def speckle_hist(labels: torch.Tensor, h_hist: int, lo_bits: int,
-                 aggregate: bool = False) -> torch.Tensor:
+                 aggregate: bool = True) -> torch.Tensor:
     """S2.  int32 (B, ngroups, 1, g * pc) labels -> int32 (B, h_hist,
     1 << lo_bits) pixels per component, stored at the root's (row, col) =
     (label >> lo_bits, label & (lo - 1)); a label outside the plane (the
     sentinel) counts nowhere.  Exact for every component; the JAX kernel's
     banded count is exact below ``min_area`` and at least ``min_area``
-    above.  ``aggregate``: a warp adds once per distinct label among its
-    lanes; the counts are the same.  One launch."""
+    above.  ``aggregate`` (the default): runs of equal labels merge in a
+    thread, across its warp and in a table of its block, and the block
+    adds once per distinct label (``speckle_hist_merge_plain`` transcribes
+    it); False: one add per pixel, the probe's control for what contention
+    on a large component's word costs.  The counts are the same.  One
+    entry call: the zeroing of the counts, then the count."""
     _check_root_plane(h_hist, lo_bits)
     if _on_cpu(labels):
         return speckle_hist_plain(labels, h_hist, lo_bits)
@@ -785,6 +959,68 @@ def speckle_hist(labels: torch.Tensor, h_hist: int, lo_bits: int,
             counts.data_ptr(), b, labels[0].numel(), h_hist << lo_bits,
             int(aggregate), _stream(counts))
     return counts
+
+
+HIST_THREADS, HIST_LABELS = 256, 4      # an S2 block, the labels a thread takes
+HIST_TILE = HIST_THREADS * HIST_LABELS  # labels a block takes
+HIST_SLOT_BITS = 11                     # its table: twice the keys it can meet
+HIST_SLOTS = 1 << HIST_SLOT_BITS
+
+
+def _hist_slot(key: int) -> int:
+    return ((key * 2654435761) & 0xFFFFFFFF) >> (32 - HIST_SLOT_BITS)
+
+
+def speckle_hist_merge_plain(labels, h_hist: int, lo_bits: int) -> tuple:
+    """S2's aggregated count the way its kernel decomposes it, for the
+    tests: per frame, blocks of ``HIST_TILE`` labels, a thread four
+    neighbouring labels (the tail -1), warps of 32 threads.  A thread's
+    equal neighbours form runs; for each position of the quad at which a
+    lane starts a run, the warp's lanes that start runs of one label there
+    give their summed lengths to the first of them, which adds it into the
+    block's table (open addressing at ``_hist_slot``, linear probing); the
+    table's entries are added into the counts in the order they were
+    claimed.  -> (int32 (B, h_hist, 1 << lo_bits) counts, the number of
+    device-memory adds, the most slots a block's table claimed)."""
+    b, size = labels.shape[0], h_hist << lo_bits
+    flat = labels.reshape(b, -1).cpu().numpy().astype(np.int64)
+    per_frame = flat.shape[1]
+    counts = np.zeros((b, size), np.int64)
+    adds = most = 0
+    for f in range(b):
+        for start in range(0, per_frame, HIST_TILE):
+            tile = np.full(HIST_TILE, -1, np.int64)
+            part = flat[f, start:start + HIST_TILE]
+            tile[:part.size] = part
+            key = np.where((tile >= 0) & (tile < size), tile, -1)
+            key = key.reshape(HIST_THREADS, HIST_LABELS)
+            run = np.ones_like(key)
+            for j in range(HIST_LABELS - 2, -1, -1):
+                run[:, j] = np.where(key[:, j] == key[:, j + 1],
+                                     run[:, j + 1] + 1, 1)
+            head = key >= 0
+            head[:, 1:] &= key[:, 1:] != key[:, :-1]
+            keys = np.full(HIST_SLOTS, -1, np.int64)
+            vals = np.zeros(HIST_SLOTS, np.int64)
+            order = []
+            for w0 in range(0, HIST_THREADS, 32):
+                for j in range(HIST_LABELS):
+                    h, k = head[w0:w0 + 32, j], key[w0:w0 + 32, j]
+                    for label in dict.fromkeys(k[h].tolist()):  # leader order
+                        total = int(run[w0:w0 + 32, j][h & (k == label)].sum())
+                        slot = _hist_slot(label)
+                        while keys[slot] not in (-1, label):
+                            slot = (slot + 1) & (HIST_SLOTS - 1)
+                        if keys[slot] == -1:
+                            keys[slot] = label
+                            order.append(slot)
+                        vals[slot] += total
+            for slot in order:
+                counts[f, keys[slot]] += vals[slot]
+            adds += len(order)
+            most = max(most, len(order))
+    out = torch.from_numpy(counts.astype(np.int32)).reshape(b, h_hist, -1)
+    return out, adds, most
 
 
 def root_small(counts: torch.Tensor, min_area: int) -> torch.Tensor:

@@ -1,24 +1,39 @@
 """The serial floor of the SGM recurrence beside the shipped K2 scans.
 
-Counterpart of the JAX package's ``scripts/recurrence_floor.py``.  A K2 scan
-(``csrc/aggregate.cu``) walks one path per warp; along a path each step
-needs the step before, so B * paths warps of ``steps`` dependent steps are
-the least a launch of that decomposition can take.  This probe times a
-ladder at the production geometry (default: the cone pair, B=8, 375x450,
-D=64) so that "the scans run at x% of the byte roofline" can be held against
-what the recurrence itself allows:
+Counterpart of the JAX package's ``scripts/recurrence_floor.py``.  The
+shipped K2 scan (``csrc/aggregate.cu``'s group kernel) owns columns: one
+launch walks the S steps of a scan order for up to three directions that
+share it, every path of every image at once.  Along a path each step needs
+the step before, so a launch can take no less than its paths' dependent
+chain of S steps.  The main path makes four scan launches and three
+transposes per ``match_batch``:
 
-    chain1       the carried chain alone at the horizontal launch's shape:
+    horizontal_partial   the cost and the image transposed, two
+                         one-direction group launches along the transposed
+                         volume's columns (B*H paths of W steps; the reverse
+                         one adds onto the forward one's sum), the sum
+                         transposed back
+    aggregate_paths      two three-direction vertical groups (straight and
+                         both diagonals: 3*B*W paths of H steps), forward
+                         and reverse, each adding onto the sum
+
+This probe times a ladder at that geometry (default: the cone pair, B=8,
+375x450, D=64) so that "the scans run at x% of the byte roofline" can be
+held against what the recurrence itself allows:
+
+    chain1       the carried chain alone at a horizontal launch's shape:
                  B*H paths of W steps (probes/kernels.chain)
-    chain1v      the same at a single vertical launch's shape: B*W paths of
-                 H steps
+    chain1v      one vertical direction alone, B*W paths of H steps: the
+                 first design's launch shape (a launch per direction)
     chain3       a vertical group (straight and both diagonals) in one
                  launch: 3 * B*W paths of H steps
     chainio*     chain plus a pass's per-step traffic from shared memory
                  (probes/kernels.chainio): suffix f = forward pass (cost and
                  P2 load, row store), m = + one uint16 row read-add (a pass
-                 that accumulates), b = + two (the backward pass of a group
-                 that also carries a parked sum)
+                 that adds onto an earlier sum), b = + two (the JAX
+                 design's backward pass that also carries a parked sum; for
+                 one direction, ``chainio1_b``, the one read-add of the
+                 reverse horizontal launch)
     prod1        one horizontal launch of the first design's kernel, a warp
                  per path (ops.kernels.scan_direction)
     prod1v       one vertical launch of the same kernel
@@ -31,25 +46,38 @@ what the recurrence itself allows:
     bw_stream    x + 1 on an int16 (B, H, D, W) volume: the memory stream a
                  launch's loads and stores can draw on, in GB/s
 
-On this card the warps of a launch overlap each other's memory latency, so
-what is serial is a path's chain and nothing else; a launch can end no
-sooner than max(its chain with the on-chip traffic, its mandatory bytes at
-the streaming rate).  The summary adds that up over the main path's eight
-launches (two horizontal, six vertical):
+On this card the paths of a launch overlap each other's latency, so what is
+serial is a path's chain and nothing else; a launch can end no sooner than
+max(its chain with the on-chip traffic, its mandatory bytes at the streaming
+rate).  The summary adds that up over the main path's launches, with each
+launch's pass shape and bytes per volume element from ``aggregate.cu``'s
+header (24 bytes an element over the 8 directions: 2 + 3 + 5 + 4 + 5 + 5):
 
-    floor        2 chain1 + 6 chain1v
-    achievable   sum over the eight launches of max(chainio, bytes / stream)
+    launch                        chain    chainio      bytes an element
+    horizontal forward            chain1   chainio1_f   3 (cost, sum written)
+    horizontal reverse            chain1   chainio1_b   5 (+ the sum read)
+    vertical forward group        chain3   chainio3_m   5
+    vertical reverse group        chain3   chainio3_m   5
+    the three transposes          -        -            2 + 4 (cost there,
+                                                        sum back; the image's
+                                                        bytes are negligible)
+
+    floor        2 chain1 + 2 chain3
+    achievable   the sum over the four scan launches of max(chainio of its
+                 pass shape, its bytes / bw_stream), plus the transposes'
+                 6 bytes an element / bw_stream
     prod         hpart + 2 prod3: the shipped aggregation
-    prod_old     2 prod1 + 2 prod3_old: the first design's eight launches
-
-A launch's mandatory bytes: the cost volume read once and the uint16 sum
-read and written (the first launch only writes it).
+    prod_first_design   2 prod1 + 2 prod3_old: the first design's eight
+                 launches (two horizontal, six vertical)
 
 Every chain variant is compared with its plain version at the very step
 count that is timed.  The chain kernels must not be optimised away: their
-result row depends on every step, and the probe times ``chain1`` at ``steps`` and at 2 * steps
-and raises unless the time grows with the steps (from 200 steps on: below,
-a launch's fixed cost hides the chain).
+result row depends on every step, and the probe times ``chain1`` at
+``steps`` and at 2 * steps, a launch at a time in runs of 10 (a call's
+events also hold the wrapper's host time, which the chain no longer
+covers at the cone pair), and raises unless twice the steps take at least
+1.3 times as long (from 200 steps on: below, a launch's fixed cost hides
+the chain).
 """
 
 from __future__ import annotations
@@ -62,8 +90,9 @@ from . import (GEOMETRY, SEED, document, fmt, measure, pair_and_cost,
 from . import kernels as pk
 
 GROUP = (0, 1, -1)          # a vertical group: straight, both diagonals
-RING = 4                    # steps a warp of `chainio` stages in shared memory
+RING = 4                    # steps a path of `chainio` stages in shared memory
 MIN_STEPS_FOR_GROWTH = 200  # from here on twice the steps must show in the time
+RUN = 10                    # back-to-back launches a sample of the growth check
 
 
 def _rings(seed, b, n, ring, d, p, opt, device):
@@ -139,15 +168,22 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
     for name, (note, fn) in production.items():
         variants[name] = dict(measure(fn, device, reps, batch), note=note)
 
-    # the chain's time must grow with its steps
+    # the chain's time must grow with its steps: timed a launch at a time in
+    # runs of RUN back-to-back launches, so that the wrapper's host time,
+    # which a call's events also hold, stays out of the comparison
     x, steps, rolls, _ = rings["1"]
-    twice = measure(lambda: pk.chain(x, 2 * steps, rolls, p1), device, reps,
-                    batch)
-    growth = ratio(twice["ms_per_frame"], variants["chain1"]["ms_per_frame"])
+
+    def per_launch(n):
+        rec = measure(lambda: [pk.chain(x, n, rolls, p1) for _ in range(RUN)],
+                      device, reps, batch)
+        return None if rec["ms_per_frame"] is None else rec["ms_per_frame"] / RUN
+
+    once, twice = per_launch(steps), per_launch(2 * steps)
+    growth = ratio(twice, once)
     doc["chain1_steps_scaling"] = {
-        "steps": steps, "ms_per_frame": variants["chain1"]["ms_per_frame"],
-        "steps_doubled": 2 * steps,
-        "ms_per_frame_doubled": twice["ms_per_frame"], "ratio": growth}
+        "steps": steps, "ms_per_frame": once, "steps_doubled": 2 * steps,
+        "ms_per_frame_doubled": twice, "ratio": growth,
+        "timed": f"a launch at a time in runs of {RUN}"}
     # (below some hundred steps a launch's fixed cost hides the chain)
     if growth is not None and steps >= MIN_STEPS_FOR_GROWTH and growth < 1.3:
         raise AssertionError(f"chain1 took {growth:.3f}x as long for twice the "
@@ -168,37 +204,48 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
     return doc
 
 
+# the main path's scan launches: (chain, chainio of its pass shape, bytes
+# per volume element), and the bytes of its three transposes
+MAIN_PATH_LAUNCHES = (("chain1", "chainio1_f", 3), ("chain1", "chainio1_b", 5),
+                      ("chain3", "chainio3_m", 5), ("chain3", "chainio3_m", 5))
+TRANSPOSE_BYTES = 2 + 4
+
+
 def _summary(variants: dict, gb_s, frame_elements: int) -> dict:
     ms = {name: rec["ms_per_frame"] for name, rec in variants.items()}
     if gb_s is None or any(v is None for v in ms.values()):
         return {"floor_ms_per_frame": None, "achievable_ms_per_frame": None,
-                "prod_ms_per_frame": None, "prod_old_ms_per_frame": None,
+                "prod_ms_per_frame": None,
+                "prod_first_design_ms_per_frame": None,
                 "prod_over_floor": None, "prod_over_achievable": None}
 
     def stream_ms(bytes_per_element):
         return frame_elements * bytes_per_element / gb_s / 1e6
 
-    # the main path's eight launches: (chainio variant, bytes per element)
-    launches = [("chainio1_f", 3), ("chainio1_b", 5)] + [("chainio1v_m", 5)] * 6
-    floor = 2 * ms["chain1"] + 6 * ms["chain1v"]
-    achievable = sum(max(ms[name], stream_ms(nbytes))
-                     for name, nbytes in launches)
+    floor = sum(ms[chain] for chain, _, _ in MAIN_PATH_LAUNCHES)
+    achievable = sum(max(ms[io], stream_ms(nbytes))
+                     for _, io, nbytes in MAIN_PATH_LAUNCHES) \
+        + stream_ms(TRANSPOSE_BYTES)
     prod = ms["hpart"] + 2 * ms["prod3"]
-    prod_old = 2 * ms["prod1"] + 2 * ms["prod3_old"]
+    prod_first = 2 * ms["prod1"] + 2 * ms["prod3_old"]
     return {
         "floor_ms_per_frame": floor,
         "achievable_ms_per_frame": achievable,
         "prod_ms_per_frame": prod,
-        "prod_old_ms_per_frame": prod_old,
+        "prod_first_design_ms_per_frame": prod_first,
         "prod_over_floor": prod / floor,
         "prod_over_achievable": prod / achievable,
-        "note": ("floor = 2 chain1 + 6 chain1v (the main path's two horizontal "
-                 "and six vertical launches, the chain alone); achievable = "
-                 "the sum over those launches of max(chainio, mandatory bytes "
-                 "/ bw_stream): 3 bytes per element for the first launch "
-                 "(cost read, sum written), 5 for the others (sum read too); "
-                 "prod = hpart + 2 prod3 (the shipped group kernel); "
-                 "prod_old = 2 prod1 + 2 prod3_old (the first design)"),
+        "note": ("the main path's scan launches, as shipped: floor = 2 chain1 "
+                 "+ 2 chain3 (the horizontal pair's two one-direction "
+                 "launches, the two three-direction vertical groups; the "
+                 "chain alone); achievable = the sum over those four launches "
+                 "of max(chainio of the launch's pass shape, its bytes / "
+                 "bw_stream): chainio1_f with 3 bytes an element (cost read, "
+                 "sum written), chainio1_b, chainio3_m, chainio3_m with 5 "
+                 "(the sum read too), plus the three transposes' 6 bytes an "
+                 "element / bw_stream; prod = hpart + 2 prod3 (the shipped "
+                 "group kernel); prod_first_design = 2 prod1 + 2 prod3_old "
+                 "(the first design's eight launches)"),
     }
 
 
@@ -210,12 +257,13 @@ def report(doc: dict) -> str:
     sc = doc["chain1_steps_scaling"]
     lines.append(f"chain1 at {sc['steps']} / {sc['steps_doubled']} steps: "
                  f"{fmt(sc['ms_per_frame'])} / "
-                 f"{fmt(sc['ms_per_frame_doubled'])} ms/frame")
+                 f"{fmt(sc['ms_per_frame_doubled'])} ms/frame, {sc['timed']}")
     s = doc["summary"]
     lines.append(f"floor {fmt(s['floor_ms_per_frame'])}, achievable "
                  f"{fmt(s['achievable_ms_per_frame'])}, prod "
                  f"{fmt(s['prod_ms_per_frame'])} (first design "
-                 f"{fmt(s['prod_old_ms_per_frame'])}) ms/frame; prod/floor "
+                 f"{fmt(s['prod_first_design_ms_per_frame'])}) ms/frame; "
+                 f"prod/floor "
                  f"{fmt(s['prod_over_floor'])}, prod/achievable "
                  f"{fmt(s['prod_over_achievable'])}")
     return "\n".join(lines)

@@ -13,9 +13,12 @@ Variants:
                     pixels a thread)
     prod_whole      K4 whole, as the main path calls it (labels included:
                     four launches, the count folded into the flatten)
-    base            S2 histogram -> the plain ``root_small`` op -> S3 gather
-    base_agg        the same, S2 adding once per distinct label of a warp
-    hist_only       S2 alone
+    base            S2 histogram with one add per pixel -> the plain
+                    ``root_small`` op -> S3 gather
+    base_agg        the same, S2 aggregated (its default: runs merged in a
+                    thread, across the warp and in a block's table, one add
+                    per distinct label of a block)
+    hist_only       S2 alone, one add per pixel
     hist_only_agg   S2 alone, aggregated
     verdict_only    S3 alone (``root_small`` fixed)
     fused           S4: count, ``root_small`` and verdict in one launch
@@ -63,7 +66,7 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
         counts = pk.speckle_hist(grouped, h_hist, lo_bits, aggregate)
         return pk.speckle_verdict(grouped, pk.root_small(counts, min_area))
 
-    counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+    counts = pk.speckle_hist(grouped, h_hist, lo_bits, False)
     small = pk.root_small(counts, min_area)
     verdict = two_launch(False)
     want = ops_kernels.remove_speckles(disp, DIFF, min_area)
@@ -90,7 +93,7 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
         "prod_whole": lambda: ops_kernels.remove_speckles(disp, DIFF, min_area),
         "base": lambda: two_launch(False),
         "base_agg": lambda: two_launch(True),
-        "hist_only": lambda: pk.speckle_hist(grouped, h_hist, lo_bits),
+        "hist_only": lambda: pk.speckle_hist(grouped, h_hist, lo_bits, False),
         "hist_only_agg": lambda: pk.speckle_hist(grouped, h_hist, lo_bits, True),
         "verdict_only": lambda: pk.speckle_verdict(grouped, small),
         "fused": lambda: pk.speckle_tail_fused(grouped, min_area, h_hist,

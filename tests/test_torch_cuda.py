@@ -308,8 +308,10 @@ def test_chain_kernels_match_plain_on_card(cuda, d, p, steps, rolls):
     before = dict(kernels.LAUNCHES)
     same(pk.chain(x, steps, rolls, 10), pk.chain_plain(x, steps, rolls, 10))
     n = len(rolls)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lanes = pk.chain_lanes(d, 2 * p * n, sms)
     for ring in (3, steps):
-        if pk.chainio_shared_bytes(d, n, ring) > pk.MAX_SHARED_BYTES:
+        if pk.chainio_shared_bytes(d, n, ring, lanes) > pk.MAX_SHARED_BYTES:
             with pytest.raises(ValueError, match="shared memory"):
                 pk.chainio(x, torch.zeros((2, ring, d, p), dtype=torch.int32,
                                           device=cuda),
@@ -323,6 +325,59 @@ def test_chain_kernels_match_plain_on_card(cuda, d, p, steps, rolls):
             same(pk.chainio(*args), pk.chainio_plain(*args))
     assert kernels.LAUNCHES["probe_chain"] == before["probe_chain"] + 1
     assert kernels.LAUNCHES["probe_chainio"] > before["probe_chainio"]
+
+
+@pytest.mark.parametrize("b,h,w,d", [(2, 375, 450, 64), (8, 375, 450, 64),
+                                     (32, 375, 450, 64), (1, 1000, 1500, 256)])
+def test_chain_kernels_at_the_ladder_shapes_on_card(cuda, b, h, w, d):
+    """P1 and P2 at the recurrence-floor ladder's shapes (B*H paths of W
+    steps, one direction; 3*B*W paths of H steps, the vertical group), the
+    lanes chosen by the rule: bit-equal to the plain versions, P2 in every
+    pass shape with a ring of 4, one launch each."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    for x, steps, rolls in (
+            (_rand(53, 0, 65536, (b, d, h), np.uint16, cuda), w, (0,)),
+            (_rand(54, 0, 65536, (b, d, w), np.uint16, cuda), h, (0, 1, -1))):
+        n, p = len(rolls), x.shape[2]
+        before = dict(kernels.LAUNCHES)
+        same(pk.chain(x, steps, rolls, 10), pk.chain_plain(x, steps, rolls, 10))
+        cost = _rand(55, 0, 128, (b, 4, d, p), np.int32, cuda)
+        p2 = _rand(56, 10, 151, (b, n, 4, p), np.int32, cuda)
+        for extra in (0, 1, 2):
+            args = (x, cost, p2, steps, rolls, extra, 10)
+            same(pk.chainio(*args), pk.chainio_plain(*args))
+        assert kernels.LAUNCHES["probe_chain"] == before["probe_chain"] + 1
+        assert kernels.LAUNCHES["probe_chainio"] == before["probe_chainio"] + 3
+
+
+@pytest.mark.parametrize("d", [1, 3, 61, 255, 256])
+@pytest.mark.parametrize("rolls", [(0,), (0, 1, -1)])
+def test_chain_kernels_at_odd_disparity_ranges_on_card(cuda, d, rolls):
+    """Dead lanes (D not a multiple of the 2 W L disparities a path holds)
+    at every lane count that holds D, steps short of one lap of a ring of 4
+    and longer, every pass shape, P2 < 0 in some blocks and not in others:
+    bit-equal to the plain versions."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    b, p, n = 2, 37, len(rolls)
+    x = _rand(57, 0, 65536, (b, d, p), np.uint16, cuda)
+    cost = _rand(58, -5000, 5000, (b, 4, d, p), np.int32, cuda)
+    p2 = _rand(59, 0, 400, (b, n, 4, p), np.int32, cuda)
+    p2[1] -= 300                                   # the second frame's < 0
+    for lanes in (1, 2, 4, 8):
+        if 32 * lanes < d:
+            continue
+        for steps in (1, 3, 40):
+            same(pk.chain(x, steps, rolls, 10, lanes=lanes),
+                 pk.chain_plain(x, steps, rolls, 10))
+            for extra in (0, 1, 2, 3):
+                args = (x, cost, p2, steps, rolls, extra, 10)
+                same(pk.chainio(*args, lanes=lanes), pk.chainio_plain(*args))
+    with pytest.raises(ValueError, match="lanes"):
+        pk.chain(x, 3, rolls, 10, lanes=3)
+    with pytest.raises(ValueError, match="p1"):
+        pk.chain(x, 3, rolls, -1)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16])
@@ -541,7 +596,7 @@ def test_speckle_tail_kernels_match_plain_on_card(cuda, h, w, area, pc):
     before = dict(kernels.LAUNCHES)
     counts = pk.speckle_hist(grouped, h_hist, lo_bits)
     same(counts, pk.speckle_hist_plain(grouped, h_hist, lo_bits))
-    same(pk.speckle_hist(grouped, h_hist, lo_bits, aggregate=True), counts)
+    same(pk.speckle_hist(grouped, h_hist, lo_bits, aggregate=False), counts)
     small = pk.root_small(counts, area)
     verdict = pk.speckle_verdict(grouped, small)
     same(verdict, pk.speckle_verdict_plain(grouped, small))
@@ -568,6 +623,57 @@ def test_speckle_tail_kernels_match_plain_on_card(cuda, h, w, area, pc):
     same(got, kernels.count_verdict(disp, kernels.union_find_labels(disp), area))
     with pytest.raises(TypeError):
         pk.speckle_verdict(grouped, small.float())
+
+
+def _hist_matches_plain_in_both_modes(grouped, h_hist, lo_bits):
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    want = pk.speckle_hist_plain(grouped, h_hist, lo_bits)
+    before = kernels.LAUNCHES["probe_speckle_hist"]
+    same(pk.speckle_hist(grouped, h_hist, lo_bits), want)
+    same(pk.speckle_hist(grouped, h_hist, lo_bits, aggregate=False), want)
+    assert kernels.LAUNCHES["probe_speckle_hist"] == before + 2
+    # a frame length that is no multiple of 4: the masked tail
+    ragged = grouped.reshape(grouped.shape[0], 1, 1, -1)[..., :-3].contiguous()
+    want = pk.speckle_hist_plain(ragged, h_hist, lo_bits)
+    for aggregate in (True, False):
+        same(pk.speckle_hist(ragged, h_hist, lo_bits, aggregate), want)
+
+
+@pytest.mark.parametrize("b,h,w,dmax", [(2, 375, 450, 64), (8, 375, 450, 64),
+                                        (32, 375, 450, 64), (4, 37, 45, 48),
+                                        (1, 1000, 1500, 256)])
+def test_speckle_hist_on_the_engines_labels_on_card(cuda, b, h, w, dmax):
+    """S2 (runs merged in a thread, across the warp and in a block's table;
+    and the per-pixel control) on the labels of the engine's pre-speckle
+    disparity at cone B=2, 8, 32, 37x45 and Middlebury-half: bit-equal to
+    the plain version in both modes, one count per call."""
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        kernels as pk, prespeckle_disparity)
+
+    opt, disp = prespeckle_disparity(cuda, b, h, w, dmax)
+    labels, _ = pk.speckle_labels(disp, 1.0, "base")
+    _hist_matches_plain_in_both_modes(
+        *pk.group_labels(disp, labels, opt.min_speckle_area))
+
+
+@pytest.mark.parametrize("h,w,area", [(40, 70, 8), (48, 80, 40), (45, 71, 2)])
+def test_speckle_hist_on_hand_made_frames_on_card(cuda, h, w, area):
+    from soc_project_stereo_matching_tpu_torch.data.synthetic import (
+        speckle_frames)
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    disp = torch.from_numpy(speckle_frames(h, w, area)).to(cuda)
+    labels, _ = pk.speckle_labels(disp, 1.0, "base")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+    _hist_matches_plain_in_both_modes(grouped, h_hist, lo_bits)
+    # every label of a block distinct, and one label for a whole frame
+    size = h_hist << lo_bits
+    many = torch.arange(grouped.numel(), device=cuda) % size
+    _hist_matches_plain_in_both_modes(many.int().reshape(grouped.shape),
+                                      h_hist, lo_bits)
+    _hist_matches_plain_in_both_modes(torch.full_like(grouped, 7), h_hist,
+                                      lo_bits)
 
 
 def test_speckle_probes_run_on_card_and_write_json(cuda, tmp_path):

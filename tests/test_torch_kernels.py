@@ -297,15 +297,57 @@ def test_kernel_ab_s1_ablations_still_apply_to_the_probe_source(ablation):
     assert all(text.count(call) == 1 for call in kernel_ab._S1_PASS_CALLS)
 
 
+@pytest.mark.parametrize("ablation", sorted(kernel_ab.CHAIN_ABLATIONS))
+def test_kernel_ab_chain_ablations_still_apply_to_the_probe_source(ablation):
+    text = (_build.CSRC / "probe_recurrence.cu").read_text()
+    out = kernel_ab.patched(text, kernel_ab.CHAIN_ABLATIONS[ablation])
+    assert out is not None and out != text
+
+
 def test_kernel_ab_groups_and_the_probe_entries():
     """``--only`` picks among the groups, each comparing one C entry; the
     probe kernels' entries are found in their sources."""
-    assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1"}
+    assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
+                                     "chain", "s2"}
     found = kernel_ab.sources_defining(
-        _build.CSRC, [kernel_ab.GROUP_ENTRIES[g] for g in ("scan16", "s1")])
-    assert sorted(found) == ["probe_int16.cu", "probe_speckle.cu"]
+        _build.CSRC, [kernel_ab.GROUP_ENTRIES[g]
+                      for g in ("scan16", "s1", "chain", "s2")])
+    assert sorted(found) == ["probe_int16.cu", "probe_recurrence.cu",
+                             "probe_speckle.cu"]
     with pytest.raises(SystemExit, match="--only"):
         kernel_ab.main(["--parent", ".", "--only", "k2"])
+
+
+def test_kernel_ab_calls_the_first_chain_entries_without_lanes():
+    """The parent's P1/P2 entries took no lane count (a warp per path):
+    kernel_ab gives them this checkout's arguments up to ``p1``, then the
+    stream."""
+    first = kernel_ab.CHAIN_WARP_PER_PATH
+    assert first["sgm_probe_chain"] == \
+        _build.SIGNATURES["sgm_probe_chain"][:-2] + (ctypes.c_void_p,)
+    assert first["sgm_probe_chainio"] == \
+        _build.SIGNATURES["sgm_probe_chainio"][:-2] + (ctypes.c_void_p,)
+    # how kernel_ab tells the two apart: this checkout's entries take lanes
+    assert "int lanes" in (_build.CSRC / "probe_recurrence.cu").read_text()
+
+
+def test_isa_probe_program_and_its_listing():
+    """isa_probe's program has one kernel per operation, each a chain of
+    dependent applications timed by the SM clock, and its SASS counts skip
+    NOP, BRA and EXIT."""
+    from soc_project_stereo_matching_tpu_torch import isa_probe
+
+    text = isa_probe.source()
+    for i, expr in enumerate(isa_probe.OPS.values()):
+        assert f"void op{i}(" in text and f"x = {expr};" in text
+    assert text.count("clock64()") == 2 * len(isa_probe.OPS)
+    listing = ("\n\tFunction : op0\n\t\t/*0000*/ MOV R1 ;\n\t\t/*0010*/ NOP ;"
+               "\n\t\t/*0020*/ EXIT ;\n\tFunction : op1\n\t\t/*0000*/ IADD3 R1 ;"
+               "\n\t\t/*0010*/ VIMNMX R2 ;\n\t\t/*0020*/ BRA 0x10 ;")
+    assert isa_probe.sass_counts(listing) == {"op0": 1, "op1": 2}
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            isa_probe.main(["--out", "/nonexistent/never-written.json"])
 
 
 def test_kernel_ab_finds_the_sources_of_its_entries(tmp_path):

@@ -296,9 +296,105 @@ def test_chain_wrappers_refuse_bad_arguments():
     x = torch.zeros((1, 4, 8), dtype=torch.uint16, device="meta")
     with pytest.raises(ValueError):
         probe_kernels.chain(x, 4)                       # neither CPU nor CUDA
-    assert probe_kernels.chainio_shared_bytes(64, 3, 4) == 24 * (256 + 4 * 388)
-    assert probe_kernels.chainio_shared_bytes(256, 3, 375) \
+    # D=64, three directions, a ring of 4, two lanes a path: 16 words a
+    # lane, 10 columns of 6 threads in a block of 64 threads (32 paths); per
+    # path a row of 64 ints, per slot 16 cost words and 16 output words a
+    # thread and a P2 word a path
+    assert probe_kernels.chainio_shared_bytes(64, 3, 4, 2) == \
+        32 * 64 * 4 + 4 * (64 * 16 * 4 + 64 * 16 * 4 + 32 * 4)
+    assert probe_kernels.chainio_shared_bytes(256, 3, 375, 8) \
         > probe_kernels.MAX_SHARED_BYTES
+
+
+def j_chain_step(prev, pmin, cost, p1, p2):
+    """One step of scripts/recurrence_floor.py ``chain_kernel`` (:136-152)
+    on int32 (D, P) rows, the P2 row given: -> (cs, min over D)."""
+    d, w = prev.shape
+    sentinel = jnp.int32(pk.SENTINEL)
+    d_iota = jax.lax.broadcasted_iota(jnp.int32, (d, w), 0)
+    up = jnp.where(d_iota == 0, sentinel, jnp.roll(prev, 1, axis=0))
+    dn = jnp.where(d_iota == d - 1, sentinel, jnp.roll(prev, -1, axis=0))
+    m = jnp.minimum(jnp.minimum(prev, jnp.minimum(up, dn) + p1), pmin + p2)
+    cs = (cost + m - pmin) & 0xFF
+    return cs, jnp.min(cs, axis=0, keepdims=True)
+
+
+def chain_step_cases(d, p, rng):
+    """(prev, pmin, cost) int32 rows over the uint8 domain: every pair of
+    path minimum and cost byte along P (at P = 65536), the rows' values and
+    neighbours as ramps, noise, all 255 and all 0."""
+    col = np.arange(p)
+    pmin = col % 256
+    cost = (np.broadcast_to((col // 256) % 256, (d, p))
+            ^ rng.integers(0, 2, (d, p)))
+    ramp = (np.arange(d)[:, None] * 37 + col[None, :]) % 256
+    for prev in (ramp, rng.integers(0, 256, (d, p)), np.full((d, p), 255),
+                 np.zeros((d, p), np.int64)):
+        yield prev, pmin, cost
+
+
+@pytest.mark.parametrize("p1,p2", [(10, 150), (0, 0), (255, 255), (300, 2000),
+                                   (7, -5), (10, "int32")])
+def test_chain_step_matches_the_script_step_over_the_uint8_domain(p1, p2):
+    """The step of the redesigned ``chain_kernel`` (two disparities to a
+    32-bit word, P1 clamped to 255, pmin + P2 clamped to 0..255 with a
+    negative sum folded into the bias, dead lanes at 255) against the jnp
+    step of the script's kernel, for every lane count: the clamps change
+    nothing because m <= prev <= 255.  P2 values that saturate (2000), that
+    do not, that are negative, and every int32 (wrapping as in jnp)."""
+    rng = np.random.default_rng(72)
+    d, p = 3, 65536
+    for prev, pmin, cost in chain_step_cases(d, p, rng):
+        row = (rng.integers(-2 ** 31, 2 ** 31, p) if p2 == "int32"
+               else np.full(p, p2)).astype(np.int32)
+        want = j_chain_step(*(jnp.asarray(v, jnp.int32) for v in
+                              (prev, pmin[None], cost)), p1,
+                            jnp.asarray(row[None]))
+        for lanes in (1, 2, 4, 8):
+            got = probe_kernels.chain_step_plain(
+                t(prev), t(pmin), t(cost), p1, t(row), lanes)
+            same(got[0], np.asarray(want[0]))
+            same(got[1], np.asarray(want[1])[0])
+
+
+@pytest.mark.parametrize("d", [1, 3, 5, 61, 64, 255, 256])
+def test_chain_dead_lanes_read_as_sentinels(d):
+    """D not a multiple of the 2 W L disparities a path holds: the dead
+    lanes are held at 255, so L(D) reads as the sentinel and the path
+    minimum never sees them; the step and a carried packed chain against
+    the jnp step and the script's chain, at every lane count that holds D."""
+    rng = np.random.default_rng(73)
+    x = rng.integers(0, 65536, (1, d, 6)).astype(np.uint16)
+    cost_b, cmin_b = j_chain_state(jnp.asarray(x[0]), 9, (0,), P1)
+    for lanes in (1, 2, 4, 8):
+        if 32 * lanes < d:
+            continue
+        for prev, pmin, cost in chain_step_cases(d, 512, rng):
+            got = probe_kernels.chain_step_plain(t(prev), t(pmin), t(cost), P1,
+                                                 P2_INIT, lanes)
+            want = j_chain_step(*(jnp.asarray(v, jnp.int32) for v in
+                                  (prev, pmin[None], cost)), P1, P2_INIT)
+            same(got[0], np.asarray(want[0]))
+            same(got[1], np.asarray(want[1])[0])
+        got = probe_kernels.chain_packed_plain(t(x), 9, P1, lanes)
+        same(got[0].numpy(), (cost_b[0] + cmin_b[0]).astype(jnp.uint16))
+
+
+@pytest.mark.parametrize("d,paths,lanes", [
+    (64, 3000, 4),        # cone B=8, one direction
+    (64, 750, 8),         # cone B=2, one direction: under 264 warps at four
+    (64, 2250, 4),        # cone B=2, the vertical group
+    (64, 10800, 4), (64, 43200, 4), (32, 43200, 4), (16, 12000, 4),
+    (128, 5000, 4), (129, 100000, 8), (256, 1000, 8), (256, 4500, 8),
+    (1, 1, 8)])
+def test_chain_lanes_rule(d, paths, lanes):
+    """The lanes a path takes on an H100's 132 SMs: four, eight where D >
+    128 or where four give fewer warps than half its 528 schedulers; the
+    words a lane holds cover D, at most 16."""
+    assert probe_kernels.chain_lanes(d, paths, 132) == lanes
+    words = probe_kernels.chain_words(d, lanes)
+    assert 2 * words * lanes >= d and words <= 16
+    assert words == 1 or 2 * (words // 2) * lanes < d
 
 
 # --- (b) the volume transpose and the transposed horizontal pair ------------------------
@@ -469,6 +565,33 @@ def test_probe_run_on_cpu_returns_its_schema_untimed(probe, variants, extra_keys
         assert all(rec == {"ok": True} for rec in doc["probes"].values())
     if probe is recurrence_floor:
         assert doc["summary"]["prod_over_floor"] is None
+
+
+def test_recurrence_floor_summary_counts_the_main_path_launches():
+    """floor and achievable over the main path's four scan launches (two
+    one-direction horizontal ones, two three-direction vertical groups)
+    and its three transposes, on made-up times."""
+    ms = {"chain1": 1.0, "chain3": 10.0, "chainio1_f": 2.0, "chainio1_m": 3.0,
+          "chainio1_b": 30.0, "chainio3_f": 4.0, "chainio3_m": 5.0,
+          "chainio3_b": 6.0, "hpart": 7.0, "prod3": 8.0, "prod1": 9.0,
+          "prod3_old": 11.0}
+    variants = {name: {"ms_per_frame": v} for name, v in ms.items()}
+    gb_s = 1.0                          # 1e6 elements: 1 ms a byte
+    s = recurrence_floor._summary(variants, gb_s, 1_000_000)
+    assert s["floor_ms_per_frame"] == 2 * 1.0 + 2 * 10.0
+    # the horizontal pair's forward launch (chainio1_f, 3 bytes an element)
+    # and its reverse one (chainio1_b, 5: it reads the sum), both vertical
+    # groups (chainio3_m, 5), then the three transposes: cost there (2),
+    # the sum back (4)
+    assert s["achievable_ms_per_frame"] == \
+        max(2.0, 3.0) + max(30.0, 5.0) + max(5.0, 5.0) + max(5.0, 5.0) + 6.0
+    assert s["prod_ms_per_frame"] == 7.0 + 2 * 8.0
+    assert s["prod_first_design_ms_per_frame"] == 2 * 9.0 + 2 * 11.0
+    assert s["prod_over_floor"] == 23.0 / 22.0
+    assert "2 chain1 + 2 chain3" in s["note"]
+    assert recurrence_floor._summary(
+        {**variants, "chain1": {"ms_per_frame": None}}, gb_s,
+        1)["floor_ms_per_frame"] is None
 
 
 def test_probes_refuse_without_a_card():

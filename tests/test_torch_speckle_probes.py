@@ -466,6 +466,54 @@ def test_tail_wrappers_refuse_bad_arguments():
     assert verdict[0, 0, 0, :4].tolist() == [0.0, 0.0, 1.0, 1.0]
 
 
+def _hist_cases():
+    """Hand-made grouped labels (B, ngroups, 1, chunk) for S2, on a root
+    plane of 16 rows of 2^7 columns (2048 roots), and what the merged
+    count's device-memory adds must be at most."""
+    rng = np.random.default_rng(81)
+    size, tile = 16 << 7, probe_kernels.HIST_TILE
+    blocks = -(-3 * 1000 // tile)
+    return {
+        # one label fills each frame: one add per block
+        "one label a frame": (np.full((2, 3, 1, 1000), 77), 2 * blocks),
+        # two labels alternate: two adds per block
+        "alternating": (np.tile([5, 9], (2, 3, 1, 500)), 2 * 2 * blocks),
+        # sentinels, -1 and labels past the plane count nowhere
+        "sentinels": (np.where(rng.random((2, 3, 1, 1000)) < 0.5,
+                               rng.choice([-1, size, size + 7, 2 ** 31 - 1],
+                                          (2, 3, 1, 1000)), 3), 2 * blocks),
+        # runs of random lengths that cross quads, warps and blocks
+        "runs": (np.repeat(rng.integers(0, 40, 200), rng.integers(1, 30, 200))
+                 [:2 * 3 * 333].reshape(2, 3, 1, 333), None),
+        # per_frame = 3 * 333, not a multiple of 4: a ragged tail
+        "ragged": (rng.integers(0, 6, (1, 3, 1, 333)), None),
+        # every label of a block distinct: the most keys a block's table
+        # meets, half its slots
+        "a block of distinct labels": (
+            np.stack([rng.permutation(size)[:tile] for _ in range(2)])
+            .reshape(2, 1, 1, tile), 2 * tile),
+        "noise": (rng.integers(-3, size + 3, (2, 3, 1, 1000)), None),
+    }
+
+
+@pytest.mark.parametrize("case", list(_hist_cases()))
+def test_hist_merge_matches_bincount(case):
+    """S2's aggregated count as its kernel decomposes it (runs in a thread,
+    the warp's runs merged at each quad position, a block's table, one add
+    per distinct label of a block) against ``torch.bincount`` (the plain
+    version), and the adds it makes."""
+    labels, most_adds = _hist_cases()[case]
+    labels = t(labels.astype(np.int32))
+    got, adds, most = probe_kernels.speckle_hist_merge_plain(labels, 16, 7)
+    same(got.numpy(), probe_kernels.speckle_hist_plain(labels, 16, 7).numpy())
+    flat = labels.reshape(labels.shape[0], -1).numpy()
+    valid = (flat >= 0) & (flat < 16 << 7)
+    assert int(got.sum()) == int(valid.sum())
+    if most_adds is not None:
+        assert adds <= most_adds
+    assert most <= probe_kernels.HIST_TILE <= probe_kernels.HIST_SLOTS // 2
+
+
 # --- (d) the probe modules ------------------------------------------------------------------------
 
 SMALL = dict(device="cpu", batch=4, h=24, w=40, dmax=16, reps=1)
