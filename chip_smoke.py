@@ -88,6 +88,12 @@ Phases (each raises on failure, so the script exits non-zero):
       beside K4 whole and K4's label stage, on the engine's pre-speckle
       disparity at cone B=2, 8, 32 and 1000x1500 D=256 B=1, S1's labels held
       equal to K4's first;
+   d. the "S4" ladder: at the same four shapes, on the grouped labels of
+      S1 ``base``, S4 ``speckle_tail_fused`` in both modes held bit-equal
+      to its plain version and to S2 -> ``root_small`` -> S3, one launch a
+      call asserted; its device time (``torch.profiler``) beside its byte
+      bound and its share of it, beside K4's tail (``count_verdict``) and
+      the two-launch tail;
 8. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time), then the contract line
@@ -912,6 +918,63 @@ def speckle_ladder() -> None:
         torch.cuda.empty_cache()
 
 
+def s4_ladder() -> None:
+    """Hold S4 in both modes bit-equal to its plain version and to S2 ->
+    ``root_small`` -> S3 at cone B=2, 8, 32 and 1000x1500 D=256 B=1, one
+    launch a call; print its device time beside its byte bound, K4's tail
+    and the two-launch tail."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.kernel_ab import kernel_ms
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        prespeckle_disparity)
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    shapes = [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]
+    for cfg in shapes:
+        b, h, w = cfg["batch"], cfg["h"], cfg["w"]
+        opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w,
+                                         cfg["dmax"])
+        area = opt.min_speckle_area
+        labels, _ = pk.speckle_labels(disp, 1.0, "base")
+        grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+
+        def two_launch():
+            counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+            return pk.speckle_verdict(grouped, pk.root_small(counts, area))
+
+        want = pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits)
+        max_abs_err(two_launch(), want)
+        for aggregate in (True, False):
+            before = kernels.LAUNCHES["probe_speckle_fused"]
+            max_abs_err(pk.speckle_tail_fused(grouped, area, h_hist, lo_bits,
+                                              aggregate), want)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["probe_speckle_fused"] != before + 1:
+                raise AssertionError("S4 did not count one launch a call")
+        flat = kernels.union_find_labels(disp, 1.0)
+        device = {name: sum(kernel_ms(fn).values()) for name, fn in {
+            "S4": lambda: pk.speckle_tail_fused(grouped, area, h_hist,
+                                                lo_bits),
+            "S4 one add a pixel": lambda: pk.speckle_tail_fused(
+                grouped, area, h_hist, lo_bits, aggregate=False),
+            "K4's tail": lambda: kernels.count_verdict(disp, flat, area),
+            "S2 -> root_small -> S3": two_launch}.items()}
+        nbytes = 8 * grouped.numel()    # the labels in, the verdict out
+        bnd = bound(nbytes, 5 * grouped.numel())["bound_ms"]
+        share = (f"{100 * bnd / device['S4']:.0f}%" if device["S4"]
+                 else "not measured")
+        plan = pk.speckle_tail_plan(b, grouped[0].numel())
+        print(f"S4 ladder, {h}x{w} B={b} (device ms a call, torch.profiler; "
+              f"{plan['rounds']} round(s) of {plan['blocks']} blocks): "
+              + ", ".join(f"{name} {t:.4f}" for name, t in device.items())
+              + f"; S4's bound {bnd:.5f} ms ({nbytes} bytes), {share} of "
+              f"it; bit-equal in both modes")
+        del disp, labels, grouped, want, flat
+        torch.cuda.empty_cache()
+
+
 def hard_frames(b: int, h: int, w: int, area: int):
     """f32 (b, h, w) hand-made speckle inputs on the card (b >= 4): frame 0
     noise with a full-height line and components of exactly ``area`` and
@@ -1061,7 +1124,8 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
         "probe_speckle_fused": (
             lambda: pk.speckle_tail_fused(grouped, area, h_hist, lo_bits),
             lambda: pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits),
-            # the labels in, the verdict out; the counts stay in the L2
+            # the labels in, the verdict out; the counts (a zero and an add
+            # per distinct label of a block) stay in the L2
             bound(8 * grp, 5 * grp), None),
     }
     for name, (fn, plain, bnd, library) in timed.items():
@@ -1102,6 +1166,7 @@ def speckle_phase() -> tuple:
               f"frame = ms per launch / B):")
         print(probe.report(doc))
     speckle_ladder()
+    s4_ladder()
     return records, launches
 
 

@@ -53,6 +53,7 @@ SIGNATURES = {
     "sgm_probe_speckle_hist": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_speckle_verdict": (_P, _P, _P, _I, _I, _I, _P),
     "sgm_probe_speckle_fused": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sgm_probe_speckle_fused_plan": (_I, _I, _I, _P),
 }
 
 _lib = None

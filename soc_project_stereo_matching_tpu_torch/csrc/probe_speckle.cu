@@ -75,14 +75,58 @@
 //   cannot fill), and adds once per distinct label of the block; its
 //   zeroing of the counts is a memset before it.  `aggregate` false keeps
 //   one device-memory add per pixel, the probe's control for what
-//   contention on a large component's word costs.  S4 (first design) lets
-//   a warp add once per distinct label (__match_any_sync, add_count).  S4
-//   needs every count of a frame
-//   before any verdict: a cluster of 8 blocks per frame, cluster.sync()
-//   between.  S3 at the probe's shape moves 11 MB and a launch's latency
-//   bounds it; its design keeps the instruction count down: the frame is a
-//   grid axis, a thread loads four labels in 16 bytes, has its four gathers
-//   in flight together and stores 16 bytes.
+//   contention on a large component's word costs.  S3 at the probe's shape
+//   moves 11 MB and a launch's latency bounds it; its design keeps the
+//   instruction count down: the frame is a grid axis, a thread loads four
+//   labels in 16 bytes, has its four gathers in flight together and stores
+//   16 bytes.
+//   S4 (redesigned) is S2, root_small and S3 in one launch, with no memset.
+//   What bounds it: bytes (the labels in, the verdicts out, 8 a pixel) and
+//   a launch's fixed cost: every count of a frame must be in before any
+//   verdict reads it, so the launch is cooperative
+//   (cudaLaunchAttributeCooperative) and its blocks meet at two grid
+//   barriers, cg::this_grid().sync() (header-only since CUDA 11: no -rdc),
+//   every zero before any add, every add before any verdict.  The grid is
+//   every block the card holds at once (one block of 1024 threads an SM,
+//   asked once per device), and the batch's labels, taken as one flat
+//   array, are spread over the blocks in contiguous shares, thread t of a
+//   block holding up to four neighbouring quads (16 labels), read 16 bytes
+//   at a time (a quad that crosses a frame's end gives each label its own
+//   frame).  The labels stay in registers across both barriers, so they
+//   are read once.  Before the first barrier a thread merges its equal
+//   neighbours into runs and adds each run into the block's open-addressing
+//   table in shared memory (a slot is read before it is claimed, so a key
+//   the table holds costs one atomic), and the block stores 0 in device
+//   memory at each key its table claimed; after it, one add per key; after
+//   the second, a thread reads one count through the L2 (__ldcg) per run,
+//   all its loads in flight together, packs its verdicts into bits, and the
+//   warp stores them coalesced: in step k lane l stores the warp's quad
+//   32 k + l, its four verdicts shuffled from the thread that holds it, in
+//   one 16-byte store.  So only the roots that the labels name are zeroed,
+//   one store per distinct label of a block, where the first design zeroed
+//   the whole h_hist x lo plane of every frame (786 KB a frame at the cone
+//   shape, 8.26 MB at 1000x1500), and one add goes to device memory per
+//   distinct label of a block.  A table has a slot for each label of its
+//   block (at most 16384), twice as many where that fits, so it cannot
+//   fill.  A batch with more labels than the blocks hold at once (cone B=32:
+//   5.96 M labels, 2.16 M a round on an NVIDIA H100's 132 blocks) runs in
+//   rounds of whole frames, the tile a block takes chosen so that its table
+//   holds every key of it; two barriers a round.  Frames of different
+//   rounds never share a count, so a round's verdicts and the next round's
+//   zeros need no barrier between them.  A frame larger than one round is
+//   refused, as is a card that cannot hold a block
+//   (cudaErrorCooperativeLaunchTooLarge).  `aggregate` false keeps one
+//   zero store and one device-memory add per pixel, the control.
+//   Tried and dropped (kernel_ab.py's ablations and PERF.md, PR 10): S2's
+//   merge across the warp (__match_any_sync, __reduce_add_sync, a round per
+//   run) before the table, slower than the inserts it saves; a thread
+//   taking quads 1024 apart (each warp load and store contiguous), whose
+//   runs were cut at every quad; fewer blocks for small batches (a quad a
+//   thread at least), no faster.
+//   The first design, a cluster of 8 blocks of 1024 threads per frame,
+//   zeroed the whole root plane, read the labels twice, a label a thread at
+//   a time, crossed two cluster.sync() and by default added once per pixel;
+//   at cone B=8 its 64 blocks left half the SMs without one.
 
 #include <algorithm>
 #include <cmath>
@@ -94,9 +138,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kClusterBlocks = 8;         // of S4
-constexpr int kThreads = 1024;            // of S4's block
-constexpr int kClusterThreads = kClusterBlocks * kThreads;
 constexpr int kLabelThreads = 1024;       // of an S1 block
 constexpr int kLabelWarps = kLabelThreads / 32;
 constexpr int kMaxLabelCluster = 16;      // blocks of an S1 cluster, at most
@@ -108,6 +149,14 @@ constexpr int kHistSlotBits = 11;         // its table: twice the keys
 constexpr int kHistSlots = 1 << kHistSlotBits;         // it can meet
 constexpr int kVerdictThreads = 256;      // of S3
 constexpr int kVerdictLabels = 4;         // labels a thread of S3 takes
+constexpr int kTailThreads = 1024;        // of an S4 block
+constexpr int kTailQuads = 4;             // quads a thread of S4 holds
+constexpr int kTailBlockLabels = 4 * kTailQuads * kTailThreads;  // a block's
+constexpr int kTailSlotBits = 14;         // its table: a slot a label
+constexpr int kTailSlots = 1 << kTailSlotBits;
+static_assert(kTailSlots >= kTailBlockLabels, "an S4 table cannot fill");
+// keys, counts and the claim order of an S4 block's largest table
+constexpr int kTailSmem = 3 * kTailSlots * (int)sizeof(int);
 constexpr int kFixedRounds = 16;          // of fori16
 constexpr int kBlockFrames = 4;           // of block4
 constexpr int kBatch = 4;                 // pixels a thread has in flight
@@ -907,35 +956,27 @@ int labels_cluster(const CardFacts& card, int programs, long long pixels,
 
 // --- S2-S4 ---------------------------------------------------------------------
 
-// One pixel's count: at counts[key], or once per distinct key of the warp.
-// Every lane of the warp must call it.
-__device__ __forceinline__ void add_count(int* counts, bool valid, int key,
-                                          int aggregate) {
-  if (!aggregate) {
-    if (valid) atomicAdd(counts + key, 1);
-    return;
-  }
-  const unsigned peers = __match_any_sync(kFull, valid ? key : -1);
-  if (valid && (threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(counts + key, __popc(peers));
-}
-
-// S2's block table: open addressing with linear probing, a key -1 while its
-// slot is empty.  The slot's count is zero before the key is set (the
-// table is cleared before a barrier), so an add may follow either.  A
-// block meets at most kHistTile keys, half the slots: an insert always
-// finds its key or an empty slot.
+// A block's table (S2, S4): open addressing with linear probing over 2^bits
+// slots, a key -1 while its slot is empty.  The slot's count is zero
+// before the key is set (the table is cleared before a barrier), so an add
+// may follow either.  A block meets no more keys than it has slots (S2:
+// kHistTile, half its slots): an insert always finds its key or an empty
+// slot.  PEEK (S4): a slot is read before it is claimed, so that a key the
+// table holds costs one atomic, not two.
+template <bool PEEK>
 __device__ __forceinline__ void table_add(int* keys, int* vals, int* order,
-                                          int* used, int key, int n) {
-  unsigned h = ((unsigned)key * 2654435761u) >> (32 - kHistSlotBits);
+                                          int* used, int key, int n,
+                                          int bits) {
+  unsigned h = ((unsigned)key * 2654435761u) >> (32 - bits);
   for (;;) {
-    const int seen = atomicCAS(keys + h, -1, key);
+    int seen = PEEK ? *(volatile int*)(keys + h) : -1;
+    if (seen == -1) seen = atomicCAS(keys + h, -1, key);
     if (seen == -1) order[atomicAdd(used, 1)] = (int)h;
     if (seen == -1 || seen == key) {
       atomicAdd(vals + h, n);
       return;
     }
-    h = (h + 1) & (kHistSlots - 1);
+    h = (h + 1) & ((1u << bits) - 1);
   }
 }
 
@@ -1001,7 +1042,7 @@ hist_kernel(const int* __restrict__ lab, int* counts, int per_frame, int size,
     const unsigned peers = __match_any_sync(kFull, k);
     const int total = __reduce_add_sync(peers, head ? len[j] : 0);
     if (head && (t & 31) == __ffs(peers) - 1)
-      table_add(keys, vals, order, &used, k, total);
+      table_add<false>(keys, vals, order, &used, k, total, kHistSlotBits);
   }
   __syncthreads();
   for (int s = t; s < used; s += kHistThreads) {
@@ -1051,36 +1092,317 @@ verdict_kernel(const int* __restrict__ lab,
   }
 }
 
-// A cluster per frame: zero the counts, count, then read the verdicts.
-__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
-__launch_bounds__(kThreads)
-fused_kernel(const int* __restrict__ lab, int* counts,
-             float* __restrict__ out, int per_frame, int size, int min_area,
-             int aggregate) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int frame = blockIdx.x / kClusterBlocks;
-  const int tid = (int)cluster.block_rank() * kThreads + threadIdx.x;
-  lab += (size_t)frame * per_frame;
-  out += (size_t)frame * per_frame;
-  counts += (size_t)frame * size;
-  for (int i = tid; i < size; i += kClusterThreads) counts[i] = 0;
-  cluster.sync();
-  // whole warps go round together: add_count needs every lane
-  const int padded = (per_frame + 31) / 32 * 32;
-  for (int i = tid; i < padded; i += kClusterThreads) {
-    const int l = i < per_frame ? lab[i] : -1;
-    const bool valid = (unsigned)l < (unsigned)size;
-    add_count(counts, valid, valid ? l : 0, aggregate);
-  }
-  cluster.sync();
-  for (int i = tid; i < per_frame; i += kClusterThreads) {
-    const int l = lab[i];
-    const int n = (unsigned)l < (unsigned)size ? __ldcg(counts + l) : 0;
-    out[i] = (n > 0 && n < min_area) ? 1.0f : 0.0f;
+// S4's share of a round: the frames [f0, f1) of the batch are the labels
+// [start, end) of the flat array, in the quads [start / 4, ceil(end / 4));
+// a block takes `share` of them, [q0, q1), its thread t the `held`
+// neighbouring quads from q0 + held * t, at most 16 neighbouring labels.
+// Every field but q0 and q1 is the same for every block.
+struct TailRound {
+  int start, end;   // labels of the round
+  int q0, q1;       // this block's quads
+  int held;         // quads a thread holds: <= kTailQuads (tail_plan)
+};
+
+constexpr int kTailLabels = 4 * kTailQuads;   // labels a thread holds
+
+__device__ __forceinline__ TailRound tail_round(int f0, int f1,
+                                                int per_frame) {
+  TailRound r;
+  r.start = f0 * per_frame;
+  r.end = f1 * per_frame;
+  const int q_lo = r.start >> 2, q_hi = (r.end + 3) >> 2;
+  const int share = (q_hi - q_lo + (int)gridDim.x - 1) / (int)gridDim.x;
+  r.q0 = min(q_hi, q_lo + (int)blockIdx.x * share);
+  r.q1 = min(q_hi, r.q0 + share);
+  r.held = (share + kTailThreads - 1) / kTailThreads;
+  return r;
+}
+
+// The first label of a thread's quads.
+__device__ __forceinline__ int tail_first(const TailRound& r) {
+  return 4 * (r.q0 + r.held * (int)threadIdx.x);
+}
+
+// A thread's labels, label p of it at key[p / 4][p % 4]: its quads' loads
+// go out, 16 bytes each where the quad lies in the round and `wide`; -1 for
+// a label that is not the thread's.
+__device__ __forceinline__ void tail_load(const int* __restrict__ lab,
+                                          const TailRound& r, int wide,
+                                          int (&key)[kTailQuads][4]) {
+  const int i0 = tail_first(r);
+#pragma unroll
+  for (int k = 0; k < kTailQuads; ++k) {
+    const int i = i0 + 4 * k;
+    const bool mine = k < r.held && i < 4 * r.q1;
+    if (mine && wide && i >= r.start && i + 4 <= r.end) {
+      const int4 v = *reinterpret_cast<const int4*>(lab + i);
+      key[k][0] = v.x, key[k][1] = v.y, key[k][2] = v.z, key[k][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        key[k][j] = mine && i + j >= r.start && i + j < r.end ? lab[i + j] : -1;
+    }
   }
 }
 
+// The labels as count indices: f * size + label for a label inside its
+// frame's root plane, -1 for any other (the sentinel, a label outside the
+// plane, a label that is not the thread's).
+__device__ __forceinline__ void tail_keys(const TailRound& r, int per_frame,
+                                          int size,
+                                          int (&key)[kTailQuads][4]) {
+  const int i0 = tail_first(r);
+  const int f = i0 / per_frame, rem = i0 - f * per_frame;
+#pragma unroll
+  for (int p = 0; p < kTailLabels; ++p) {
+    int fp = f, rp = rem + p;   // the label's frame
+    while (rp >= per_frame) {
+      rp -= per_frame;
+      ++fp;
+    }
+    int& k = key[p / 4][p % 4];
+    k = (unsigned)k < (unsigned)size ? fp * size + k : -1;
+  }
+}
+
+// Bit p: label p of a thread starts a run of equal keys (its first label
+// and every label whose key differs from the one before).
+__device__ __forceinline__ unsigned tail_runs(const int (&key)[kTailQuads][4]) {
+  unsigned seg = 1;
+#pragma unroll
+  for (int p = 1; p < kTailLabels; ++p)
+    seg |= (unsigned)(key[p / 4][p % 4] != key[(p - 1) / 4][(p - 1) % 4]) << p;
+  return seg;
+}
+
+// A thread's runs of a key (not -1) added into the block's table, one
+// insert a run.  No lane waits for another: merging the lanes' runs across
+// the warp first (__match_any_sync and __reduce_add_sync, a round per run,
+// as S2 merges) cost more than the inserts it saved (PERF.md, PR 10).
+__device__ __forceinline__ void insert_runs(const int (&key)[kTailQuads][4],
+                                            int* keys, int* vals, int* order,
+                                            int* used, int bits) {
+  const unsigned seg = tail_runs(key);
+  unsigned heads = 0;
+#pragma unroll
+  for (int p = 0; p < kTailLabels; ++p)
+    heads |= (unsigned)(seg >> p & 1 && key[p / 4][p % 4] >= 0) << p;
+  while (heads) {
+    const int p = __ffs(heads) - 1;
+    heads &= heads - 1;
+    int k = -1;
+#pragma unroll
+    for (int q = 0; q < kTailLabels; ++q)
+      if (q == p) k = key[q / 4][q % 4];
+    const unsigned after = seg >> p >> 1;   // the next run's start
+    table_add<true>(keys, vals, order, used, k,
+                    after ? __ffs(after) : kTailLabels - p, bits);
+  }
+}
+
+// Before the first barrier: AGG, the block's table is cleared while the
+// labels are in flight, its threads' runs are added into it, and 0 is
+// stored at each key it claimed; else 0 at every label's key.
+template <bool AGG>
+__device__ __forceinline__ void tail_zero(int* counts, const TailRound& r,
+                                          int per_frame, int size, int bits,
+                                          int (&key)[kTailQuads][4],
+                                          int* keys, int* vals, int* order,
+                                          int* used) {
+  if (!AGG) {
+    tail_keys(r, per_frame, size, key);
+#pragma unroll
+    for (int k = 0; k < kTailQuads; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (key[k][j] >= 0) counts[key[k][j]] = 0;
+    return;
+  }
+  for (int s = threadIdx.x; s < 1 << (bits - 2); s += kTailThreads) {
+    reinterpret_cast<int4*>(keys)[s] = make_int4(-1, -1, -1, -1);
+    reinterpret_cast<int4*>(vals)[s] = make_int4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) *used = 0;
+  tail_keys(r, per_frame, size, key);
+  __syncthreads();
+  insert_runs(key, keys, vals, order, used, bits);
+  __syncthreads();
+  for (int s = threadIdx.x; s < *used; s += kTailThreads)
+    counts[keys[order[s]]] = 0;
+}
+
+// Between the barriers: AGG, one add per key of the block's table; else
+// one per label.
+template <bool AGG>
+__device__ __forceinline__ void tail_add(int* counts,
+                                         const int (&key)[kTailQuads][4],
+                                         const int* keys, const int* vals,
+                                         const int* order, const int* used) {
+  if (!AGG) {
+#pragma unroll
+    for (int k = 0; k < kTailQuads; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (key[k][j] >= 0) atomicAdd(counts + key[k][j], 1);
+    return;
+  }
+  for (int s = threadIdx.x; s < *used; s += kTailThreads) {
+    const int h = order[s];
+    atomicAdd(counts + keys[h], vals[h]);
+  }
+}
+
+// After the second barrier: a count through the L2 for each run of a key
+// (a run's labels share it), all of a thread's loads in flight together,
+// its verdicts as bits of a mask.  The stores go out coalesced: the warp's
+// threads hold its quads `held` by `held`, and in step k lane l stores the
+// warp's quad 32 k + l, its four verdicts shuffled from the mask of the
+// thread that holds it (one 16-byte store where the quad lies in the round
+// and `wide`).
+__device__ __forceinline__ void tail_verdict(const int* counts,
+                                             float* __restrict__ out,
+                                             const TailRound& r,
+                                             const int (&key)[kTailQuads][4],
+                                             int min_area, int wide) {
+  const unsigned seg = tail_runs(key);
+  int n[kTailLabels];
+#pragma unroll
+  for (int p = 0; p < kTailLabels; ++p) {
+    const int k = key[p / 4][p % 4];
+    n[p] = seg >> p & 1 && k >= 0 ? __ldcg(counts + k) : 0;
+  }
+  unsigned small = 0;
+#pragma unroll
+  for (int p = 0; p < kTailLabels; ++p) {
+    if (p > 0 && !(seg >> p & 1)) n[p] = n[p - 1];
+    small |= (unsigned)(n[p] > 0 && n[p] < min_area) << p;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp_q = r.q0 + r.held * ((int)threadIdx.x - lane);
+#pragma unroll
+  for (int k = 0; k < kTailQuads; ++k) {
+    if (k >= r.held) break;   // the same for the whole block
+    const int c = 32 * k + lane;   // the warp's quad this lane stores
+    const unsigned m = __shfl_sync(kFull, small, c / r.held);
+    const int i = 4 * (warp_q + c);
+    if (i >= 4 * r.q1) continue;
+    const unsigned bits = m >> 4 * (c % r.held) & 15;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = bits >> j & 1 ? 1.0f : 0.0f;
+    if (wide && i >= r.start && i + 4 <= r.end) {
+      *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i + j >= r.start && i + j < r.end) out[i + j] = v[j];
+    }
+  }
+}
+
+// S4 (see the header).  A cooperative launch of tail_plan's blocks; rounds
+// of `frames` whole frames; a block's table of 2^bits slots (tail_smem).
+// Every block reaches every barrier: no thread leaves early, and the loop
+// around the verdict's shuffles is the same for the whole block.  counts:
+// int32 (B, size), anything on entry.
+template <bool AGG>
+__global__ void __launch_bounds__(kTailThreads, 1)
+tail_kernel(const int* __restrict__ lab, int* counts, float* __restrict__ out,
+            int B, int per_frame, int size, int min_area, int frames,
+            int bits, int wide) {
+  cg::grid_group grid = cg::this_grid();
+  int* keys = reinterpret_cast<int*>(block_smem);   // AGG: tail_smem(bits)
+  int* vals = keys + (1 << bits);
+  int* order = vals + (1 << bits);
+  __shared__ int used;
+  for (int f0 = 0; f0 < B; f0 += frames) {
+    const TailRound r = tail_round(f0, min(B, f0 + frames), per_frame);
+    int key[kTailQuads][4];
+    tail_load(lab, r, wide, key);
+    tail_zero<AGG>(counts, r, per_frame, size, bits, key, keys, vals, order,
+                   &used);
+    grid.sync();   // every zero before any add
+    tail_add<AGG>(counts, key, keys, vals, order, &used);
+    grid.sync();   // every add before any verdict
+    tail_verdict(counts, out, r, key, min_area, wide);
+  }
+}
+
+// What an S4 launch asks the card once per device: how many blocks of each
+// mode it holds at once (0 without cooperative launches); the kernel's
+// shared memory is set on the first ask.
+struct TailFacts {
+  int resident[2];   // [aggregate]
+};
+
+cudaError_t tail_facts(const TailFacts** facts) {
+  static TailFacts known[kDevices];
+  static bool asked[kDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kDevices) return cudaErrorInvalidDevice;
+  TailFacts& f = known[device];
+  *facts = &f;
+  if (asked[device]) return cudaSuccess;
+  int coop = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(tail_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTailSmem);
+  if (err != cudaSuccess) return err;
+  int n[2];
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n[0], tail_kernel<false>,
+                                                      kTailThreads, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n[1], tail_kernel<true>,
+                                                      kTailThreads, kTailSmem);
+  if (err != cudaSuccess) return err;
+  for (int m = 0; m < 2; ++m) f.resident[m] = coop ? n[m] * sms : 0;
+  asked[device] = true;
+  return cudaSuccess;
+}
+
+// A launch's grid and rounds: every block the card holds at once; as many
+// whole frames a round as leave a block no more than kTailBlockLabels
+// labels (with the two quads that may cross a round's ends); a table of
+// twice as many slots as a block's labels where that fits, else one a
+// label.  A card that holds no block, or a frame that one round cannot
+// take, is refused.
+struct TailPlan {
+  int blocks, frames, rounds, bits;
+};
+
+// The shared memory of a table of 2^bits slots: keys, counts and the claim
+// order (no more keys than slots).
+int tail_smem(int bits) { return 3 * (1 << bits) * (int)sizeof(int); }
+
+cudaError_t tail_plan(int resident, int B, int per_frame, TailPlan* p) {
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  p->blocks = resident;
+  const long long cap = (long long)p->blocks * kTailBlockLabels - 8;
+  p->frames = (int)std::min<long long>(B, cap / per_frame);
+  if (p->frames < 1) return cudaErrorCooperativeLaunchTooLarge;
+  p->rounds = (B + p->frames - 1) / p->frames;
+  // the most quads a round can have, and a block's share of them
+  const long long quads = ((long long)p->frames * per_frame + 6) / 4 + 1;
+  const long long share = (quads + p->blocks - 1) / p->blocks;
+  p->bits = 5;
+  while ((1LL << p->bits) < 8 * share && p->bits < kTailSlotBits) ++p->bits;
+  return cudaSuccess;
+}
+
 bool fits_int(long long n) { return n >= 0 && n <= 0x7fffffffLL; }
+
+// S4's indices stay in int: a label's count index, and a quad's label index
+// up to a block's labels past the batch's end.
+bool tail_fits(int B, int per_frame, int size) {
+  return fits_int((long long)B * per_frame + 2 * kTailBlockLabels) &&
+         fits_int((long long)B * size);
+}
 
 }  // namespace
 
@@ -1156,18 +1478,62 @@ extern "C" int sgm_probe_speckle_verdict(const void* lab, const void* small,
   return (int)cudaGetLastError();
 }
 
-// lab: int32 (B, per_frame); counts: int32 (B, size) scratch; out: f32
-// (B, per_frame).
+// lab: int32 (B, per_frame); counts: int32 (B, size) scratch, anything on
+// entry; out: f32 (B, per_frame).  One cooperative launch, no memset.
 extern "C" int sgm_probe_speckle_fused(const void* lab, void* counts,
                                        void* out, int B, int per_frame,
                                        int size, int min_area, int aggregate,
                                        void* stream) {
   if (B == 0 || per_frame == 0) return 0;
-  if (!fits_int((long long)per_frame + 32) ||
-      !fits_int((long long)B * kClusterBlocks))
+  if (B < 0 || per_frame < 0 || size < 0 || !tail_fits(B, per_frame, size))
     return (int)cudaErrorInvalidValue;
-  fused_kernel<<<B * kClusterBlocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)lab, (int*)counts, (float*)out, per_frame, size, min_area,
-      aggregate);
-  return (int)cudaGetLastError();
+  const TailFacts* card = nullptr;
+  cudaError_t err = tail_facts(&card);
+  if (err != cudaSuccess) return (int)err;
+  TailPlan plan;
+  err = tail_plan(card->resident[aggregate ? 1 : 0], B, per_frame, &plan);
+  if (err != cudaSuccess) return (int)err;
+  const int wide = (((uintptr_t)lab | (uintptr_t)out) & 15) == 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)plan.blocks);
+  config.blockDim = dim3(kTailThreads);
+  config.dynamicSmemBytes = aggregate ? tail_smem(plan.bits) : 0;
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const int* l = (const int*)lab;
+  if (aggregate)
+    return (int)cudaLaunchKernelEx(&config, tail_kernel<true>, l, (int*)counts,
+                                   (float*)out, B, per_frame, size, min_area,
+                                   plan.frames, plan.bits, wide);
+  return (int)cudaLaunchKernelEx(&config, tail_kernel<false>, l, (int*)counts,
+                                 (float*)out, B, per_frame, size, min_area,
+                                 plan.frames, plan.bits, wide);
+}
+
+// S4's plan for a batch: int32[5] out = {blocks, frames a round, rounds,
+// table slot bits, blocks the card holds at once}; the first four 0 for an
+// empty batch.
+extern "C" int sgm_probe_speckle_fused_plan(int B, int per_frame,
+                                            int aggregate, void* plan) {
+  int* p = (int*)plan;
+  const TailFacts* card = nullptr;
+  cudaError_t err = tail_facts(&card);
+  if (err != cudaSuccess) return (int)err;
+  p[0] = p[1] = p[2] = p[3] = 0;
+  p[4] = card->resident[aggregate ? 1 : 0];
+  if (B < 0 || per_frame < 0 || !tail_fits(B, per_frame, 0))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || per_frame == 0) return 0;
+  TailPlan tp;
+  err = tail_plan(p[4], B, per_frame, &tp);
+  if (err != cudaSuccess) return (int)err;
+  p[0] = tp.blocks;
+  p[1] = tp.frames;
+  p[2] = tp.rounds;
+  p[3] = tp.bits;
+  return 0;
 }

@@ -1,8 +1,9 @@
-"""K1, K4, the WTA and the probe kernels P4 ``scan16`` and S1
-``speckle_labels`` of this checkout against another checkout's, on one card.
+"""K1, K4, the WTA and the probe kernels P1/P2, P4 ``scan16``, S1
+``speckle_labels``, S2 ``speckle_hist`` and S4 ``speckle_tail_fused`` of
+this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--only k4,k1,wta,scan16,s1] \
+        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4] \
         [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
@@ -24,7 +25,7 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
 * each K4 launch's device time by kernel, from ``torch.profiler``, for both
   checkouts (the parent's union pass against its flatten, the new tile,
   border, flatten and verdict kernels);
-* the cluster design of the speckle probes, S1 ``pyr`` + S4 ``fused_agg``
+* the speckle probes' path, S1 ``pyr`` (a cluster a frame) + S4 ``fused_agg``
   (``probes/kernels.py``), beside this checkout's K4;
 * K1's ablations: this checkout's source with the census window replaced
   by its centre pixel, the popcounts by a constant, or the 16-byte stores
@@ -56,7 +57,19 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   of its loop taken out ("barriers only": the steps' barriers and the
   fixed-point test, the rounds the real run took) and with the vertical
   run-min taken out ("no vertical pass", the same rounds), each a text
-  patch of the call sites; S1 also at 37x45 B=4 (D=48).
+  patch of the call sites; S1 also at 37x45 B=4 (D=48);
+* S4 ``speckle_tail_fused`` (group ``s4``; also at 37x45 B=4) on the
+  grouped labels of the engine's pre-speckle disparity: both checkouts held
+  bit-equal to the plain version (this one in both modes), the parent's
+  aggregated call and this one's default timed in turns, a call at a time
+  and in runs of ``RUN``, and the host time to enqueue a call of each;
+  device time by ``torch.profiler`` of each, of
+  this one's per-pixel control, of K4's tail (``count_verdict``) and of S2
+  -> ``root_small`` -> S3 on the same frames, beside S4's byte bound; and
+  this checkout's ablations "barriers only" (the launch and the grid
+  barriers), "zeroing only" (the labels read, counted into the tables and
+  the claimed keys zeroed, no barrier) and "warp merge" (S2's merge across
+  the warp before the table; exact, held to the plain version).
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -70,6 +83,7 @@ import hashlib
 import json
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -87,7 +101,8 @@ from .utils.profiling import card
 GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "wta": "sgm_wta_reduce", "scan16": "sgm_probe_scan16",
                  "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
-                 "s2": "sgm_probe_speckle_hist"}
+                 "s2": "sgm_probe_speckle_hist",
+                 "s4": "sgm_probe_speckle_fused"}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
@@ -167,6 +182,62 @@ CHAIN_ABLATIONS = {
 S1_ABLATIONS = {
     "barriers only": [_S1_STOP] + [(call, "") for call in _S1_PASS_CALLS],
     "no vertical pass": [_S1_STOP, (_S1_PASS_CALLS[6], "")],
+}
+# S4 ablations: (text in csrc/probe_speckle.cu, its replacement), the call
+# sites of a round's steps in `tail_kernel`.  Each changes the result (not
+# compared).
+_S4_STEPS = (
+    "    tail_load(lab, r, wide, key);\n",
+    "    tail_zero<AGG>(counts, r, per_frame, size, bits, key, keys, vals, "
+    "order,\n                   &used);\n",
+    "    grid.sync();   // every zero before any add\n",
+    "    tail_add<AGG>(counts, key, keys, vals, order, &used);\n",
+    "    grid.sync();   // every add before any verdict\n",
+    "    tail_verdict(counts, out, r, key, min_area, wide);\n")
+# A thread's runs, each added into the block's table (as shipped) ...
+_S4_INSERTS = """\
+  while (heads) {
+    const int p = __ffs(heads) - 1;
+    heads &= heads - 1;
+    int k = -1;
+#pragma unroll
+    for (int q = 0; q < kTailLabels; ++q)
+      if (q == p) k = key[q / 4][q % 4];
+    const unsigned after = seg >> p >> 1;   // the next run's start
+    table_add<true>(keys, vals, order, used, k,
+                    after ? __ffs(after) : kTailLabels - p, bits);
+  }
+"""
+# ... or first merged across the warp as S2 merges, a round per run: in
+# round i each lane offers its i-th run, and the lanes that offer one key
+# give their summed lengths to the first of them (the same verdict)
+_S4_WARP_MERGE = """\
+  const int rounds = (int)__reduce_max_sync(kFull, (unsigned)__popc(heads));
+  for (int i = 0; i < rounds; ++i) {
+    int k = -1, len = 0;
+    if (heads) {
+      const int p = __ffs(heads) - 1;
+      heads &= heads - 1;
+#pragma unroll
+      for (int q = 0; q < kTailLabels; ++q)
+        if (q == p) k = key[q / 4][q % 4];
+      const unsigned after = seg >> p >> 1;
+      len = after ? __ffs(after) : kTailLabels - p;
+    }
+    const unsigned peers = __match_any_sync(kFull, k);
+    const int total = __reduce_add_sync(peers, len);
+    if (k >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+      table_add<true>(keys, vals, order, used, k, total, bits);
+  }
+"""
+S4_ABLATIONS = {
+    # the launch and a round's two grid barriers, nothing read or written
+    "barriers only": [(_S4_STEPS[k], "") for k in (0, 1, 3, 5)],
+    # the labels read, counted into the tables and the claimed keys
+    # zeroed: the work before the first barrier, without the barriers
+    "zeroing only": [(_S4_STEPS[k], "") for k in (2, 3, 4, 5)],
+    # the count with S2's warp merge before the table (exact)
+    "warp merge": [(_S4_INSERTS, _S4_WARP_MERGE)],
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 RUN = 10    # back-to-back WTA launches between two events
@@ -330,6 +401,20 @@ def hist(lib, grouped, h_hist, lo_bits, aggregate: bool):
     return counts
 
 
+def fused(lib, grouped, area, h_hist, lo_bits, aggregate: bool):
+    """``lib``'s S4 (one launch; the counts a scratch plane)."""
+    b = grouped.shape[0]
+    out = torch.empty(grouped.shape, dtype=torch.float32, device=grouped.device)
+    counts = torch.empty((b, h_hist << lo_bits), dtype=torch.int32,
+                         device=grouped.device)
+    if lib.sgm_probe_speckle_fused(grouped.data_ptr(), counts.data_ptr(),
+                                   out.data_ptr(), b, grouped[0].numel(),
+                                   h_hist << lo_bits, area, int(aggregate),
+                                   _stream()):
+        raise RuntimeError("sgm_probe_speckle_fused failed")
+    return out
+
+
 def sources_defining(csrc: Path, entries) -> dict:
     """{file name: text} of the sources in ``csrc`` that define the C
     entries (each must be defined somewhere)."""
@@ -366,6 +451,21 @@ def in_turns(fns: dict, reps: int) -> dict:
     return out
 
 
+def host_us(fn, reps: int) -> float:
+    """Median host microseconds to enqueue one call of ``fn`` (``RUN``
+    calls between two reads of the host clock, the card drained before)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RUN):
+            fn()
+        times.append((time.perf_counter() - t0) / RUN * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def kernel_name(key: str) -> str:
     """The bare function name of a profiler's kernel key, e.g. ``void
     (anonymous namespace)::tile_kernel(float const*, ...)`` -> tile_kernel."""
@@ -373,8 +473,10 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
-def kernel_ms(fn, calls: int = 5) -> dict:
-    """Device milliseconds per call of ``fn`` by kernel, from the profiler."""
+def kernel_ms(fn, calls: int = 5, tries: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel, from the profiler
+    (a window in which the profiler saw no device time is profiled again,
+    up to ``tries`` windows; {} if none saw any)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -390,6 +492,8 @@ def kernel_ms(fn, calls: int = 5) -> dict:
             continue
         out[kernel_name(evt.key)] = (out.get(kernel_name(evt.key), 0.0)
                                      + total / 1e3 / calls)
+    if not out and tries > 1:
+        return kernel_ms(fn, calls, tries - 1)
     return out
 
 
@@ -657,6 +761,78 @@ def s2_shape(rec, label, b, h, w, dmax, other, this, reps):
     del disp, labels, grouped, want
 
 
+def s4_shape(rec, label, b, h, w, dmax, other, this, s4_ablated, reps):
+    """S4 of both checkouts (the parent's with aggregated adds, this one's
+    default) in turns, a call at a time and in runs of ``RUN``, on the
+    grouped labels of the engine's pre-speckle disparity, bit-equal to the
+    plain version in both modes first; the device time of each beside the
+    byte bound, of K4's tail (``count_verdict``: flatten + count, verdict)
+    and of S2 -> ``root_small`` -> S3 on the same frames, and of this
+    checkout's ablations."""
+    opt, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, dmax)
+    area = opt.min_speckle_area
+    labels, _ = pk.speckle_labels(disp, 1.0, "base")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+    want = pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits)
+    for name, lib, modes in (("parent", other, (True,)),
+                             ("this", this, (True, False))):
+        for agg in modes:
+            same(fused(lib, grouped, area, h_hist, lo_bits, agg), want,
+                 f"S4 {name} aggregate={agg} {label}")
+    flat = kernels.union_find_labels(disp, 1.0)
+    same(pk.apply_verdict(disp, pk.ungroup_verdict(want, h, w)),
+         kernels.count_verdict(disp, flat, area), f"K4's tail {label}")
+    fns = {name: (lambda lib=lib: fused(lib, grouped, area, h_hist, lo_bits,
+                                        True))
+           for name, lib in (("parent", other), ("this", this))}
+    ms = rec["s4_ms"] = in_turns(fns, reps)
+    run = rec["s4_run_ms"] = {
+        name: [t / RUN for t in v] for name, v in in_turns(
+            {name: lambda fn=fn: [fn() for _ in range(RUN)]
+             for name, fn in fns.items()}, reps).items()}
+
+    rec["s4_host_us"] = {name: host_us(fn, reps) for name, fn in fns.items()}
+
+    def s2_s3():
+        counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+        return pk.speckle_verdict(grouped, pk.root_small(counts, area))
+
+    device = {name: kernel_ms(fn) for name, fn in fns.items()}
+    device["this, one add a pixel"] = kernel_ms(
+        lambda: fused(this, grouped, area, h_hist, lo_bits, False))
+    device["K4's tail (count_verdict)"] = kernel_ms(
+        lambda: kernels.count_verdict(disp, flat, area))
+    device["S2 -> root_small -> S3"] = kernel_ms(s2_s3)
+    for name, lib in s4_ablated.items():
+        if lib is not None and name == "warp merge":   # the same function
+            same(fused(lib, grouped, area, h_hist, lo_bits, True), want,
+                 f"S4 {name} {label}")
+    device.update({f"this, {name}": None if lib is None else kernel_ms(
+        lambda lib=lib: fused(lib, grouped, area, h_hist, lo_bits, True))
+        for name, lib in s4_ablated.items()})
+    rec["s4_device_ms"] = device
+    rec["s4_bound_ms"] = 8 * grouped.numel() / HBM_BYTES_PER_S * 1e3
+    rec["s4_plan"] = pk.speckle_tail_plan(b, grouped[0].numel())
+    total = {name: None if v is None else sum(v.values())
+             for name, v in device.items()}
+    rec["s4_device_total_ms"] = total
+    rec["s4_share_of_bound"] = (rec["s4_bound_ms"] / total["this"]
+                                if total["this"] else None)
+    p, t = (statistics.median(ms[n]) for n in ("parent", "this"))
+    rp, rt = (statistics.median(run[n]) for n in ("parent", "this"))
+    print(f"{label} S4 ms parent {ms['parent']} this {ms['this']} "
+          f"({p / t:.2f}x); a launch in runs of {RUN}: parent "
+          f"{run['parent']} this {run['this']} ({rp / rt:.2f}x); host us "
+          f"to enqueue a call {json.dumps(rec['s4_host_us'])}; plan "
+          f"{rec['s4_plan']}")
+    share = rec["s4_share_of_bound"]
+    print(f"{label} S4 device ms {json.dumps(total)}; bound "
+          f"{rec['s4_bound_ms']:.5f} ms, this "
+          f"{'not measured' if share is None else f'{100 * share:.0f}%'} "
+          f"of it; by kernel {json.dumps(device)}")
+    del disp, labels, grouped, want, flat
+
+
 def s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated, reps):
     """S1 of both checkouts in every mode, in turns; K4 and its label stage
     beside them; this checkout's ablations at the real run's rounds."""
@@ -728,6 +904,7 @@ def main(argv=None) -> dict:
 
     wta_ablated = ablations("", "wta.cu", WTA_ABLATIONS, "wta")
     s1_ablated = ablations("s1-", "probe_speckle.cu", S1_ABLATIONS, "s1")
+    s4_ablated = ablations("s4-", "probe_speckle.cu", S4_ABLATIONS, "s4")
     chain_ablated = ablations("chain-", "probe_recurrence.cu", CHAIN_ABLATIONS,
                               "chain")
     ablated = ablations("k1-", "census_cost.cu", ABLATIONS, "k1")
@@ -740,6 +917,9 @@ def main(argv=None) -> dict:
         if (label, b, h, w, dmax) not in SHAPES:
             if "s1" in only:
                 s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated,
+                         args.reps)
+            if "s4" in only:
+                s4_shape(rec, label, b, h, w, dmax, other, this, s4_ablated,
                          args.reps)
             continue
         levels = tuple(dmax * f // 64 for f in (10, 20, 35))
@@ -763,6 +943,9 @@ def main(argv=None) -> dict:
                         chain_ablated, args.reps)
         if "s2" in only:
             s2_shape(rec, label, b, h, w, dmax, other, this, args.reps)
+        if "s4" in only:
+            s4_shape(rec, label, b, h, w, dmax, other, this, s4_ablated,
+                     args.reps)
         del left, right
         torch.cuda.empty_cache()
 

@@ -91,10 +91,16 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+# CUDA errors that an entry returns for a reason of its own
+ERRORS = {720: "more work than the blocks the card holds at once can take "
+               "(cudaErrorCooperativeLaunchTooLarge)"}
+
+
 def _launch(entry: str, counter: str, *args) -> None:
     err = getattr(_build.load(), entry)(*args)
     if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err}")
+        why = f": {ERRORS[err]}" if err in ERRORS else ""
+        raise RuntimeError(f"{entry}: CUDA error {err}{why}")
     LAUNCHES[counter] += 1
 
 

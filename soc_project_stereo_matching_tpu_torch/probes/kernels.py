@@ -909,8 +909,7 @@ def apply_verdict(disp: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
 
 def label_index(labels: torch.Tensor, size: int):
     """(valid, flat index into a (B, size) root plane) of grouped labels."""
-    b = labels.shape[0]
-    flat = labels.reshape(b, -1).long()
+    flat = labels.flatten(1).long()
     return (flat >= 0) & (flat < size), flat.clamp(0, size - 1)
 
 
@@ -1030,9 +1029,9 @@ def root_small(counts: torch.Tensor, min_area: int) -> torch.Tensor:
 
 
 def speckle_verdict_plain(labels, small) -> torch.Tensor:
-    b = labels.shape[0]
-    valid, idx = label_index(labels, small[0].numel())
-    hit = small.reshape(b, -1).gather(1, idx) != 0
+    small = small.flatten(1)
+    valid, idx = label_index(labels, small.shape[1])
+    hit = small.gather(1, idx) != 0
     return (valid & hit).to(torch.float32).reshape(labels.shape)
 
 
@@ -1062,21 +1061,179 @@ def speckle_tail_fused_plain(labels, min_area: int, h_hist: int,
     return speckle_verdict_plain(labels, root_small(counts, min_area))
 
 
+TAIL_THREADS, TAIL_QUADS = 1024, 4     # an S4 block, the quads a thread holds
+TAIL_LABELS = 4 * TAIL_QUADS            # labels a thread holds, at most
+TAIL_SLOT_BITS = 14                     # a block's table: at most 2^14 slots
+
+
+def tail_plan(b: int, per_frame: int, resident: int,
+              threads: int = TAIL_THREADS) -> tuple:
+    """S4's (blocks, frames a round, rounds, table slot bits) for ``b``
+    frames of ``per_frame`` labels on a card that holds ``resident`` blocks
+    at once, as the C entry plans them: every block the card holds; as many
+    whole frames a round as leave a block no more than ``4 * TAIL_QUADS *
+    threads`` labels, the two quads that may cross a round's ends included;
+    twice as many slots as the most labels a block takes where that fits,
+    else one a label.  Raises where a frame is more than one round takes
+    (the entry refuses it)."""
+    if resident < 1:
+        raise ValueError("the card holds no S4 block at once")
+    blocks = resident
+    frames = min(b, (blocks * 4 * TAIL_QUADS * threads - 8) // per_frame)
+    if frames < 1:
+        raise ValueError(f"a frame of {per_frame} labels is more than one "
+                         f"round of {blocks} blocks takes")
+    share = -(-((frames * per_frame + 6) // 4 + 1) // blocks)
+    bits = 5
+    while 1 << bits < 8 * share and bits < TAIL_SLOT_BITS:
+        bits += 1
+    return blocks, frames, -(-b // frames), bits
+
+
+def _thread_runs(key):
+    """(head, run length) of each label of (threads, TAIL_LABELS) keys: a
+    head starts a run of one key (not -1) in its thread, the run's length."""
+    seg = np.ones(key.shape, bool)
+    seg[:, 1:] = key[:, 1:] != key[:, :-1]
+    nxt = np.full(key.shape, key.shape[1])
+    for p in range(key.shape[1] - 2, -1, -1):
+        nxt[:, p] = np.where(seg[:, p + 1], p + 1, nxt[:, p + 1])
+    return seg & (key >= 0), nxt - np.arange(key.shape[1])
+
+
+def _count_into_table(key, bits: int) -> tuple:
+    """S4's count of a block's (threads, TAIL_LABELS) keys in its table:
+    each thread adds each of its runs at the key's slot (``_hist_slot``'s
+    hash at ``bits``, linear probing).  -> (the claimed keys in claim
+    order, their counts, the table adds)."""
+    head, run = _thread_runs(key)
+    lane, pos = np.nonzero(head)
+    rnd = (np.cumsum(head, axis=1) - 1)[lane, pos]
+    mask = (1 << bits) - 1
+    slots = np.full(1 << bits, -1, np.int64)
+    vals = np.zeros(1 << bits, np.int64)
+    order = []
+    for n in np.lexsort((lane, rnd)):   # each thread's first runs first
+        label = int(key[lane[n], pos[n]])
+        slot = (label * 2654435761 & 0xFFFFFFFF) >> (32 - bits)
+        while slots[slot] not in (-1, label):
+            slot = (slot + 1) & mask
+        if slots[slot] == -1:
+            slots[slot] = label
+            order.append(slot)
+        vals[slot] += run[lane[n], pos[n]]
+    return slots[order], vals[order], int(lane.size)
+
+
+def speckle_tail_blocks_plain(labels, min_area: int, h_hist: int,
+                              lo_bits: int, resident: int,
+                              aggregate: bool = True,
+                              threads: int = TAIL_THREADS) -> tuple:
+    """S4 the way its kernel decomposes it, for the tests.  The batch's
+    labels are one flat array, cut into rounds of whole frames by
+    ``tail_plan``; a round's quads [start // 4, ceil(end / 4)) go to its
+    blocks in equal contiguous shares, thread t of a block taking ``held``
+    neighbouring quads from q0 + held * t.  A label's key is f * size +
+    label inside its frame's root plane, else none.  Per round, every block
+    first adds its threads' runs into its table (``_count_into_table``)
+    and stores 0 at each key it claimed; then, after every block's zeros,
+    adds each claimed key's count; then, after every add, writes each of
+    its labels' verdict from the counts.  The counts start as garbage, so a
+    key that were read but not zeroed would show.  ``aggregate`` False: a
+    zero and an add per label.  -> (f32 verdict of the labels' shape, a
+    dict per round and block: "round", "block", "labels", "distinct" keys,
+    "zeros" and "adds" to device memory, "table_adds", "slots", "held"
+    quads a thread)."""
+    b, size = labels.shape[0], h_hist << lo_bits
+    flat = labels.reshape(-1).cpu().numpy().astype(np.int64)
+    out = np.full(flat.size, np.nan, np.float32)
+    stats = []
+    if flat.size == 0:
+        return torch.from_numpy(out).reshape(labels.shape), stats
+    per_frame = flat.size // b
+    blocks, frames, rounds, bits = tail_plan(b, per_frame, resident, threads)
+    frame = np.arange(flat.size) // per_frame
+    key_of = np.where((flat >= 0) & (flat < size), frame * size + flat, -1)
+    counts = np.arange(b * size, dtype=np.int64) % 97 - 40     # garbage
+    for r in range(rounds):
+        start = r * frames * per_frame
+        end = min(b, (r + 1) * frames) * per_frame
+        q_lo, q_hi = start // 4, -(-end // 4)
+        share = -(-(q_hi - q_lo) // blocks)
+        held = -(-share // threads)
+        parts = []
+        for blk in range(blocks):
+            q0 = min(q_hi, q_lo + blk * share)
+            q1 = min(q_hi, q0 + share)
+            p = np.arange(TAIL_LABELS)
+            i = 4 * (q0 + held * np.arange(threads))[:, None] + p
+            mine = (p < 4 * held) & (i < 4 * q1) & (i >= start) & (i < end)
+            key = np.where(mine, key_of[np.clip(i, 0, flat.size - 1)], -1)
+            valid = key[key >= 0]
+            rec = {"round": r, "block": blk, "labels": int(mine.sum()),
+                   "distinct": int(np.unique(valid).size), "held": held,
+                   "slots": 1 << bits}
+            if aggregate:
+                keys, vals, rec["table_adds"] = _count_into_table(key, bits)
+            else:
+                keys, vals, rec["table_adds"] = valid, np.ones_like(valid), 0
+            counts[keys] = 0
+            rec["zeros"] = rec["adds"] = int(keys.size)
+            parts.append((i, mine, key, keys, vals))
+            stats.append(rec)
+        for _, _, _, keys, vals in parts:          # after every block's zeros
+            np.add.at(counts, keys, vals)
+        for i, mine, key, _, _ in parts:           # after every add
+            n = np.where(key >= 0, counts[np.maximum(key, 0)], 0)
+            out[i[mine]] = ((n > 0) & (n < min_area))[mine]
+    return torch.from_numpy(out).reshape(labels.shape), stats
+
+
+def speckle_tail_plan(b: int, per_frame: int, aggregate: bool = True) -> dict:
+    """S4's plan on the current card, from its C entry: {"blocks",
+    "frames" a round, "rounds", "bits" of a block's table, "resident":
+    blocks the card holds at once}; the first four 0 for an empty batch.
+    Raises where the entry would refuse the batch."""
+    plan = (ctypes.c_int * 5)()
+    err = _build.load().sgm_probe_speckle_fused_plan(b, per_frame,
+                                                     int(aggregate),
+                                                     ctypes.addressof(plan))
+    if err:
+        why = ops_kernels.ERRORS.get(err, "")
+        raise RuntimeError(f"sgm_probe_speckle_fused_plan: CUDA error {err} "
+                           f"{why}".strip())
+    return dict(zip(("blocks", "frames", "rounds", "bits", "resident"), plan))
+
+
 def speckle_tail_fused(labels: torch.Tensor, min_area: int, h_hist: int,
-                       lo_bits: int, aggregate: bool = False) -> torch.Tensor:
-    """S4.  S2, ``root_small`` and S3 in one launch: int32 (B, ngroups, 1,
-    g * pc) labels -> f32 0/1 of the same shape.  The counts stay in a
-    scratch plane that the kernel zeroes itself."""
+                       lo_bits: int, aggregate: bool = True) -> torch.Tensor:
+    """S4.  S2, ``root_small`` and S3 in one cooperative launch, no
+    memset: int32 (B, ngroups, 1, g * pc) labels -> f32 0/1 of the same
+    shape.  The card's blocks take the batch's labels in contiguous shares
+    (in rounds of whole frames where it has more labels than they hold at
+    once: ``tail_plan``), each thread up to 16 neighbouring labels, held in
+    registers from the one read to the verdict; two grid barriers a round.
+    ``aggregate`` (the default): a thread's equal neighbours merged into
+    runs and each run added into its block's table in shared memory, a
+    zero stored at each key the table claimed before the first barrier, one
+    add per claimed key after it (so only the roots that the labels name
+    are zeroed; ``speckle_tail_blocks_plain`` transcribes it); False: a zero
+    and an add per pixel, the control.  The verdict is the
+    same.  The counts live in a scratch plane that nothing zeroes whole.
+    Raises where a frame is more than the card's blocks hold at once; an
+    empty batch launches nothing."""
     _check_root_plane(h_hist, lo_bits)
     if _on_cpu(labels):
         return speckle_tail_fused_plain(labels, min_area, h_hist, lo_bits)
     _check_grouped(labels)
-    b = labels.shape[0]
+    b, per_frame = labels.shape[0], labels.shape[1] * labels.shape[3]
     out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
+    if b == 0 or per_frame == 0:
+        return out
     counts = torch.empty((b, h_hist << lo_bits), dtype=torch.int32,
                          device=labels.device)
     _launch("sgm_probe_speckle_fused", "probe_speckle_fused",
             labels.data_ptr(), counts.data_ptr(), out.data_ptr(), b,
-            labels[0].numel(), h_hist << lo_bits, min_area, int(aggregate),
+            per_frame, h_hist << lo_bits, min_area, int(aggregate),
             _stream(out))
     return out

@@ -21,8 +21,12 @@ Variants:
     hist_only       S2 alone, one add per pixel
     hist_only_agg   S2 alone, aggregated
     verdict_only    S3 alone (``root_small`` fixed)
-    fused           S4: count, ``root_small`` and verdict in one launch
-    fused_agg       S4 with aggregated adds
+    fused           S4: count, ``root_small`` and verdict in one cooperative
+                    launch, one zero store and one add per pixel (the
+                    control)
+    fused_agg       S4 as it counts by default: a thread's runs merged in
+                    registers and in a block's table, a zero store and an
+                    add per distinct label of a block
 
 The JAX script's ``base8`` and ``fused8`` ask whether a cheaper operand
 speeds the one-hot contraction; without the contraction the question that
@@ -97,9 +101,9 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
         "hist_only_agg": lambda: pk.speckle_hist(grouped, h_hist, lo_bits, True),
         "verdict_only": lambda: pk.speckle_verdict(grouped, small),
         "fused": lambda: pk.speckle_tail_fused(grouped, min_area, h_hist,
-                                               lo_bits),
+                                               lo_bits, aggregate=False),
         "fused_agg": lambda: pk.speckle_tail_fused(grouped, min_area, h_hist,
-                                                   lo_bits, True),
+                                                   lo_bits, aggregate=True),
     }
     variants = {name: measure(fn, device, reps, batch)
                 for name, fn in timed.items()}

@@ -676,6 +676,117 @@ def test_speckle_hist_on_hand_made_frames_on_card(cuda, h, w, area):
                                       lo_bits)
 
 
+def _fused_matches_in_both_modes(grouped, area, h_hist, lo_bits):
+    """S4 in both modes bit-equal to its plain version and to S2 ->
+    ``root_small`` -> S3, one launch a call, on a counts plane that the
+    allocator has just held garbage in."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    want = pk.speckle_tail_fused_plain(grouped, area, h_hist, lo_bits)
+    counts = pk.speckle_hist(grouped, h_hist, lo_bits)
+    same(pk.speckle_verdict(grouped, pk.root_small(counts, area)), want)
+    for aggregate in (True, False):
+        torch.full_like(counts, 3).view(-1)[::7] = -2        # garbage, freed
+        before = kernels.LAUNCHES["probe_speckle_fused"]
+        same(pk.speckle_tail_fused(grouped, area, h_hist, lo_bits, aggregate),
+             want)
+        assert kernels.LAUNCHES["probe_speckle_fused"] == before + 1
+    return want
+
+
+@pytest.mark.parametrize("b,h,w,dmax", [(2, 375, 450, 64), (8, 375, 450, 64),
+                                        (32, 375, 450, 64), (4, 37, 45, 48),
+                                        (1, 1000, 1500, 256)])
+def test_speckle_tail_fused_on_the_engines_labels_on_card(cuda, b, h, w, dmax):
+    """S4 (one cooperative launch over every block the card holds, rounds
+    of whole frames at cone B=32, a zero and an add per distinct label of a
+    block) on the labels of the engine's pre-speckle disparity at the
+    ladder's shapes: both modes bit-equal to the plain version and to the
+    two-launch tail, also on a ragged frame; the plan is the one the CPU
+    tests check; the verdict applied is K4's output."""
+    from soc_project_stereo_matching_tpu_torch.probes import (
+        kernels as pk, prespeckle_disparity)
+
+    opt, disp = prespeckle_disparity(cuda, b, h, w, dmax)
+    area = opt.min_speckle_area
+    labels, _ = pk.speckle_labels(disp, 1.0, "base")
+    grouped, h_hist, lo_bits = pk.group_labels(disp, labels, area)
+    verdict = _fused_matches_in_both_modes(grouped, area, h_hist, lo_bits)
+    ragged = grouped.reshape(b, 1, 1, -1)[..., :-3].contiguous()
+    _fused_matches_in_both_modes(ragged, area, h_hist, lo_bits)
+    plan = pk.speckle_tail_plan(b, grouped[0].numel())
+    assert (plan["blocks"], plan["frames"], plan["rounds"],
+            plan["bits"]) == pk.tail_plan(b, grouped[0].numel(),
+                                          plan["resident"])
+    assert plan["rounds"] == (3 if b == 32 else 1)   # an H100's 132 blocks
+    same(pk.apply_verdict(disp, pk.ungroup_verdict(verdict, h, w)),
+         kernels.remove_speckles(disp, 1.0, area))
+
+
+def test_speckle_tail_fused_on_hand_made_labels_on_card(cuda):
+    """S4 on labels no labelling gives: the sentinel, labels past the plane
+    and negative ones, a frame length that is no multiple of 4, one label
+    for every frame, every label distinct, components of exactly min_area
+    and min_area - 1 pixels; an empty batch launches nothing."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    rng = np.random.default_rng(83)
+    size = 16 << 7
+    runs = np.repeat(rng.integers(0, 60, 20000), rng.integers(1, 12, 20000))
+    cases = [
+        np.where(rng.random((3, 2, 1, 5000)) < 0.4,
+                 rng.choice([-1, -7, size, size + 9, 2 ** 31 - 1],
+                            (3, 2, 1, 5000)),
+                 rng.integers(0, 9, (3, 2, 1, 5000))),
+        runs[:5 * 3333].reshape(5, 1, 1, 3333),
+        runs[:7 * 2 * 4000].reshape(7, 2, 1, 4000),
+        np.full((2, 3, 1, 2048), 77),
+        np.stack([rng.permutation(size) for _ in range(3)]).reshape(3, 2, 1,
+                                                                    1024),
+        np.concatenate([np.full(5, 3), np.full(4, 8), np.arange(20, 29),
+                        np.full(6, size)])[None, None, None, :].repeat(2, 0),
+    ]
+    for labels in cases:
+        labels = torch.from_numpy(labels.astype(np.int32)).to(cuda)
+        _fused_matches_in_both_modes(labels, 5, 16, 7)
+    empty = torch.zeros((0, 2, 1, 64), dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["probe_speckle_fused"]
+    assert pk.speckle_tail_fused(empty, 5, 16, 7).shape == empty.shape
+    assert kernels.LAUNCHES["probe_speckle_fused"] == before
+
+
+def test_speckle_tail_fused_refuses_on_card(cuda):
+    """The entry refuses a frame larger than one round of the blocks the
+    card holds (and launches nothing); it takes the largest one that fits.
+    The wrapper refuses what the kernel does not take."""
+    from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+
+    plan = pk.speckle_tail_plan(0, 0)
+    assert plan["blocks"] == plan["rounds"] == plan["bits"] == 0
+    assert plan["resident"] >= 1
+    largest = plan["resident"] * 4 * pk.TAIL_QUADS * pk.TAIL_THREADS - 8
+    labels = torch.arange(largest + 1, device=cuda, dtype=torch.int32) % 999
+    before = kernels.LAUNCHES["probe_speckle_fused"]
+    with pytest.raises(RuntimeError, match="holds at once"):
+        pk.speckle_tail_fused(labels.reshape(1, 1, 1, -1), 5, 16, 7)
+    with pytest.raises(RuntimeError, match="holds at once"):
+        pk.speckle_tail_plan(1, largest + 1)
+    assert kernels.LAUNCHES["probe_speckle_fused"] == before
+    fits = labels[:largest].reshape(1, 1, 1, -1)
+    same(pk.speckle_tail_fused(fits, 5, 16, 7),
+         pk.speckle_tail_fused_plain(fits, 5, 16, 7))
+    assert pk.speckle_tail_plan(1, largest)["rounds"] == 1
+    grouped = torch.zeros((2, 3, 1, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        pk.speckle_tail_fused(grouped.float(), 5, 16, 7)
+    with pytest.raises(ValueError):
+        pk.speckle_tail_fused(grouped.transpose(1, 3), 5, 16, 7)
+    with pytest.raises(ValueError):
+        pk.speckle_tail_fused(grouped.reshape(2, 3, 2, 32), 5, 16, 7)
+    with pytest.raises(ValueError):
+        pk.speckle_tail_fused(grouped, 5, 0, 7)
+
+
 def test_speckle_probes_run_on_card_and_write_json(cuda, tmp_path):
     from soc_project_stereo_matching_tpu_torch.probes import __main__ as cli
 

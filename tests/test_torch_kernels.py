@@ -297,6 +297,27 @@ def test_kernel_ab_s1_ablations_still_apply_to_the_probe_source(ablation):
     assert all(text.count(call) == 1 for call in kernel_ab._S1_PASS_CALLS)
 
 
+@pytest.mark.parametrize("ablation", sorted(kernel_ab.S4_ABLATIONS))
+def test_kernel_ab_s4_ablations_still_apply_to_the_probe_source(ablation):
+    """Each S4 ablation takes a round's steps out at their call sites in
+    ``tail_kernel``, each call site matching exactly one place, or (the
+    warp merge) replaces the inserts of a thread's runs; every block still
+    reaches every barrier it leaves in."""
+    text = (_build.CSRC / "probe_speckle.cu").read_text()
+    out = kernel_ab.patched(text, kernel_ab.S4_ABLATIONS[ablation])
+    assert out is not None and out != text
+    assert all(text.count(step) == 1 for step in kernel_ab._S4_STEPS)
+    kept = [step for step in kernel_ab._S4_STEPS if step in out]
+    if ablation == "warp merge":
+        assert kept == list(kernel_ab._S4_STEPS)
+        assert out.count("__match_any_sync(kFull, k)") == \
+            text.count("__match_any_sync(kFull, k)") + 1
+    elif ablation == "barriers only":
+        assert len(kept) == 2 and all("grid.sync()" in s for s in kept)
+    else:
+        assert len(kept) == 2 and not any("grid.sync()" in s for s in kept)
+
+
 @pytest.mark.parametrize("ablation", sorted(kernel_ab.CHAIN_ABLATIONS))
 def test_kernel_ab_chain_ablations_still_apply_to_the_probe_source(ablation):
     text = (_build.CSRC / "probe_recurrence.cu").read_text()
@@ -308,10 +329,10 @@ def test_kernel_ab_groups_and_the_probe_entries():
     """``--only`` picks among the groups, each comparing one C entry; the
     probe kernels' entries are found in their sources."""
     assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
-                                     "chain", "s2"}
+                                     "chain", "s2", "s4"}
     found = kernel_ab.sources_defining(
         _build.CSRC, [kernel_ab.GROUP_ENTRIES[g]
-                      for g in ("scan16", "s1", "chain", "s2")])
+                      for g in ("scan16", "s1", "chain", "s2", "s4")])
     assert sorted(found) == ["probe_int16.cu", "probe_recurrence.cu",
                              "probe_speckle.cu"]
     with pytest.raises(SystemExit, match="--only"):

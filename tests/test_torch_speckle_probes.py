@@ -514,6 +514,172 @@ def test_hist_merge_matches_bincount(case):
     assert most <= probe_kernels.HIST_TILE <= probe_kernels.HIST_SLOTS // 2
 
 
+# S4 as its kernel decomposes it: (resident blocks, threads a block).  The
+# card's: 132 blocks of 1024 threads on an NVIDIA H100.  Smaller grids make
+# small frames split across blocks and into rounds.
+S4_GRIDS = {"card": (132, probe_kernels.TAIL_THREADS), "small": (9, 64),
+            "tiny": (4, 32)}
+
+
+def _check_s4_blocks(labels, area, h_hist, lo_bits, grid, aggregate):
+    """S4's decomposition against the plain tail; every label written, and
+    the device-memory traffic it promises: one zero and one add per
+    distinct label of a block and round (aggregated), a table that holds
+    every key of its block.  -> (verdict, stats)."""
+    resident, threads = S4_GRIDS[grid]
+    got, stats = probe_kernels.speckle_tail_blocks_plain(
+        labels, area, h_hist, lo_bits, resident, aggregate, threads)
+    assert got.dtype == torch.float32 and got.shape == labels.shape
+    assert not torch.isnan(got).any()             # every label written
+    same(got.numpy(), probe_kernels.speckle_tail_fused_plain(
+        labels, area, h_hist, lo_bits).numpy())
+    for rec in stats:
+        assert rec["held"] <= probe_kernels.TAIL_QUADS
+        assert rec["labels"] <= 4 * probe_kernels.TAIL_QUADS * threads
+        if aggregate:
+            assert rec["zeros"] == rec["adds"] == rec["distinct"]
+            assert rec["distinct"] <= rec["labels"] <= rec["slots"]
+        else:
+            assert rec["zeros"] == rec["adds"] >= rec["distinct"]
+    if labels.numel():
+        b, per_frame = labels.shape[0], labels[0].numel()
+        assert len(stats) == resident * probe_kernels.tail_plan(
+            b, per_frame, resident, threads)[2]
+        valid = (labels >= 0) & (labels < h_hist << lo_bits)
+        assert sum(r["labels"] for r in stats) == labels.numel()
+        assert sum(r["table_adds"] if aggregate else r["adds"]
+                   for r in stats) <= int(valid.sum())
+    return got, stats
+
+
+@pytest.mark.parametrize("aggregate", [True, False], ids=["merged", "per_pixel"])
+@pytest.mark.parametrize("grid", ["card", "small"])
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_blocks_plain_matches_the_jax_fused_kernel(case, grid, aggregate,
+                                                        no_launch):
+    """S4's decomposition (blocks, their tables, the keys zeroed, one add
+    per distinct key, the verdict) against the JAX ``_fused_kernel`` in
+    interpret mode and the plain tail, on the grouped labels of S1."""
+    make, area, pc = TAIL_CASES[case]
+    disp = make()
+    labels, _ = probe_kernels.speckle_labels(t(disp), 1.0, "base")
+    lab_grp, geometry = j_group(jnp.asarray(disp), jnp.asarray(labels.numpy()),
+                                area, pc)
+    grouped, h_hist, lo_bits = probe_kernels.group_labels(t(disp), labels, area,
+                                                          pc)
+    got, stats = _check_s4_blocks(grouped, area, h_hist, lo_bits, grid,
+                                  aggregate)
+    same(got.numpy(), j_tail(lab_grp, geometry, area, True)[3])
+    # a frame's labels split across blocks
+    assert sum(1 for r in stats if r["round"] == 0 and r["labels"]) > 1
+    if case == "banded" and grid == "small":    # a round a frame
+        assert max(r["round"] for r in stats) == 1
+
+
+@pytest.mark.parametrize("grid", ["card", "small"])
+def test_tail_blocks_plain_matches_the_jax_fused_kernel_on_outside_labels(
+        grid, no_launch):
+    """The same on S1's grouped labels of the banded frames with labels
+    outside the root plane written in: the sentinel, labels past it and
+    negative ones count nowhere and are never small."""
+    make, area, pc = TAIL_CASES["banded"]
+    disp = make()
+    labels, _ = probe_kernels.speckle_labels(t(disp), 1.0, "base")
+    _, geometry = j_group(jnp.asarray(disp), jnp.asarray(labels.numpy()),
+                          area, pc)
+    grouped, h_hist, lo_bits = probe_kernels.group_labels(t(disp), labels, area,
+                                                          pc)
+    rng = np.random.default_rng(5)
+    size = h_hist << lo_bits
+    at = torch.from_numpy(rng.choice(grouped.numel(), 300, replace=False))
+    grouped.view(-1)[at] = torch.from_numpy(rng.choice(
+        [size, size + 9, 2 ** 31 - 1, -1, -7], 300).astype(np.int32))
+    got, _ = _check_s4_blocks(grouped, area, h_hist, lo_bits, grid, True)
+    same(got.numpy(), j_tail(jnp.asarray(grouped.numpy()), geometry, area,
+                             True)[3])
+    assert not got.view(-1)[at].any()
+
+
+def _s4_cases():
+    """Hand-made grouped labels (B, ngroups, 1, chunk) on a root plane of 16
+    rows of 2^7 columns (2048 roots), ``min_area`` 5."""
+    rng = np.random.default_rng(83)
+    size = 16 << 7
+    runs = np.repeat(rng.integers(0, 60, 1000), rng.integers(1, 12, 1000))
+    return {
+        # the sentinel, labels past the plane and negative ones count
+        # nowhere and are never small
+        "sentinels": np.where(rng.random((3, 2, 1, 500)) < 0.4,
+                              rng.choice([-1, -7, size, size + 9, 2 ** 31 - 1],
+                                         (3, 2, 1, 500)),
+                              rng.integers(0, 9, (3, 2, 1, 500))),
+        # a frame length that is no multiple of 4: quads cross frames
+        "ragged": runs[:3 * 1 * 333].reshape(3, 1, 1, 333),
+        # runs across quads, threads and blocks; frames split across blocks
+        "runs": runs[:4 * 2 * 400].reshape(4, 2, 1, 400),
+        # one label for every frame
+        "one label": np.full((2, 3, 1, 256), 77),
+        # every label of a frame distinct: the most keys a table meets
+        "distinct": np.stack([rng.permutation(size)[:1536] for _ in range(2)])
+                    .reshape(2, 3, 1, 512),
+        # components of exactly min_area and min_area - 1 pixels
+        "areas": np.concatenate([np.full(5, 3), np.full(4, 8), np.arange(20, 29),
+                                 np.full(6, size)])[None, None, None, :]
+                    .repeat(2, 0),
+    }
+
+
+@pytest.mark.parametrize("aggregate", [True, False], ids=["merged", "per_pixel"])
+@pytest.mark.parametrize("grid", ["card", "tiny"])
+@pytest.mark.parametrize("case", list(_s4_cases()))
+def test_tail_blocks_plain_on_hand_made_labels(case, grid, aggregate,
+                                               no_launch):
+    labels = t(_s4_cases()[case].astype(np.int32))
+    got, stats = _check_s4_blocks(labels, 5, 16, 7, grid, aggregate)
+    if case == "areas":
+        assert got[0, 0, 0, :5].tolist() == [0.0] * 5         # 5: kept
+        assert got[0, 0, 0, 5:9].tolist() == [1.0] * 4        # 4: removed
+        assert got[0, 0, 0, -6:].tolist() == [0.0] * 6         # the sentinel
+    if case == "sentinels":
+        outside = (labels < 0) | (labels >= 16 << 7)
+        assert not got[outside].any()
+
+
+def test_tail_blocks_plain_on_an_empty_batch(no_launch):
+    labels = torch.zeros((0, 2, 1, 64), dtype=torch.int32)
+    got, stats = probe_kernels.speckle_tail_blocks_plain(labels, 5, 16, 7, 132)
+    assert got.shape == labels.shape and stats == []
+    assert probe_kernels.speckle_tail_fused(labels, 5, 16, 7).shape == \
+        labels.shape
+
+
+@pytest.mark.parametrize("b,per_frame,want", [
+    (2, 186368, (132, 2, 1, 13)),           # cone B=2: one round
+    (8, 186368, (132, 8, 1, 14)),           # cone B=8
+    (32, 186368, (132, 11, 3, 14)),         # cone B=32: rounds of frames
+    (1, 1507328, (132, 1, 1, 14)),          # Middlebury-half
+    (4, 2048, (132, 4, 1, 7)),              # 37x45
+    (3, 132 * 16384 - 8, (132, 1, 3, 14)),  # the largest frame a round takes
+])
+def test_tail_plan_rounds_of_whole_frames(b, per_frame, want):
+    """Rounds of whole frames, no block given more labels than its threads
+    hold, and a table with a slot for each of them."""
+    assert probe_kernels.tail_plan(b, per_frame, 132) == want
+    blocks, frames, rounds, bits = want
+    most = blocks * 4 * probe_kernels.TAIL_QUADS * probe_kernels.TAIL_THREADS
+    assert frames * per_frame <= most - 8
+    assert (rounds - 1) * frames < b <= rounds * frames
+    share = -(-((frames * per_frame + 6) // 4 + 1) // blocks)  # quads
+    assert 4 * share <= min(1 << bits, most // blocks)
+
+
+def test_tail_plan_refuses_a_frame_larger_than_a_round():
+    with pytest.raises(ValueError, match="more than one round"):
+        probe_kernels.tail_plan(1, 132 * 16384 - 7, 132)
+    with pytest.raises(ValueError, match="no S4 block"):
+        probe_kernels.tail_plan(1, 64, 0)
+
+
 # --- (d) the probe modules ------------------------------------------------------------------------
 
 SMALL = dict(device="cpu", batch=4, h=24, w=40, dmax=16, reps=1)
