@@ -113,7 +113,29 @@ Phases (each raises on failure, so the script exits non-zero):
       plain path; the loopback frames/s and ms a frame;
    c. ``cli match`` on a cone-size PNG pair: its PNG must equal
       ``save_disparity_png`` of the engine's result;
-9. the per-kernel JSON line (each kernel's time beside its plain version's,
+9. benches phase (the measurement tools of ``bench.py`` and ``benches/``,
+   each run with the launch counters reset just before it and read just
+   after; each must have made the main path's launches, or for the tiled
+   cell the tiled path's, for every engine call it reports, plus its
+   diagnostics' own):
+   a. ``bench.main()`` at its cell (cone B=32, 10 batches a window, 5
+      repeats): exactly one stdout line with ``bench.py``'s keys and a
+      value, printed here; its median batch (a call at a time) within
+      ``AGREE`` of ``stage_breakdown.batch_and_enqueue``'s on the same
+      inputs (the same timer, run again), of ``stage_breakdown``'s "total"
+      span around the staged forward and of the bench's own window; a
+      forced failure (``bench.report`` with a row wider than K1 takes)
+      prints one line with ``value: null`` and an ``error`` and returns 1;
+   b. the four cells of ``benches.big_configs`` (``BIG_ITERS`` batches a
+      window), each with at least 0.95 of its finite pixels within 1 of the
+      truth, the tiled Middlebury-half cell bit-equal to the untiled one;
+   c. ``benches.streaming`` over ``STREAM_BATCHES`` batches, its three
+      loops' disparities equal;
+   d. ``benches.loopback`` over 3 frames for each client;
+   e. ``benches.scaling`` on the cards present (sizes beyond them print a
+      "not run" line), each size bit-equal to the single-rank engine, each
+      rank's timed steps making the tiled path's launches;
+10. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time), then the contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -145,8 +167,6 @@ PROBE_OFF = dict(batch=2, h=37, w=45, dmax=48)
 SPECKLE = dict(PROBE, min_area=50)
 SPECKLE_OFF = dict(PROBE_OFF, batch=4, min_area=8)   # block4 takes 4 frames
 RUN = 10            # back-to-back launches between two events (WTA ladder)
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, device memory
-OPS_PER_S = 67e12           # H100 SXM, 32-bit operations outside the tensor cores
 PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
 CSRC = "soc_project_stereo_matching_tpu_torch/csrc"
 KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
@@ -205,6 +225,15 @@ KITTI_CROP = (slice(150, 246), slice(400, 720))
 # 1 of the truth, so at most 0.05 are off by more than 1, let alone 3
 BAD3_MAX = 1.0 - MIN_GOOD
 WIRE = dict(frames=3, h=720, w=1280, dmax=64, levels=(8, 16, 28, 45))
+# the benches: launches per tiled match_batch on a 1x1 mesh or a data-parallel
+# mesh (the halo census, the horizontal pair and its transposes, one launch a
+# vertical group, the WTA, K3 and K4); the bench's median batch against
+# stage_breakdown's, at most this far apart; the benches' shortened runs
+TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 2,
+                  "volume_transpose": 3, "directional_scan_group": 2,
+                  "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
+AGREE = 0.10
+BIG_ITERS, STREAM_BATCHES, LOOP_FRAMES = 2, 8, 3
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -213,18 +242,6 @@ def cuda_ms(fn, reps: int) -> float:
     from soc_project_stereo_matching_tpu_torch.utils.profiling import cuda_time
 
     return cuda_time(fn, reps)["median"]
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes the
-    function must move (inputs read once, outputs written once) over the
-    memory rate and its operations over the peak 32-bit rate.  The operation
-    counts are the arithmetic of the plain formulation, to the nearest few
-    per element."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / OPS_PER_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def max_abs_err(got, want) -> float:
@@ -272,6 +289,7 @@ def check_kernels(cfg, timed: bool) -> dict:
         speckle_frames)
     from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                            postprocess, wta)
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
     left, right, _ = pair(cfg)
@@ -459,6 +477,7 @@ def k1_k4_ladder() -> None:
     from soc_project_stereo_matching_tpu_torch.ops import kernels, postprocess
     from soc_project_stereo_matching_tpu_torch.probes import (
         prespeckle_disparity)
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     for cfg in [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]:
         b, h, w, dmax = cfg["batch"], cfg["h"], cfg["w"], cfg["dmax"]
@@ -504,6 +523,7 @@ def wta_ladder() -> None:
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
     from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     for cfg in [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]:
         opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
@@ -577,6 +597,7 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
     from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
     dmin, dmax, p1, p2, k = opt.min_disparity, opt.max_disparity, opt.p1, \
@@ -732,6 +753,7 @@ def probe_kernel_checks(cfg, full: bool) -> dict:
     from soc_project_stereo_matching_tpu_torch.probes import (
         aggr_transpose, pair_and_cost, random_tensor)
     from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     dev = torch.device("cuda")
     b, h, w = cfg["batch"], cfg["h"], cfg["w"]
@@ -962,6 +984,7 @@ def s4_ladder() -> None:
     from soc_project_stereo_matching_tpu_torch.probes import (
         prespeckle_disparity)
     from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     shapes = [dict(CONE, batch=b) for b in (2, 8, 32)] + [MIDDLEBURY_HALF]
     for cfg in shapes:
@@ -1099,6 +1122,7 @@ def speckle_kernel_checks(cfg, full: bool) -> dict:
     from soc_project_stereo_matching_tpu_torch.probes import (
         prespeckle_disparity)
     from soc_project_stereo_matching_tpu_torch.probes import kernels as pk
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
 
     b, h, w, area = cfg["batch"], cfg["h"], cfg["w"], cfg["min_area"]
     _, disp = prespeckle_disparity(torch.device("cuda"), b, h, w, cfg["dmax"])
@@ -1212,14 +1236,183 @@ def same_measurements(got: dict, want: dict, keys) -> None:
                                  f"{g!r} != {w!r}")
 
 
-def counted_main_path(counts: dict, calls: int, what: str) -> dict:
-    """The main-path launches a run made, checked against ``calls``
-    ``match_batch`` calls' worth of ``MAIN_LAUNCHES``."""
-    launches = {name: counts[name] for name in MAIN_PATH}
-    want = {name: n * calls for name, n in MAIN_LAUNCHES.items()}
-    if launches != want:
-        raise AssertionError(f"{what} launched {launches}, want {want}")
-    return launches
+def counted_launches(counts: dict, per_call: dict, calls: int, what: str,
+                     extra: dict = None) -> dict:
+    """The launches a run made, checked counter by counter against ``calls``
+    engine calls' worth of ``per_call`` plus ``extra`` (counter -> launches
+    of the run's other kernel calls); every other counter must be 0."""
+    want = {name: n * calls for name, n in per_call.items()}
+    for name, n in (extra or {}).items():
+        want[name] = want.get(name, 0) + n
+    got = {name: n for name, n in counts.items() if n}
+    if got != {name: n for name, n in want.items() if n}:
+        raise AssertionError(f"{what} launched {got}, want {want}")
+    return got
+
+
+def stdout_of(fn) -> tuple:
+    """(``fn()``'s return value, the lines it printed on stdout)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn()
+    return rc, out.getvalue().splitlines()
+
+
+def benches_phase(tmp, card: str) -> None:
+    """The benches on the card, each with every launch counter reset just
+    before it and read just after."""
+    from pathlib import Path
+
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import (SGMEngine, SGMOptions,
+                                                       bench, stage_breakdown)
+    from soc_project_stereo_matching_tpu_torch.benches import (
+        big_configs, device_pair, loopback, scaling, streaming)
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    tmp = Path(tmp)
+    keys = {"metric", "value", "unit", "vs_baseline"}
+
+    # a. the headline bench, its timers against stage_breakdown's, a failure
+    kernels.reset_launch_counts()
+    rc, lines = stdout_of(
+        lambda: bench.main(["--out", str(tmp / "bench.json")]))
+    torch.cuda.synchronize()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: exit {rc}, stdout {lines}")
+    line = json.loads(lines[0])
+    if set(line) != keys or line["value"] is None:
+        raise AssertionError(f"bench: line {line}")
+    doc = json.loads((tmp / "bench.json").read_text())
+    agg = doc["aggregation"]
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, doc["engine_calls"],
+                     "bench", {"census_cost_volume": agg["census_calls"],
+                               **{name: n * agg["calls"]
+                                  for name, n in SCAN_LAUNCHES.items()}})
+    call, enq, window = doc["call_ms"], doc["enqueue_ms"], doc["window_ms"]
+    left, right, _ = device_pair("cuda", doc["batch"], doc["h"], doc["w"], 0,
+                                 doc["dmax"])
+    opt = SGMOptions(max_disparity=doc["dmax"])
+    engine = SGMEngine(opt, device="cuda")
+    theirs, _ = stage_breakdown.batch_and_enqueue(engine, left, right, 10)
+    # the same per-call timer in a second run, then two other timers: the
+    # staged forward's "total" span and the bench's own back-to-back window
+    spans = stage_breakdown.stage_times(left, right, opt, 5)["total"]
+    others = {"stage_breakdown.batch_and_enqueue": theirs["median"],
+              "stage_breakdown's total span": spans["median"],
+              "the bench's window": window["median"]}
+    ratios = {what: call["median"] / ms for what, ms in others.items()}
+    if any(abs(r - 1.0) > AGREE for r in ratios.values()):
+        raise AssertionError(f"bench: median batch {call['median']} ms, "
+                             f"against {others}")
+    del left, right
+    print(f"benches, bench stdout: {lines[0]} ({card})")
+    print(f"benches, bench {doc['w']}x{doc['h']} D={doc['dmax']} "
+          f"B={doc['batch']}: window {window['median']:.4f} ms a batch over "
+          f"{doc['repeats']} repeats of {doc['iters']} (min {window['min']:.4f}"
+          f", max {window['max']:.4f}, max/min {window['max_over_min']:.4f}; "
+          f"host enqueue {doc['window_enqueue_ms']['median']:.4f}); "
+          f"a batch at a time median {call['median']:.4f} p95 "
+          f"{call['p95']:.4f} p99 {call['p99']:.4f} ms ({call['n']} calls), "
+          f"host enqueue median {enq['median']:.4f} ms; "
+          f"{doc['fps_all_windows']:.2f} frames/s over all windows; "
+          + "; ".join(f"{what} {others[what]:.4f} ms ({r:.4f}x)"
+                      for what, r in ratios.items())
+          + f"; build_s "
+          f"{doc['build_s']:.3f}, first batch {doc['first_batch_ms']:.3f} ms; "
+          f"finite {doc['valid_frac']:.4f}, {doc['good_frac']:.4f} of them "
+          f"within 1 of the truth; aggregate_paths {agg['ms_per_frame']:.4f} "
+          f"ms a frame, {agg['share_of_bound']:.1%} of its "
+          f"{agg['bound_ms']:.4f} ms bound ({card})")
+    # a row wider than K1 takes: one line with value null, exit 1
+    rc, lines = stdout_of(lambda: bench.report(
+        "cuda", batch=2, w=20000, out=tmp / "bench_fail.json"))
+    line = json.loads(lines[0]) if len(lines) == 1 else {}
+    if rc != 1 or line.get("value", 0) is not None or "error" not in line:
+        raise AssertionError(f"bench forced failure: exit {rc}, stdout {lines}")
+    print(f"benches, bench forced failure: exit {rc}, {lines[0]}")
+
+    # b. the big configs; the tiled cell held to the untiled cell's output
+    untiled = None
+    for name, w, h, d, kw in big_configs.CELLS:
+        kw = dict(kw, iters=BIG_ITERS)
+        kernels.reset_launch_counts()
+        rec, out = big_configs.run_config(
+            name, w, h, d, **kw, device="cuda",
+            reference=untiled if kw.get("tiled") else None)
+        torch.cuda.synchronize()
+        counted_launches(kernels.LAUNCHES, TILED_LAUNCHES if rec["tiled"]
+                         else MAIN_LAUNCHES, rec["engine_calls"], name)
+        if name == "middlebury2014-half":
+            untiled = out
+        del out
+        c, e, win = rec["call_ms"], rec["enqueue_ms"], rec["window_ms"]
+        tiled = " tiled (bit-equal to untiled)" if rec["tiled"] else ""
+        print(f"benches, big_configs {name} {w}x{h} dmin={rec['min_disparity']}"
+              f" dmax={d} B={rec['batch']}{tiled}: "
+              f"{rec['ms_per_frame']:.4f} ms a frame, "
+              f"{rec['fps_per_chip']:.2f} frames/s (window, median of "
+              f"{rec['repeats']}, max/min {win['max_over_min']:.4f}; "
+              f"{rec['fps_all_windows']:.2f} over all windows; host "
+              f"enqueue {rec['window_enqueue_ms']['median']:.4f} ms); a batch "
+              f"at a time median {c['median']:.4f} p95 {c['p95']:.4f} ms, host "
+              f"enqueue {e['median']:.4f}; first batch "
+              f"{rec['first_batch_ms']:.3f} ms; finite "
+              f"{rec['valid_frac']:.4f}, {rec['good_frac']:.4f} within 1 "
+              f"({card})")
+    del untiled
+    torch.cuda.empty_cache()
+
+    # c. the host-fed stream
+    kernels.reset_launch_counts()
+    doc = streaming.run("cuda", batches=STREAM_BATCHES)
+    torch.cuda.synchronize()
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, doc["engine_calls"],
+                     "streaming")
+    cfg, att = doc["config"], doc["attribution"]
+    print(f"benches, streaming {cfg['width']}x{cfg['height']} "
+          f"D={cfg['max_disparity']} B={cfg['batch']}, {cfg['batches']} "
+          f"batches: host-fed {doc['fps_streaming']:.2f} frames/s, resident "
+          f"{doc['fps_device_resident']:.2f}, device only "
+          f"{doc['fps_device_only']:.2f} (host enqueue "
+          f"{doc['device_only_enqueue_ms']:.3f} of {doc['device_only_ms']:.3f} "
+          f"ms a batch); overlap "
+          f"{doc['overlap_efficiency']:.4f}; copy "
+          f"{doc['h2d_transfer_ms_per_batch']:.3f} ms a batch "
+          f"({doc['h2d_transfer_gb_s']:.2f} GB/s); transfer loss "
+          f"{att['transfer_loss']:.4f}, dispatch loss "
+          f"{att['dispatch_loss']:.4f}; loops equal ({card})")
+    torch.cuda.empty_cache()
+
+    # d. the wire protocol's loopbacks
+    kernels.reset_launch_counts()
+    doc = loopback.run("cuda", frames=LOOP_FRAMES, wire_repeat=1,
+                       engine_repeat=1)
+    torch.cuda.synchronize()
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, doc["engine_calls"],
+                     "loopback")
+    print(f"benches, loopback {doc['format']}: wire only "
+          f"{doc['wire_only_fps']:.2f} frames/s ({doc['wire_frames']} "
+          f"frames), engine {doc['engine_fps']:.2f} frames/s, "
+          f"{doc['engine_ms_per_frame']:.2f} ms a frame "
+          f"({doc['engine_frames']} frames) ({card})")
+
+    # e. scaling over the cards present, each size in ranks of its own
+    doc = scaling.run("cuda")
+    for row in doc["rows"]:
+        counted_launches(row["launches"], TILED_LAUNCHES, row["steps"],
+                         f"scaling, {row['devices']} rank(s)")
+        print(f"benches, scaling devices={row['devices']} mesh=({row['mesh']})"
+              f" batch={row['batch']}: {row['ms_per_step']:.4f} ms a step, "
+              f"{row['fps']:.2f} frames/s, scaling-eff "
+              f"{row['scaling_eff']:.4f}, bit-equal to the single-rank engine "
+              f"({card})")
+    if doc["not_run"]:
+        print(f"benches, scaling {doc['not_run']}")
 
 
 def surfaces_phase(tmp, card: str) -> None:
@@ -1261,7 +1454,7 @@ def surfaces_phase(tmp, card: str) -> None:
                    str(stats_path)])
     torch.cuda.synchronize()
     calls = 1 + harness.HarnessConfig().timing_repeats    # warm-up + timed
-    counted_main_path(kernels.LAUNCHES, calls, "cli eval")
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, calls, "cli eval")
     stats = json.loads(stats_path.read_text())
     if rc != 0 or stats["total_frames"] != cfg["batch"] \
             or stats["timing_methodology"] != "cuda-events":
@@ -1337,7 +1530,8 @@ def surfaces_phase(tmp, card: str) -> None:
             if t.is_alive():
                 raise AssertionError("the server's client handler did not end")
     torch.cuda.synchronize()
-    counted_main_path(kernels.LAUNCHES, cfg["frames"], "the wire client")
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, cfg["frames"],
+                     "the wire client")
     (path,) = (tmp / "wire_stats").glob("127.0.0.1_*.txt")
     stats = json.loads(path.read_text())
     if frames != cfg["frames"] or stats["total_frames"] != cfg["frames"]:
@@ -1384,7 +1578,8 @@ def surfaces_phase(tmp, card: str) -> None:
     rc = cli.main(["match", *map(str, paths), "-o", str(tmp / "match.png"),
                    "--device", "cuda"])
     torch.cuda.synchronize()
-    counted_main_path(kernels.LAUNCHES, 2, "cli match")    # first + steady
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, 2,
+                     "cli match")    # first + steady
     imageio.save_disparity_png(tmp / "want.png", SGMEngine(
         SGMOptions(), device="cuda").match(left[0], right[0]).cpu().numpy())
     got = np.asarray(Image.open(tmp / "match.png"))
@@ -1508,11 +1703,12 @@ def main() -> None:
               f"ms (cone B={SPECKLE['batch']} 375x450, min_area 50, bit-equal; "
               f"also at 37x45 B=4 and on hand-made frames)")
 
-    # 8. surfaces
+    # 8. surfaces, 9. benches
     with tempfile.TemporaryDirectory() as tmp:
         surfaces_phase(tmp, smi.splitlines()[0])
+        benches_phase(tmp, smi.splitlines()[0])
 
-    # 9. results
+    # 10. results
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

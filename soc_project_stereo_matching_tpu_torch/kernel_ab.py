@@ -95,7 +95,7 @@ from .ops import kernels, postprocess
 from .ops.wta import WTAPlanes, finalize_disparity
 from .probes import kernels as pk
 from .probes import prespeckle_disparity
-from .utils.profiling import card
+from .utils.profiling import HBM_BYTES_PER_S, card
 
 # the C entry each group compares, in the order they run
 GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
@@ -239,7 +239,6 @@ S4_ABLATIONS = {
     # the count with S2's warp merge before the table (exact)
     "warp merge": [(_S4_INSERTS, _S4_WARP_MERGE)],
 }
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 RUN = 10    # back-to-back WTA launches between two events
 
 

@@ -47,8 +47,9 @@ SEED = 0                    # of every probe's synthetic pair and random inputs
 def resolve_device(device) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the probes need a CUDA device (pass device='cpu' "
-                           "to run their plain versions, untimed)")
+        raise RuntimeError("the measurement tools need a CUDA device (pass "
+                           "device='cpu' to run their plain versions, "
+                           "untimed)")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device

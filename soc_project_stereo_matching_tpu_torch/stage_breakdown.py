@@ -31,12 +31,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from pathlib import Path
 
 import torch
 
 from . import SGMEngine, SGMOptions
+from .benches import per_call_ms
 from .data.synthetic import synthetic_pair
 from .ops import aggregation, kernels
 from .ops.postprocess import median_filter_3x3
@@ -76,18 +76,11 @@ def stage_times(left, right, opt, reps):
 
 
 def batch_and_enqueue(engine, left, right, reps):
-    batch_ms, enqueue_ms = [], []
-    engine.match_batch(left, right)
-    torch.cuda.synchronize()
-    for _ in range(reps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        t0 = time.perf_counter()
-        engine.match_batch(left, right)
-        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        torch.cuda.synchronize()
-        batch_ms.append(start.elapsed_time(end))
+    """(ms a batch, host enqueue ms) over ``reps`` calls after a warm-up,
+    each call between its own events (``benches.per_call_ms``)."""
+    call = lambda: engine.match_batch(left, right)
+    call()
+    batch_ms, enqueue_ms = per_call_ms(call, reps)
     return summary(batch_ms), summary(enqueue_ms)
 
 

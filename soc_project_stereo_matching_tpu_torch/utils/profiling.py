@@ -4,6 +4,8 @@
     cuda_time(fn, reps)   CUDA-event milliseconds of ``fn()``: median, min, max
     StageTimer            named spans between CUDA events, summed per name
     trace(log_dir)        a ``torch.profiler`` trace written as a Chrome trace
+    bound(bytes, ops)     the least time the card could take, from its
+                          published memory and 32-bit rates
     card()                (name, power limit) as ``nvidia-smi`` reports them
 
 PyTorch returns from a launch before the device has finished, so every time
@@ -24,6 +26,9 @@ from pathlib import Path
 from typing import Callable, Dict, List, Tuple
 
 import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, device memory
+OPS_PER_S = 67e12           # H100 SXM, 32-bit operations outside the tensor cores
 
 
 def summary(xs) -> Dict[str, float]:
@@ -92,6 +97,17 @@ def trace(log_dir: str):
         torch.cuda.synchronize()
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def bound(nbytes: float, ops: float) -> Dict[str, object]:
+    """{"bound_ms", "bound_by"}: the least time the card could take, the
+    larger of the bytes a function must move (inputs read once, outputs
+    written once) over the memory rate and its operations over the peak
+    32-bit rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def card() -> Tuple[str, str]:

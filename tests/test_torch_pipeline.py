@@ -144,7 +144,9 @@ def test_port_imports_no_jax():
             "data.pfm", "data.calib", "data.imageio", "data.datasets",
             "data.convert", "data.pipeline", "eval.metrics", "eval.harness",
             "compat.protocol", "compat.server", "compat.client",
-            "runtime.framebuffer", "runtime.native", "cli"]
+            "runtime.framebuffer", "runtime.native", "cli",
+            "bench", "benches", "benches.big_configs", "benches.streaming",
+            "benches.loopback", "benches.scaling", "benches.__main__"]
     code = ("import sys; import " + ", ".join(f"{pkg}.{m}" for m in mods) + "; "
             "ref = 'soc_project_stereo_matching_tpu'; "
             "bad = sorted(m for m in sys.modules if m.startswith('jax') "
