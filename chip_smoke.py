@@ -13,26 +13,39 @@ Phases (each raises on failure, so the script exits non-zero):
    K4 also on ``data.synthetic.speckle_frames``: tile corners, a snake
    across every tile, NaN / -inf, frames that must not connect); median
    CUDA-event times of kernel and plain version at the cone shape.  The K2
-   scan is the group kernel (one launch per vertical scan order, the
-   horizontal pair on the transposed volume): it is also held against the
-   sum of the first design's launches (``scan_direction``, one per
-   direction), and the horizontal pair against that design's two launches
-   along W;
+   scan is the group kernel (the vertical pair and the horizontal pair, on
+   the transposed volume, each one two-order launch): ``aggregate_paths``
+   is also held against the sum of the first design's launches
+   (``scan_direction``, one per direction), and the horizontal pair against
+   that design's two launches along W.  The fused forms: the main path's
+   ``aggregate_paths_wta`` (the two-order launch with the WTA epilogue),
+   ``directional_scan_group_bidir`` (both forms; the parked sums too) and
+   the group launch with the epilogue (``directional_scan_group(wta=...)``,
+   the last launch of the two-launch route) against their plain versions
+   and against ``wta_reduce`` of ``aggregate_paths``, both views, every mode;
 4. slice: ``SGMEngine(SGMOptions(), device="cuda").match_batch`` on a B=8
    synthetic 375x450 pair, with every launch counter reset before and read
-   after (the K2 scans must count 2 vertical groups, 2 horizontal scans and
-   3 transposes); the result must be bit-equal to the plain path on the
+   after (the K2 scans must count one two-order vertical launch with the
+   WTA epilogue, one two-order horizontal launch and 3 transposes, and no
+   ``wta_reduce``: no aggregated volume is stored); the result must be
+   bit-equal to the plain path on the
    card, a 96x160 crop bit-equal to the same engine on the CPU (the plain
    ops, which the CPU tests hold bit-equal to the JAX package and its numpy
    oracle), and most finite pixels within 1 of the pair's true disparity;
-   frames/s at B=32, and the K2 scan times per group at cone B=2, 8 and 32
+   frames/s at B=32; the two-launch route (the horizontal pair, the forward
+   group, the reverse group with the epilogue) as a path of its own at
+   cone B=8, counters reset before and read after, its planes equal to the
+   main path's; the K2 scan times per group at cone B=2, 8 and 32
    and at 1000x1500 D=256 B=1, beside the first design's; the launches of
-   every main-path entry per ``match_batch`` are asserted (K1, the WTA, K3
-   and K4 once each); K1 and K4 at the same four shapes (K1 at 1000x1500
-   also in the halo mode) and the WTA (both views, on the volume the
-   engine's scans make), each bit-equal to its plain version, with its time
-   beside its bound; beside the WTA, ``amin`` over D of the same volume, a
-   PyTorch call that reads it once (a read floor, not the same function);
+   every main-path entry per ``match_batch`` are asserted (K1, the fused
+   K2, K3 and K4 once each); K1 and K4 at the same four shapes (K1 at
+   1000x1500 also in the halo mode) and the WTA (both views, on the volume
+   ``aggregate_paths`` makes), each bit-equal to its plain version, with
+   its time beside its bound; beside the WTA, ``amin`` over D of the same
+   volume, a PyTorch call that reads it once (a read floor, not the same
+   function); the "WTA fused" line per shape: the vertical pair's two-order
+   launch with the epilogue beside the parent's form (two group launches
+   and ``wta_reduce``), bit-equal, in turns, with its byte bound;
 5. tile phase (the spatial-tiling path):
    a. kernels: the halo census and the carry-in/out group scan against their
       plain versions, bit for bit, on the H-tiles of the cone shape (B=2,
@@ -45,8 +58,12 @@ Phases (each raises on failure, so the script exits non-zero):
       times of kernel and plain version at the cone shape;
    b. engine: ``SGMEngine(..., EngineConfig(tile_mode="exact"),
       mesh=make_mesh(1, 1))`` at Middlebury-half D=256 (counters reset
-      before, read after) bit-equal to the untiled kernel engine, and the
-      frame time of both; all three tile modes at cone B=8 bit-equal too;
+      before, read after: the one-tile branch's vertical pair is one
+      two-order launch, then ``wta_reduce`` of the stored volume) bit-equal
+      to the untiled kernel engine, and the frame time of both; all three
+      tile modes at cone B=8 bit-equal too; the exact schedule's carried
+      scans over the cone's K=3 tiles on the one card (counters reset
+      before, read after), equal to the untiled two-order launch;
    c. multi-card: with two or more cards, ``dryrun_multichip(2)`` over NCCL
       (tile=2, exact and pipelined); with one card a line says it did not run;
 6. probe phase (the aggregation probe path, cone pair B=8, 375x450, D=64):
@@ -137,8 +154,11 @@ Phases (each raises on failure, so the script exits non-zero):
       rank's timed steps making the tiled path's launches;
 10. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
-   same function, that call's time), then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+   same function, that call's time; its launches from the path that runs
+   it: the main path, the tiled engine, the chained tiles, the two-launch
+   route, the probes, or for ``aggregate_paths`` the bench's aggregation
+   diagnostic), then the contract line ``{"ok": true, "device": {...}}``
+   last.
 
 Inputs are seeded synthetic pairs (no dataset is needed).  Neither JAX nor
 any module of the JAX package is imported, here or by the port: the last
@@ -169,18 +189,28 @@ SPECKLE_OFF = dict(PROBE_OFF, batch=4, min_area=8)   # block4 takes 4 frames
 RUN = 10            # back-to-back launches between two events (WTA ladder)
 PALLAS = "soc_project_stereo_matching_tpu/ops/pallas_kernels.py"
 CSRC = "soc_project_stereo_matching_tpu_torch/csrc"
-KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
+KERNELS = {  # counter -> (source, Pallas kernel it replaces)
     "census_cost_volume": (f"{CSRC}/census_cost.cu", f"{PALLAS}:1619"),
-    "aggregate_paths": (f"{CSRC}/aggregate.cu", f"{PALLAS}:178"),
+    # the two-order launch (_bidir_kernel): the vertical pair with the WTA
+    # epilogue (the main path), without it (aggregate_paths, the tiled
+    # path's local mode), and the horizontal pair
+    "aggregate_paths_wta": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
+    "aggregate_paths": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
     "horizontal_partial": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
     "volume_transpose": (f"{CSRC}/transpose.cu",
                          "scripts/aggr_transpose_probe.py:176"),
     "wta_reduce": (f"{CSRC}/wta.cu", f"{PALLAS}:1073"),
     "lr_check": (f"{CSRC}/lr_check.cu", f"{PALLAS}:1754"),
     "remove_speckles": (f"{CSRC}/speckle.cu", f"{PALLAS}:1306"),
-    # the tiled path's modes: mask_rows=False, and the cin_*/cout_* refs
+    # the tiled path's modes: mask_rows=False, the cin_*/cout_* refs (the
+    # carried scans of 2+ tiles), the two-order launch of the one-tile and
+    # local modes
     "census_cost_volume_halo": (f"{CSRC}/census_cost.cu", f"{PALLAS}:1619"),
     "directional_scan_group": (f"{CSRC}/aggregate.cu", f"{PALLAS}:178"),
+    "directional_scan_group_bidir": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
+    # the group kernel's WTA epilogue (_scan_group_kernel with wta), the
+    # last launch of the two-launch route
+    "directional_scan_group_wta": (f"{CSRC}/aggregate.cu", f"{PALLAS}:178"),
     # the probe path
     "probe_chain": (f"{CSRC}/probe_recurrence.cu",
                     "scripts/recurrence_floor.py:122"),
@@ -198,17 +228,28 @@ KERNELS = {  # wrapper -> (source, Pallas kernel it replaces)
     "probe_speckle_fused": (f"{CSRC}/probe_speckle.cu",
                             "scripts/speckle_tail_probe.py:110"),
 }
-MAIN_PATH = ("census_cost_volume", "aggregate_paths", "horizontal_partial",
-             "volume_transpose", "wta_reduce", "lr_check", "remove_speckles")
-# launches of the K2 scans per match_batch: the two vertical group scans, the
-# two scans of the horizontal pair and the three transposes around them
-SCAN_LAUNCHES = {"aggregate_paths": 2, "horizontal_partial": 2,
+MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_partial",
+             "volume_transpose", "lr_check", "remove_speckles")
+# launches of the K2 scans per match_batch: the vertical pair's two-order
+# launch with the WTA epilogue (no volume stored, no WTA launch), the
+# horizontal pair's two-order launch and the three transposes around it
+SCAN_LAUNCHES = {"aggregate_paths_wta": 1, "horizontal_partial": 1,
                  "volume_transpose": 3}
+# ... and per aggregate_paths call (the vertical pair's launch without it)
+AGGREGATE_LAUNCHES = {"aggregate_paths": 1, "horizontal_partial": 1,
+                      "volume_transpose": 3}
 # C entry calls per match_batch of every main-path wrapper: one each for K1,
-# the WTA, K3 and K4 (whose entry makes its four launches)
-MAIN_LAUNCHES = {"census_cost_volume": 1, **SCAN_LAUNCHES, "wta_reduce": 1,
-                 "lr_check": 1, "remove_speckles": 1}
-TILE_PATH = ("census_cost_volume_halo", "directional_scan_group")
+# K3 and K4 (whose entry makes its four launches); wta_reduce none
+MAIN_LAUNCHES = {"census_cost_volume": 1, **SCAN_LAUNCHES, "lr_check": 1,
+                 "remove_speckles": 1}
+# the tiled engine on a 1x1 mesh: the halo census, the vertical pair's
+# two-order launch, the stored volume's WTA
+TILE_PATH = ("census_cost_volume_halo", "directional_scan_group_bidir",
+             "wta_reduce")
+# the two-launch route (the JAX package's aggregate_paths_wta without its
+# bidir kernel): the horizontal pair, the forward group, the reverse group
+# with the WTA epilogue
+TWO_LAUNCH_PATH = ("directional_scan_group", "directional_scan_group_wta")
 PROBE_PATH = ("probe_chain", "probe_chainio", "probe_int16")
 SPECKLE_PATH = ("probe_speckle_labels", "probe_speckle_hist",
                 "probe_speckle_verdict", "probe_speckle_fused")
@@ -229,8 +270,8 @@ WIRE = dict(frames=3, h=720, w=1280, dmax=64, levels=(8, 16, 28, 45))
 # mesh (the halo census, the horizontal pair and its transposes, one launch a
 # vertical group, the WTA, K3 and K4); the bench's median batch against
 # stage_breakdown's, at most this far apart; the benches' shortened runs
-TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 2,
-                  "volume_transpose": 3, "directional_scan_group": 2,
+TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 1,
+                  "volume_transpose": 3, "directional_scan_group_bidir": 1,
                   "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 AGREE = 0.10
 BIG_ITERS, STREAM_BATCHES, LOOP_FRAMES = 2, 8, 3
@@ -368,6 +409,85 @@ def check_kernels(cfg, timed: bool) -> dict:
            # element and view
            2 * vol + 40 * px, 2 * 3 * vol)
 
+    # The fused forms (csrc/aggregate.cu): the two-order launch with and
+    # without the WTA epilogue, and the group launch with it, each against
+    # its plain version (which transcribes the kernel's order of work) and
+    # against the stored volume's WTA (the parent's form), in every mode.
+    p1, p2 = opt.p1, opt.p2_init
+    flat = lambda planes: [x for view in planes if view is not None
+                           for x in view]
+    err = {"aggregate_paths_wta": 0.0, "directional_scan_group_bidir": 0.0,
+           "directional_scan_group_wta": 0.0}
+    for o, mode in modes:
+        restart = mode == "restart"
+        (rf, _), (rb, _) = kernels.scan_groups(o.num_paths)
+        for inverse in ((True,) if timed else (True, False)):
+            got = kernels.aggregate_paths_wta(cost, left, o, mode, inverse)
+            want = kernels.aggregate_paths_wta_plain(cost, left, o, mode,
+                                                     inverse)
+            err["aggregate_paths_wta"] = max(err["aggregate_paths_wta"],
+                                             planes_err(flat(got), flat(want)))
+            planes_err(flat(got), flat(kernels.wta_reduce(
+                kernels.aggregate_paths(cost, left, o, mode), o, inverse)))
+            part = kernels.horizontal_partial(cost, left, p1, p2, restart)
+            wta_args = (o.min_disparity, inverse)
+            parks = (part.clone(), part.clone())
+            got = kernels.directional_scan_group_bidir(
+                cost, left, parks[0], rf, rb, p1, p2, restart, wta_args)
+            want = kernels.directional_scan_group_bidir_plain(
+                cost, left, parks[1], rf, rb, p1, p2, restart, wta_args)
+            err["directional_scan_group_bidir"] = max(
+                err["directional_scan_group_bidir"],
+                planes_err(flat(got), flat(want)), max_abs_err(*parks))
+            # the two-launch route: the forward group, then the reverse group
+            # with the epilogue
+            fwd_part = kernels.directional_scan_group(cost, left, part.clone(),
+                                                      rf, False, p1, p2, restart)
+            got = kernels.directional_scan_group(cost, left, fwd_part, rb, True,
+                                                 p1, p2, restart, wta=wta_args)
+            want = kernels.directional_scan_group_plain(
+                cost, left, fwd_part, rb, True, p1, p2, restart, wta=wta_args)
+            err["directional_scan_group_wta"] = max(
+                err["directional_scan_group_wta"],
+                planes_err(flat(got), flat(want)))
+            planes_err(flat(got), flat(kernels.wta_reduce(
+                kernels.aggregate_paths(cost, left, o, mode), o, inverse)))
+        # the volume form
+        part = kernels.horizontal_partial(cost, left, p1, p2, restart)
+        got = kernels.directional_scan_group_bidir(cost, left, part.clone(), rf,
+                                                   rb, p1, p2, restart)
+        err["directional_scan_group_bidir"] = max(
+            err["directional_scan_group_bidir"],
+            max_abs_err(got, kernels.directional_scan_group_bidir_plain(
+                cost, left, part.clone(), rf, rb, p1, p2, restart)),
+            max_abs_err(got, kernels.aggregate_paths(cost, left, o, mode)))
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    dmin = opt.min_disparity
+    record("aggregate_paths_wta", err["aggregate_paths_wta"],
+           lambda: kernels.aggregate_paths_wta(cost, left, opt),
+           lambda: kernels.aggregate_paths_wta_plain(cost, left, opt),
+           # cost and image in, 10 planes out; the 8 directions' steps and
+           # the two views' compare and selects
+           vol + px + 40 * px, 8 * 10 * vol + 2 * 3 * vol, plain_reps=1)
+    record("directional_scan_group_bidir",
+           err["directional_scan_group_bidir"],
+           lambda: kernels.directional_scan_group_bidir(
+               cost, left, part, rf, rb, p1, p2, False),
+           lambda: kernels.directional_scan_group_bidir_plain(
+               cost, left, part, rf, rb, p1, p2, False),
+           # cost, image and the sums in, the sums out; 6 directions' steps
+           vol + px + 2 * vol + 2 * vol, 6 * 10 * vol, plain_reps=1)
+    record("directional_scan_group_wta", err["directional_scan_group_wta"],
+           lambda: kernels.directional_scan_group(
+               cost, left, part, rb, True, p1, p2, False, wta=(dmin, True)),
+           lambda: kernels.directional_scan_group_plain(
+               cost, left, part, rb, True, p1, p2, False, wta=(dmin, True)),
+           # cost, image and the sums in, 10 planes out; 3 directions' steps
+           # and the two views' compare and selects
+           vol + px + 2 * vol + 40 * px, 3 * 10 * vol + 2 * 3 * vol,
+           plain_reps=1)
+
     # K3 on the pipeline's own maps, and off-shape on NaN / -inf / +inf too
     dl = wta.finalize_disparity(fwd, opt)
     dr = wta.finalize_disparity(inv, opt)
@@ -413,7 +533,8 @@ def check_kernels(cfg, timed: bool) -> dict:
            8 * px, 32 * px)
 
     torch.cuda.synchronize()
-    for name in MAIN_PATH:
+    for name in MAIN_PATH + ("aggregate_paths", "wta_reduce") + \
+            TWO_LAUNCH_PATH + ("directional_scan_group_bidir",):
         if kernels.LAUNCHES[name] <= before[name]:
             raise AssertionError(f"{name}: launch counter did not move")
     return out
@@ -518,7 +639,12 @@ def wta_ladder() -> None:
     beside it the min over D of the volume by one PyTorch call, which reads
     the volume once (a read floor; the WTA does more).  A call's events also
     hold the wrapper's host time when the card waits for it, so the time a
-    launch takes in a run of RUN back-to-back launches is printed too."""
+    launch takes in a run of RUN back-to-back launches is printed too.
+    Then the "fused" line: the vertical pair's two-order launch with the WTA
+    epilogue (the main path's) beside the parent's form, two group launches
+    and ``wta_reduce``, on the same horizontal sums, held bit-equal first,
+    timed in turns (parent, fused, fused, parent), with the fused launch's
+    byte bound."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
@@ -531,7 +657,6 @@ def wta_ladder() -> None:
         cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                           opt.max_disparity)
         aggr = kernels.aggregate_paths(cost, left, opt)
-        del cost
         b, h, d, w = aggr.shape
         fn = lambda: kernels.wta_reduce(aggr, opt, include_inverse=True)
         got = fn()
@@ -548,7 +673,39 @@ def wta_ladder() -> None:
               f"{run:.4f} a launch in runs of {RUN}; bound {lim:.4f} ms "
               f"({lim / ms:.1%} / {lim / run:.1%} of it); read floor "
               f"aggr.amin(dim=2) {floor:.4f} ms; both views bit-equal")
-        del aggr, left, right
+        del aggr
+        torch.cuda.empty_cache()
+
+        p1, p2 = opt.p1, opt.p2_init
+        (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+        wta = (opt.min_disparity, True)
+        part = kernels.horizontal_partial(cost, left, p1, p2, False)
+
+        def parent(acc):
+            for rolls, reverse in ((rf, False), (rb, True)):
+                kernels.directional_scan_group(cost, left, acc, rolls, reverse,
+                                               p1, p2, False)
+            return kernels.wta_reduce(acc, opt, include_inverse=True)
+
+        fused = lambda acc: kernels.directional_scan_group_bidir(
+            cost, left, acc, rf, rb, p1, p2, False, wta)
+        got, want = fused(part.clone()), parent(part.clone())
+        max_abs_err(torch.stack(got[0] + got[1]), torch.stack(want[0] + want[1]))
+        del got, want
+        torch.cuda.empty_cache()
+        # the sums the calls add onto wrap around over the runs: the time of
+        # neither kernel depends on the values
+        times = in_turns({"parent": lambda: parent(part),
+                          "fused": lambda: fused(part)}, 5)
+        lim = bound(vol + px + 2 * vol + 40 * px, 6 * 10 * vol + 2 * 3 * vol)
+        print(f"WTA fused {h}x{w} D={d} B={b}: the vertical pair's two-order "
+              f"launch with the WTA epilogue {times['fused']:.4f} ms, the "
+              f"parent's two group launches + wta_reduce "
+              f"{times['parent']:.4f} ms (in turns, median of 5 each, the two "
+              f"reads averaged; {times['fused'] / times['parent']:.3f}x); "
+              f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}); "
+              f"bit-equal")
+        del cost, part, left, right
         torch.cuda.empty_cache()
 
 
@@ -649,7 +806,7 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
     out["directional_scan_group"] = {"max_abs_err": err}
 
     torch.cuda.synchronize()
-    for name in TILE_PATH:
+    for name in ("census_cost_volume_halo", "directional_scan_group"):
         if kernels.LAUNCHES[name] <= before[name]:
             raise AssertionError(f"{name}: launch counter did not move")
 
@@ -688,6 +845,88 @@ def check_tile_kernels(cfg, timed: bool) -> dict:
     return out
 
 
+def chained_tile_path(cfg) -> dict:
+    """The exact schedule's carried scans on one card: each vertical group
+    over the K H-tiles of the cone pair, tile after tile, each tile's
+    launch taking the upstream tile's carry and boundary row (the tiled
+    path's order for 2+ tiles; one card cannot hold a mesh of several
+    ranks).  Counters reset before, read after; the tiles' sums must equal
+    the untiled two-order launch.  Returns the launches."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
+    p1, p2, k = opt.p1, opt.p2_init, cfg["k"]
+    left, right, _ = pair(cfg, seed=5)
+    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                      opt.max_disparity)
+    ht = cost.shape[1] // k
+    kernels.reset_launch_counts()
+    total = torch.zeros(cost.shape, dtype=torch.uint16, device=cost.device)
+    for rolls, reverse in GROUPS:
+        carry = None
+        for i in (range(k - 1, -1, -1) if reverse else range(k)):
+            rows = slice(i * ht, (i + 1) * ht)
+            prev = None
+            if carry is not None:
+                prev = left[:, (i + 1) * ht if reverse else i * ht - 1]
+                prev = prev.contiguous()
+            acc = total[:, rows].contiguous()
+            acc, carry = kernels.directional_scan_group(
+                cost[:, rows].contiguous(), left[:, rows].contiguous(), acc,
+                rolls, reverse, p1, p2, False, carry_in=carry, want_carry=True,
+                prev_gray=prev)
+            total[:, rows] = acc
+    torch.cuda.synchronize()
+    launches = counted_launches(kernels.LAUNCHES,
+                                {"directional_scan_group": 2 * k}, 1,
+                                "the chained tiles")
+    max_abs_err(total, kernels.directional_scan_group_bidir(
+        cost, left, None, GROUPS[0][0], GROUPS[1][0], p1, p2, False))
+    print(f"tile phase, chained tiles: both vertical groups over K={k} "
+          f"H-tiles of {cfg['h']}x{cfg['w']} B={cfg['batch']} made "
+          f"{launches} and equal the untiled two-order launch")
+    return launches
+
+
+def two_launch_path(cfg) -> dict:
+    """The two-launch route of the JAX package's ``aggregate_paths_wta``
+    (its form where the two-order kernel does not fit): the horizontal
+    pair, the forward group, then the reverse group whose launch carries
+    the WTA epilogue.  Counters reset before, read after; the planes must
+    equal the main path's.  Returns the launches."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    opt = SGMOptions(min_disparity=cfg["dmin"], max_disparity=cfg["dmax"])
+    p1, p2 = opt.p1, opt.p2_init
+    left, right, _ = pair(cfg, seed=9)
+    cost = kernels.census_cost_volume(left, right, opt.min_disparity,
+                                      opt.max_disparity)
+    kernels.reset_launch_counts()
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    kernels.directional_scan_group(cost, left, part, rf, False, p1, p2, False)
+    fwd, inv = kernels.directional_scan_group(
+        cost, left, part, rb, True, p1, p2, False,
+        wta=(opt.min_disparity, True))
+    torch.cuda.synchronize()
+    launches = counted_launches(
+        kernels.LAUNCHES, {"horizontal_partial": 1, "volume_transpose": 3,
+                           "directional_scan_group": 1,
+                           "directional_scan_group_wta": 1}, 1,
+        "the two-launch route")
+    want = kernels.aggregate_paths_wta(cost, left, opt)
+    max_abs_err(torch.stack(fwd + inv), torch.stack(want[0] + want[1]))
+    print(f"two-launch route at {cfg['h']}x{cfg['w']} B={cfg['batch']}: "
+          f"{launches}, planes equal to the main path's")
+    return {name: launches[name] for name in TWO_LAUNCH_PATH}
+
+
 def tile_engine_phase() -> dict:
     """The tiled engine on a 1x1 mesh vs the untiled kernel engine; returns
     the launch counts of its Middlebury-half run."""
@@ -711,9 +950,8 @@ def tile_engine_phase() -> dict:
     missing = [name for name in TILE_PATH if launches[name] == 0]
     if missing:
         raise AssertionError(f"tiled path launched no {missing}")
-    if launches["directional_scan_group"] != 2:     # one launch per group
-        raise AssertionError(f"tiled path launched {launches}, want 2 group "
-                             f"scans")
+    counted_launches(kernels.LAUNCHES, TILED_LAUNCHES, 1,
+                     "the tiled engine on a 1x1 mesh")
     max_abs_err(got, want)
     valid = torch.isfinite(got)
     good = ((got - field).abs() <= 1.0)[valid].float().mean().item()
@@ -1261,7 +1499,7 @@ def stdout_of(fn) -> tuple:
     return rc, out.getvalue().splitlines()
 
 
-def benches_phase(tmp, card: str) -> None:
+def benches_phase(tmp, card: str) -> dict:
     """The benches on the card, each with every launch counter reset just
     before it and read just after."""
     from pathlib import Path
@@ -1289,10 +1527,10 @@ def benches_phase(tmp, card: str) -> None:
         raise AssertionError(f"bench: line {line}")
     doc = json.loads((tmp / "bench.json").read_text())
     agg = doc["aggregation"]
-    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, doc["engine_calls"],
-                     "bench", {"census_cost_volume": agg["census_calls"],
-                               **{name: n * agg["calls"]
-                                  for name, n in SCAN_LAUNCHES.items()}})
+    bench_launches = counted_launches(
+        kernels.LAUNCHES, MAIN_LAUNCHES, doc["engine_calls"], "bench",
+        {"census_cost_volume": agg["census_calls"],
+         **{name: n * agg["calls"] for name, n in AGGREGATE_LAUNCHES.items()}})
     call, enq, window = doc["call_ms"], doc["enqueue_ms"], doc["window_ms"]
     left, right, _ = device_pair("cuda", doc["batch"], doc["h"], doc["w"], 0,
                                  doc["dmax"])
@@ -1413,6 +1651,9 @@ def benches_phase(tmp, card: str) -> None:
               f"({card})")
     if doc["not_run"]:
         print(f"benches, scaling {doc['not_run']}")
+    # aggregate_paths is on no engine path: its launches are the bench's
+    # aggregation diagnostic's
+    return {"aggregate_paths": bench_launches["aggregate_paths"]}
 
 
 def surfaces_phase(tmp, card: str) -> None:
@@ -1634,9 +1875,8 @@ def main() -> None:
     if missing:
         raise AssertionError(f"main path launched no {missing}")
     scans = {name: launches[name] for name in SCAN_LAUNCHES}
-    if launches != MAIN_LAUNCHES:
-        raise AssertionError(f"main path launched {launches}, want "
-                             f"{MAIN_LAUNCHES}")
+    # and nothing else: no wta_reduce, no stored aggregated volume
+    counted_launches(kernels.LAUNCHES, MAIN_LAUNCHES, 1, "the main path")
     if not (disp.is_cuda and disp.dtype == torch.float32
             and disp.shape == left.shape):
         raise AssertionError(f"bad output {disp.dtype} {tuple(disp.shape)} "
@@ -1661,6 +1901,7 @@ def main() -> None:
           f"{good:.4f} of them within 1 of the truth; K2 scan launches "
           f"{scans}; "
           f"B={FPS_BATCH}: {ms:.3f} ms/batch = {FPS_BATCH / ms * 1e3:.2f} frames/s")
+    launches.update(two_launch_path(dict(CONE, batch=SLICE_BATCH)))
     scan_ladder()
     k1_k4_ladder()
     wta_ladder()
@@ -1668,12 +1909,13 @@ def main() -> None:
     # 5. tile phase
     check_tile_kernels(MIDDLEBURY_HALF, timed=False)
     cone.update(check_tile_kernels(TILE_CONE, timed=True))
-    for name in TILE_PATH:
+    for name in ("census_cost_volume_halo", "directional_scan_group"):
         rec = cone[name]
         print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
               f"ms (one cone tile, B=2 125x450 D=64, bit-equal; also at "
               f"1000x1500 D=256 K=4)")
     launches.update(tile_engine_phase())
+    launches.update(chained_tile_path(TILE_CONE))
     if torch.cuda.device_count() >= 2:
         from soc_project_stereo_matching_tpu_torch.parallel.dryrun import (
             dryrun_multichip)
@@ -1706,7 +1948,7 @@ def main() -> None:
     # 8. surfaces, 9. benches
     with tempfile.TemporaryDirectory() as tmp:
         surfaces_phase(tmp, smi.splitlines()[0])
-        benches_phase(tmp, smi.splitlines()[0])
+        launches.update(benches_phase(tmp, smi.splitlines()[0]))
 
     # 10. results
     print(json.dumps({"kernels": [

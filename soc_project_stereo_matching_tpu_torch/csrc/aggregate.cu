@@ -2,13 +2,16 @@
 //
 // Replaces: soc_project_stereo_matching_tpu/ops/pallas_kernels.py:
 //   _directional_scan_group / _scan_group_kernel (with and without its
-//   cross-tile carry-in/out refs) and
-//   _directional_scan_group_bidir / _bidir_kernel, as driven by
+//   cross-tile carry-in/out refs, and with its `wta` epilogue) and
+//   _directional_scan_group_bidir / _bidir_kernel (both scan orders in one
+//   launch, the volume or the WTA planes only), as driven by
 //   aggregate_paths, aggregate_paths_wta and parallel/tiles.py.  The WTA
-//   reduction that follows is csrc/wta.cu.
+//   reduction of a stored volume is csrc/wta.cu.
 //
 // Two scan kernels live here.  `group_kernel` (sgm_scan_group) is the one the
-// port runs: up to three directions that share a scan order in one launch.
+// port runs: up to three directions that share a scan order in one launch,
+// in one of two orders or (the two-order launch) both, optionally ending in
+// the WTA epilogue (below, after the scan's design).
 // `scan_kernel` (sgm_scan_direction) is the first design, one warp per path
 // and one launch per direction; it stays as the entry the measurement tools
 // time one direction with and as a second reference on the card.
@@ -110,6 +113,59 @@
 // Bytes per volume element over the 8 directions: 2
 // (cost transposed) + 3 + 5 (horizontal groups) + 4 (sum transposed back) +
 // 5 + 5 (vertical groups) = 24, all in whole sectors, against 38 before.
+//
+//
+// The two-order launch (two_order): the kernel runs its loop twice, the
+// second pass over the rows in the other order with the second roll set,
+// every pass's state, gray values and cost ring set up afresh and the
+// hand-off's barrier phases carried over (a cluster.sync() between the
+// passes: no block hands a column of the second pass to a peer still in the
+// first).  The TPU kernel keeps the first pass's sums in VMEM; here no
+// shared memory holds a frame's (21.6 MB at the cone size), so the first
+// pass parks them where the volume goes (added in place onto `acc`) and the
+// second adds onto them.  A thread owns the same columns and chunk of D in
+// both passes, whatever the rolls or the strip's halo (the halo carries DP
+// state through shared memory, never a sum), so every read of a parked sum
+// is of the thread's own store: no fence between blocks.  The second pass
+// reads the rows written last first, so at small batches they still lie in
+// the 50 MB L2.  Against two one-order launches it moves the same bytes and
+// takes about their time (PERF.md section 6, the fused forms).
+//
+// The WTA epilogue (views > 0, the last pass) stores no volume.  A step's
+// finished totals go into `finished`, a ring of three rows per image in
+// device memory (the L2); the block arrives on the cluster's hardware
+// barrier (release), reduces the row of the step before, and waits
+// (acquire).  The ring slot of row s is read at step s + 1 and written
+// again at step s + 3, after the barriers of s + 1 and s + 2, so three
+// slots suffice.  The inverse view of column j reads plane k at column
+// j + dmin + k, up to dmin + D - 1 columns past a strip's edge (63 at the
+// cone, 151 at KITTI-2012, 255 at Middlebury-half), wherever that lies:
+// through the ring every block reads every column of its image.  A thread
+// reduces its own chunk of D at its two columns, both views, into partial
+// tracks (min and first argmin, the min over the other planes, the costs
+// beside the min where they lie in the chunk, the chunk's first and last
+// cost), the loads of a batch of planes issued before any is used and the
+// two columns in the 16-bit lanes of a word.  The tracks go to shared
+// memory (into the cost slab of the step just done where they fit there,
+// so that the epilogue costs a group no directions at Middlebury-half), and
+// one thread per column and view merges its chunks' tracks in order (a tie
+// keeps the earlier plane; a cost beside the min past a chunk's edge is
+// the neighbour chunk's edge cost) and stores the five planes.  The
+// arithmetic is csrc/wta.cu's, bit-equal to kernels.wta_online_plain;
+// kernels.wta_epilogue_plain transcribes this decomposition.  A kernel with
+// the epilogue takes 512 threads a block at 128 registers (at 80 the
+// epilogue pushed the recurrence's state into local memory, and the launch
+// ran slower),
+// and grows its cluster only while every cluster of the batch fits the
+// card at once.  What bounds it (kernel_ab.py --only fused and its
+// ablations; PERF.md section 6, the fused forms): the row's reduction sits
+// on the step's critical chain (its L2 round trips and its arithmetic); the
+// cluster barrier costs little.  Taking it off the chain needs
+// warps of their own (the recurrence's warps hand a finished row over and
+// go on).  Tried and slower: scalar tracks per column (a long unrolled
+// batch), a function call per row (spills around the call), 16 planes a
+// batch, a column pair as one 4-byte load with the odd-aligned half
+// shuffled from the next lane (the shuffle waits on its load).
 //
 // Wrap diagonals: the path that starts at column k of its first row is at
 // column (k + roll*s) mod W at step s, so the previous pixel of a path is
@@ -276,6 +332,9 @@ constexpr int kMaxCluster = 16;    // 8 is the portable limit
 constexpr int kMaxStages = 4;      // cost slabs in flight
 constexpr int kMaxChunks = 8;      // chunks of D per column pair
 constexpr int kGroupThreads = 768; // most threads of a block: 85 registers each
+// ... with the WTA epilogue: 128 registers each (at 80 the epilogue's state
+// pushed the recurrence's into local memory)
+constexpr int kWtaThreads = 512;
 constexpr int kClampP = 1024;      // P1, P2' beyond 255 never win a min
 constexpr long long kWaitCycles = 1LL << 32;   // about 2 s
 constexpr long long kHeavyStrip = 16384;   // columns x D of a strip
@@ -294,6 +353,16 @@ struct GroupArgs {
   int B, S, D, W;
   int rolls[kMaxDirs];
   int carry_n, reverse, restart, p1, p2_init, accumulate;
+  // the two-order launch: a second pass over the rows in the other order,
+  // rolls_b, adding onto what the first parked in `out`
+  int two_order;
+  int rolls_b[kMaxDirs];
+  // the WTA epilogue (the last pass): `views` (1 forward, 2 with the
+  // inverse view) x 5 int32 (B, S, W) planes, no volume store; the finished
+  // rows go through `finished`, a ring of 3 uint16 (B, 3, D, W) rows
+  int views, dmin;
+  uint16_t* finished;
+  int* planes;
   // the launch shape
   int TW;       // columns of a block's strip (even)
   int NP;       // column pairs of a strip
@@ -306,6 +375,8 @@ struct GroupArgs {
   int col_bytes;   // bytes of a handed-over column: NCH * DC, in sixteens
   int recv_off;    // byte offset of the hand-off buffers
   int recv_dir;    // bytes of one direction's hand-off buffer
+  int part_off;    // byte offset of the epilogue's partial tracks, or -1:
+                   // they take the cost slab of the step that finished
   int smem_bytes;  // all of the dynamic shared memory
 };
 
@@ -419,11 +490,186 @@ __device__ __forceinline__ unsigned ld_even(const uint8_t* p) {
   return __byte_perm((unsigned)*(const uint16_t*)p, 0u, 0x4140);
 }
 
+// --- the WTA epilogue ------------------------------------------------------
+// Arrive on / wait for the cluster's hardware barrier, split: release and
+// acquire at cluster scope, so what a block stored before its arrival is
+// seen by every block of the cluster after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+constexpr int kBig = 1 << 30;   // sec_min where D = 1
+constexpr int kWtaBatch = 8;    // planes whose loads the epilogue issues at once
+
+// A WTA track over the planes [k0, k1) of one column and view: the min m1
+// and its first plane bk, the min over the range's other planes m2 (0xFFFF,
+// neutral, for one plane), the costs at bk - 1 (lo) and bk + 1 (hi) where
+// they lie in the range, the range's first and last cost.
+struct Track {
+  int m1, m2, lo, hi, first, last, bk;
+};
+
+__device__ __forceinline__ int4 pack_track(const Track& t) {
+  return make_int4(t.m1 | t.m2 << 16, t.lo | t.hi << 16,
+                   t.first | t.last << 16, t.bk);
+}
+
+__device__ __forceinline__ Track unpack_track(int4 v) {
+  Track t;
+  t.m1 = v.x & 0xFFFF, t.m2 = (int)((unsigned)v.x >> 16);
+  t.lo = v.y & 0xFFFF, t.hi = (int)((unsigned)v.y >> 16);
+  t.first = v.z & 0xFFFF, t.last = (int)((unsigned)v.z >> 16);
+  t.bk = v.w;
+  return t;
+}
+
+// l (planes [.., kr)) followed by r (planes [kr, ..)), into l: a tie keeps
+// l's plane; lo or hi that lay past a range's edge is the neighbour's edge
+// cost.
+__device__ __forceinline__ void merge_track(Track& l, const Track& r, int kr) {
+  if (r.m1 < l.m1) {
+    l.m2 = min(l.m1, r.m2);
+    l.lo = r.bk == kr ? l.last : r.lo;
+    l.hi = r.hi;
+    l.m1 = r.m1;
+    l.bk = r.bk;
+  } else {
+    l.m2 = min(l.m2, r.m1);
+    if (l.bk == kr - 1) l.hi = r.first;
+  }
+  l.last = r.last;
+}
+
+// A view's tracks at a thread's two columns, in the 16-bit lanes of a word
+// where the two columns go together (csrc/wta.cu's Pair, over a chunk of
+// planes): the min and the min over the planes that lost to it (one
+// VIMNMX.U16x2 each; its predicates say where the min stays, so a tie keeps
+// the first plane), per column the latch lo << 8 | bk where the min changes
+// hands, hi of the plane after one that took it, and the chunk's first and
+// last cost.
+struct Tracks2 {
+  unsigned m1, m2;
+  int rk[2], hi[2], first[2], last[2];
+  bool took[2];
+};
+
+__device__ __forceinline__ void tracks_init(Tracks2& t, int v0, int v1,
+                                            int k) {
+  t.m1 = (unsigned)v0 | ((unsigned)v1 << 16);
+  t.m2 = 0xFFFFFFFFu;
+  t.rk[0] = t.rk[1] = k;   // lo unknown (the chunk before holds it)
+  t.hi[0] = t.hi[1] = 0;
+  t.first[0] = t.last[0] = v0;
+  t.first[1] = t.last[1] = v1;
+  t.took[0] = t.took[1] = true;
+}
+
+__device__ __forceinline__ void tracks_step(Tracks2& t, int v0, int v1,
+                                            int k) {
+  const unsigned vp = (unsigned)v0 | ((unsigned)v1 << 16);
+  bool keep1, keep0;   // m1 <= v: the min stays
+  const unsigned m1 = __vibmin_u16x2(t.m1, vp, &keep1, &keep0);
+  t.m2 = __vminu2(t.m2, __vmaxu2(t.m1, vp));
+  t.m1 = m1;
+  t.rk[0] = keep0 ? t.rk[0] : t.last[0] << 8 | k;
+  t.rk[1] = keep1 ? t.rk[1] : t.last[1] << 8 | k;
+  t.hi[0] = t.took[0] ? v0 : t.hi[0];
+  t.hi[1] = t.took[1] ? v1 : t.hi[1];
+  t.last[0] = v0, t.last[1] = v1;
+  t.took[0] = !keep0, t.took[1] = !keep1;
+}
+
+__device__ __forceinline__ Track track_of(const Tracks2& t, int h) {
+  Track u;
+  u.m1 = (int)((t.m1 >> (16 * h)) & 0xFFFFu);
+  u.m2 = (int)((t.m2 >> (16 * h)) & 0xFFFFu);
+  u.lo = t.rk[h] >> 8, u.bk = t.rk[h] & 0xFF;
+  u.hi = t.hi[h], u.first = t.first[h], u.last = t.last[h];
+  return u;
+}
+
+// A thread's part of the epilogue for one finished row (in the ring, `row`):
+// for each view, the partial tracks of its chunk of planes [d_lo, d_hi) at
+// its columns c0 and c0 + 1, into q[v * stride] and q[v * stride + 1].  The
+// inverse view of column x reads plane d at column x + dmin + d (65535 past
+// the row's end), wherever in the image's row that lies.  The loads of a
+// batch of planes, both columns and both views, are issued before any is
+// used: each batch is one round trip to the L2.  The two columns go in the
+// lanes of a word, which keeps the unrolled batch short (four scalar tracks
+// a thread ran slower).
+__device__ __forceinline__ void wta_partials(const uint16_t* row, int4* q,
+                                            int stride, int views, int dmin,
+                                            int W, int c0, bool valid1,
+                                            int d_lo, int d_hi) {
+  Tracks2 t[2];   // [view]
+#pragma unroll 1
+  for (int d0 = d_lo; d0 < d_hi; d0 += kWtaBatch) {
+    int c[2][2][kWtaBatch];
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int i = 0; i < kWtaBatch; ++i) {
+        const int d = d0 + i;
+        const int col = c0 + (v ? dmin + d : 0);
+        const uint16_t* at = row + (size_t)d * W + col;
+        const bool in = d < d_hi && v < views;
+        c[v][0][i] = in && col < W ? (int)__ldcg(at) : 0xFFFF;
+        c[v][1][i] = in && valid1 && col + 1 < W ? (int)__ldcg(at + 1) : 0xFFFF;
+      }
+#pragma unroll
+    for (int i = 0; i < kWtaBatch; ++i) {
+      const int d = d0 + i;
+      if (d >= d_hi) break;
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if (d == d_lo)
+          tracks_init(t[v], c[v][0][i], c[v][1][i], d);
+        else
+          tracks_step(t[v], c[v][0][i], c[v][1][i], d);
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    if (v >= views) break;
+    q[v * stride] = pack_track(track_of(t[v], 0));
+    if (valid1) q[v * stride + 1] = pack_track(track_of(t[v], 1));
+  }
+}
+
+// The block's part of the epilogue after its threads' partial tracks
+// (part: (views, NCH, TW)): one thread a column and view merges the NCH
+// chunks' tracks in order and stores the five planes (`out` at the strip's
+// first column of the row, planes `plane` elements apart).
+__device__ __forceinline__ void wta_merge(const int4* part, int* out,
+                                       size_t plane, int views, int NCH,
+                                       int TW, int DC, int D, int Lb) {
+  for (int task = threadIdx.x; task < views * Lb; task += blockDim.x) {
+    const int v = task / Lb, x = task - v * Lb;
+    const int4* q = part + v * NCH * TW + x;
+    Track t = unpack_track(q[0]);
+#pragma unroll 1
+    for (int c = 1; c < NCH; ++c) merge_track(t, unpack_track(q[c * TW]), c * DC);
+    int* o = out + (size_t)v * 5 * plane + x;
+    o[0] = t.bk;
+    o[plane] = t.m1;
+    o[2 * plane] = D > 1 ? t.m2 : kBig;
+    o[3 * plane] = t.bk == 0 ? t.m1 : t.lo;
+    o[4 * plane] = t.bk == D - 1 ? t.m1 : t.hi;
+  }
+}
+
 // EVEN: W is even, the cost volume starts at an even address and the sum at
 // a multiple of 4, so a column pair of the cost slab is one 16-bit load and a
-// pair of sums one 32-bit access; else bytes and halves.
-template <int N, bool EVEN>
-__global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a) {
+// pair of sums one 32-bit access; else bytes and halves.  WTA: the last pass
+// carries the epilogue (a.views > 0).
+template <int N, bool EVEN, bool WTA>
+__global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
+    group_kernel(const GroupArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
@@ -459,15 +705,9 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a)
   const uint8_t* cost_end = a.cost + (size_t)a.B * S * D * W;
   const uint8_t* img_b = a.img + (size_t)b * S * W;
   uint16_t* out_b = a.out + (size_t)b * S * D * W;
+  uint16_t* fin_b = WTA ? a.finished + (size_t)b * 3 * D * W : nullptr;
   const bool carried = a.cin_cost != nullptr;
-
-  int diagonals = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) diagonals += a.rolls[k] != 0;
-  // bytes a step's hand-off brings in: a token from each neighbour, and
-  // per diagonal direction a column and its partial minima
-  const int dir_bytes = a.NCH * a.DC + 4 * a.NCH;
-  const int step_bytes = 8 + diagonals * dir_bytes;
+  const int npass = a.two_order ? 2 : 1;
 
   for (int i = tid; i < 256; i += blockDim.x)
     lut[i] = (uint16_t)min(max(a.p1, a.p2_init / (i + 1)), kClampP);
@@ -487,8 +727,9 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a)
   // One row's (D, Lb) cost slab into a ring buffer: per d, the 16-byte
   // chunks that cover the segment, from its aligned-down address.
   const int cpr = pitchC / 16;
+  int reverse = a.reverse;   // this pass's
   auto stage_row = [&](int step) {
-    const int t = a.reverse ? S - 1 - step : step;
+    const int t = reverse ? S - 1 - step : step;
     uint8_t* slab = smem + ring + (step % a.NST) * slab_bytes;
     const uint8_t* g_row = cost_b + (size_t)t * D * W + cstart;
     for (int idx = tid; idx < D * cpr; idx += blockDim.x) {
@@ -503,10 +744,6 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a)
       }
     }
   };
-  for (int st = 0; st < a.NST - 1; ++st) {
-    if (st < S) stage_row(st);
-    cp_async_commit();
-  }
 
   // The carry-in is the first state buffer, halo columns included.
   if (carried) {
@@ -544,9 +781,6 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a)
   const bool first_col = lc == 0;
   const bool last_col = lc == Lb - 1 || lc + 1 == Lb - 1;
   const int Wmod = W & 15;
-
-  // Per direction: the restart lanes, and whether this thread hands its
-  // chunk of a column over to a peer or takes one from a peer.
   const int right = (rank + 1) % CS, left = (rank + CS - 1) % CS;
   const unsigned recv_right = peer_addr(smem_addr(smem + recv), right);
   const unsigned recv_left = peer_addr(smem_addr(smem + recv), left);
@@ -554,289 +788,354 @@ __global__ void __launch_bounds__(kGroupThreads) group_kernel(const GroupArgs a)
   const unsigned bars_left = peer_addr(smem_addr(bars), left);
   const unsigned tokens_right = peer_addr(smem_addr(tokens), right);
   const unsigned tokens_left = peer_addr(smem_addr(tokens), left);
-  unsigned restart_mask[N];
-  bool sends[N], takes[N];
-  int soff[N];   // a direction's previous state, at this pair's column - roll
+  // the next parity of each hand-off barrier (thread 0 waits on them)
+  unsigned phases = 0;
+
+  // The WTA planes of the row that step sp of this pass finished (see
+  // wta_partials and wta_merge).
+  // Its partial tracks, (views, NCH, TW), go into shared memory of their
+  // own or, where they fit there, into the cost slab of step `slab`, which
+  // no thread reads again and no copy fills before the next step.
+  auto wta_row = [&](int sp, int slab) {
+    const uint16_t* row = fin_b + (size_t)(sp % 3) * D * W;
+    int4* part = (int4*)(smem + a.part_off);
+    if (a.part_off < 0) {
+      part = (int4*)(smem + ring + (slab % a.NST) * slab_bytes);
+      __syncthreads();   // every thread is done with the slab
+    }
+    if (active)
+      wta_partials(row, part + ch * a.TW + lc, a.NCH * a.TW, a.views, a.dmin,
+                   W, c0, valid1, d_lo, d_hi);
+    __syncthreads();
+    const int tr = reverse ? S - 1 - sp : sp;
+    wta_merge(part, a.planes + ((size_t)b * S + tr) * W + cstart,
+              (size_t)a.B * S * W, a.views, a.NCH, a.TW, a.DC, D, Lb);
+  };
+
+  for (int pass = 0; pass < npass; ++pass) {
+    reverse = a.reverse ^ pass;
+    const bool accumulate = pass > 0 || a.accumulate;
+    const bool epi = WTA && pass == npass - 1;
+    const bool fresh_start = pass > 0 || !carried;
+    int rolls[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int roll = a.rolls[k];
-    restart_mask[k] = 0u;
-    sends[k] = takes[k] = false;
-    soff[k] = state + k * state_dir + (d_lo + 1) * pitchS + 4 + lc - roll;
-    if (!active || roll == 0) continue;
-    const int reset = roll > 0 ? 0 : W - 1;
-    if (a.restart) {
-      if (c0 == reset) restart_mask[k] = 0x0000FFFFu;
-      if (valid1 && c0 + 1 == reset) restart_mask[k] = 0xFFFF0000u;
-    }
-    sends[k] = roll > 0 ? last_col : first_col;   // to the right / left peer
-    takes[k] = roll > 0 ? first_col : last_col;   // the left / right halo
-  }
-  // this pair's new state
-  const int noff = state + (d_lo + 1) * pitchS + 4 + lc;
-  // the lane of the column that leaves to the right (the strip's last)
-  const bool last_hi = lc != Lb - 1;
+    for (int k = 0; k < N; ++k) rolls[k] = pass ? a.rolls_b[k] : a.rolls[k];
+    int diagonals = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) diagonals += rolls[k] != 0;
+    // bytes a step's hand-off brings in: a token from each neighbour, and
+    // per diagonal direction a column and its partial minima
+    const int dir_bytes = a.NCH * a.DC + 4 * a.NCH;
+    const int step_bytes = 8 + diagonals * dir_bytes;
 
-  // the gray values of the first step
-  int gc0 = 0, gc1 = 0, g0 = 0, g1 = 0, g2 = 0, g3 = 0;
-  if (active && S > 0) {
-    const int t = a.reverse ? S - 1 : 0;
-    gc0 = img_b[(size_t)t * W + c0];
-    gc1 = valid1 ? img_b[(size_t)t * W + c0 + 1] : 0;
-    if (carried) {
-      const uint8_t* pr = a.prev_gray + (size_t)b * W;
-      g0 = pr[cm1], g1 = pr[c0], g2 = pr[cp1], g3 = pr[cp2];
-    }
-  }
-  // two rows ahead of a sum's element, for the L2 prefetch of the read-add
-  const long long ahead2 = 2 * (a.reverse ? -(long long)D * W : (long long)D * W);
-
-  cp_async_wait(a.NST - 2);
-  cluster.sync();   // once: barriers initialised, every block resident
-
-  int buf = 0;
-  for (int s = 0; s < S; ++s) {
-    const int t = a.reverse ? S - 1 - s : s;
-    const bool hand_off = diagonals > 0 && s + 1 < S;   // this step sends
-    const int slot = s % kSlots;
-    if (s + a.NST - 1 < S) stage_row(s + a.NST - 1);
-    cp_async_commit();
-    if (hand_off && tid == 0) {
-      // arm this step's barrier; tell both peers that this block has left
-      // step s - 1 behind (a peer never runs more than a step ahead, so a
-      // hand-off buffer is free again two steps after it was read)
-      mbar_expect(smem_addr(bars + slot), step_bytes);
-      send_word(tokens_right + 4 * (slot * 2), (unsigned)s,
-                bars_right + 8 * slot);
-      send_word(tokens_left + 4 * (slot * 2 + 1), (unsigned)s,
-                bars_left + 8 * slot);
+    if (pass > 0) cp_async_wait(0);   // the first pass's copies have landed
+    for (int st = 0; st < a.NST - 1; ++st) {
+      if (st < S) stage_row(st);
+      cp_async_commit();
     }
 
-    // one thread waits for what the neighbours handed over at the last step
-    // (many spinning warps starve the ones that still compute); the edge
-    // pairs read it where it landed
-    const bool handed = diagonals > 0 && s > 0;
-    if (handed) {
-      if (tid == 0)
-        mbar_wait(smem_addr(bars + (s - 1) % kSlots), ((s - 1) / kSlots) & 1);
-      __syncthreads();
+    // Per direction: the restart lanes, and whether this thread hands its
+    // chunk of a column over to a peer or takes one from a peer.
+    unsigned restart_mask[N];
+    bool sends[N], takes[N];
+    int soff[N];   // a direction's previous state, at this pair's column - roll
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int roll = rolls[k];
+      restart_mask[k] = 0u;
+      sends[k] = takes[k] = false;
+      soff[k] = state + k * state_dir + (d_lo + 1) * pitchS + 4 + lc - roll;
+      if (!active || roll == 0) continue;
+      const int reset = roll > 0 ? 0 : W - 1;
+      if (a.restart) {
+        if (c0 == reset) restart_mask[k] = 0x0000FFFFu;
+        if (valid1 && c0 + 1 == reset) restart_mask[k] = 0xFFFF0000u;
+      }
+      sends[k] = roll > 0 ? last_col : first_col;   // to the right / left peer
+      takes[k] = roll > 0 ? first_col : last_col;   // the left / right halo
     }
+    // this pair's new state
+    const int noff = state + (d_lo + 1) * pitchS + 4 + lc;
+    // the lane of the column that leaves to the right (the strip's last)
+    const bool last_hi = lc != Lb - 1;
 
-    if (active) {
-      const bool fresh = s == 0 && !carried;
-      const int prev_buf = buf * state_buf, next_buf = (buf ^ 1) * state_buf;
-      const uint16_t* pm_prev = pm + buf * pm_buf;
-      uint16_t* pm_next = pm + (buf ^ 1) * pm_buf;
-      const size_t row_off = (size_t)t * D * W + c0;
+    // the gray values of the first step
+    int gc0 = 0, gc1 = 0, g0 = 0, g1 = 0, g2 = 0, g3 = 0;
+    if (active && S > 0) {
+      const int t = reverse ? S - 1 : 0;
+      gc0 = img_b[(size_t)t * W + c0];
+      gc1 = valid1 ? img_b[(size_t)t * W + c0 + 1] : 0;
+      if (!fresh_start) {
+        const uint8_t* pr = a.prev_gray + (size_t)b * W;
+        g0 = pr[cm1], g1 = pr[c0], g2 = pr[cp1], g3 = pr[cp2];
+      }
+    }
+    // two rows ahead of a sum's element, for the L2 prefetch of the read-add
+    const long long ahead2 = 2 * (reverse ? -(long long)D * W : (long long)D * W);
 
-      // the next step's gray values, asked for a step ahead, and the rows
-      // of the image a few steps ahead, asked into the L2
-      int n_gc0 = 0, n_gc1 = 0, n_g0 = 0, n_g2 = 0, n_g3 = 0;
-      if (s + 1 < S) {
-        const uint8_t* next = img_b + (size_t)(a.reverse ? t - 1 : t + 1) * W;
-        const uint8_t* here = img_b + (size_t)t * W;
-        n_gc0 = next[c0];
-        n_gc1 = valid1 ? next[c0 + 1] : 0;
-        n_g0 = here[cm1], n_g2 = here[cp1], n_g3 = here[cp2];
-        if (s + 4 < S && ch == 0)
-          prefetch_l2(img_b + (size_t)(a.reverse ? t - 4 : t + 4) * W + c0);
+    cp_async_wait(a.NST - 2);
+    // once a pass: the barriers are initialised and every block resident;
+    // before the second, every hand-off of the first has been read
+    cluster.sync();
+
+    int buf = 0;
+    for (int s = 0; s < S; ++s) {
+      const int t = reverse ? S - 1 - s : s;
+      const bool hand_off = diagonals > 0 && s + 1 < S;   // this step sends
+      const int slot = s % kSlots;
+      if (s + a.NST - 1 < S) stage_row(s + a.NST - 1);
+      cp_async_commit();
+      if (hand_off && tid == 0) {
+        // arm this step's barrier; tell both peers that this block has left
+        // step s - 1 behind (a peer never runs more than a step ahead, so a
+        // hand-off buffer is free again two steps after it was read)
+        mbar_expect(smem_addr(bars + slot), step_bytes);
+        send_word(tokens_right + 4 * (slot * 2), (unsigned)s,
+                  bars_right + 8 * slot);
+        send_word(tokens_left + 4 * (slot * 2 + 1), (unsigned)s,
+                  bars_left + 8 * slot);
       }
 
-      const int from = recv + ((s + kSlots - 1) % kSlots) * recv_slot;
-
-      // the slab row of plane d_lo at this pair, and the sums' row
-      int cp = ring + (s % a.NST) * slab_bytes + d_lo * pitchC + lc;
-      int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) + d_lo * W) & 15);
-      uint16_t* o = out_b + row_off + (size_t)d_lo * W;
-      unsigned runmin[N];
-#pragma unroll
-      for (int k = 0; k < N; ++k) runmin[k] = 0xFFFFFFFFu;
-
-      if (fresh) {   // a path's first pixel contributes its raw cost
-        for (int d = d_lo; d < d_hi; ++d) {
-          const unsigned cst = EVEN ? ld_even(smem + cp + coff)
-                                    : ld_bytes(smem + cp + coff);
-          const unsigned packed = __byte_perm(cst, 0u, 0x4420);
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            *(uint16_t*)(smem + next_buf + k * state_dir + noff +
-                         (d - d_lo) * pitchS) = (uint16_t)packed;
-            runmin[k] = __vminu2(runmin[k], cst | dead);
-            if (sends[k])
-              smem[stage + k * col_bytes + d] =
-                  (uint8_t)(a.rolls[k] > 0 && last_hi ? cst >> 16 : cst);
-          }
-          unsigned sum = cst * N;
-          if (EVEN && valid1) {
-            if (a.accumulate) sum += *(const unsigned*)o;
-            *(unsigned*)o = sum;
-          } else {
-            if (a.accumulate)
-              sum += (unsigned)o[0] | (valid1 ? (unsigned)o[1] << 16 : 0u);
-            o[0] = (uint16_t)sum;
-            if (valid1) o[1] = (uint16_t)(sum >> 16);
-          }
-          cp += pitchC;
-          coff = (coff + Wmod) & 15;
-          o += W;
+      // one thread waits for what the neighbours handed over at the last
+      // step (many spinning warps starve the ones that still compute); the
+      // edge pairs read it where it landed
+      const bool handed = diagonals > 0 && s > 0;
+      if (handed) {
+        if (tid == 0) {
+          const int prev_slot = (s - 1) % kSlots;
+          mbar_wait(smem_addr(bars + prev_slot), (phases >> prev_slot) & 1);
+          phases ^= 1u << prev_slot;
         }
-      } else {
-        unsigned pmin[N], pp2[N], wm[N], wc[N];
-        int pa[N], pb[N], sa[N], sb[N];   // the pair's two bytes: at, stride
-        int sn[N], sg[N];                 // new state; staged column or -1
-        bool hi_out[N];
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const int roll = a.rolls[k];
-          const int ga = roll > 0 ? g0 : roll < 0 ? g2 : g1;
-          const int gb = roll > 0 ? g1 : roll < 0 ? g3 : g2;
-          const unsigned p2 = (unsigned)lut[abs(gc0 - ga)] |
-                              ((unsigned)lut[abs(gc1 - gb)] << 16);
-          // min over D of the previous columns: the chunks' partial minima
-          const uint16_t* q = pm_prev + k * a.NCH * pitchM + 2 + lc - roll;
-          unsigned m0 = 0xFFFFu, m1 = 0xFFFFu;
-          if (roll == 0) {
-            unsigned m = 0xFFFFFFFFu;
-            for (int c = 0; c < a.NCH; ++c)
-              m = __vminu2(m, *(const unsigned*)(q + c * pitchM));
-            m0 = m & 0xFFFFu, m1 = m >> 16;
-          } else {
-            for (int c = 0; c < a.NCH; ++c) {
-              m0 = min(m0, (unsigned)q[c * pitchM]);
-              m1 = min(m1, (unsigned)q[c * pitchM + 1]);
-            }
-          }
-          pa[k] = prev_buf + soff[k];
-          pb[k] = pa[k] + 1;
-          sa[k] = sb[k] = pitchS;
-          if (takes[k] && handed) {   // one lane comes from the neighbour
-            const int col = from + k * recv_dir + 16 + d_lo;
-            const unsigned* mins =
-                (const unsigned*)(smem + from + k * recv_dir + recv_pm);
-            unsigned mh = 0xFFFFu;
-            for (int c = 0; c < a.NCH; ++c) mh = min(mh, mins[c]);
-            if (roll < 0 && valid1) {
-              pb[k] = col, sb[k] = 1, m1 = mh;
-            } else {
-              pa[k] = col, sa[k] = 1, m0 = mh;
-            }
-          }
-          if (!valid1) m1 = 0;
-          pmin[k] = m0 | (m1 << 16);
-          pp2[k] = pmin[k] + p2;
-          sn[k] = next_buf + k * state_dir + noff;
-          sg[k] = sends[k] ? stage + k * col_bytes + d_lo : -1;
-          hi_out[k] = roll > 0 && last_hi;
-          wm[k] = __byte_perm((unsigned)smem[pa[k] - sa[k]],
-                              (unsigned)smem[pb[k] - sb[k]], 0x5410);
-          wc[k] = __byte_perm((unsigned)smem[pa[k]], (unsigned)smem[pb[k]],
-                              0x5410);
+        __syncthreads();
+      }
+
+      if (active) {
+        const bool fresh = s == 0 && fresh_start;
+        const int prev_buf = buf * state_buf, next_buf = (buf ^ 1) * state_buf;
+        const uint16_t* pm_prev = pm + buf * pm_buf;
+        uint16_t* pm_next = pm + (buf ^ 1) * pm_buf;
+        const size_t row_off = (size_t)t * D * W + c0;
+
+        // the next step's gray values, asked for a step ahead, and the rows
+        // of the image a few steps ahead, asked into the L2
+        int n_gc0 = 0, n_gc1 = 0, n_g0 = 0, n_g2 = 0, n_g3 = 0;
+        if (s + 1 < S) {
+          const uint8_t* next = img_b + (size_t)(reverse ? t - 1 : t + 1) * W;
+          const uint8_t* here = img_b + (size_t)t * W;
+          n_gc0 = next[c0];
+          n_gc1 = valid1 ? next[c0 + 1] : 0;
+          n_g0 = here[cm1], n_g2 = here[cp1], n_g3 = here[cp2];
+          if (s + 4 < S && ch == 0)
+            prefetch_l2(img_b + (size_t)(reverse ? t - 4 : t + 4) * W + c0);
         }
-        // the sums this step adds onto, two planes ahead of their use (the
-        // rows themselves were asked into the L2 two steps ago)
+
+        const int from = recv + ((s + kSlots - 1) % kSlots) * recv_slot;
+
+        // the slab row of plane d_lo at this pair; the sums' row it adds
+        // onto (src) and the row it stores (o): the volume, or in the
+        // epilogue the ring of finished rows
+        int cp = ring + (s % a.NST) * slab_bytes + d_lo * pitchC + lc;
+        int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) + d_lo * W) & 15);
+        const uint16_t* src = out_b + row_off + (size_t)d_lo * W;
+        uint16_t* o = epi ? fin_b + (size_t)(s % 3) * D * W +
+                                (size_t)d_lo * W + c0
+                          : out_b + row_off + (size_t)d_lo * W;
+        unsigned runmin[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) runmin[k] = 0xFFFFFFFFu;
         auto load_old = [&](const uint16_t* at) -> unsigned {
           return EVEN && valid1
                      ? *(const unsigned*)at
                      : (unsigned)at[0] | (valid1 ? (unsigned)at[1] << 16 : 0u);
         };
-        const bool far = s + 2 < S;
-        unsigned old0 = 0, old1 = 0;
-        if (a.accumulate) {
-          old0 = load_old(o);
-          if (d_lo + 1 < d_hi) old1 = load_old(o + W);
-        }
-#pragma unroll 2
-        for (int d = d_lo; d < d_hi; ++d) {
-          const unsigned cst = EVEN ? ld_even(smem + cp + coff)
-                                    : ld_bytes(smem + cp + coff);
-          unsigned sum = old0;
-          old0 = old1;
-          if (a.accumulate) {
-            if (d + 2 < d_hi) old1 = load_old(o + 2 * (size_t)W);
-            if (far) prefetch_l2(o + ahead2);
-          }
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            pa[k] += sa[k];
-            pb[k] += sb[k];
-            const unsigned wp = __byte_perm((unsigned)smem[pa[k]],
-                                            (unsigned)smem[pb[k]], 0x5410);
-            const unsigned nb = __viaddmin_u16x2(__vminu2(wm[k], wp), p1pk,
-                                                 wc[k]);
-            const unsigned m = __vminu2(nb, pp2[k]);
-            unsigned cur = (cst + m - pmin[k]) & kByte2;
-            cur = (cur & ~restart_mask[k]) | (cst & restart_mask[k]);
-            wm[k] = wc[k];
-            wc[k] = wp;
-            runmin[k] = __vminu2(runmin[k], cur | dead);
-            sum += cur;
-            *(uint16_t*)(smem + sn[k]) = (uint16_t)__byte_perm(cur, 0u, 0x4420);
-            sn[k] += pitchS;
-            if (sg[k] >= 0)
-              smem[sg[k]++] = (uint8_t)(hi_out[k] ? cur >> 16 : cur);
-          }
+        auto store = [&](unsigned sum) {
           if (EVEN && valid1) {
             *(unsigned*)o = sum;
           } else {
             o[0] = (uint16_t)sum;
             if (valid1) o[1] = (uint16_t)(sum >> 16);
           }
-          cp += pitchC;
-          coff = (coff + Wmod) & 15;
-          o += W;
+        };
+
+        if (fresh) {   // a path's first pixel contributes its raw cost
+          for (int d = d_lo; d < d_hi; ++d) {
+            const unsigned cst = EVEN ? ld_even(smem + cp + coff)
+                                      : ld_bytes(smem + cp + coff);
+            const unsigned packed = __byte_perm(cst, 0u, 0x4420);
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+              *(uint16_t*)(smem + next_buf + k * state_dir + noff +
+                           (d - d_lo) * pitchS) = (uint16_t)packed;
+              runmin[k] = __vminu2(runmin[k], cst | dead);
+              if (sends[k])
+                smem[stage + k * col_bytes + d] =
+                    (uint8_t)(rolls[k] > 0 && last_hi ? cst >> 16 : cst);
+            }
+            unsigned sum = cst * N;
+            if (accumulate) sum += load_old(src);
+            store(sum);
+            cp += pitchC;
+            coff = (coff + Wmod) & 15;
+            src += W;
+            o += W;
+          }
+        } else {
+          unsigned pmin[N], pp2[N], wm[N], wc[N];
+          int pa[N], pb[N], sa[N], sb[N];   // the pair's two bytes: at, stride
+          int sn[N], sg[N];                 // new state; staged column or -1
+          bool hi_out[N];
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            const int roll = rolls[k];
+            const int ga = roll > 0 ? g0 : roll < 0 ? g2 : g1;
+            const int gb = roll > 0 ? g1 : roll < 0 ? g3 : g2;
+            const unsigned p2 = (unsigned)lut[abs(gc0 - ga)] |
+                                ((unsigned)lut[abs(gc1 - gb)] << 16);
+            // min over D of the previous columns: the chunks' partial minima
+            const uint16_t* q = pm_prev + k * a.NCH * pitchM + 2 + lc - roll;
+            unsigned m0 = 0xFFFFu, m1 = 0xFFFFu;
+            if (roll == 0) {
+              unsigned m = 0xFFFFFFFFu;
+              for (int c = 0; c < a.NCH; ++c)
+                m = __vminu2(m, *(const unsigned*)(q + c * pitchM));
+              m0 = m & 0xFFFFu, m1 = m >> 16;
+            } else {
+              for (int c = 0; c < a.NCH; ++c) {
+                m0 = min(m0, (unsigned)q[c * pitchM]);
+                m1 = min(m1, (unsigned)q[c * pitchM + 1]);
+              }
+            }
+            pa[k] = prev_buf + soff[k];
+            pb[k] = pa[k] + 1;
+            sa[k] = sb[k] = pitchS;
+            if (takes[k] && handed) {   // one lane comes from the neighbour
+              const int col = from + k * recv_dir + 16 + d_lo;
+              const unsigned* mins =
+                  (const unsigned*)(smem + from + k * recv_dir + recv_pm);
+              unsigned mh = 0xFFFFu;
+              for (int c = 0; c < a.NCH; ++c) mh = min(mh, mins[c]);
+              if (roll < 0 && valid1) {
+                pb[k] = col, sb[k] = 1, m1 = mh;
+              } else {
+                pa[k] = col, sa[k] = 1, m0 = mh;
+              }
+            }
+            if (!valid1) m1 = 0;
+            pmin[k] = m0 | (m1 << 16);
+            pp2[k] = pmin[k] + p2;
+            sn[k] = next_buf + k * state_dir + noff;
+            sg[k] = sends[k] ? stage + k * col_bytes + d_lo : -1;
+            hi_out[k] = roll > 0 && last_hi;
+            wm[k] = __byte_perm((unsigned)smem[pa[k] - sa[k]],
+                                (unsigned)smem[pb[k] - sb[k]], 0x5410);
+            wc[k] = __byte_perm((unsigned)smem[pa[k]], (unsigned)smem[pb[k]],
+                                0x5410);
+          }
+          // the sums this step adds onto, two planes ahead of their use (the
+          // rows themselves were asked into the L2 two steps ago)
+          const bool far = s + 2 < S;
+          unsigned old0 = 0, old1 = 0;
+          if (accumulate) {
+            old0 = load_old(src);
+            if (d_lo + 1 < d_hi) old1 = load_old(src + W);
+          }
+#pragma unroll 2
+          for (int d = d_lo; d < d_hi; ++d) {
+            const unsigned cst = EVEN ? ld_even(smem + cp + coff)
+                                      : ld_bytes(smem + cp + coff);
+            unsigned sum = old0;
+            old0 = old1;
+            if (accumulate) {
+              if (d + 2 < d_hi) old1 = load_old(src + 2 * (size_t)W);
+              if (far) prefetch_l2(src + ahead2);
+            }
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+              pa[k] += sa[k];
+              pb[k] += sb[k];
+              const unsigned wp = __byte_perm((unsigned)smem[pa[k]],
+                                              (unsigned)smem[pb[k]], 0x5410);
+              const unsigned nb = __viaddmin_u16x2(__vminu2(wm[k], wp), p1pk,
+                                                   wc[k]);
+              const unsigned m = __vminu2(nb, pp2[k]);
+              unsigned cur = (cst + m - pmin[k]) & kByte2;
+              cur = (cur & ~restart_mask[k]) | (cst & restart_mask[k]);
+              wm[k] = wc[k];
+              wc[k] = wp;
+              runmin[k] = __vminu2(runmin[k], cur | dead);
+              sum += cur;
+              *(uint16_t*)(smem + sn[k]) = (uint16_t)__byte_perm(cur, 0u, 0x4420);
+              sn[k] += pitchS;
+              if (sg[k] >= 0)
+                smem[sg[k]++] = (uint8_t)(hi_out[k] ? cur >> 16 : cur);
+            }
+            store(sum);
+            cp += pitchC;
+            coff = (coff + Wmod) & 15;
+            src += W;
+            o += W;
+          }
         }
-      }
 
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        uint16_t* q = pm_next + (k * a.NCH + ch) * pitchM + 2 + lc;
-        if (valid1)
-          *(unsigned*)q = runmin[k];
-        else
-          q[0] = (uint16_t)runmin[k];
-        if (sends[k] && hand_off) {
-          // this chunk of the column that crosses the strip edge, then its
-          // partial minimum, into the peer's buffer of this step
-          const bool to_right = a.rolls[k] > 0;
-          const unsigned mn =
-              to_right && last_hi ? runmin[k] >> 16 : runmin[k] & 0xFFFFu;
-          const unsigned* src =
-              (const unsigned*)(smem + stage + k * col_bytes + d_lo);
-          const unsigned dst = (to_right ? recv_right : recv_left) +
-                               slot * recv_slot + k * recv_dir;
-          const unsigned bar = (to_right ? bars_right : bars_left) + 8 * slot;
-          if (a.DC % 16 == 0) {
-            for (int i = 0; i < a.DC; i += 16)
-              send_vec(dst + 16 + d_lo + i, src + i / 4, bar);
-          } else {
-            for (int i = 0; i < a.DC; i += 4)
-              send_word(dst + 16 + d_lo + i, src[i / 4], bar);
+        for (int k = 0; k < N; ++k) {
+          uint16_t* q = pm_next + (k * a.NCH + ch) * pitchM + 2 + lc;
+          if (valid1)
+            *(unsigned*)q = runmin[k];
+          else
+            q[0] = (uint16_t)runmin[k];
+          if (sends[k] && hand_off) {
+            // this chunk of the column that crosses the strip edge, then its
+            // partial minimum, into the peer's buffer of this step
+            const bool to_right = rolls[k] > 0;
+            const unsigned mn =
+                to_right && last_hi ? runmin[k] >> 16 : runmin[k] & 0xFFFFu;
+            const unsigned* src_col =
+                (const unsigned*)(smem + stage + k * col_bytes + d_lo);
+            const unsigned dst = (to_right ? recv_right : recv_left) +
+                                 slot * recv_slot + k * recv_dir;
+            const unsigned bar = (to_right ? bars_right : bars_left) + 8 * slot;
+            if (a.DC % 16 == 0) {
+              for (int i = 0; i < a.DC; i += 16)
+                send_vec(dst + 16 + d_lo + i, src_col + i / 4, bar);
+            } else {
+              for (int i = 0; i < a.DC; i += 4)
+                send_word(dst + 16 + d_lo + i, src_col[i / 4], bar);
+            }
+            send_word(dst + recv_pm + 4 * ch, mn, bar);
           }
-          send_word(dst + recv_pm + 4 * ch, mn, bar);
         }
+        g0 = n_g0, g1 = gc0, g2 = n_g2, g3 = n_g3;
+        gc0 = n_gc0, gc1 = n_gc1;
       }
-      g0 = n_g0, g1 = gc0, g2 = n_g2, g3 = n_g3;
-      gc0 = n_gc0, gc1 = n_gc1;
+      if (epi) {
+        // row s is in the ring; reduce row s - 1 while the barrier settles
+        cluster_arrive();
+        if (s > 0) wta_row(s - 1, s);
+        cluster_wait();
+      }
+      cp_async_wait(a.NST - 2);
+      __syncthreads();
+      buf ^= 1;
     }
-    cp_async_wait(a.NST - 2);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  if (a.cout_cost != nullptr) {  // the state after the last step
-    const uint8_t* st = smem + state + buf * state_buf;
-    const uint16_t* pmv = pm + buf * pm_buf;
-    for (int idx = tid; idx < N * D * Lb; idx += blockDim.x) {
-      const int j = idx % Lb, kd = idx / Lb, k = kd / D, d = kd - k * D;
-      a.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) * W +
-                  cstart + j] = st[k * state_dir + (d + 1) * pitchS + 4 + j];
+    if (epi && S > 0) {   // the last row
+      wta_row(S - 1, S);
     }
-    for (int idx = tid; idx < N * Lb; idx += blockDim.x) {
-      const int j = idx % Lb, k = idx / Lb;
-      int m = 0xFFFF;
-      for (int c = 0; c < a.NCH; ++c)
-        m = min(m, (int)pmv[(k * a.NCH + c) * pitchM + 2 + j]);
-      a.cout_min[((size_t)b * a.carry_n + k) * W + cstart + j] = m;
+    if (a.cout_cost != nullptr) {  // the state after the last step
+      const uint8_t* st = smem + state + buf * state_buf;
+      const uint16_t* pmv = pm + buf * pm_buf;
+      for (int idx = tid; idx < N * D * Lb; idx += blockDim.x) {
+        const int j = idx % Lb, kd = idx / Lb, k = kd / D, d = kd - k * D;
+        a.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) * W +
+                    cstart + j] = st[k * state_dir + (d + 1) * pitchS + 4 + j];
+      }
+      for (int idx = tid; idx < N * Lb; idx += blockDim.x) {
+        const int j = idx % Lb, k = idx / Lb;
+        int m = 0xFFFF;
+        for (int c = 0; c < a.NCH; ++c)
+          m = min(m, (int)pmv[(k * a.NCH + c) * pitchM + 2 + j]);
+        a.cout_min[((size_t)b * a.carry_n + k) * W + cstart + j] = m;
+      }
     }
   }
 }
@@ -845,12 +1144,14 @@ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The launch shape for a cluster of `cs` blocks per image; returns the
 // dynamic shared memory it needs, or -1 if `cs` strips leave a block empty.
-int group_shape(GroupArgs& a, int n, int cs) {
+// With `wta` it holds the epilogue's partial tracks too (both views).
+int group_shape(GroupArgs& a, int n, int cs, bool wta) {
   a.TW = round_up((a.W + cs - 1) / cs, 2);
   if ((cs - 1) * a.TW >= a.W) return -1;
   a.NP = a.TW / 2;
-  if (a.NP > kGroupThreads) return kGroupSmem + 1;   // a wider cluster
-  int nch = kGroupThreads / a.NP;
+  const int threads = wta ? kWtaThreads : kGroupThreads;
+  if (a.NP > threads) return kGroupSmem + 1;   // a wider cluster
+  int nch = threads / a.NP;
   nch = nch < 1 ? 1 : nch;
   nch = nch > kMaxChunks ? kMaxChunks : nch;
   nch = nch > a.D ? a.D : nch;
@@ -860,18 +1161,24 @@ int group_shape(GroupArgs& a, int n, int cs) {
   a.pitchS = round_up(4 + a.TW + 4, 4);
   a.pitchM = 2 + a.TW + 2;
   // the table, barriers and tokens; then the ring, the state, the partial
-  // minima and the hand-off buffers (3 slots of a column per direction)
+  // minima, the hand-off buffers (3 slots of a column per direction) and
+  // the epilogue's tracks (an int4 per view, chunk and column)
   a.col_bytes = round_up(a.NCH * a.DC, 16);
   a.recv_dir = 32 + a.col_bytes + round_up(4 * a.NCH, 16);
   const long long body = round_up(2 * n * (a.D + 2) * a.pitchS +
                                   2 * n * a.NCH * a.pitchM * 2, 16);
+  // the epilogue's tracks: in a cost slab where they fit there
+  const long long tracks = 2LL * a.NCH * a.TW * 16;
+  const long long part =
+      wta && tracks > (long long)a.D * a.pitchC ? tracks : 0;
   const long long tail = (long long)n * a.col_bytes + 3LL * n * a.recv_dir;
   for (a.NST = kMaxStages; a.NST >= 2; --a.NST) {
     const long long at = 576 + (long long)a.NST * a.D * a.pitchC + body;
-    if (at + tail <= kGroupSmem) {
+    if (at + tail + part <= kGroupSmem) {
       a.stage_off = (int)at;
       a.recv_off = a.stage_off + n * a.col_bytes;
-      a.smem_bytes = (int)(at + tail);
+      a.part_off = part ? (int)(at + tail) : -1;
+      a.smem_bytes = (int)(at + tail + part);
       return a.smem_bytes;
     }
   }
@@ -879,15 +1186,15 @@ int group_shape(GroupArgs& a, int n, int cs) {
 }
 
 // A launch of `cs` blocks per image; `bytes` from group_shape at that size.
-template <int N, bool EVEN>
+template <int N, bool EVEN, bool WTA>
 cudaError_t group_config(const GroupArgs& a, int cs, int bytes,
                          cudaLaunchAttribute* attr,
                          cudaLaunchConfig_t* config) {
+  auto* kernel = group_kernel<N, EVEN, WTA>;
   cudaError_t err = cudaFuncSetAttribute(
-      group_kernel<N, EVEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(group_kernel<N, EVEN>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              cs > 8);
   if (err != cudaSuccess) return err;
@@ -909,7 +1216,7 @@ cudaError_t group_config(const GroupArgs& a, int cs, int bytes,
 // portable size) only if nothing smaller fits or a strip of 8 would still be
 // heavy (columns x D), and only if the card says it can place such a
 // cluster.  *chosen = 0: no size takes N directions at this shape.
-template <int N, bool EVEN>
+template <int N, bool EVEN, bool WTA>
 cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
   *chosen = 0;
   int device = 0, sms = 0;
@@ -920,23 +1227,26 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
   int cs = 0;
   for (int c = 1; c <= kMaxCluster; c *= 2) {
     GroupArgs trial = a;
-    const int need = group_shape(trial, N, c);
+    const int need = group_shape(trial, N, c, WTA);
     if (need < 0) break;
     if (need > kGroupSmem) continue;
     if (cs != 0 && (long long)a.B * cs >= sms) break;
-    if (c > 8) {
-      if (cs != 0 &&
-          (long long)round_up((a.W + 7) / 8, 2) * a.D < kHeavyStrip)
-        break;
+    if (c > 8 && cs != 0 &&
+        (long long)round_up((a.W + 7) / 8, 2) * a.D < kHeavyStrip)
+      break;
+    if (c > 8 || (WTA && cs != 0)) {
       cudaLaunchAttribute attr[1];
       cudaLaunchConfig_t config;
-      err = group_config<N, EVEN>(trial, c, need, attr, &config);
+      err = group_config<N, EVEN, WTA>(trial, c, need, attr, &config);
       if (err != cudaSuccess) return err;
       int clusters = 0;
-      err = cudaOccupancyMaxActiveClusters(&clusters, group_kernel<N, EVEN>,
-                                           &config);
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, group_kernel<N, EVEN, WTA>, &config);
       if (err != cudaSuccess) return err;
       if (clusters < 1) break;
+      // the epilogue's blocks hold more registers: grow a cluster only
+      // while the batch's clusters still fit the card at once
+      if (WTA && cs != 0 && clusters < a.B) break;
     }
     cs = c;
   }
@@ -945,36 +1255,40 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
 }
 
 // One launch; its error is the entry's.
-template <int N, bool EVEN>
+template <int N, bool EVEN, bool WTA>
 int launch_group(GroupArgs a, cudaStream_t stream) {
   int cs = 0;
-  cudaError_t err = choose_cluster<N, EVEN>(a, &cs);
+  cudaError_t err = choose_cluster<N, EVEN, WTA>(a, &cs);
   if (err != cudaSuccess) return (int)err;
   if (cs == 0) return (int)cudaErrorInvalidConfiguration;
-  const int bytes = group_shape(a, N, cs);
+  const int bytes = group_shape(a, N, cs, WTA);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config;
-  err = group_config<N, EVEN>(a, cs, bytes, attr, &config);
+  err = group_config<N, EVEN, WTA>(a, cs, bytes, attr, &config);
   if (err != cudaSuccess) return (int)err;
   config.stream = stream;
-  return (int)cudaLaunchKernelEx(&config, group_kernel<N, EVEN>, a);
+  return (int)cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA>, a);
 }
 
 using Chooser = cudaError_t (*)(const GroupArgs&, int*);
 using Launcher = int (*)(GroupArgs, cudaStream_t);
-constexpr Chooser kChoose[kMaxDirs][2] = {
-    {choose_cluster<1, false>, choose_cluster<1, true>},
-    {choose_cluster<2, false>, choose_cluster<2, true>},
-    {choose_cluster<3, false>, choose_cluster<3, true>}};
-constexpr Launcher kLaunch[kMaxDirs][2] = {
-    {launch_group<1, false>, launch_group<1, true>},
-    {launch_group<2, false>, launch_group<2, true>},
-    {launch_group<3, false>, launch_group<3, true>}};
+// [directions - 1][even][wta]
+#define SGM_GROUP_TABLE(F, N)                                   \
+  {{F<N, false, false>, F<N, false, true>},                     \
+   {F<N, true, false>, F<N, true, true>}}
+constexpr Chooser kChoose[kMaxDirs][2][2] = {
+    SGM_GROUP_TABLE(choose_cluster, 1), SGM_GROUP_TABLE(choose_cluster, 2),
+    SGM_GROUP_TABLE(choose_cluster, 3)};
+constexpr Launcher kLaunch[kMaxDirs][2][2] = {
+    SGM_GROUP_TABLE(launch_group, 1), SGM_GROUP_TABLE(launch_group, 2),
+    SGM_GROUP_TABLE(launch_group, 3)};
+#undef SGM_GROUP_TABLE
 
 // Whether the kernel may take column pairs as one 16- or 32-bit access.
 bool even_access(const GroupArgs& a) {
   return a.W % 2 == 0 && (uintptr_t)a.cost % 2 == 0 &&
-         (uintptr_t)a.out % 4 == 0;
+         (uintptr_t)a.out % 4 == 0 &&
+         (a.finished == nullptr || (uintptr_t)a.finished % 4 == 0);
 }
 
 }  // namespace
@@ -999,17 +1313,30 @@ extern "C" int sgm_scan_direction(const void* cost, const void* img,
 // may be null (fresh paths; then cin_min and
 // prev_gray are unused) and cout_cost null (no carry-out wanted); both point
 // at (B, carry_n, ...) int32 tensors, at the plane of direction r0.
+// two_order=1: the two-order launch, a second pass over the rows in the
+// other order with rolls q0..q2, adding onto the first pass's sums (parked
+// in aggr); no carries.  views=1 or 2: the WTA epilogue on the last pass,
+// which stores no volume but the int32 (views * 5, B, S, W) planes of its
+// finished totals (forward view, then the inverse view at dmin), through
+// `finished`, a uint16 (B, 3, D, W) scratch ring; no carries.
 extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
                               const void* cin_cost, const void* cin_min,
                               const void* prev_gray, void* cout_cost,
-                              void* cout_min, int B, int S, int D, int W,
-                              int n, int r0, int r1, int r2, int carry_n,
-                              int reverse, int restart, int p1, int p2_init,
-                              int accumulate, void* stream) {
+                              void* cout_min, void* finished, void* planes,
+                              int B, int S, int D, int W, int n, int r0,
+                              int r1, int r2, int two_order, int q0, int q1,
+                              int q2, int carry_n, int reverse, int restart,
+                              int p1, int p2_init, int accumulate, int views,
+                              int dmin, void* stream) {
   if ((long long)B * S * W == 0) return 0;
-  if (D < 1 || D > 256 || n < 1 || n > kMaxDirs || p1 < 0 || p2_init < 0)
+  if (D < 1 || D > 256 || n < 1 || n > kMaxDirs || p1 < 0 || p2_init < 0 ||
+      views < 0 || views > 2)
     return (int)cudaErrorInvalidValue;
-  const int rolls[kMaxDirs] = {r0, r1, r2};
+  const bool carries = cin_cost != nullptr || cout_cost != nullptr;
+  if ((two_order || views) && carries) return (int)cudaErrorInvalidValue;
+  if (views && (finished == nullptr || planes == nullptr || dmin < 0))
+    return (int)cudaErrorInvalidValue;
+  const int rolls[kMaxDirs] = {r0, r1, r2}, rolls_b[kMaxDirs] = {q0, q1, q2};
   GroupArgs a{};
   a.cost = (const uint8_t*)cost;
   a.img = (const uint8_t*)img;
@@ -1021,19 +1348,28 @@ extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
   a.cout_min = (int*)cout_min;
   a.B = B, a.S = S, a.D = D, a.W = W;
   for (int k = 0; k < n; ++k) {
-    if (rolls[k] < -1 || rolls[k] > 1) return (int)cudaErrorInvalidValue;
+    if (rolls[k] < -1 || rolls[k] > 1 ||
+        (two_order && (rolls_b[k] < -1 || rolls_b[k] > 1)))
+      return (int)cudaErrorInvalidValue;
     a.rolls[k] = rolls[k];
+    a.rolls_b[k] = two_order ? rolls_b[k] : 0;
   }
   a.carry_n = carry_n, a.reverse = reverse, a.restart = restart;
   a.p1 = p1, a.p2_init = p2_init, a.accumulate = accumulate;
-  return kLaunch[n - 1][even_access(a)](a, (cudaStream_t)stream);
+  a.two_order = two_order != 0;
+  a.views = views, a.dmin = dmin;
+  a.finished = views ? (uint16_t*)finished : nullptr;
+  a.planes = (int*)planes;
+  return kLaunch[n - 1][even_access(a)][views > 0](a, (cudaStream_t)stream);
 }
 
 // The most directions (0..3) one sgm_scan_group launch takes for these
-// volumes at this shape on the current card, into the host int *dirs (3 for
-// an empty volume: its launch does nothing).
+// volumes at this shape on the current card, with (wta=1) or without the
+// WTA epilogue, into the host int *dirs (3 for an empty volume: its launch
+// does nothing).
 extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
-                                       int B, int D, int W, void* dirs) {
+                                       int B, int D, int W, int wta,
+                                       void* dirs) {
   *(int*)dirs = kMaxDirs;
   if ((long long)B * W == 0) return 0;
   *(int*)dirs = 0;
@@ -1044,7 +1380,8 @@ extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
   a.B = B, a.D = D, a.W = W;
   for (int n = kMaxDirs; n >= 1; --n) {
     int cs = 0;
-    const cudaError_t err = kChoose[n - 1][even_access(a)](a, &cs);
+    const cudaError_t err =
+        kChoose[n - 1][even_access(a)][wta != 0](a, &cs);
     if (err != cudaSuccess) return (int)err;
     if (cs != 0) {
       *(int*)dirs = n;

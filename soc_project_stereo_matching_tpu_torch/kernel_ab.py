@@ -3,7 +3,7 @@
 this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4] \
+        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused] \
         [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
@@ -69,7 +69,23 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   this checkout's ablations "barriers only" (the launch and the grid
   barriers), "zeroing only" (the labels read, counted into the tables and
   the claimed keys zeroed, no barrier) and "warp merge" (S2's merge across
-  the warp before the table; exact, held to the plain version).
+  the warp before the table; exact, held to the plain version);
+* the fused K2 forms (group ``fused``; the other checkout's
+  ``sgm_scan_group`` and ``sgm_wta_reduce``, called with the signature its
+  source has): on the horizontal sums of the pair, the vertical pair's
+  two-order launch with the WTA epilogue (the main path's, this checkout)
+  in turns with the other checkout's form (its two group launches adding
+  onto the sums, then its WTA), both held bit-equal to ``wta_reduce`` of
+  the same totals first; beside them this checkout's two-order launch
+  without the epilogue (the volume), the fused launch's byte bound, and
+  its ablations "no row reduction" (the ring's rows stored and the
+  cluster barrier kept, no planes computed), "no partial tracks" (the
+  threads' tracks over their chunks not computed, the merge kept), "loads
+  only" (the tracks' arithmetic replaced by one xor a plane, the loads
+  from the ring kept) and "no cluster barrier" (the barrier's arrive and
+  wait taken out), each with wrong planes, timed only; and the horizontal
+  pair on the transposed volume, this checkout's one two-order launch in
+  turns with the other's two group launches.
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -102,7 +118,7 @@ GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "wta": "sgm_wta_reduce", "scan16": "sgm_probe_scan16",
                  "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
                  "s2": "sgm_probe_speckle_hist",
-                 "s4": "sgm_probe_speckle_fused"}
+                 "s4": "sgm_probe_speckle_fused", "fused": "sgm_scan_group"}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
@@ -239,6 +255,28 @@ S4_ABLATIONS = {
     # the count with S2's warp merge before the table (exact)
     "warp merge": [(_S4_INSERTS, _S4_WARP_MERGE)],
 }
+# the fused K2 forms' ablations: (text in csrc/aggregate.cu, its replacement)
+FUSED_ABLATIONS = {
+    "no row reduction": [("        if (s > 0) wta_row(s - 1, s);\n", ""),
+                         ("      wta_row(S - 1, S);\n", "")],
+    "no partial tracks": [("    if (active)\n      wta_partials(",
+                           "    if (false)\n      wta_partials(")],
+    "loads only": [(
+        "        if (d == d_lo)\n"
+        "          tracks_init(t[v], c[v][0][i], c[v][1][i], d);\n"
+        "        else\n"
+        "          tracks_step(t[v], c[v][0][i], c[v][1][i], d);\n",
+        "        t[v].m1 ^= (unsigned)(c[v][0][i] + c[v][1][i]);\n")],
+    "no cluster barrier": [("        cluster_arrive();\n", ""),
+                           ("        cluster_wait();\n", "")],
+}
+# sgm_scan_group and its capacity entry before the two-order launch and the
+# WTA epilogue
+GROUP_BEFORE_FUSED = {
+    "sgm_scan_group": (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 14 + (
+        ctypes.c_void_p,),
+    "sgm_scan_group_capacity": (ctypes.c_void_p, ctypes.c_void_p) + (
+        ctypes.c_int,) * 3 + (ctypes.c_void_p,)}
 RUN = 10    # back-to-back WTA launches between two events
 
 
@@ -278,6 +316,10 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
         if hasattr(handle, entry):
             getattr(handle, entry).argtypes = argtypes
             getattr(handle, entry).restype = ctypes.c_int
+    if hasattr(handle, "sgm_scan_group") and not any(
+            "int two_order" in text for text in sources.values()):
+        for entry, argtypes in GROUP_BEFORE_FUSED.items():
+            getattr(handle, entry).argtypes = argtypes
     if (hasattr(handle, "sgm_probe_scan16")
             and not hasattr(handle, "sgm_probe_scan16_capacity")):
         handle.sgm_probe_scan16.argtypes = SCAN16_ONE_DIRECTION
@@ -871,6 +913,107 @@ def s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated, reps):
           f"{rec['s1_rounds']}) {json.dumps(abl)}")
 
 
+def old_group(lib, cost, img, acc, rolls, reverse: bool, p1: int, p2: int,
+              accumulate: bool = True):
+    """The group (rolls) added onto ``acc`` (stored into it without
+    ``accumulate``) by ``lib``'s ``sgm_scan_group`` before the two-order
+    launch (``GROUP_BEFORE_FUSED``), as many directions a launch as its
+    capacity entry says."""
+    b, s, d, w = cost.shape
+    dirs = ctypes.c_int(0)
+    if (lib.sgm_scan_group_capacity(cost.data_ptr(), acc.data_ptr(), b, d, w,
+                                    ctypes.addressof(dirs)) or dirs.value < 1):
+        raise RuntimeError("sgm_scan_group_capacity failed")
+    for k0 in range(0, len(rolls), dirs.value):
+        sub = tuple(rolls[k0:k0 + dirs.value])
+        if lib.sgm_scan_group(cost.data_ptr(), img.data_ptr(), acc.data_ptr(),
+                              None, None, None, None, None, b, s, d, w,
+                              len(sub), *(sub + (0, 0))[:3], len(rolls),
+                              int(reverse), 0, p1, p2,
+                              int(accumulate or k0 > 0), _stream()):
+            raise RuntimeError("sgm_scan_group failed")
+    return acc
+
+
+class library:
+    """Run the wrappers of ``ops/kernels.py`` on another library."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        self.saved, _build._lib = _build.load(), self.lib
+
+    def __exit__(self, *exc):
+        _build._lib = self.saved
+
+
+def fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
+                fused_ablated, reps):
+    """The vertical pair's fused launch in turns with the other checkout's
+    two group launches + WTA; its volume form, ablations and bound; the
+    horizontal pair in turns."""
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+
+    def parent(acc):
+        for rolls, reverse in ((rf, False), (rb, True)):
+            old_group(other, cost, left, acc, rolls, reverse, p1, p2)
+        return wta(other, acc, 0)
+
+    fused = lambda acc: torch.stack(sum(kernels.directional_scan_group_bidir(
+        cost, left, acc, rf, rb, p1, p2, False, (0, True)), ()))
+    want = kernels.directional_scan_group_bidir(cost, left, part.clone(), rf,
+                                                rb, p1, p2, False)
+    want = torch.stack(sum(kernels.wta_reduce_plain(want, opt, True), ()))
+    same(parent(part.clone()), want, f"fused: parent's form {label}")
+    same(fused(part.clone()), want, f"fused: this {label}")
+    del want
+    # the sums the calls add onto wrap around over the runs: no kernel's
+    # time depends on the values
+    ms = rec["fused_ms"] = in_turns({"parent": lambda: parent(part),
+                                     "this": lambda: fused(part)}, reps)
+    px, vol = b * h * w, b * h * w * dmax
+    rec["fused_bound_ms"] = (3 * vol + px + 40 * px) / HBM_BYTES_PER_S * 1e3
+    extra = {"two-order launch, volume form": event_ms(
+        lambda: kernels.directional_scan_group_bidir(cost, left, part, rf, rb,
+                                                     p1, p2, False), reps)}
+    for name, lib in fused_ablated.items():
+        if lib is None:
+            extra[name] = None
+            continue
+        with library(lib):
+            extra[name] = event_ms(lambda: fused(part), reps)
+    rec["fused_ablations_ms"] = extra
+    del part
+    cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+    img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+    del cost
+    acc_t = torch.empty(cost_t.shape, dtype=torch.uint16, device=cost_t.device)
+
+    def parent_pair():     # as the parent's horizontal_pair_transposed
+        for reverse in (False, True):
+            old_group(other, cost_t, img_t, acc_t, (0,), reverse, p1, p2,
+                      accumulate=reverse)
+
+    same(kernels.horizontal_pair_transposed(cost_t, img_t, p1, p2),
+         (parent_pair(), acc_t)[1], f"horizontal pair {label}")
+    pair_ms = rec["horizontal_pair_ms"] = in_turns({
+        "parent": parent_pair,
+        "this": lambda: kernels.horizontal_pair_transposed(cost_t, img_t, p1,
+                                                           p2)}, reps)
+    print(f"{label} fused vertical pair ms parent {ms['parent']} this "
+          f"{ms['this']} (this over parent "
+          f"{statistics.median(ms['this']) / statistics.median(ms['parent']):.3f}"
+          f"); bound {rec['fused_bound_ms']:.4f} ms (bytes); "
+          f"{json.dumps(extra)}; horizontal pair on the transposed volume "
+          f"parent {pair_ms['parent']} this {pair_ms['this']}")
+    del cost_t, img_t, acc_t
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
@@ -888,6 +1031,8 @@ def main(argv=None) -> dict:
     csrc_other = (Path(args.parent) / "soc_project_stereo_matching_tpu_torch"
                   / "csrc")
     entries = [GROUP_ENTRIES[g] for g in GROUPS if g in only]
+    if "fused" in only and "sgm_wta_reduce" not in entries:
+        entries.append("sgm_wta_reduce")    # the parent's form ends with it
     other = build_library("parent", sources_defining(csrc_other, entries))
     this = _build.load()
 
@@ -907,6 +1052,8 @@ def main(argv=None) -> dict:
     chain_ablated = ablations("chain-", "probe_recurrence.cu", CHAIN_ABLATIONS,
                               "chain")
     ablated = ablations("k1-", "census_cost.cu", ABLATIONS, "k1")
+    fused_ablated = ablations("fused-", "aggregate.cu", FUSED_ABLATIONS,
+                              "fused")
     dev = torch.device("cuda")
     result = {"card": ", ".join(card()), "shapes": {}}
     print(result["card"])
@@ -945,6 +1092,9 @@ def main(argv=None) -> dict:
         if "s4" in only:
             s4_shape(rec, label, b, h, w, dmax, other, this, s4_ablated,
                      args.reps)
+        if "fused" in only:
+            fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
+                        fused_ablated, args.reps)
         del left, right
         torch.cuda.empty_cache()
 

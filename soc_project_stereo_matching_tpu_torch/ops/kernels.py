@@ -5,38 +5,51 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
 
     census_cost_volume      K1 csrc/census_cost.cu  <- census_cost_volume_pallas
                                (img_has_halo=True: the tiled path's mode)
-    aggregate_paths         K2 csrc/aggregate.cu    <- the DP scan kernels: the
-                               horizontal pair, then one group launch per
-                               vertical scan order
+    aggregate_paths         K2 csrc/aggregate.cu    <- aggregate_paths: the
+                               horizontal pair, then one two-order launch of
+                               the vertical group
+    aggregate_paths_wta     K2 csrc/aggregate.cu    <- aggregate_paths_wta:
+                               the same, the two-order launch's second pass
+                               carrying the WTA epilogue (no volume stored)
     horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial: three
-                               transposes around two one-direction groups on
-                               the transposed volume
+                               transposes around one two-order launch on the
+                               transposed volume
     volume_transpose        P3 csrc/transpose.cu    <- aggr_transpose_probe.py
                                (the transposes around the horizontal pair)
-    directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group
-                               (with the cross-tile carry-in/out), one launch
+    directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group /
+                               _scan_group_kernel (with the cross-tile
+                               carry-in/out, or with ``wta``: the WTA
+                               epilogue of the final launch), one launch
+    directional_scan_group_bidir K2 csrc/aggregate.cu <-
+                               _directional_scan_group_bidir / _bidir_kernel:
+                               both scan orders in one launch (volume or,
+                               with ``wta``, the planes only)
     scan_direction          K2 csrc/aggregate.cu    one direction alone, the
                                first design's kernel (a warp per path);
                                scan_directions sums several such launches
     wta_reduce              K2 csrc/wta.cu          <- wta_reduce_pallas (both
                                views from one read; wta_online_plain
-                               transcribes its online reduction)
+                               transcribes its online reduction); the tiled
+                               path and the tools
     lr_check                K3 csrc/lr_check.cu     <- lr_check_pallas
     remove_speckles         K4 csrc/speckle.cu      <- remove_speckles_pallas
     union_find_labels       K4 csrc/speckle.cu      its label stage alone
     count_verdict           K4 csrc/speckle.cu      its count and verdict alone
 
-``aggregate_paths_wta`` chains the two K2 wrappers, like the JAX entry of
-that name.  A wrapper given CPU tensors runs the plain version.  Given CUDA
+``wta_epilogue_plain`` transcribes the group kernel's WTA epilogue (strips
+of columns, chunks of planes, partial tracks merged in order).  A wrapper
+given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
 returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
 call that launches (``group_capacity`` and ``census_capacity`` only ask).
 The counter is the wrapper's name, except that the halo census counts as
-``census_cost_volume_halo``, ``scan_direction`` as ``aggregate_paths``
-(``aggregate_paths`` itself counts its vertical group launches; its
-horizontal pair counts as ``horizontal_partial``, two scans, and
-``volume_transpose``, three), and ``union_find_labels`` and
+``census_cost_volume_halo``, ``scan_direction`` as ``aggregate_paths``,
+``directional_scan_group`` with ``wta`` as ``directional_scan_group_wta``
+(``aggregate_paths`` and ``aggregate_paths_wta`` themselves count their
+vertical two-order launches; their horizontal pair counts as
+``horizontal_partial``, one two-order launch, and ``volume_transpose``,
+three), and ``union_find_labels`` and
 ``count_verdict`` as ``remove_speckles``, whose stages they are.  The
 ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.
 There is no fallback: any other device raises.
@@ -60,6 +73,8 @@ LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "lr_check": 0, "remove_speckles": 0,
             "census_cost_volume_halo": 0, "directional_scan_group": 0,
             "volume_transpose": 0, "horizontal_partial": 0,
+            "aggregate_paths_wta": 0, "directional_scan_group_wta": 0,
+            "directional_scan_group_bidir": 0,
             # the probe kernels, launched by probes/kernels.py
             "probe_chain": 0, "probe_chainio": 0,
             "probe_int16": 0, "probe_speckle_labels": 0,
@@ -299,18 +314,23 @@ def _check_penalties(p1: int, p2_init: int) -> None:
                          f"P2_init={p2_init}")
 
 
-def group_capacity(cost: torch.Tensor, out: torch.Tensor) -> int:
+def group_capacity(cost: torch.Tensor, out: torch.Tensor,
+                   wta: bool = False) -> int:
     """The most directions one ``sgm_scan_group`` launch takes for this
-    uint8 (B, S, D, W) cost and uint16 sum on the current card: as many as
-    the kernel's on-chip state has room for, ``MAX_GROUP`` at most.  On an
+    uint8 (B, S, D, W) cost and uint16 sum on the current card, with
+    (``wta``) or without the WTA epilogue's tracks in shared memory: as many
+    as the kernel's on-chip state has room for, ``MAX_GROUP`` at most.  A
+    two-order launch holds the same state as a one-order launch.  On an
     NVIDIA H100 80GB HBM3 a launch takes no direction, and this raises, for
     rows wider than 13,824 columns at D = 64, 6,720 at D = 128 and 3,264 at
-    D = 256 (a cluster of 16 blocks; ``tests/test_torch_cuda.py`` finds
-    these limits on the card)."""
+    D = 256 (a cluster of 16 blocks); with the epilogue, which takes fewer
+    threads a block, for rows wider than 13,824, 6,784 and 3,328
+    (``tests/test_torch_cuda.py`` finds the limits at D = 64 on the card)."""
     b, _, d, w = cost.shape
     dirs = ctypes.c_int(0)
     err = _build.load().sgm_scan_group_capacity(
-        cost.data_ptr(), out.data_ptr(), b, d, w, ctypes.addressof(dirs))
+        cost.data_ptr(), out.data_ptr(), b, d, w, int(wta),
+        ctypes.addressof(dirs))
     if err != 0:
         raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
     if dirs.value < 1:
@@ -322,46 +342,91 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor) -> int:
 def _launch_groups(counter: str, cost, img, out, rolls, reverse: bool,
                    p1: int, p2_init: int, restart: bool, accumulate: bool,
                    carry_in=(None, None), prev_gray=None,
-                   carry_out=(None, None)) -> None:
+                   carry_out=(None, None), rolls_b=None, wta=None):
     """``sgm_scan_group`` over ``rolls``, ``group_capacity`` directions a
     launch (all of them in one, except for rows too large to keep three
     directions' state on chip): the sum of their contributions stored (or,
-    with ``accumulate``, added) into ``out``."""
+    with ``accumulate``, added) into ``out``.  ``rolls_b``: two-order
+    launches, each with its part of ``rolls_b`` as the second pass (in the
+    other scan order) adding onto the first.  ``wta`` = (dmin,
+    include_inverse): the last launch carries the WTA epilogue and stores no
+    volume (it takes as many directions as its capacity with the epilogue
+    allows, the leading launches the rest); returns its int32 (5 or 10, B,
+    S, W) planes (else None)."""
     b, s, d, w = cost.shape
     n = len(rolls)
     _check_penalties(p1, p2_init)
     stream = _stream(out)
-    per_launch = group_capacity(cost, out)
-    for k0 in range(0, n, per_launch):
-        sub = tuple(rolls[k0:k0 + per_launch])
+    views = 0 if wta is None else 2 if wta[1] else 1
+    finished = planes = None
+    if wta is not None:
+        finished = torch.empty((b, 3, d, w), dtype=torch.uint16,
+                               device=cost.device)
+        planes = torch.empty((5 * views, b, s, w), dtype=torch.int32,
+                             device=cost.device)
+
+    def padded(r):
+        return (tuple(r) + (0,) * MAX_GROUP)[:MAX_GROUP]
+
+    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
+        sub = tuple(rolls[k0:k1])
+        epi = views if k1 == n else 0
         _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
                 out.data_ptr(), _ptr(carry_in[0], k0 * d * w),
                 _ptr(carry_in[1], k0 * w), _ptr(prev_gray),
                 _ptr(carry_out[0], k0 * d * w), _ptr(carry_out[1], k0 * w),
-                b, s, d, w, len(sub), *(sub + (0,) * MAX_GROUP)[:MAX_GROUP],
+                _ptr(finished if epi else None), _ptr(planes if epi else None),
+                b, s, d, w, len(sub), *padded(sub), int(rolls_b is not None),
+                *padded(() if rolls_b is None else rolls_b[k0:k1]),
                 n, int(reverse), int(restart), p1, p2_init,
-                int(accumulate or k0 > 0), stream)
+                int(accumulate or k0 > 0), epi,
+                0 if wta is None else wta[0], stream)
+    return planes
+
+
+def _launch_parts(cost, out, n: int, wta: bool):
+    """The [k0, k1) ranges of a group's n directions, one a launch: as many
+    as a launch takes; with the WTA epilogue (``wta``) the last range as
+    many as a launch with the epilogue takes, the ones before it as many as
+    a launch without it takes."""
+    per = group_capacity(cost, out)
+    lead = n - min(n, group_capacity(cost, out, True)) if wta else n
+    return [(k0, min(k0 + per, lead)) for k0 in range(0, lead, per)] + \
+        ([(lead, n)] if wta else [])
+
+
+def _planes_of(planes: torch.Tensor):
+    """int32 (5 or 10, ...) planes -> (forward WTAPlanes, inverse or None)."""
+    p = planes.unbind(0)
+    return WTAPlanes(*p[:5]), (WTAPlanes(*p[5:]) if len(p) == 10 else None)
 
 
 def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                     options: SGMOptions,
                     diagonal_mode: str = "wrap") -> torch.Tensor:
     """uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> uint16 (B, H, D, W)
-    aggregated volume: the horizontal pair (``horizontal_partial``), then one
-    group launch per vertical scan order of ``DIRECTIONS_8/4`` added onto
-    it."""
+    aggregated volume: the horizontal pair (``horizontal_partial``), then
+    one two-order launch of the vertical group of ``DIRECTIONS_8/4`` added
+    onto it (``directional_scan_group_bidir``, counted here)."""
     if _on_cpu(cost, img_left):
         return aggregation.aggregate_paths(cost, img_left, options, diagonal_mode)
-    _check_scan(cost, img_left)
-    if diagonal_mode not in ("wrap", "restart"):
-        raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
-    restart = diagonal_mode == "restart"
+    restart = _check_aggregate(cost, img_left, diagonal_mode)
     out = horizontal_partial(cost, img_left, options.p1, options.p2_init,
                              restart)
-    for rolls, reverse in scan_groups(options.num_paths):
-        _launch_groups("aggregate_paths", cost, img_left, out, rolls, reverse,
-                       options.p1, options.p2_init, restart, True)
-    return out
+    (rolls_f, _), (rolls_b, _) = scan_groups(options.num_paths)
+    return _bidir(cost, img_left, out, rolls_f, rolls_b, options.p1,
+                  options.p2_init, restart, None, "aggregate_paths")
+
+
+def _check_aggregate(cost, img_left, diagonal_mode: str,
+                     on_cpu: bool = False) -> bool:
+    """Validate an aggregation's inputs (for the kernels unless
+    ``on_cpu``); return restart."""
+    if not on_cpu:
+        _check_scan(cost, img_left)
+    if diagonal_mode not in ("wrap", "restart"):
+        raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
+    return diagonal_mode == "restart"
 
 
 def scan_direction_plain(cost, img, axis: str, reverse: bool, roll: int,
@@ -486,19 +551,14 @@ def horizontal_pair_transposed(cost_t: torch.Tensor, img_t: torch.Tensor,
                                p1: int, p2_init: int) -> torch.Tensor:
     """Both horizontal directions on a transposed volume: uint8 (B, W, D, H)
     cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum.  There a
-    horizontal path is a column: two one-direction groups, forward and
-    reverse, the second adding onto the first."""
+    horizontal path is a column: one two-order launch of the direction
+    (0,), forward then reverse, counted as ``horizontal_partial``."""
     if _on_cpu(cost_t, img_t):
-        return sum(aggregation.directional_scan(cost_t, img_t, p1, p2_init,
-                                                reverse)[0]
-                   for reverse in (False, True)).to(torch.uint16)
+        return directional_scan_group_bidir_plain(cost_t, img_t, None, (0,),
+                                                  (0,), p1, p2_init, False)
     _check_scan(cost_t, img_t)
-    part_t = torch.empty(cost_t.shape, dtype=torch.uint16,
-                         device=cost_t.device)
-    for reverse in (False, True):
-        _launch_groups("horizontal_partial", cost_t, img_t, part_t, (0,),
-                       reverse, p1, p2_init, False, reverse)
-    return part_t
+    return _bidir(cost_t, img_t, None, (0,), (0,), p1, p2_init, False, None,
+                  "horizontal_partial")
 
 
 def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
@@ -506,9 +566,9 @@ def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
     """Both horizontal directions: uint8 (B, H, D, W) cost + uint8 (B, H, W)
     image -> their uint16 (B, H, D, W) sum.  Tile-local in the H-tiled
     layout.  Nothing walks the volume along W: the cost and the image are
-    transposed, the pair runs as two one-direction groups along the
-    (B, W, D, H) volume's columns, and the sum is transposed back (3
-    transposes, 2 scans).  ``restart`` changes nothing here (it resets
+    transposed, the pair runs as one two-order launch along the (B, W, D, H)
+    volume's columns, and the sum is transposed back (3 transposes, 1
+    scan).  ``restart`` changes nothing here (it resets
     diagonals); the argument mirrors the entry this replaces."""
     if _on_cpu(cost, img):
         return horizontal_partial_plain(cost, img, p1, p2_init, restart)
@@ -525,14 +585,96 @@ def _edge_gray(img: torch.Tensor, reverse: bool) -> torch.Tensor:
     return img[:, 0 if reverse else -1].contiguous()
 
 
-def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
-                                 p2_init: int, restart: bool, carry_in=None,
-                                 want_carry: bool = False, prev_gray=None):
-    mode = "restart" if restart else "wrap"
-    if prev_gray is None and carry_in is not None:
-        prev_gray = _edge_gray(img, reverse)
-    total = 0 if acc is None else acc.to(torch.int32)
-    carries = []
+WTA_CHUNK = 8   # the plain epilogue's planes a chunk when none is given
+
+
+def wta_epilogue_plain(total: torch.Tensor, dmin: int,
+                       include_inverse: bool = True, strip=None,
+                       chunk=None):
+    """The group kernel's WTA epilogue, transcribed: int (B, S, D, W)
+    finished totals -> (forward WTAPlanes, inverse WTAPlanes or None).
+
+    As the kernel splits a row, a block a ``strip`` of columns (default:
+    the whole row) and a thread a ``chunk`` of planes: per strip, view and
+    chunk a partial track over the chunk's contiguous planes (the min and
+    its first plane, the min over the other planes, the costs beside the
+    min where they lie in the chunk, the chunk's first and last cost), then
+    the chunks' tracks merged in order (a tie keeps the earlier plane; a
+    neighbour beside the min that lay past a chunk's edge is the next
+    chunk's edge cost).  The inverse view of column x reads plane k at
+    column x + dmin + k of the whole row, across strip edges, 65535 past
+    the row's end.  Rows are independent, so all rows go at once.  Same
+    result as ``wta_reduce_plain``."""
+    b, s, d, w = total.shape
+    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
+        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    strip = w if strip is None else strip
+    chunk = WTA_CHUNK if chunk is None else chunk
+    if strip < 1 or chunk < 1:
+        raise ValueError(f"strip and chunk must be >= 1, got {strip}, {chunk}")
+    reach = min(dmin + d - 1, w)
+    row = torch.full((b, s, d, w + reach), wta_ops.UINT16_MAX,
+                     dtype=torch.int64, device=total.device)
+    row[..., :w] = total
+    ks = torch.arange(d, device=total.device)
+    views = [0, 1] if include_inverse else [0]
+    out = [[[] for _ in range(5)] for _ in views]
+    for c0 in range(0, w, strip):
+        cols = torch.arange(c0, min(w, c0 + strip), device=total.device)
+        for v in views:
+            # (B, S, D, strip columns): the view's planes at the strip
+            at = cols[None, :] + (torch.clamp(dmin + ks, max=w)[:, None]
+                                  if v else 0)
+            costs = row.gather(-1, at.expand(b, s, d, -1).contiguous())
+            track = None
+            for k0 in range(0, d, chunk):
+                part = _chunk_track(costs[:, :, k0:k0 + chunk], k0)
+                track = part if track is None else _merge_tracks(track, part,
+                                                                 k0)
+            m1, m2, lo, hi, _, _, bk = track
+            planes = (bk, m1, m2 if d > 1 else torch.full_like(m2, wta_ops.BIG),
+                      torch.where(bk == 0, m1, lo),
+                      torch.where(bk == d - 1, m1, hi))
+            for i, x in enumerate(planes):
+                out[v][i].append(x)
+    res = [WTAPlanes(*(torch.cat(x, dim=-1).to(torch.int32) for x in o))
+           for o in out]
+    return res[0], (res[1] if include_inverse else None)
+
+
+def _chunk_track(c: torch.Tensor, k0: int):
+    """A thread's track of the planes [k0, k0 + K) of (..., K, P) costs:
+    (m1, m2, lo, hi, first, last, bk), each (..., P); m2 is 0xFFFF for one
+    plane; lo and hi, where they lie outside the chunk, are 0 here and
+    whatever the kernel's latches hold there: the merge never reads them."""
+    kk = c.shape[-2]
+    m1, arg = c.min(dim=-2)          # the first minimal plane
+    idx = torch.arange(kk, device=c.device)[:, None]
+    m2 = torch.where(idx == arg[..., None, :], 0xFFFF, c).amin(dim=-2)
+    lo = c.gather(-2, (arg - 1).clamp(min=0)[..., None, :]).squeeze(-2)
+    hi = c.gather(-2, (arg + 1).clamp(max=kk - 1)[..., None, :]).squeeze(-2)
+    lo = torch.where(arg > 0, lo, 0)
+    hi = torch.where(arg < kk - 1, hi, 0)
+    return m1, m2, lo, hi, c[..., 0, :], c[..., -1, :], arg + k0
+
+
+def _merge_tracks(left, right, kr: int):
+    """``merge_track`` of csrc/aggregate.cu: the track of planes [.., kr)
+    followed by the track of planes [kr, ..)."""
+    m1, m2, lo, hi, first, _, bk = left
+    r1, r2, rlo, rhi, rfirst, rlast, rbk = right
+    lower = r1 < m1
+    return (torch.where(lower, r1, m1),
+            torch.where(lower, torch.minimum(m1, r2), torch.minimum(m2, r1)),
+            torch.where(lower, torch.where(rbk == kr, left[5], rlo), lo),
+            torch.where(lower, rhi, torch.where(bk == kr - 1, rfirst, hi)),
+            first, rlast, torch.where(lower, rbk, bk))
+
+
+def _group_sum(cost, img, rolls, reverse: bool, p1: int, p2_init: int,
+               mode: str, carry_in=None, prev_gray=None):
+    """The int32 sum of a group's contributions and their carries."""
+    total, carries = 0, []
     for k, roll in enumerate(rolls):
         cin = None if carry_in is None else aggregation.ScanCarry(
             carry_in[0][:, k], carry_in[1][:, k, 0], prev_gray)
@@ -540,6 +682,24 @@ def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
                                                       reverse, roll, mode, cin)
         total = total + contrib
         carries.append(carry)
+    return total, carries
+
+
+def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
+                                 p2_init: int, restart: bool, carry_in=None,
+                                 want_carry: bool = False, prev_gray=None,
+                                 wta=None, strip=None, chunk=None):
+    mode = "restart" if restart else "wrap"
+    if wta is not None:
+        _refuse_carry_with_wta(carry_in, want_carry)
+    if prev_gray is None and carry_in is not None:
+        prev_gray = _edge_gray(img, reverse)
+    total, carries = _group_sum(cost, img, rolls, reverse, p1, p2_init, mode,
+                                carry_in, prev_gray)
+    if acc is not None:
+        total = total + acc.to(torch.int32)
+    if wta is not None:     # the epilogue: planes, no volume stored
+        return wta_epilogue_plain(total, wta[0], wta[1], strip, chunk)
     out = total.to(torch.uint16)
     if acc is not None:
         out = acc.copy_(out)
@@ -549,10 +709,17 @@ def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
                  torch.stack([c.mincost for c in carries], 1)[:, :, None])
 
 
+def _refuse_carry_with_wta(carry_in, want_carry: bool) -> None:
+    if carry_in is not None or want_carry:
+        raise ValueError("the WTA epilogue ends a frame's aggregation: it "
+                         "takes no carries")
+
+
 def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
                            rolls, reverse: bool, p1: int, p2_init: int,
                            restart: bool, carry_in=None,
-                           want_carry: bool = False, prev_gray=None):
+                           want_carry: bool = False, prev_gray=None,
+                           wta=None):
     """A group of vertical directions that share a scan order (rolls, e.g.
     (0, 1, -1)) over an H-tile: uint8 (B, S, D, W) cost + uint8 (B, S, W)
     image -> the uint16 (B, S, D, W) sum of their contributions, added in
@@ -567,6 +734,16 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     boundary row, for P2 on the first row (default: the wrapped edge row of
     ``img``, as the Pallas entry's P2 planes without ``prev_row``).
 
+    ``wta`` = (dmin, include_inverse): the final launch of a frame's
+    aggregation (no carries).  Its epilogue reduces each finished row of
+    totals on chip and stores no volume (``acc`` is left as it was, but
+    for the directions of launches before the last where the group is split
+    over launches, which add onto it); the
+    result is (forward WTAPlanes, inverse WTAPlanes or None), int32
+    (B, S, W) planes, as ``wta_reduce`` of the sum would give.  Counted as
+    ``directional_scan_group_wta`` (a group split over launches: the
+    leading launches too).
+
     One launch (see ``group_capacity``): the group's sum is formed on chip
     and the uint16 volume is touched once."""
     if prev_gray is None and carry_in is not None:
@@ -575,16 +752,13 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     if _on_cpu(cost, img, *extra):
         return directional_scan_group_plain(cost, img, acc, rolls, reverse, p1,
                                             p2_init, restart, carry_in,
-                                            want_carry, prev_gray)
+                                            want_carry, prev_gray, wta)
     b, s, d, w = _check_scan(cost, img)
     n = len(rolls)
-    if acc is None:
-        out = torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
-    else:
-        _check(acc, "acc", torch.uint16, 4)
-        if acc.shape != cost.shape:
-            raise ValueError(f"acc {tuple(acc.shape)} != cost {tuple(cost.shape)}")
-        out = acc
+    if wta is not None:
+        _refuse_carry_with_wta(carry_in, want_carry)
+        _check_wta(wta[0])
+    out = _acc_or_new(acc, cost)
     cin_cost = cin_min = None
     if carry_in is not None:
         cin_cost, cin_min = carry_in
@@ -602,10 +776,97 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     if has_carry:
         cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
         cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
-    _launch_groups("directional_scan_group", cost, img, out, tuple(rolls),
-                   reverse, p1, p2_init, restart, acc is not None,
-                   (cin_cost, cin_min), prev_gray, (cout_cost, cout_min))
+    planes = _launch_groups(
+        "directional_scan_group" if wta is None else "directional_scan_group_wta",
+        cost, img, out, tuple(rolls), reverse, p1, p2_init, restart,
+        acc is not None, (cin_cost, cin_min), prev_gray, (cout_cost, cout_min),
+        wta=wta)
+    if wta is not None:
+        return _planes_of(planes)
     return (out, (cout_cost, cout_min)) if has_carry else out
+
+
+def _acc_or_new(acc, cost: torch.Tensor) -> torch.Tensor:
+    """``acc`` checked against ``cost``, or a new uint16 volume of its shape."""
+    if acc is None:
+        return torch.empty(cost.shape, dtype=torch.uint16, device=cost.device)
+    _check(acc, "acc", torch.uint16, 4)
+    if acc.shape != cost.shape:
+        raise ValueError(f"acc {tuple(acc.shape)} != cost {tuple(cost.shape)}")
+    return acc
+
+
+def _check_wta(dmin: int) -> None:
+    if dmin < 0:
+        raise ValueError(f"the WTA epilogue takes dmin >= 0, got {dmin}")
+
+
+def directional_scan_group_bidir_plain(cost, img, acc, rolls_f, rolls_b,
+                                       p1: int, p2_init: int, restart: bool,
+                                       wta=None, strip=None, chunk=None):
+    """The two-order launch, in the kernel's order of work: the first pass
+    (``rolls_f``, rows forward) parks its sums, added in place onto ``acc``
+    (or a new volume); the second (``rolls_b``, rows in reverse) adds them
+    and its own; its totals are stored there, or with ``wta`` reduced by
+    the epilogue (``wta_epilogue_plain``, ``strip`` and ``chunk``)."""
+    mode = "restart" if restart else "wrap"
+    fwd, _ = _group_sum(cost, img, rolls_f, False, p1, p2_init, mode)
+    park = fwd if acc is None else fwd + acc.to(torch.int32)
+    park = park.to(torch.uint16)
+    if acc is not None:
+        park = acc.copy_(park)
+    bwd, _ = _group_sum(cost, img, rolls_b, True, p1, p2_init, mode)
+    total = park.to(torch.int32) + bwd
+    if wta is not None:
+        return wta_epilogue_plain(total, wta[0], wta[1], strip, chunk)
+    return park.copy_(total.to(torch.uint16))
+
+
+def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
+                                 rolls_f, rolls_b, p1: int, p2_init: int,
+                                 restart: bool, wta=None):
+    """Both scan orders of a direction group in one launch (the Pallas
+    ``_directional_scan_group_bidir``): uint8 (B, S, D, W) cost + uint8
+    (B, S, W) image.  The first pass walks the rows forward with
+    ``rolls_f`` and parks its sums in the volume: added in place onto
+    ``acc`` (uint16, same shape), or stored into a new one; the second walks
+    them in reverse with ``rolls_b`` and adds its sums onto the parked ones.
+    A thread owns the same columns and planes in both passes, so each read
+    of a parked sum is of its own store.
+
+    Without ``wta`` the result is the volume (``acc`` itself when given):
+    acc + both orders' sums.  With ``wta`` = (dmin, include_inverse) the
+    second pass carries the WTA epilogue and stores no volume: the result is
+    (forward WTAPlanes, inverse WTAPlanes or None) of the totals, and
+    ``acc`` is left holding the parked sums (acc + the first pass's sums
+    where the group takes one launch; a launch before the last adds both
+    of its orders).  Counted as
+    ``directional_scan_group_bidir``; a group split over launches
+    (``group_capacity``) is several two-order launches, the last carrying
+    the epilogue."""
+    if len(rolls_f) != len(rolls_b):
+        raise ValueError(f"the two orders differ in directions: {rolls_f} "
+                         f"and {rolls_b}")
+    extra = () if acc is None else (acc,)
+    if _on_cpu(cost, img, *extra):
+        return directional_scan_group_bidir_plain(cost, img, acc, rolls_f,
+                                                  rolls_b, p1, p2_init,
+                                                  restart, wta)
+    _check_scan(cost, img)
+    return _bidir(cost, img, acc, tuple(rolls_f), tuple(rolls_b), p1, p2_init,
+                  restart, wta, "directional_scan_group_bidir")
+
+
+def _bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
+           restart: bool, wta, counter: str):
+    """The two-order launches of checked inputs, counted as ``counter``."""
+    if wta is not None:
+        _check_wta(wta[0])
+    out = _acc_or_new(acc, cost)
+    planes = _launch_groups(counter, cost, img, out, rolls_f, False, p1,
+                            p2_init, restart, acc is not None,
+                            rolls_b=rolls_b, wta=wta)
+    return out if wta is None else _planes_of(planes)
 
 
 def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
@@ -722,9 +983,25 @@ def aggregate_paths_wta_plain(cost, img_left, options: SGMOptions,
 def aggregate_paths_wta(cost: torch.Tensor, img_left: torch.Tensor,
                         options: SGMOptions, diagonal_mode: str = "wrap",
                         include_inverse: bool = True):
-    """Aggregation then WTA: (forward WTAPlanes, inverse WTAPlanes or None)."""
-    return wta_reduce(aggregate_paths(cost, img_left, options, diagonal_mode),
-                      options, include_inverse)
+    """Aggregation and WTA without storing the aggregated volume: the
+    horizontal pair (``horizontal_partial``), then one two-order launch of
+    the vertical group whose second pass carries the WTA epilogue
+    (``directional_scan_group_bidir`` with ``wta``, counted here): (forward
+    WTAPlanes, inverse WTAPlanes or None), as ``wta_reduce`` of
+    ``aggregate_paths`` gives.  On CPU tensors the same route runs the plain
+    versions."""
+    on_cpu = _on_cpu(cost, img_left)
+    restart = _check_aggregate(cost, img_left, diagonal_mode, on_cpu)
+    p1, p2 = options.p1, options.p2_init
+    part = horizontal_partial(cost, img_left, p1, p2, restart)
+    (rolls_f, _), (rolls_b, _) = scan_groups(options.num_paths)
+    wta = (options.min_disparity, include_inverse)
+    if on_cpu:
+        return directional_scan_group_bidir_plain(cost, img_left, part,
+                                                  rolls_f, rolls_b, p1, p2,
+                                                  restart, wta)
+    return _bidir(cost, img_left, part, rolls_f, rolls_b, p1, p2, restart, wta,
+                  "aggregate_paths_wta")
 
 
 # --- K3: LR check ----------------------------------------------------------------

@@ -185,10 +185,12 @@ def _tiled_forward_plain(lefts, rights, options: SGMOptions, mesh: Mesh,
 
 def _tiled_forward_kernels(lefts, rights, options: SGMOptions, mesh: Mesh,
                            h_total: int, cross_tile: str, diagonal_mode: str,
-                           num_micro: int) -> torch.Tensor:
+                           num_micro: int, border=None) -> torch.Tensor:
     """The kernel pipeline on (B_local, Ht, W) tiles: halo census, grouped
     DP scans with cross-tile carries (chained, pipelined or local), WTA,
-    LR check, speckle and median tail (JAX ``_tiled_forward_batch_pallas``)."""
+    LR check, speckle and median tail (JAX ``_tiled_forward_batch_pallas``).
+    ``border``: the tile's rows that are global border rows, an index
+    tensor on the tiles' device (None: there are none)."""
     b, ht, w = lefts.shape
     restart = diagonal_mode == "restart"
     p1, p2i = options.p1, options.p2_init
@@ -200,9 +202,7 @@ def _tiled_forward_kernels(lefts, rights, options: SGMOptions, mesh: Mesh,
                                       img_has_halo=True)
     # the image's global border rows: census code 0 in both images, so cost
     # 0 where j - d lies in the image and 127 where it does not
-    top = mesh.tile_index * ht
-    border = [i for i in range(ht) if not 2 <= top + i < h_total - 2]
-    if border:
+    if border is not None:
         lane = torch.arange(w, device=cost.device)
         shift = lane[None, :] - torch.arange(dmin, dmax, device=cost.device)[:, None]
         fix = torch.where((shift < 0) | (shift >= w), BORDER_COST, 0)
@@ -211,9 +211,10 @@ def _tiled_forward_kernels(lefts, rights, options: SGMOptions, mesh: Mesh,
     part = kernels.horizontal_partial(cost, lefts, p1, p2i, restart)
     groups = kernels.scan_groups(options.num_paths)
     if cross_tile == "local" or mesh.tile == 1:
-        for rolls, reverse in groups:
-            part = kernels.directional_scan_group(cost, lefts, part, rolls,
-                                                  reverse, p1, p2i, restart)
+        # both scan orders in one launch, as the JAX matcher's bidir scan
+        (rolls_f, _), (rolls_b, _) = groups
+        part = kernels.directional_scan_group_bidir(cost, lefts, part, rolls_f,
+                                                    rolls_b, p1, p2i, restart)
     else:
         # the neighbours' boundary gray rows, for P2 on a tile's first row,
         # are the census halo's inner rows: no extra hop
@@ -300,6 +301,18 @@ def make_tiled_matcher(options: SGMOptions, mesh: Mesh, h: int, w: int,
                          "census halo needs >= 2 rows per tile")
     ht = h // k
     forward = _tiled_forward_kernels if use_kernels else _tiled_forward_plain
+    # the tile's global border rows, as an index tensor made once a device
+    # (a list index would be copied from pageable memory at every call)
+    top = mesh.tile_index * ht
+    border_rows = [i for i in range(ht) if not 2 <= top + i < h - 2]
+    border_index = {}
+
+    def border(device: torch.device):
+        if not border_rows:
+            return None
+        if device not in border_index:
+            border_index[device] = torch.tensor(border_rows, device=device)
+        return border_index[device]
 
     def matcher(lefts: torch.Tensor, rights: torch.Tensor) -> torch.Tensor:
         if lefts.shape != rights.shape or lefts.dim() != 3 \
@@ -319,9 +332,10 @@ def make_tiled_matcher(options: SGMOptions, mesh: Mesh, h: int, w: int,
                     "trailing images would receive no vertical aggregation")
         batch = slice(mesh.data_index * bl, (mesh.data_index + 1) * bl)
         rows = slice(mesh.tile_index * ht, (mesh.tile_index + 1) * ht)
+        extra = (border(lefts.device),) if use_kernels else ()
         out = forward(lefts[batch, rows].contiguous(),
                       rights[batch, rows].contiguous(), options, mesh, h,
-                      cross_tile, diagonal_mode, nm)
+                      cross_tile, diagonal_mode, nm, *extra)
         return mesh.gather(mesh.gather(out, "tile", dim=-2), "data", dim=0)
 
     return matcher

@@ -4,13 +4,15 @@ Counterpart of the JAX package's ``scripts/aggr_transpose_probe.py``.  The
 first design's horizontal launches walk the (B, H, D, W) volume along W: a
 warp's 32 lanes read D planes at stride W, and neighbouring warps, one row
 apart, share no sector.  On a volume transposed to (B, W, D, H) a horizontal
-path is a column, and the pair runs as two one-direction group scans.  The
-shipped ``ops.kernels.horizontal_partial`` takes that route.  This probe
+path is a column, and the pair runs as group scans (two one-direction
+launches, or one two-order launch as the shipped
+``ops.kernels.horizontal_partial`` makes it).  This probe
 times both forms, and the transposes between them, at the production
 geometry (default: the cone pair, B=8, 375x450, D=64):
 
     full           ops.kernels.aggregate_paths_wta, the whole K2 stage as
-                   shipped (group kernel, transposed horizontal pair)
+                   shipped (group kernel: the transposed horizontal pair,
+                   the vertical pair with the WTA epilogue)
     xin8           PyTorch's transpose of the uint8 cost volume,
                    permute(0, 3, 2, 1).contiguous()
     xout16         the same of the uint16 partial sums, back
@@ -19,7 +21,7 @@ geometry (default: the cone pair, B=8, 375x450, D=64):
                    shipped route gives its transposed volumes
     ktrans16       the same on the padded uint16 volume, back
     hpart          ops.kernels.horizontal_partial as shipped: the transposed
-                   route (3 transposes, 2 group launches)
+                   route (3 transposes, 1 two-order group launch)
     hpart_strided  the first design: two launches of the warp-per-path
                    kernel along W (ops.kernels.scan_directions)
     hpart_not      the two group scans on a volume that already is

@@ -204,8 +204,9 @@ def run(device=None, batch=GEOMETRY["batch"], h=GEOMETRY["h"],
     return doc
 
 
-# the main path's scan launches: (chain, chainio of its pass shape, bytes
-# per volume element), and the bytes of its three transposes
+# the main path's scan passes (the two orders of its horizontal and of its
+# vertical two-order launch): (chain, chainio of its pass shape, bytes per
+# volume element), and the bytes of its three transposes
 MAIN_PATH_LAUNCHES = (("chain1", "chainio1_f", 3), ("chain1", "chainio1_b", 5),
                       ("chain3", "chainio3_m", 5), ("chain3", "chainio3_m", 5))
 TRANSPOSE_BYTES = 2 + 4

@@ -16,9 +16,11 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
 * the device idle share over a three-batch ``torch.profiler`` window:
   1 - (union of the device activity intervals) / (CUDA-event window); the
   window's Chrome trace is written to ``<--out without .json>/trace.json``;
-* the K2 scans per launch group as the main path runs them (the group
-  kernel: the horizontal pair with its three transposes, the vertical
-  forward and reverse groups), median of five launches, and beside them each
+* the K2 scans per launch as the main path runs them (the group kernel:
+  the horizontal pair's two-order launch with its three transposes, the
+  vertical pair's two-order launch with the WTA epilogue) and the vertical
+  pair's two-order launch without it (the volume, as ``aggregate_paths``
+  makes it), median of five launches, and beside them each
   of the eight directions alone by the first design's kernel
   (``scan_direction``, a warp per path), with the bytes one such direction
   must move (1 cost byte read + a 2-byte read and a 2-byte write of the
@@ -51,10 +53,9 @@ def staged_forward(left, right, opt: SGMOptions, timer: StageTimer):
         with timer.span("census_cost (K1)"):
             cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                               opt.max_disparity)
-        with timer.span("scan groups (K2)"):
-            aggr = kernels.aggregate_paths(cost, left, opt)
-        with timer.span("wta (K2)"):
-            fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
+        with timer.span("scans + WTA epilogue (K2)"):
+            fwd, inv = kernels.aggregate_paths_wta(cost, left, opt,
+                                                   include_inverse=True)
         with timer.span("2x finalize_disparity (plain)"):
             dl, dr = finalize_disparity(fwd, opt), finalize_disparity(inv, opt)
         with timer.span("lr_check (K3)"):
@@ -127,13 +128,14 @@ def scan_directions(left, right, opt, reps=5):
 
 
 def scan_groups(left, right, opt, reps=5):
-    """Milliseconds of each launch group of ``kernels.aggregate_paths``: the
-    horizontal pair (and its transposes alone), then each vertical group
-    adding onto its sum."""
+    """Milliseconds of each launch of ``kernels.aggregate_paths_wta``: the
+    horizontal pair (and its transposes alone), then the vertical pair's
+    two-order launch adding onto its sum with the WTA epilogue, and the
+    same launch without the epilogue (``aggregate_paths``'s)."""
     cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                       opt.max_disparity)
     p1, p2 = opt.p1, opt.p2_init
-    out = {"horizontal pair (3 transposes, 2 scans)": cuda_time(
+    out = {"horizontal pair (3 transposes, 1 two-order scan)": cuda_time(
         lambda: kernels.horizontal_partial(cost, left, p1, p2, False),
         reps)["median"]}
     aggr = kernels.horizontal_partial(cost, left, p1, p2, False)
@@ -143,11 +145,18 @@ def scan_groups(left, right, opt, reps=5):
         lambda: (kernels.volume_transpose(cost, pad_to=pitch),
                  kernels.image_transpose(left, pad_to=pitch),
                  kernels.volume_transpose(aggr_t, inner=h)), reps)["median"]
-    for rolls, reverse in kernels.scan_groups(opt.num_paths):
-        out[f"vertical rolls={rolls} reverse={reverse}"] = cuda_time(
-            lambda: kernels.directional_scan_group(cost, left, aggr, rolls,
-                                                   reverse, p1, p2, False),
-            reps)["median"]
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    wta = (opt.min_disparity, True)
+    # the sums these launches add onto wrap around over the runs: their
+    # time does not depend on the values
+    out["vertical pair, two-order with the WTA epilogue"] = cuda_time(
+        lambda: kernels.directional_scan_group_bidir(cost, left, aggr, rf, rb,
+                                                     p1, p2, False, wta),
+        reps)["median"]
+    out["vertical pair, two-order (the volume)"] = cuda_time(
+        lambda: kernels.directional_scan_group_bidir(cost, left, aggr, rf, rb,
+                                                     p1, p2, False),
+        reps)["median"]
     return out
 
 

@@ -20,8 +20,8 @@ from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                        postprocess, wta)
 
 H, W = 37, 53
-MAIN_PATH = ("census_cost_volume", "aggregate_paths", "horizontal_partial",
-             "volume_transpose", "wta_reduce", "lr_check", "remove_speckles")
+MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_partial",
+             "volume_transpose", "lr_check", "remove_speckles")
 pytestmark = pytest.mark.cuda
 
 
@@ -77,6 +77,12 @@ def test_kernels_match_plain_on_card(cuda, dmin, dmax):
     got, want = kernels.wta_reduce(aggr, opt), kernels.wta_reduce_plain(aggr, opt)
     for g, w_ in zip(got[0] + got[1], want[0] + want[1]):
         same(g, w_)
+    for mode in ("wrap", "restart"):
+        fused = kernels.aggregate_paths_wta(cost, il, opt, mode)
+        want = kernels.wta_reduce(kernels.aggregate_paths(cost, il, opt, mode),
+                                  opt)
+        for g, w_ in zip(fused[0] + fused[1], want[0] + want[1]):
+            same(g, w_)
     dl = wta.finalize_disparity(got[0], opt)
     dr = wta.finalize_disparity(got[1], opt)
     checked = kernels.lr_check(dl, dr, 1.0, dmax)
@@ -84,7 +90,8 @@ def test_kernels_match_plain_on_card(cuda, dmin, dmax):
     same(kernels.remove_speckles(checked, 1.0, 9),
          postprocess.remove_speckles(checked, 1.0, 9))
     torch.cuda.synchronize()
-    assert all(kernels.LAUNCHES[k] > before[k] for k in MAIN_PATH)
+    assert all(kernels.LAUNCHES[k] > before[k]
+               for k in MAIN_PATH + ("aggregate_paths", "wta_reduce"))
 
 
 def test_engine_on_card_matches_plain_path_and_oracle(cuda):
@@ -208,10 +215,12 @@ def test_tiled_engine_on_card_matches_untiled(cuda):
         got = SGMEngine(opt, EngineConfig(tile_mode=mode), device="cuda",
                         mesh=make_mesh(1, 1)).match_batch(left, right)
         same(got, want)
-        assert kernels.LAUNCHES["census_cost_volume_halo"] == 1
-        assert kernels.LAUNCHES["directional_scan_group"] == 2  # one a group
-        assert kernels.LAUNCHES["horizontal_partial"] == 2
-        assert kernels.LAUNCHES["volume_transpose"] == 3
+        # one tile: the vertical pair is one two-order launch, the stored
+        # volume's WTA a launch of its own
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+            "census_cost_volume_halo": 1, "horizontal_partial": 1,
+            "volume_transpose": 3, "directional_scan_group_bidir": 1,
+            "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 
 
 @pytest.mark.parametrize("b,h,d,w", [(2, 5, 16, 300), (2, 12, 1, 20),
@@ -881,9 +890,133 @@ def test_main_path_launches_each_entry_once_per_batch(cuda):
     kernels.reset_launch_counts()
     engine.match_batch(left, right)
     torch.cuda.synchronize()
-    for name in ("census_cost_volume", "wta_reduce", "lr_check",
-                 "remove_speckles"):
-        assert kernels.LAUNCHES[name] == 1, (name, kernels.LAUNCHES[name])
+    # one fused two-order launch for the vertical pair and one for the
+    # horizontal pair, the 3 transposes; no wta_reduce: no volume is stored
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "census_cost_volume": 1, "aggregate_paths_wta": 1,
+        "horizontal_partial": 1, "volume_transpose": 3, "lr_check": 1,
+        "remove_speckles": 1}
+
+
+# --- the fused K2 forms: the two-order launch, the WTA epilogue ----------------
+
+def _planes(got):
+    return [x for view in got if view is not None for x in view]
+
+
+@pytest.mark.parametrize("b,h,d,w,dmin", [
+    (2, 9, 1, 53, 0),          # D = 1
+    (2, 9, 3, 31, 2),          # D = 3, odd W
+    (2, 7, 16, 5, 0),          # narrow W
+    (1, 6, 9, 2, 0),           # two columns
+    (2, 20, 64, 450, 0),       # the cone width
+    (1, 12, 128, 1242, 24),    # KITTI-2012's range: the reach crosses strips
+    (1, 6, 256, 1500, 0)])     # Middlebury-half: 16 blocks a cluster
+def test_fused_launches_match_plain_on_card(cuda, b, h, d, w, dmin):
+    """The two-order launch (volume form, with and without an accumulator;
+    planes form, both views or the forward view, the accumulator left
+    holding the first pass's sums) and the group launch with the WTA
+    epilogue, 8 and 4 paths, wrap and restart, against their plain
+    versions; where ``group_capacity`` splits the group, the launches the
+    wrapper makes are the split's (the last with the epilogue)."""
+    cost = _rand(80, 0, 128, (b, h, d, w), np.uint8, cuda)
+    img = _rand(81, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(82, 0, 900, (b, h, d, w), np.uint16, cuda)
+    for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
+        for restart in (False, True):
+            args = (rf, rb, 10, 150, restart)
+            for start in (None, acc):
+                got = kernels.directional_scan_group_bidir(
+                    cost, img, None if start is None else start.clone(), *args)
+                same(got, kernels.directional_scan_group_bidir_plain(
+                    cost, img, None if start is None else start.clone(), *args))
+            for inverse in (True, False):
+                wta_args = (dmin, inverse)
+                parks = (acc.clone(), acc.clone())
+                kernels.reset_launch_counts()
+                got = kernels.directional_scan_group_bidir(
+                    cost, img, parks[0], *args, wta=wta_args)
+                launches = kernels.LAUNCHES["directional_scan_group_bidir"]
+                want = kernels.directional_scan_group_bidir_plain(
+                    cost, img, parks[1], *args, wta=wta_args)
+                for g, w_ in zip(_planes(got), _planes(want)):
+                    same(g, w_)
+                parts = kernels._launch_parts(cost, acc, len(rf), True)
+                if len(parts) == 1:      # one launch: acc + the first pass
+                    same(parks[0], parks[1])
+                assert (got[1] is None) == (not inverse)
+                assert launches == len(parts)
+                got = kernels.directional_scan_group(
+                    cost, img, acc.clone(), rb, True, 10, 150, restart,
+                    wta=wta_args)
+                want = kernels.directional_scan_group_plain(
+                    cost, img, acc.clone(), rb, True, 10, 150, restart,
+                    wta=wta_args)
+                for g, w_ in zip(_planes(got), _planes(want)):
+                    same(g, w_)
+
+
+def test_fused_launch_split_over_launches_on_card(cuda):
+    """A group the card cannot hold in one launch with the epilogue (the
+    narrowest such row at D = 64, found by asking ``group_capacity``): the
+    leading launches add onto the sums, the last carries the epilogue, and
+    the planes equal the plain version's."""
+    d = 64
+    for w in range(6656, 13825, 512):
+        probe = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        parts = kernels._launch_parts(probe, probe.to(torch.uint16), 3, True)
+        if len(parts) > 1:
+            break
+    assert len(parts) > 1, "no row at D = 64 splits a group"
+    cost = _rand(85, 0, 128, (1, 3, d, w), np.uint8, cuda)
+    img = _rand(86, 0, 256, (1, 3, w), np.uint8, cuda)
+    acc = _rand(87, 0, 900, (1, 3, d, w), np.uint16, cuda)
+    args = ((0, 1, -1), (0, -1, 1), 10, 150, False)
+    kernels.reset_launch_counts()
+    got = kernels.directional_scan_group_bidir(cost, img, acc.clone(), *args,
+                                               wta=(3, True))
+    assert kernels.LAUNCHES["directional_scan_group_bidir"] == len(parts)
+    want = kernels.directional_scan_group_bidir_plain(cost, img, acc.clone(),
+                                                      *args, wta=(3, True))
+    for g, w_ in zip(_planes(got), _planes(want)):
+        same(g, w_)
+
+
+def test_fused_widest_row_on_card(cuda):
+    """The widest row at D = 64 that a launch with the WTA epilogue takes
+    (by bisection of ``group_capacity(..., wta=True)``): the fused
+    vertical launch there against its plain version, and one column more
+    refused with a ValueError."""
+    d = 64
+
+    def takes(w):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        out = torch.zeros((1, 1, d, w), dtype=torch.uint16, device=cuda)
+        try:
+            return kernels.group_capacity(cost, out, True) >= 1
+        except ValueError:
+            return False
+
+    lo, hi = 16, 1 << 16
+    assert takes(lo) and not takes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    assert lo == GROUP_WTA_WIDTH_LIMIT
+    assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")
+    cost = _rand(83, 0, 128, (1, 3, d, lo), np.uint8, cuda)
+    img = _rand(84, 0, 256, (1, 3, lo), np.uint8, cuda)
+    args = ((0, 1, -1), (0, -1, 1), 10, 150, False)
+    got = kernels.directional_scan_group_bidir(cost, img, None, *args,
+                                               wta=(0, True))
+    want = kernels.directional_scan_group_bidir_plain(cost, img, None, *args,
+                                                      wta=(0, True))
+    for g, w_ in zip(_planes(got), _planes(want)):
+        same(g, w_)
+    wider = torch.zeros((1, 3, d, hi), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="on-chip memory"):
+        kernels.directional_scan_group_bidir(
+            wider, img.new_zeros((1, 3, hi)), None, *args, wta=(0, True))
 
 
 # --- K2 WTA (csrc/wta.cu) -------------------------------------------------------
@@ -954,6 +1087,8 @@ def test_wta_kernel_refuses_beyond_its_limits(cuda):
 # the widest row one sgm_scan_group launch takes (one direction) by D on one
 # H100 80GB HBM3: kernels.group_capacity's docstring states the same
 GROUP_WIDTH_LIMIT = {64: 13824, 128: 6720, 256: 3264}
+# ... and a launch with the WTA epilogue, at D = 64
+GROUP_WTA_WIDTH_LIMIT = 13824
 
 
 @pytest.mark.parametrize("d", sorted(GROUP_WIDTH_LIMIT))

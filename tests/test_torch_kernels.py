@@ -329,7 +329,7 @@ def test_kernel_ab_groups_and_the_probe_entries():
     """``--only`` picks among the groups, each comparing one C entry; the
     probe kernels' entries are found in their sources."""
     assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
-                                     "chain", "s2", "s4"}
+                                     "chain", "s2", "s4", "fused"}
     found = kernel_ab.sources_defining(
         _build.CSRC, [kernel_ab.GROUP_ENTRIES[g]
                       for g in ("scan16", "s1", "chain", "s2", "s4")])
