@@ -14,20 +14,23 @@ Phases (each raises on failure, so the script exits non-zero):
    across every tile, NaN / -inf, frames that must not connect); median
    CUDA-event times of kernel and plain version at the cone shape.  The K2
    scan is the group kernel (the vertical pair and the horizontal pair, on
-   the transposed volume, each one two-order launch): ``aggregate_paths``
+   the transposed volume, each a two-order scan: two launches, each with
+   both orders on clusters of their own, meeting at the middle row; the
+   epilogue's reduction in warps of its own): ``aggregate_paths``
    is also held against the sum of the first design's launches
    (``scan_direction``, one per direction), and the horizontal pair against
    that design's two launches along W.  The fused forms: the main path's
-   ``aggregate_paths_wta`` (the two-order launch with the WTA epilogue),
+   ``aggregate_paths_wta`` (the two-order scan with the WTA epilogue),
    ``directional_scan_group_bidir`` (both forms; the parked sums too) and
    the group launch with the epilogue (``directional_scan_group(wta=...)``,
    the last launch of the two-launch route) against their plain versions
    and against ``wta_reduce`` of ``aggregate_paths``, both views, every mode;
 4. slice: ``SGMEngine(SGMOptions(), device="cuda").match_batch`` on a B=8
    synthetic 375x450 pair, with every launch counter reset before and read
-   after (the K2 scans must count one two-order vertical launch with the
-   WTA epilogue, one two-order horizontal launch and 3 transposes, and no
-   ``wta_reduce``: no aggregated volume is stored); the result must be
+   after (the K2 scans must count the two launches of the vertical pair's
+   two-order scan with the WTA epilogue, the two of the horizontal pair's
+   and 3 transposes, and no ``wta_reduce``: no aggregated volume is
+   stored); the result must be
    bit-equal to the plain path on the
    card, a 96x160 crop bit-equal to the same engine on the CPU (the plain
    ops, which the CPU tests hold bit-equal to the JAX package and its numpy
@@ -44,8 +47,11 @@ Phases (each raises on failure, so the script exits non-zero):
    its time beside its bound; beside the WTA, ``amin`` over D of the same
    volume, a PyTorch call that reads it once (a read floor, not the same
    function); the "WTA fused" line per shape: the vertical pair's two-order
-   launch with the epilogue beside the parent's form (two group launches
-   and ``wta_reduce``), bit-equal, in turns, with its byte bound;
+   scan with the epilogue beside the parent's form (two group launches
+   and ``wta_reduce``), bit-equal, in turns, with its byte bound; the
+   "two-order horizontal" line: the horizontal pair's two-order scan on the
+   transposed volume beside two one-order group launches, bit-equal, in
+   turns;
 5. tile phase (the spatial-tiling path):
    a. kernels: the halo census and the carry-in/out group scan against their
       plain versions, bit for bit, on the H-tiles of the cone shape (B=2,
@@ -59,11 +65,11 @@ Phases (each raises on failure, so the script exits non-zero):
    b. engine: ``SGMEngine(..., EngineConfig(tile_mode="exact"),
       mesh=make_mesh(1, 1))`` at Middlebury-half D=256 (counters reset
       before, read after: the one-tile branch's vertical pair is one
-      two-order launch, then ``wta_reduce`` of the stored volume) bit-equal
+      two-order scan, then ``wta_reduce`` of the stored volume) bit-equal
       to the untiled kernel engine, and the frame time of both; all three
       tile modes at cone B=8 bit-equal too; the exact schedule's carried
       scans over the cone's K=3 tiles on the one card (counters reset
-      before, read after), equal to the untiled two-order launch;
+      before, read after), equal to the untiled two-order scan;
    c. multi-card: with two or more cards, ``dryrun_multichip(2)`` over NCCL
       (tile=2, exact and pipelined); with one card a line says it did not run;
 6. probe phase (the aggregation probe path, cone pair B=8, 375x450, D=64):
@@ -231,19 +237,20 @@ KERNELS = {  # counter -> (source, Pallas kernel it replaces)
 MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_partial",
              "volume_transpose", "lr_check", "remove_speckles")
 # launches of the K2 scans per match_batch: the vertical pair's two-order
-# launch with the WTA epilogue (no volume stored, no WTA launch), the
-# horizontal pair's two-order launch and the three transposes around it
-SCAN_LAUNCHES = {"aggregate_paths_wta": 1, "horizontal_partial": 1,
+# scan with the WTA epilogue (two launches meeting at the middle row; no
+# volume stored, no WTA launch), the horizontal pair's two-order scan (two
+# launches) and the three transposes around it
+SCAN_LAUNCHES = {"aggregate_paths_wta": 2, "horizontal_partial": 2,
                  "volume_transpose": 3}
-# ... and per aggregate_paths call (the vertical pair's launch without it)
-AGGREGATE_LAUNCHES = {"aggregate_paths": 1, "horizontal_partial": 1,
+# ... and per aggregate_paths call (the vertical pair's scan without it)
+AGGREGATE_LAUNCHES = {"aggregate_paths": 2, "horizontal_partial": 2,
                       "volume_transpose": 3}
 # C entry calls per match_batch of every main-path wrapper: one each for K1,
 # K3 and K4 (whose entry makes its four launches); wta_reduce none
 MAIN_LAUNCHES = {"census_cost_volume": 1, **SCAN_LAUNCHES, "lr_check": 1,
                  "remove_speckles": 1}
 # the tiled engine on a 1x1 mesh: the halo census, the vertical pair's
-# two-order launch, the stored volume's WTA
+# two-order scan, the stored volume's WTA
 TILE_PATH = ("census_cost_volume_halo", "directional_scan_group_bidir",
              "wta_reduce")
 # the two-launch route (the JAX package's aggregate_paths_wta without its
@@ -270,8 +277,8 @@ WIRE = dict(frames=3, h=720, w=1280, dmax=64, levels=(8, 16, 28, 45))
 # mesh (the halo census, the horizontal pair and its transposes, one launch a
 # vertical group, the WTA, K3 and K4); the bench's median batch against
 # stage_breakdown's, at most this far apart; the benches' shortened runs
-TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 1,
-                  "volume_transpose": 3, "directional_scan_group_bidir": 1,
+TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 2,
+                  "volume_transpose": 3, "directional_scan_group_bidir": 2,
                   "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 AGREE = 0.10
 BIG_ITERS, STREAM_BATCHES, LOOP_FRAMES = 2, 8, 3
@@ -640,11 +647,14 @@ def wta_ladder() -> None:
     the volume once (a read floor; the WTA does more).  A call's events also
     hold the wrapper's host time when the card waits for it, so the time a
     launch takes in a run of RUN back-to-back launches is printed too.
-    Then the "fused" line: the vertical pair's two-order launch with the WTA
+    Then the "fused" line: the vertical pair's two-order scan with the WTA
     epilogue (the main path's) beside the parent's form, two group launches
     and ``wta_reduce``, on the same horizontal sums, held bit-equal first,
-    timed in turns (parent, fused, fused, parent), with the fused launch's
-    byte bound."""
+    timed in turns (parent, fused, fused, parent), with the fused scan's
+    byte bound; and the "two-order horizontal" line: the horizontal pair's
+    two-order scan on the transposed volume (the main path's) beside two
+    one-order group launches, held bit-equal first, in turns, with its
+    bound."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
@@ -699,13 +709,42 @@ def wta_ladder() -> None:
                           "fused": lambda: fused(part)}, 5)
         lim = bound(vol + px + 2 * vol + 40 * px, 6 * 10 * vol + 2 * 3 * vol)
         print(f"WTA fused {h}x{w} D={d} B={b}: the vertical pair's two-order "
-              f"launch with the WTA epilogue {times['fused']:.4f} ms, the "
+              f"scan with the WTA epilogue {times['fused']:.4f} ms, the "
               f"parent's two group launches + wta_reduce "
               f"{times['parent']:.4f} ms (in turns, median of 5 each, the two "
               f"reads averaged; {times['fused'] / times['parent']:.3f}x); "
               f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}); "
               f"bit-equal")
-        del cost, part, left, right
+        del part, right
+        torch.cuda.empty_cache()
+
+        # the horizontal pair on the transposed volume: its two-order scan
+        # beside two one-order group launches (forward stored, reverse added)
+        cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+        img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+        del cost, left
+
+        def one_order():
+            acc = kernels.directional_scan_group(cost_t, img_t, None, (0,),
+                                                 False, p1, p2, False)
+            return kernels.directional_scan_group(cost_t, img_t, acc, (0,),
+                                                  True, p1, p2, False)
+
+        two_order = lambda: kernels.horizontal_pair_transposed(cost_t, img_t,
+                                                               p1, p2)
+        max_abs_err(two_order(), one_order())
+        times = in_turns({"one-order": one_order, "two-order": two_order}, 5)
+        # the transposed cost and image in, the uint16 sum out; 2 directions
+        vol_t = cost_t.numel()
+        lim = bound(3 * vol_t + img_t.numel(), 2 * 10 * vol_t)
+        print(f"two-order horizontal {h}x{w} D={d} B={b}: the horizontal "
+              f"pair's two-order scan on the transposed volume "
+              f"{times['two-order']:.4f} ms, two one-order group launches "
+              f"{times['one-order']:.4f} ms (in turns, median of 5 each, the "
+              f"two reads averaged; "
+              f"{times['two-order'] / times['one-order']:.3f}x); bound "
+              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}); bit-equal")
+        del cost_t, img_t
         torch.cuda.empty_cache()
 
 
@@ -851,7 +890,7 @@ def chained_tile_path(cfg) -> dict:
     launch taking the upstream tile's carry and boundary row (the tiled
     path's order for 2+ tiles; one card cannot hold a mesh of several
     ranks).  Counters reset before, read after; the tiles' sums must equal
-    the untiled two-order launch.  Returns the launches."""
+    the untiled two-order scan.  Returns the launches."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
@@ -887,7 +926,7 @@ def chained_tile_path(cfg) -> dict:
         cost, left, None, GROUPS[0][0], GROUPS[1][0], p1, p2, False))
     print(f"tile phase, chained tiles: both vertical groups over K={k} "
           f"H-tiles of {cfg['h']}x{cfg['w']} B={cfg['batch']} made "
-          f"{launches} and equal the untiled two-order launch")
+          f"{launches} and equal the untiled two-order scan")
     return launches
 
 
@@ -916,7 +955,7 @@ def two_launch_path(cfg) -> dict:
         wta=(opt.min_disparity, True))
     torch.cuda.synchronize()
     launches = counted_launches(
-        kernels.LAUNCHES, {"horizontal_partial": 1, "volume_transpose": 3,
+        kernels.LAUNCHES, {"horizontal_partial": 2, "volume_transpose": 3,
                            "directional_scan_group": 1,
                            "directional_scan_group_wta": 1}, 1,
         "the two-launch route")

@@ -3,15 +3,16 @@
 // Replaces: soc_project_stereo_matching_tpu/ops/pallas_kernels.py:
 //   _directional_scan_group / _scan_group_kernel (with and without its
 //   cross-tile carry-in/out refs, and with its `wta` epilogue) and
-//   _directional_scan_group_bidir / _bidir_kernel (both scan orders in one
-//   launch, the volume or the WTA planes only), as driven by
+//   _directional_scan_group_bidir / _bidir_kernel (both scan orders, the
+//   volume or the WTA planes only, here two launches that each carry both
+//   orders and meet at the middle row), as driven by
 //   aggregate_paths, aggregate_paths_wta and parallel/tiles.py.  The WTA
 //   reduction of a stored volume is csrc/wta.cu.
 //
 // Two scan kernels live here.  `group_kernel` (sgm_scan_group) is the one the
 // port runs: up to three directions that share a scan order in one launch,
-// in one of two orders or (the two-order launch) both, optionally ending in
-// the WTA epilogue (below, after the scan's design).
+// in one order or, in the two-order scan's two launches, both, optionally
+// ending in the WTA epilogue (below, after the scan's design).
 // `scan_kernel` (sgm_scan_direction) is the first design, one warp per path
 // and one launch per direction; it stays as the entry the measurement tools
 // time one direction with and as a second reference on the card.
@@ -108,65 +109,79 @@
 //     bytes) and was slower.
 //   * nvcc 12.8 unrolled a short copy loop bounded by min()/max() to the next
 //     multiple of 4; such loops next to inline asm carry #pragma unroll 1.
-// The horizontal pair runs as two one-direction groups on the transposed
-// volume (csrc/transpose.cu), so nothing walks the volume at stride W.
+// The horizontal pair runs as the two-order scan of the direction (0,) on
+// the transposed volume (csrc/transpose.cu), so nothing walks the volume
+// at stride W.
 // Bytes per volume element over the 8 directions: 2
 // (cost transposed) + 3 + 5 (horizontal groups) + 4 (sum transposed back) +
 // 5 + 5 (vertical groups) = 24, all in whole sectors, against 38 before.
 //
 //
-// The two-order launch (two_order): the kernel runs its loop twice, the
-// second pass over the rows in the other order with the second roll set,
-// every pass's state, gray values and cost ring set up afresh and the
-// hand-off's barrier phases carried over (a cluster.sync() between the
-// passes: no block hands a column of the second pass to a peer still in the
-// first).  The TPU kernel keeps the first pass's sums in VMEM; here no
-// shared memory holds a frame's (21.6 MB at the cone size), so the first
-// pass parks them where the volume goes (added in place onto `acc`) and the
-// second adds onto them.  A thread owns the same columns and chunk of D in
-// both passes, whatever the rolls or the strip's halo (the halo carries DP
-// state through shared memory, never a sum), so every read of a parked sum
-// is of the thread's own store: no fence between blocks.  The second pass
-// reads the rows written last first, so at small batches they still lie in
-// the 50 MB L2.  Against two one-order launches it moves the same bytes and
-// takes about their time (PERF.md section 6, the fused forms).
+// Passes and sets (ScanPass): a launch takes one or two passes, each one
+// scan order of the group over a range of rows [lo, hi) with its own rolls,
+// carry-in and carry-out, and runs them on one or two sets of B clusters.
+// A set's passes run one after the other (its later passes adding onto the
+// sums of the earlier; every pass's state, gray values and cost ring set up
+// afresh, the hand-off's barrier phases carried over, a cluster.sync()
+// between passes); two sets run side by side on clusters of their own.
 //
-// The WTA epilogue (views > 0, the last pass) stores no volume.  A step's
-// finished totals go into `finished`, a ring of three rows per image in
-// device memory (the L2); the block arrives on the cluster's hardware
-// barrier (release), reduces the row of the step before, and waits
-// (acquire).  The ring slot of row s is read at step s + 1 and written
-// again at step s + 3, after the barriers of s + 1 and s + 2, so three
-// slots suffice.  The inverse view of column j reads plane k at column
-// j + dmin + k, up to dmin + D - 1 columns past a strip's edge (63 at the
-// cone, 151 at KITTI-2012, 255 at Middlebury-half), wherever that lies:
-// through the ring every block reads every column of its image.  A thread
-// reduces its own chunk of D at its two columns, both views, into partial
-// tracks (min and first argmin, the min over the other planes, the costs
-// beside the min where they lie in the chunk, the chunk's first and last
-// cost), the loads of a batch of planes issued before any is used and the
-// two columns in the 16-bit lanes of a word.  The tracks go to shared
-// memory (into the cost slab of the step just done where they fit there,
-// so that the epilogue costs a group no directions at Middlebury-half), and
-// one thread per column and view merges its chunks' tracks in order (a tie
-// keeps the earlier plane; a cost beside the min past a chunk's edge is
-// the neighbour chunk's edge cost) and stores the five planes.  The
-// arithmetic is csrc/wta.cu's, bit-equal to kernels.wta_online_plain;
-// kernels.wta_epilogue_plain transcribes this decomposition.  A kernel with
-// the epilogue takes 512 threads a block at 128 registers (at 80 the
-// epilogue pushed the recurrence's state into local memory, and the launch
-// ran slower),
-// and grows its cluster only while every cluster of the batch fits the
-// card at once.  What bounds it (kernel_ab.py --only fused and its
-// ablations; PERF.md section 6, the fused forms): the row's reduction sits
-// on the step's critical chain (its L2 round trips and its arithmetic); the
-// cluster barrier costs little.  Taking it off the chain needs
-// warps of their own (the recurrence's warps hand a finished row over and
-// go on).  Tried and slower: scalar tracks per column (a long unrolled
-// batch), a function call per row (spills around the call), 16 planes a
-// batch, a column pair as one 4-byte load with the odd-aligned half
-// shuffled from the next lane (the shuffle waits on its load).
+// The two-order scan (kernels.bidir_launches): both orders of a group, the
+// TPU kernel's _bidir_kernel, which keeps the first order's sums in VMEM
+// and adds the second's.  No shared memory here holds a frame's sums
+// (21.6 MB at the cone size), so they are parked where the volume goes
+// (added in place onto `acc`).  One launch of the two orders in turn takes
+// 2 S dependent steps, and a step costs 2-5 us whatever the batch; but the
+// orders are independent until their sums meet, and the carry mode cuts an
+// order anywhere.  So the scan is two launches, each with the two orders
+// on sets of their own, meeting at the middle row m = S / 2: the first
+// launch scans the forward order over [0, m) and the reverse order over
+// [m, S), each parking its sums and writing its state at the meeting row
+// as a carry (int32 by column, the tiles' layout; the prev_gray row is the
+// image's row beside the meeting row); the second continues each order over
+// the other half from its carry, adding onto the other order's sums, which
+// are final there.  S steps in all and twice the clusters a launch, which
+// fills the card where one launch left SMs idle (B <= 8, a B = 1 frame).
+// The sums are uint16 adds, so the order of the adds changes no bit; at
+// S = 1 the forward order's first half is empty and it starts fresh in the
+// second launch.  A thread owns the same columns and chunk of D in both
+// launches, so each read of a parked sum is of a store of a launch before.
 //
+// The WTA epilogue (views > 0, each set's last pass) stores no volume: the
+// step's finished totals go into `finished`, a ring of kRing rows a cluster
+// in device memory (the L2), and warps of their own reduce each row while
+// the recurrence goes on.  A block holds at most kWtaThreads recurrence
+// threads and then kReducers reducers (two warpgroups); they meet only at
+// the cluster barriers of a pass's start and of the kernel's end, and at
+// the ring's mbarriers: after a step's block barrier, threads 0..CS-1 of the
+// recurrence arrive on that row's "ready" barrier in every block of the
+// cluster (release at cluster scope); one reducer waits for it (acquire)
+// and a barrier of the reducers passes it on; the reducers reduce the row,
+// then, after another barrier of theirs, arrive on its slot's "free"
+// barrier in every block; the recurrence's thread 0 waits for that before
+// its block writes the slot again, kRing steps later, at the step's start
+// where it already waits for the hand-off.  So the reducers may lag
+// kRing - 1 rows, and every wait has a bound that traps.  The inverse view
+// of column j reads plane k at column j + dmin + k, up to dmin + D - 1
+// columns past a strip's edge (63 at the cone, 151 at KITTI-2012, 255 at
+// Middlebury-half): through the ring every block reads every column of its
+// image.  A reducer takes a chunk of D at a column pair of its block's
+// strip, both views: the best of its planes (the min, the min over the
+// other planes, the first plane that holds the min) from batches of loads
+// issued together, the two columns in the 16-bit lanes of a word (one
+// 4-byte load where the pair is aligned), five instructions a plane; the
+// chunks of a pair are neighbouring lanes of a warp, and their bests merge
+// in a tree by shuffles (a tie keeps the earlier plane), so the epilogue
+// holds no shared memory and costs a launch no directions; then the pair's
+// first lane reads the costs beside each column's best plane and stores
+// the five planes.  The planes equal csrc/wta.cu's, bit for bit, as
+// kernels.wta_online_plain's; kernels.wta_epilogue_plain transcribes this
+// decomposition.  A kernel with the epilogue takes at most kWtaThreads
+// recurrence threads so that the block, reducers included, has 96
+// registers a thread (at 80 its recurrence spilled more), and grows its
+// cluster only while every cluster of the launch fits the card at once.
+// What it costs, what bounds it and what was tried: PERF.md section 6,
+// the two-order scan redesigned.
+
 // Wrap diagonals: the path that starts at column k of its first row is at
 // column (k + roll*s) mod W at step s, so the previous pixel of a path is
 // the wrapped one.  In restart mode the path restarts (raw cost) whenever it
@@ -332,34 +347,45 @@ constexpr int kMaxCluster = 16;    // 8 is the portable limit
 constexpr int kMaxStages = 4;      // cost slabs in flight
 constexpr int kMaxChunks = 8;      // chunks of D per column pair
 constexpr int kGroupThreads = 768; // most threads of a block: 85 registers each
-// ... with the WTA epilogue: 128 registers each (at 80 the epilogue's state
-// pushed the recurrence's into local memory)
-constexpr int kWtaThreads = 512;
+// With the WTA epilogue the recurrence takes at most kWtaThreads threads
+// and the reducers, two warpgroups of their own, kReducers: 640 threads at
+// 96 registers each.
+constexpr int kWtaThreads = 384;
+constexpr int kReducers = 256;
+constexpr int kRing = 4;           // finished rows of an image in flight
 constexpr int kClampP = 1024;      // P1, P2' beyond 255 never win a min
 constexpr long long kWaitCycles = 1LL << 32;   // about 2 s
 constexpr long long kHeavyStrip = 16384;   // columns x D of a strip
 constexpr int kGroupSmem = 232448; // 227 KB, the most a block can take
 constexpr unsigned kByte2 = 0x00FF00FFu;
 
+// One scan order of a group over the rows [lo, hi) (reverse: hi - 1 down to
+// lo).  The host's layout is kernels.ScanPass (ctypes).
+struct ScanPass {
+  const int* cin_cost;        // (B, carry_n, D, W) at this launch's first
+  const int* cin_min;         // direction, (B, carry_n, 1, W); or null: fresh
+  const uint8_t* prev_gray;   // the row before the first, image b's at
+                              // b * gray_stride
+  int* cout_cost;             // as cin_*, or null (no carry-out wanted)
+  int* cout_min;
+  int rolls[kMaxDirs];
+  int reverse, lo, hi, gray_stride;
+};
+
 struct GroupArgs {
   const uint8_t* cost;        // (B, S, D, W)
   const uint8_t* img;         // (B, S, W)
   uint16_t* out;              // (B, S, D, W)
-  const int* cin_cost;        // (B, carry_n, D, W), at this launch's first
-  const int* cin_min;         // (B, carry_n, 1, W)   direction; or null
-  const uint8_t* prev_gray;   // (B, W)
-  int* cout_cost;             // as cin_*, or null
-  int* cout_min;
+  // `sets` sets of B clusters; set k runs the passes
+  // pass[k * npass .. k * npass + npass) in order, each later pass adding
+  // onto what the one before stored
+  ScanPass pass[2];
+  int npass, sets;
   int B, S, D, W;
-  int rolls[kMaxDirs];
-  int carry_n, reverse, restart, p1, p2_init, accumulate;
-  // the two-order launch: a second pass over the rows in the other order,
-  // rolls_b, adding onto what the first parked in `out`
-  int two_order;
-  int rolls_b[kMaxDirs];
+  int carry_n, restart, p1, p2_init, accumulate;
   // the WTA epilogue (the last pass): `views` (1 forward, 2 with the
   // inverse view) x 5 int32 (B, S, W) planes, no volume store; the finished
-  // rows go through `finished`, a ring of 3 uint16 (B, 3, D, W) rows
+  // rows go through `finished`, a ring of kRing uint16 (D, W) rows a cluster
   int views, dmin;
   uint16_t* finished;
   int* planes;
@@ -375,8 +401,12 @@ struct GroupArgs {
   int col_bytes;   // bytes of a handed-over column: NCH * DC, in sixteens
   int recv_off;    // byte offset of the hand-off buffers
   int recv_dir;    // bytes of one direction's hand-off buffer
-  int part_off;    // byte offset of the epilogue's partial tracks, or -1:
-                   // they take the cost slab of the step that finished
+  int fill_end;    // end of the staged and received columns
+  int rec_threads; // the recurrence's threads (a multiple of 32)
+  int red_chunks;  // the reducers' chunks of D a column pair (a power of 2)
+  int red_dc;      // ... and planes a chunk
+  int ring_bars;   // byte offset of the ring's barriers (kRing "ready",
+                   // kRing "free"), or -1 without the epilogue
   int smem_bytes;  // all of the dynamic shared memory
 };
 
@@ -491,134 +521,142 @@ __device__ __forceinline__ unsigned ld_even(const uint8_t* p) {
 }
 
 // --- the WTA epilogue ------------------------------------------------------
-// Arrive on / wait for the cluster's hardware barrier, split: release and
-// acquire at cluster scope, so what a block stored before its arrival is
-// seen by every block of the cluster after its wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+// The reducers, warps of their own, reduce each finished row while the
+// recurrence's warps go on to the next.  A row reaches them through the
+// ring in device memory (the L2), and two sets of kRing barriers in each
+// block pace the hand-over: "ready" (a slot holds its row: one arrival from
+// each block's recurrence, after all its stores) and "free" (every block's
+// reducers are done with a slot: one arrival from each block's reducers).
+// Both are arrived on remotely with release at cluster scope and waited on
+// with acquire at cluster scope, each by one thread between two barriers
+// of its role, so the stores of every thread of one role are ordered before
+// the loads of every thread of the other.
+
+// A block barrier of `count` threads (a role's warps), barrier `id`.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on a barrier of a block of the cluster (its shared::cluster
+// address), releasing what this thread and the threads of its last block
+// barrier wrote.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned peer_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               ::"r"(peer_bar)
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the arrivals released is
+// seen by this thread and, after its next block barrier, by its role.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar, int parity) {
+  unsigned done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > kWaitCycles) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 constexpr int kBig = 1 << 30;   // sec_min where D = 1
-constexpr int kWtaBatch = 8;    // planes whose loads the epilogue issues at once
+constexpr int kWtaBatch = 4;    // planes whose loads a reducer issues at once
 
-// A WTA track over the planes [k0, k1) of one column and view: the min m1
-// and its first plane bk, the min over the range's other planes m2 (0xFFFF,
-// neutral, for one plane), the costs at bk - 1 (lo) and bk + 1 (hi) where
-// they lie in the range, the range's first and last cost.
-struct Track {
-  int m1, m2, lo, hi, first, last, bk;
+// The best of a view's planes [k0, k1) at a reducer's two columns, in the
+// 16-bit lanes of a word: the min m1 and the min m2 over the range's other
+// planes (0xFFFF, neutral, for one plane), and in bk the first plane that
+// holds m1 (column 0 in the low half).  A step is one VIMNMX.U16x2, whose
+// predicates say where the min stays (so a tie keeps the first plane), a
+// max and a min for m2 and two selects; the costs beside the min are read
+// once the row's best is known.
+struct Best2 {
+  unsigned m1, m2, bk;
 };
 
-__device__ __forceinline__ int4 pack_track(const Track& t) {
-  return make_int4(t.m1 | t.m2 << 16, t.lo | t.hi << 16,
-                   t.first | t.last << 16, t.bk);
-}
-
-__device__ __forceinline__ Track unpack_track(int4 v) {
-  Track t;
-  t.m1 = v.x & 0xFFFF, t.m2 = (int)((unsigned)v.x >> 16);
-  t.lo = v.y & 0xFFFF, t.hi = (int)((unsigned)v.y >> 16);
-  t.first = v.z & 0xFFFF, t.last = (int)((unsigned)v.z >> 16);
-  t.bk = v.w;
-  return t;
-}
-
-// l (planes [.., kr)) followed by r (planes [kr, ..)), into l: a tie keeps
-// l's plane; lo or hi that lay past a range's edge is the neighbour's edge
-// cost.
-__device__ __forceinline__ void merge_track(Track& l, const Track& r, int kr) {
-  if (r.m1 < l.m1) {
-    l.m2 = min(l.m1, r.m2);
-    l.lo = r.bk == kr ? l.last : r.lo;
-    l.hi = r.hi;
-    l.m1 = r.m1;
-    l.bk = r.bk;
-  } else {
-    l.m2 = min(l.m2, r.m1);
-    if (l.bk == kr - 1) l.hi = r.first;
-  }
-  l.last = r.last;
-}
-
-// A view's tracks at a thread's two columns, in the 16-bit lanes of a word
-// where the two columns go together (csrc/wta.cu's Pair, over a chunk of
-// planes): the min and the min over the planes that lost to it (one
-// VIMNMX.U16x2 each; its predicates say where the min stays, so a tie keeps
-// the first plane), per column the latch lo << 8 | bk where the min changes
-// hands, hi of the plane after one that took it, and the chunk's first and
-// last cost.
-struct Tracks2 {
-  unsigned m1, m2;
-  int rk[2], hi[2], first[2], last[2];
-  bool took[2];
-};
-
-__device__ __forceinline__ void tracks_init(Tracks2& t, int v0, int v1,
-                                            int k) {
-  t.m1 = (unsigned)v0 | ((unsigned)v1 << 16);
+__device__ __forceinline__ void best_init(Best2& t, unsigned vp, int k) {
+  t.m1 = vp;
   t.m2 = 0xFFFFFFFFu;
-  t.rk[0] = t.rk[1] = k;   // lo unknown (the chunk before holds it)
-  t.hi[0] = t.hi[1] = 0;
-  t.first[0] = t.last[0] = v0;
-  t.first[1] = t.last[1] = v1;
-  t.took[0] = t.took[1] = true;
+  t.bk = (unsigned)k * 0x00010001u;
 }
 
-__device__ __forceinline__ void tracks_step(Tracks2& t, int v0, int v1,
-                                            int k) {
-  const unsigned vp = (unsigned)v0 | ((unsigned)v1 << 16);
+__device__ __forceinline__ void best_step(Best2& t, unsigned vp, int k) {
   bool keep1, keep0;   // m1 <= v: the min stays
   const unsigned m1 = __vibmin_u16x2(t.m1, vp, &keep1, &keep0);
   t.m2 = __vminu2(t.m2, __vmaxu2(t.m1, vp));
   t.m1 = m1;
-  t.rk[0] = keep0 ? t.rk[0] : t.last[0] << 8 | k;
-  t.rk[1] = keep1 ? t.rk[1] : t.last[1] << 8 | k;
-  t.hi[0] = t.took[0] ? v0 : t.hi[0];
-  t.hi[1] = t.took[1] ? v1 : t.hi[1];
-  t.last[0] = v0, t.last[1] = v1;
-  t.took[0] = !keep0, t.took[1] = !keep1;
+  t.bk = __byte_perm(keep0 ? t.bk : (unsigned)k, keep1 ? t.bk : (unsigned)k << 16,
+                     0x7610);
 }
 
-__device__ __forceinline__ Track track_of(const Tracks2& t, int h) {
-  Track u;
-  u.m1 = (int)((t.m1 >> (16 * h)) & 0xFFFFu);
-  u.m2 = (int)((t.m2 >> (16 * h)) & 0xFFFFu);
-  u.lo = t.rk[h] >> 8, u.bk = t.rk[h] & 0xFF;
-  u.hi = t.hi[h], u.first = t.first[h], u.last = t.last[h];
-  return u;
+// l (planes [.., kr)) followed by r (planes [kr, ..)), into l: exact for
+// any two neighbouring ranges, so the chunks of a pair merge in a tree.  A
+// tie keeps l's plane; m2 = min(max(l.m1, r.m1), l.m2, r.m2), since a
+// range's m2 is never below its m1.
+__device__ __forceinline__ void best_merge(Best2& l, const Best2& r) {
+  bool keep1, keep0;   // l.m1 <= r.m1: l keeps the min
+  const unsigned m1 = __vibmin_u16x2(l.m1, r.m1, &keep1, &keep0);
+  l.m2 = __vminu2(__vmaxu2(l.m1, r.m1), __vminu2(l.m2, r.m2));
+  l.m1 = m1;
+  l.bk = __byte_perm(keep0 ? l.bk : r.bk, keep1 ? l.bk : r.bk, 0x7610);
 }
 
-// A thread's part of the epilogue for one finished row (in the ring, `row`):
-// for each view, the partial tracks of its chunk of planes [d_lo, d_hi) at
-// its columns c0 and c0 + 1, into q[v * stride] and q[v * stride + 1].  The
-// inverse view of column x reads plane d at column x + dmin + d (65535 past
-// the row's end), wherever in the image's row that lies.  The loads of a
-// batch of planes, both columns and both views, are issued before any is
-// used: each batch is one round trip to the L2.  The two columns go in the
-// lanes of a word, which keeps the unrolled batch short (four scalar tracks
-// a thread ran slower).
-__device__ __forceinline__ void wta_partials(const uint16_t* row, int4* q,
-                                            int stride, int views, int dmin,
-                                            int W, int c0, bool valid1,
-                                            int d_lo, int d_hi) {
-  Tracks2 t[2];   // [view]
+// The costs of a view's plane at a reducer's two columns c0 (even) and
+// c0 + 1, in the 16-bit lanes of a word, 65535 past the row's end; one
+// 4-byte load where the pair is 4-byte aligned (EVEN and an even column),
+// else two 2-byte loads.  From the L2: other blocks wrote the row.
+template <bool EVEN>
+__device__ __forceinline__ unsigned pair_of(const uint16_t* at, int col, int W,
+                                            bool valid1) {
+  if (EVEN && valid1 && !(col & 1))
+    return col < W ? __ldcg((const unsigned*)at) : 0xFFFFFFFFu;
+  const unsigned lo = col < W ? (unsigned)__ldcg(at) : 0xFFFFu;
+  const unsigned hi = valid1 && col + 1 < W ? (unsigned)__ldcg(at + 1) : 0xFFFFu;
+  return lo | hi << 16;
+}
+
+// A view's cost at plane k of column x of a finished row: the forward view
+// reads (k, x), the inverse view (k, x + dmin + k), 65535 past the row's
+// end.
+__device__ __forceinline__ int cost_at(const uint16_t* row, int v, int dmin,
+                                       int W, int x, int k) {
+  const int col = x + (v ? dmin + k : 0);
+  return col < W ? (int)__ldcg(row + (size_t)k * W + col) : 0xFFFF;
+}
+
+// A reducer's best of a finished row (in the ring, `row`) over its chunk of
+// planes [d_lo, d_hi) at its columns c0 and c0 + 1, per view (t[view]).
+// The inverse view of column x reads plane d at column x + dmin + d,
+// wherever in the image's row that lies.  The loads of a batch of planes,
+// both views, are issued before any is used: each batch is one round trip
+// to the L2.
+template <bool EVEN>
+__device__ __forceinline__ void wta_best(const uint16_t* row, Best2 (&t)[2],
+                                         int views, int dmin, int W, int c0,
+                                         bool on, bool valid1, int d_lo,
+                                         int d_hi) {
+  best_init(t[0], 0xFFFFFFFFu, d_lo);
+  best_init(t[1], 0xFFFFFFFFu, d_lo);
 #pragma unroll 1
-  for (int d0 = d_lo; d0 < d_hi; d0 += kWtaBatch) {
-    int c[2][2][kWtaBatch];
+  for (int d0 = d_lo; on && d0 < d_hi; d0 += kWtaBatch) {
+    unsigned c[2][kWtaBatch];
 #pragma unroll
     for (int v = 0; v < 2; ++v)
 #pragma unroll
       for (int i = 0; i < kWtaBatch; ++i) {
         const int d = d0 + i;
         const int col = c0 + (v ? dmin + d : 0);
-        const uint16_t* at = row + (size_t)d * W + col;
-        const bool in = d < d_hi && v < views;
-        c[v][0][i] = in && col < W ? (int)__ldcg(at) : 0xFFFF;
-        c[v][1][i] = in && valid1 && col + 1 < W ? (int)__ldcg(at + 1) : 0xFFFF;
+        c[v][i] = d < d_hi && v < views
+                      ? pair_of<EVEN>(row + (size_t)d * W + col, col, W, valid1)
+                      : 0xFFFFFFFFu;
       }
 #pragma unroll
     for (int i = 0; i < kWtaBatch; ++i) {
@@ -626,56 +664,114 @@ __device__ __forceinline__ void wta_partials(const uint16_t* row, int4* q,
       if (d >= d_hi) break;
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
-        if (d == d_lo)
-          tracks_init(t[v], c[v][0][i], c[v][1][i], d);
+        if (i == 0 && d0 == d_lo)
+          best_init(t[v], c[v][i], d);
         else
-          tracks_step(t[v], c[v][0][i], c[v][1][i], d);
+          best_step(t[v], c[v][i], d);
       }
     }
   }
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    if (v >= views) break;
-    q[v * stride] = pack_track(track_of(t[v], 0));
-    if (valid1) q[v * stride + 1] = pack_track(track_of(t[v], 1));
-  }
 }
 
-// The block's part of the epilogue after its threads' partial tracks
-// (part: (views, NCH, TW)): one thread a column and view merges the NCH
-// chunks' tracks in order and stores the five planes (`out` at the strip's
-// first column of the row, planes `plane` elements apart).
-__device__ __forceinline__ void wta_merge(const int4* part, int* out,
-                                       size_t plane, int views, int NCH,
-                                       int TW, int DC, int D, int Lb) {
-  for (int task = threadIdx.x; task < views * Lb; task += blockDim.x) {
-    const int v = task / Lb, x = task - v * Lb;
-    const int4* q = part + v * NCH * TW + x;
-    Track t = unpack_track(q[0]);
+// The reducers' part of a block (threads R .. R + kReducers - 1 of it) in
+// the last pass: for each of the pass's rows, wait until every block of
+// the cluster has stored it, reduce the block's strip of it (both views)
+// and store its planes, then free its ring slot in every block.  A reducer
+// takes a chunk of D at a column pair; the chunks of a pair are
+// neighbouring lanes of a warp, whose bests merge in a tree by shuffles
+// (no shared memory); the first lane of a pair then reads the costs beside
+// each column's best plane (one round trip) and stores the five planes.
+// Pairs beyond the reducers' count take further rounds.
+template <bool EVEN>
+__device__ __forceinline__ void reduce_rows(const GroupArgs& a,
+                                            const ScanPass& P, int rt, int b,
+                                            int cstart, int Lb, int CS,
+                                            const uint16_t* fin,
+                                            unsigned long long* ready,
+                                            unsigned long long* freed) {
+  const int D = a.D, W = a.W, dmin = a.dmin;
+  const int nchr = a.red_chunks, dcr = a.red_dc, per = kReducers / nchr;
+  const int chunk = rt % nchr;
+  const int d_lo = chunk * dcr, d_hi = min(D, d_lo + dcr);
+  const size_t plane = (size_t)a.B * a.S * W;
+  const int steps = P.hi - P.lo;
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % kRing;
+    if (rt == 0) mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);
+    bar_sync(2, kReducers);
+    const uint16_t* row = fin + (size_t)slot * D * W;
+    const int t = P.reverse ? P.hi - 1 - s : P.lo + s;
+    int* out = a.planes + ((size_t)b * a.S + t) * W;
 #pragma unroll 1
-    for (int c = 1; c < NCH; ++c) merge_track(t, unpack_track(q[c * TW]), c * DC);
-    int* o = out + (size_t)v * 5 * plane + x;
-    o[0] = t.bk;
-    o[plane] = t.m1;
-    o[2 * plane] = D > 1 ? t.m2 : kBig;
-    o[3 * plane] = t.bk == 0 ? t.m1 : t.lo;
-    o[4 * plane] = t.bk == D - 1 ? t.m1 : t.hi;
+    for (int p0 = 0; p0 < a.NP; p0 += per) {   // the same rounds for all
+      const int lc = 2 * (p0 + rt / nchr), c0 = cstart + lc;
+      const bool on = lc < Lb && d_lo < D;
+      const bool valid1 = lc + 1 < Lb;
+      Best2 best[2];
+      wta_best<EVEN>(row, best, a.views, dmin, W, c0, on, valid1, d_lo, d_hi);
+#pragma unroll 1
+      for (int o = 1; o < nchr; o <<= 1) {
+        const bool take = chunk % (2 * o) == 0 && d_lo + o * dcr < D;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          Best2 r;   // every lane shuffles
+          r.m1 = __shfl_down_sync(kFull, best[v].m1, o);
+          r.m2 = __shfl_down_sync(kFull, best[v].m2, o);
+          r.bk = __shfl_down_sync(kFull, best[v].bk, o);
+          if (take) best_merge(best[v], r);
+        }
+      }
+      if (on && chunk == 0) {
+        int beside[2][2][2];   // [view][column][below, above]
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int bk = (int)(best[v].bk >> (16 * h)) & 0xFFFF;
+            const bool in = v < a.views && (h == 0 || valid1);
+            beside[v][h][0] = in && bk > 0
+                                  ? cost_at(row, v, dmin, W, c0 + h, bk - 1) : 0;
+            beside[v][h][1] = in && bk < D - 1
+                                  ? cost_at(row, v, dmin, W, c0 + h, bk + 1) : 0;
+          }
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (v >= a.views || (h && !valid1)) continue;
+            const int bk = (int)(best[v].bk >> (16 * h)) & 0xFFFF;
+            const int m1 = (int)(best[v].m1 >> (16 * h)) & 0xFFFF;
+            const int m2 = (int)(best[v].m2 >> (16 * h)) & 0xFFFF;
+            int* o = out + (size_t)v * 5 * plane + c0 + h;
+            o[0] = bk;
+            o[plane] = m1;
+            o[2 * plane] = D > 1 ? m2 : kBig;
+            o[3 * plane] = bk == 0 ? m1 : beside[v][h][0];
+            o[4 * plane] = bk == D - 1 ? m1 : beside[v][h][1];
+          }
+      }
+    }
+    bar_sync(2, kReducers);   // every reducer is done with the slot
+    if (rt < CS) mbar_arrive_cluster(peer_addr(smem_addr(freed + slot), rt));
   }
 }
 
 // EVEN: W is even, the cost volume starts at an even address and the sum at
 // a multiple of 4, so a column pair of the cost slab is one 16-bit load and a
 // pair of sums one 32-bit access; else bytes and halves.  WTA: the last pass
-// carries the epilogue (a.views > 0).
+// carries the epilogue (a.views > 0), reduced by warps of their own.
 template <int N, bool EVEN, bool WTA>
-__global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
-    group_kernel(const GroupArgs a) {
+__global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
+                                      : kGroupThreads)
+    group_kernel(const __grid_constant__ GroupArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / CS;
+  const int image = blockIdx.x / CS;   // the launch's sets x B clusters
+  const int set = image / a.B, b = image - set * a.B;
   const int tid = threadIdx.x;
+  const int R = a.rec_threads;   // the recurrence's; the reducers follow
   const int D = a.D, W = a.W, S = a.S;
   const int pitchS = a.pitchS, pitchC = a.pitchC, pitchM = a.pitchM;
 
@@ -698,6 +794,10 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
   // word per chunk with its partial minimum
   const int recv = a.recv_off, recv_dir = a.recv_dir, recv_slot = N * recv_dir;
   const int recv_pm = 32 + col_bytes;
+  // the epilogue's ring barriers
+  unsigned long long* ready =
+      WTA ? (unsigned long long*)(smem + a.ring_bars) : nullptr;
+  unsigned long long* freed = WTA ? ready + kRing : nullptr;
 
   const int cstart = rank * a.TW;
   const int Lb = strip_cols(rank, a.TW, W);
@@ -705,15 +805,17 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
   const uint8_t* cost_end = a.cost + (size_t)a.B * S * D * W;
   const uint8_t* img_b = a.img + (size_t)b * S * W;
   uint16_t* out_b = a.out + (size_t)b * S * D * W;
-  uint16_t* fin_b = WTA ? a.finished + (size_t)b * 3 * D * W : nullptr;
-  const bool carried = a.cin_cost != nullptr;
-  const int npass = a.two_order ? 2 : 1;
+  const uint16_t* fin = WTA ? a.finished + (size_t)image * kRing * D * W
+                            : nullptr;
 
   for (int i = tid; i < 256; i += blockDim.x)
     lut[i] = (uint16_t)min(max(a.p1, a.p2_init / (i + 1)), kClampP);
-  if (tid == 0)
+  if (tid == 0) {
     for (int i = 0; i < kSlots; ++i) mbar_init(smem_addr(bars + i), 1);
-  const unsigned p1pk = (unsigned)min(a.p1, kClampP) * 0x00010001u;
+    if (WTA)
+      for (int i = 0; i < 2 * kRing; ++i) mbar_init(smem_addr(ready + i), CS);
+    mbar_fence_init();
+  }
   for (int i = tid; i < 2 * N * 2 * pitchS; i += blockDim.x) {
     const int row = i / pitchS;   // (buffer, direction, first or last row)
     smem[state + (row >> 1) * state_dir + (row & 1) * (D + 1) * pitchS +
@@ -721,18 +823,41 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
   }
   // the staged and the received columns start as sentinels: what no message
   // writes (d = -1, d >= D) stays one
-  for (int i = tid; i < (a.smem_bytes - stage) / 4; i += blockDim.x)
+  for (int i = tid; i < (a.fill_end - stage) / 4; i += blockDim.x)
     ((unsigned*)(smem + stage))[i] = 0xFFFFFFFFu;
+
+  if (WTA && tid >= R) {
+    // the reducers: a cluster barrier with the recurrence at each pass's
+    // start, the rows of the last pass as they are finished
+    for (int pass = 0; pass < a.npass; ++pass) {
+      cluster.sync();
+      if (pass == a.npass - 1)
+        reduce_rows<EVEN>(a, a.pass[set * a.npass + pass], tid - R, b, cstart,
+                          Lb, CS, fin, ready, freed);
+    }
+    cluster.sync();   // no block leaves while a peer may still arrive
+    return;
+  }
+
+  // The recurrence's threads; their block barrier leaves the reducers out.
+  auto rec_sync = [&]() {
+    if (WTA)
+      bar_sync(1, R);
+    else
+      __syncthreads();
+  };
+
+  const unsigned p1pk = (unsigned)min(a.p1, kClampP) * 0x00010001u;
 
   // One row's (D, Lb) cost slab into a ring buffer: per d, the 16-byte
   // chunks that cover the segment, from its aligned-down address.
   const int cpr = pitchC / 16;
-  int reverse = a.reverse;   // this pass's
+  int reverse = 0, lo = 0, hi = 0;   // this pass's
   auto stage_row = [&](int step) {
-    const int t = reverse ? S - 1 - step : step;
+    const int t = reverse ? hi - 1 - step : lo + step;
     uint8_t* slab = smem + ring + (step % a.NST) * slab_bytes;
     const uint8_t* g_row = cost_b + (size_t)t * D * W + cstart;
-    for (int idx = tid; idx < D * cpr; idx += blockDim.x) {
+    for (int idx = tid; idx < D * cpr; idx += R) {
       const int d = idx / cpr, j = idx - d * cpr;
       const uint8_t* g = g_row + (size_t)d * W;
       const int o = (int)((uintptr_t)g & 15);
@@ -744,30 +869,6 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
       }
     }
   };
-
-  // The carry-in is the first state buffer, halo columns included.
-  if (carried) {
-    const int span = Lb + 2;  // columns -1 .. Lb of the strip
-    for (int idx = tid; idx < N * D * span; idx += blockDim.x) {
-      const int j = idx % span - 1;
-      const int kd = idx / span;  // k * D + d
-      const int col = (cstart + j + W) % W;
-      const int k = kd / D, d = kd - k * D;
-      smem[state + k * state_dir + (d + 1) * pitchS + 4 + j] =
-          (uint8_t)a.cin_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) *
-                                  W + col];
-    }
-    for (int idx = tid; idx < N * a.NCH * span; idx += blockDim.x) {
-      const int j = idx % span - 1;
-      const int kc = idx / span;  // k * NCH + ch
-      const int k = kc / a.NCH;
-      const int col = (cstart + j + W) % W;
-      pm[kc * pitchM + 2 + j] =
-          kc - k * a.NCH == 0
-              ? (uint16_t)a.cin_min[((size_t)b * a.carry_n + k) * W + col]
-              : (uint16_t)0xFFFF;
-    }
-  }
 
   // This thread's columns and chunk of D.
   const int p = tid % a.NP, ch = tid / a.NP;
@@ -791,35 +892,16 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
   // the next parity of each hand-off barrier (thread 0 waits on them)
   unsigned phases = 0;
 
-  // The WTA planes of the row that step sp of this pass finished (see
-  // wta_partials and wta_merge).
-  // Its partial tracks, (views, NCH, TW), go into shared memory of their
-  // own or, where they fit there, into the cost slab of step `slab`, which
-  // no thread reads again and no copy fills before the next step.
-  auto wta_row = [&](int sp, int slab) {
-    const uint16_t* row = fin_b + (size_t)(sp % 3) * D * W;
-    int4* part = (int4*)(smem + a.part_off);
-    if (a.part_off < 0) {
-      part = (int4*)(smem + ring + (slab % a.NST) * slab_bytes);
-      __syncthreads();   // every thread is done with the slab
-    }
-    if (active)
-      wta_partials(row, part + ch * a.TW + lc, a.NCH * a.TW, a.views, a.dmin,
-                   W, c0, valid1, d_lo, d_hi);
-    __syncthreads();
-    const int tr = reverse ? S - 1 - sp : sp;
-    wta_merge(part, a.planes + ((size_t)b * S + tr) * W + cstart,
-              (size_t)a.B * S * W, a.views, a.NCH, a.TW, a.DC, D, Lb);
-  };
-
-  for (int pass = 0; pass < npass; ++pass) {
-    reverse = a.reverse ^ pass;
+  for (int pass = 0; pass < a.npass; ++pass) {
+    const ScanPass& P = a.pass[set * a.npass + pass];
+    reverse = P.reverse, lo = P.lo, hi = P.hi;
+    const int steps = hi - lo;
     const bool accumulate = pass > 0 || a.accumulate;
-    const bool epi = WTA && pass == npass - 1;
-    const bool fresh_start = pass > 0 || !carried;
+    const bool epi = WTA && pass == a.npass - 1;
+    const bool fresh_start = P.cin_cost == nullptr;
     int rolls[N];
 #pragma unroll
-    for (int k = 0; k < N; ++k) rolls[k] = pass ? a.rolls_b[k] : a.rolls[k];
+    for (int k = 0; k < N; ++k) rolls[k] = P.rolls[k];
     int diagonals = 0;
 #pragma unroll
     for (int k = 0; k < N; ++k) diagonals += rolls[k] != 0;
@@ -828,9 +910,33 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
     const int dir_bytes = a.NCH * a.DC + 4 * a.NCH;
     const int step_bytes = 8 + diagonals * dir_bytes;
 
+    // The carry-in is the first state buffer, halo columns included.
+    if (!fresh_start) {
+      const int span = Lb + 2;  // columns -1 .. Lb of the strip
+      for (int idx = tid; idx < N * D * span; idx += R) {
+        const int j = idx % span - 1;
+        const int kd = idx / span;  // k * D + d
+        const int col = (cstart + j + W) % W;
+        const int k = kd / D, d = kd - k * D;
+        smem[state + k * state_dir + (d + 1) * pitchS + 4 + j] =
+            (uint8_t)P.cin_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) *
+                                    W + col];
+      }
+      for (int idx = tid; idx < N * a.NCH * span; idx += R) {
+        const int j = idx % span - 1;
+        const int kc = idx / span;  // k * NCH + ch
+        const int k = kc / a.NCH;
+        const int col = (cstart + j + W) % W;
+        pm[kc * pitchM + 2 + j] =
+            kc - k * a.NCH == 0
+                ? (uint16_t)P.cin_min[((size_t)b * a.carry_n + k) * W + col]
+                : (uint16_t)0xFFFF;
+      }
+    }
+
     if (pass > 0) cp_async_wait(0);   // the first pass's copies have landed
     for (int st = 0; st < a.NST - 1; ++st) {
-      if (st < S) stage_row(st);
+      if (st < steps) stage_row(st);
       cp_async_commit();
     }
 
@@ -861,12 +967,12 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
 
     // the gray values of the first step
     int gc0 = 0, gc1 = 0, g0 = 0, g1 = 0, g2 = 0, g3 = 0;
-    if (active && S > 0) {
-      const int t = reverse ? S - 1 : 0;
+    if (active && steps > 0) {
+      const int t = reverse ? hi - 1 : lo;
       gc0 = img_b[(size_t)t * W + c0];
       gc1 = valid1 ? img_b[(size_t)t * W + c0 + 1] : 0;
       if (!fresh_start) {
-        const uint8_t* pr = a.prev_gray + (size_t)b * W;
+        const uint8_t* pr = P.prev_gray + (size_t)b * P.gray_stride;
         g0 = pr[cm1], g1 = pr[c0], g2 = pr[cp1], g3 = pr[cp2];
       }
     }
@@ -874,16 +980,17 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
     const long long ahead2 = 2 * (reverse ? -(long long)D * W : (long long)D * W);
 
     cp_async_wait(a.NST - 2);
-    // once a pass: the barriers are initialised and every block resident;
-    // before the second, every hand-off of the first has been read
+    // once a pass: the barriers are initialised, the carry-in is in, every
+    // block is resident; before the second, every hand-off of the first
+    // has been read
     cluster.sync();
 
     int buf = 0;
-    for (int s = 0; s < S; ++s) {
-      const int t = reverse ? S - 1 - s : s;
-      const bool hand_off = diagonals > 0 && s + 1 < S;   // this step sends
+    for (int s = 0; s < steps; ++s) {
+      const int t = reverse ? hi - 1 - s : lo + s;
+      const bool hand_off = diagonals > 0 && s + 1 < steps;   // this step sends
       const int slot = s % kSlots;
-      if (s + a.NST - 1 < S) stage_row(s + a.NST - 1);
+      if (s + a.NST - 1 < steps) stage_row(s + a.NST - 1);
       cp_async_commit();
       if (hand_off && tid == 0) {
         // arm this step's barrier; tell both peers that this block has left
@@ -897,16 +1004,24 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
       }
 
       // one thread waits for what the neighbours handed over at the last
-      // step (many spinning warps starve the ones that still compute); the
-      // edge pairs read it where it landed
+      // step (many spinning warps starve the ones that still compute) and,
+      // in the epilogue, until every block's reducers are done with the
+      // ring slot this step overwrites; the edge pairs read the hand-off
+      // where it landed
       const bool handed = diagonals > 0 && s > 0;
-      if (handed) {
+      const bool reuse = epi && s >= kRing;
+      if (handed || reuse) {
         if (tid == 0) {
-          const int prev_slot = (s - 1) % kSlots;
-          mbar_wait(smem_addr(bars + prev_slot), (phases >> prev_slot) & 1);
-          phases ^= 1u << prev_slot;
+          if (handed) {
+            const int prev_slot = (s - 1) % kSlots;
+            mbar_wait(smem_addr(bars + prev_slot), (phases >> prev_slot) & 1);
+            phases ^= 1u << prev_slot;
+          }
+          if (reuse)
+            mbar_wait_cluster(smem_addr(freed + s % kRing),
+                              (s / kRing - 1) & 1);
         }
-        __syncthreads();
+        rec_sync();
       }
 
       if (active) {
@@ -919,13 +1034,13 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
         // the next step's gray values, asked for a step ahead, and the rows
         // of the image a few steps ahead, asked into the L2
         int n_gc0 = 0, n_gc1 = 0, n_g0 = 0, n_g2 = 0, n_g3 = 0;
-        if (s + 1 < S) {
+        if (s + 1 < steps) {
           const uint8_t* next = img_b + (size_t)(reverse ? t - 1 : t + 1) * W;
           const uint8_t* here = img_b + (size_t)t * W;
           n_gc0 = next[c0];
           n_gc1 = valid1 ? next[c0 + 1] : 0;
           n_g0 = here[cm1], n_g2 = here[cp1], n_g3 = here[cp2];
-          if (s + 4 < S && ch == 0)
+          if (s + 4 < steps && ch == 0)
             prefetch_l2(img_b + (size_t)(reverse ? t - 4 : t + 4) * W + c0);
         }
 
@@ -937,7 +1052,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
         int cp = ring + (s % a.NST) * slab_bytes + d_lo * pitchC + lc;
         int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) + d_lo * W) & 15);
         const uint16_t* src = out_b + row_off + (size_t)d_lo * W;
-        uint16_t* o = epi ? fin_b + (size_t)(s % 3) * D * W +
+        uint16_t* o = epi ? (uint16_t*)fin + (size_t)(s % kRing) * D * W +
                                 (size_t)d_lo * W + c0
                           : out_b + row_off + (size_t)d_lo * W;
         unsigned runmin[N];
@@ -1033,7 +1148,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
           }
           // the sums this step adds onto, two planes ahead of their use (the
           // rows themselves were asked into the L2 two steps ago)
-          const bool far = s + 2 < S;
+          const bool far = s + 2 < steps;
           unsigned old0 = 0, old1 = 0;
           if (accumulate) {
             old0 = load_old(src);
@@ -1108,43 +1223,40 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads : kGroupThreads)
         g0 = n_g0, g1 = gc0, g2 = n_g2, g3 = n_g3;
         gc0 = n_gc0, gc1 = n_gc1;
       }
-      if (epi) {
-        // row s is in the ring; reduce row s - 1 while the barrier settles
-        cluster_arrive();
-        if (s > 0) wta_row(s - 1, s);
-        cluster_wait();
-      }
       cp_async_wait(a.NST - 2);
-      __syncthreads();
+      rec_sync();
+      // row s is in the ring: tell every block's reducers
+      if (epi && tid < CS)
+        mbar_arrive_cluster(peer_addr(smem_addr(ready + s % kRing), tid));
       buf ^= 1;
     }
-    if (epi && S > 0) {   // the last row
-      wta_row(S - 1, S);
-    }
-    if (a.cout_cost != nullptr) {  // the state after the last step
+    if (P.cout_cost != nullptr) {  // the state after the last step
       const uint8_t* st = smem + state + buf * state_buf;
       const uint16_t* pmv = pm + buf * pm_buf;
-      for (int idx = tid; idx < N * D * Lb; idx += blockDim.x) {
+      for (int idx = tid; idx < N * D * Lb; idx += R) {
         const int j = idx % Lb, kd = idx / Lb, k = kd / D, d = kd - k * D;
-        a.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) * W +
+        P.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) * W +
                     cstart + j] = st[k * state_dir + (d + 1) * pitchS + 4 + j];
       }
-      for (int idx = tid; idx < N * Lb; idx += blockDim.x) {
+      for (int idx = tid; idx < N * Lb; idx += R) {
         const int j = idx % Lb, k = idx / Lb;
         int m = 0xFFFF;
         for (int c = 0; c < a.NCH; ++c)
           m = min(m, (int)pmv[(k * a.NCH + c) * pitchM + 2 + j]);
-        a.cout_min[((size_t)b * a.carry_n + k) * W + cstart + j] = m;
+        P.cout_min[((size_t)b * a.carry_n + k) * W + cstart + j] = m;
       }
+      rec_sync();   // before a next pass's carry-in overwrites the state
     }
   }
+  if (WTA) cluster.sync();   // as the reducers: the kernel's end
 }
 
 inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The launch shape for a cluster of `cs` blocks per image; returns the
 // dynamic shared memory it needs, or -1 if `cs` strips leave a block empty.
-// With `wta` it holds the epilogue's partial tracks too (both views).
+// With `wta` the recurrence takes at most kWtaThreads threads, the reducers'
+// partition is chosen and the ring's barriers are held too.
 int group_shape(GroupArgs& a, int n, int cs, bool wta) {
   a.TW = round_up((a.W + cs - 1) / cs, 2);
   if ((cs - 1) * a.TW >= a.W) return -1;
@@ -1157,28 +1269,33 @@ int group_shape(GroupArgs& a, int n, int cs, bool wta) {
   nch = nch > a.D ? a.D : nch;
   a.DC = round_up((a.D + nch - 1) / nch, 4);   // whole words to hand over
   a.NCH = (a.D + a.DC - 1) / a.DC;
+  a.rec_threads = round_up(a.NP * a.NCH, 32);
+  // the reducers: a power of two of chunks a pair, as many as fill them
+  int rch = 1;
+  while (2 * rch <= kMaxChunks && 2 * rch <= a.D && 2 * rch * a.NP <= kReducers)
+    rch *= 2;
+  a.red_chunks = rch;
+  a.red_dc = (a.D + rch - 1) / rch;
   a.pitchC = round_up(a.TW + 15, 16);
   a.pitchS = round_up(4 + a.TW + 4, 4);
   a.pitchM = 2 + a.TW + 2;
   // the table, barriers and tokens; then the ring, the state, the partial
   // minima, the hand-off buffers (3 slots of a column per direction) and
-  // the epilogue's tracks (an int4 per view, chunk and column)
+  // the epilogue's ring barriers
   a.col_bytes = round_up(a.NCH * a.DC, 16);
   a.recv_dir = 32 + a.col_bytes + round_up(4 * a.NCH, 16);
   const long long body = round_up(2 * n * (a.D + 2) * a.pitchS +
                                   2 * n * a.NCH * a.pitchM * 2, 16);
-  // the epilogue's tracks: in a cost slab where they fit there
-  const long long tracks = 2LL * a.NCH * a.TW * 16;
-  const long long part =
-      wta && tracks > (long long)a.D * a.pitchC ? tracks : 0;
   const long long tail = (long long)n * a.col_bytes + 3LL * n * a.recv_dir;
+  const long long ring_bars = wta ? 2LL * kRing * 8 : 0;
   for (a.NST = kMaxStages; a.NST >= 2; --a.NST) {
     const long long at = 576 + (long long)a.NST * a.D * a.pitchC + body;
-    if (at + tail + part <= kGroupSmem) {
+    if (at + tail + ring_bars <= kGroupSmem) {
       a.stage_off = (int)at;
       a.recv_off = a.stage_off + n * a.col_bytes;
-      a.part_off = part ? (int)(at + tail) : -1;
-      a.smem_bytes = (int)(at + tail + part);
+      a.fill_end = (int)(at + tail);
+      a.ring_bars = wta ? a.fill_end : -1;
+      a.smem_bytes = (int)(at + tail + ring_bars);
       return a.smem_bytes;
     }
   }
@@ -1199,8 +1316,8 @@ cudaError_t group_config(const GroupArgs& a, int cs, int bytes,
                              cs > 8);
   if (err != cudaSuccess) return err;
   *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3((unsigned)(a.B * cs));
-  config->blockDim = dim3((unsigned)round_up(a.NP * a.NCH, 32));
+  config->gridDim = dim3((unsigned)(a.sets * a.B * cs));
+  config->blockDim = dim3((unsigned)(a.rec_threads + (WTA ? kReducers : 0)));
   config->dynamicSmemBytes = (size_t)bytes;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)cs;
@@ -1224,13 +1341,14 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  const long long clusters_wanted = (long long)a.sets * a.B;
   int cs = 0;
   for (int c = 1; c <= kMaxCluster; c *= 2) {
     GroupArgs trial = a;
     const int need = group_shape(trial, N, c, WTA);
     if (need < 0) break;
     if (need > kGroupSmem) continue;
-    if (cs != 0 && (long long)a.B * cs >= sms) break;
+    if (cs != 0 && clusters_wanted * cs >= sms) break;
     if (c > 8 && cs != 0 &&
         (long long)round_up((a.W + 7) / 8, 2) * a.D < kHeavyStrip)
       break;
@@ -1244,9 +1362,9 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
           &clusters, group_kernel<N, EVEN, WTA>, &config);
       if (err != cudaSuccess) return err;
       if (clusters < 1) break;
-      // the epilogue's blocks hold more registers: grow a cluster only
-      // while the batch's clusters still fit the card at once
-      if (WTA && cs != 0 && clusters < a.B) break;
+      // the epilogue's clusters wait on each other's rows: grow a cluster
+      // only while the launch's clusters still fit the card at once
+      if (WTA && cs != 0 && clusters < clusters_wanted) break;
     }
     cs = c;
   }
@@ -1305,58 +1423,57 @@ extern "C" int sgm_scan_direction(const void* cost, const void* img,
                         restart, p1, p2_init, accumulate, stream);
 }
 
-// A group of up to 3 vertical directions that share a scan order, in one
-// launch (see the header): rolls r0..r2 (the first n count), contributions
-// summed on chip and stored (accumulate=0) or added (1) to the uint16
-// volume once; a group that no cluster takes at this shape is refused
-// (cudaErrorInvalidConfiguration; see sgm_scan_group_capacity).  cin_cost
-// may be null (fresh paths; then cin_min and
-// prev_gray are unused) and cout_cost null (no carry-out wanted); both point
-// at (B, carry_n, ...) int32 tensors, at the plane of direction r0.
-// two_order=1: the two-order launch, a second pass over the rows in the
-// other order with rolls q0..q2, adding onto the first pass's sums (parked
-// in aggr); no carries.  views=1 or 2: the WTA epilogue on the last pass,
-// which stores no volume but the int32 (views * 5, B, S, W) planes of its
-// finished totals (forward view, then the inverse view at dmin), through
-// `finished`, a uint16 (B, 3, D, W) scratch ring; no carries.
+// A group of up to 3 vertical directions in one launch (see the header):
+// `passes` points at sets x npass ScanPass (host memory, read before the
+// launch), each with the first n of its rolls; sets 1 or 2 sets of B
+// clusters, set k running its npass passes (1 or 2) in order.  A set's
+// first pass stores its contributions' sum into the uint16 volume
+// (accumulate=0) or adds it (1); a later pass adds.  A pass's carry-in may
+// be null (fresh paths; its prev_gray unused) and its carry-out null; both
+// point at (B, carry_n, ...) int32 tensors, at the plane of the launch's
+// first direction.  views=1 or 2: the WTA epilogue on each set's last
+// pass, which stores no volume but the int32 (views * 5, B, S, W) planes of
+// its rows' totals (forward view, then the inverse view at dmin), through
+// `finished`, a uint16 (sets * B, kRing, D, W) scratch ring.  A group that
+// no cluster takes at this shape is refused (cudaErrorInvalidConfiguration;
+// see sgm_scan_group_capacity).
 extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
-                              const void* cin_cost, const void* cin_min,
-                              const void* prev_gray, void* cout_cost,
-                              void* cout_min, void* finished, void* planes,
-                              int B, int S, int D, int W, int n, int r0,
-                              int r1, int r2, int two_order, int q0, int q1,
-                              int q2, int carry_n, int reverse, int restart,
-                              int p1, int p2_init, int accumulate, int views,
-                              int dmin, void* stream) {
+                              void* finished, void* planes,
+                              const void* passes, int npass, int sets, int B,
+                              int S, int D, int W, int n, int carry_n,
+                              int restart, int p1, int p2_init,
+                              int accumulate, int views, int dmin,
+                              void* stream) {
   if ((long long)B * S * W == 0) return 0;
   if (D < 1 || D > 256 || n < 1 || n > kMaxDirs || p1 < 0 || p2_init < 0 ||
-      views < 0 || views > 2)
+      views < 0 || views > 2 || npass < 1 || sets < 1 || npass * sets > 2 ||
+      passes == nullptr)
     return (int)cudaErrorInvalidValue;
-  const bool carries = cin_cost != nullptr || cout_cost != nullptr;
-  if ((two_order || views) && carries) return (int)cudaErrorInvalidValue;
   if (views && (finished == nullptr || planes == nullptr || dmin < 0))
     return (int)cudaErrorInvalidValue;
-  const int rolls[kMaxDirs] = {r0, r1, r2}, rolls_b[kMaxDirs] = {q0, q1, q2};
   GroupArgs a{};
+  const ScanPass* ps = (const ScanPass*)passes;
+  for (int i = 0; i < npass * sets; ++i) {
+    const ScanPass& q = ps[i];
+    if (q.lo < 0 || q.lo > q.hi || q.hi > S ||
+        (q.cin_cost != nullptr && (q.cin_min == nullptr ||
+                                   q.prev_gray == nullptr)) ||
+        (q.cout_cost != nullptr && q.cout_min == nullptr))
+      return (int)cudaErrorInvalidValue;
+    a.pass[i] = q;
+    for (int k = 0; k < kMaxDirs; ++k) {
+      if (k < n && (q.rolls[k] < -1 || q.rolls[k] > 1))
+        return (int)cudaErrorInvalidValue;
+      if (k >= n) a.pass[i].rolls[k] = 0;
+    }
+  }
   a.cost = (const uint8_t*)cost;
   a.img = (const uint8_t*)img;
   a.out = (uint16_t*)aggr;
-  a.cin_cost = (const int*)cin_cost;
-  a.cin_min = (const int*)cin_min;
-  a.prev_gray = (const uint8_t*)prev_gray;
-  a.cout_cost = (int*)cout_cost;
-  a.cout_min = (int*)cout_min;
+  a.npass = npass, a.sets = sets;
   a.B = B, a.S = S, a.D = D, a.W = W;
-  for (int k = 0; k < n; ++k) {
-    if (rolls[k] < -1 || rolls[k] > 1 ||
-        (two_order && (rolls_b[k] < -1 || rolls_b[k] > 1)))
-      return (int)cudaErrorInvalidValue;
-    a.rolls[k] = rolls[k];
-    a.rolls_b[k] = two_order ? rolls_b[k] : 0;
-  }
-  a.carry_n = carry_n, a.reverse = reverse, a.restart = restart;
+  a.carry_n = carry_n, a.restart = restart;
   a.p1 = p1, a.p2_init = p2_init, a.accumulate = accumulate;
-  a.two_order = two_order != 0;
   a.views = views, a.dmin = dmin;
   a.finished = views ? (uint16_t*)finished : nullptr;
   a.planes = (int*)planes;
@@ -1377,6 +1494,7 @@ extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
   GroupArgs a{};
   a.cost = (const uint8_t*)cost;
   a.out = (uint16_t*)aggr;
+  a.npass = a.sets = 1;
   a.B = B, a.D = D, a.W = W;
   for (int n = kMaxDirs; n >= 1; --n) {
     int cs = 0;

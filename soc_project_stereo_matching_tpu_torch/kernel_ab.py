@@ -72,20 +72,26 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   the warp before the table; exact, held to the plain version);
 * the fused K2 forms (group ``fused``; the other checkout's
   ``sgm_scan_group`` and ``sgm_wta_reduce``, called with the signature its
-  source has): on the horizontal sums of the pair, the vertical pair's
-  two-order launch with the WTA epilogue (the main path's, this checkout)
-  in turns with the other checkout's form (its two group launches adding
-  onto the sums, then its WTA), both held bit-equal to ``wta_reduce`` of
-  the same totals first; beside them this checkout's two-order launch
-  without the epilogue (the volume), the fused launch's byte bound, and
-  its ablations "no row reduction" (the ring's rows stored and the
-  cluster barrier kept, no planes computed), "no partial tracks" (the
-  threads' tracks over their chunks not computed, the merge kept), "loads
-  only" (the tracks' arithmetic replaced by one xor a plane, the loads
-  from the ring kept) and "no cluster barrier" (the barrier's arrive and
-  wait taken out), each with wrong planes, timed only; and the horizontal
-  pair on the transposed volume, this checkout's one two-order launch in
-  turns with the other's two group launches.
+  source has, ``group_form``): on the horizontal sums of the pair, the
+  vertical pair's two-order scan with the WTA epilogue (the main path's,
+  this checkout: two launches meeting at the middle row) in turns with the
+  other checkout's forms, its two group launches adding onto the sums
+  then its WTA, and (where it has one, ``GROUP_TWO_ORDER``) its one
+  two-order launch with the epilogue, all held bit-equal to
+  ``wta_reduce`` of the same totals first; beside them this checkout's
+  scan as one launch (``one_launch_bidir``: both orders in turn on one set
+  of clusters), the volume forms of both, the scan's byte bound, and its
+  ablations "no row reduction" (the rows stored, handed over and freed,
+  the reducers computing no planes), "no partial tracks" (no loads and no
+  tracks, the shuffles' merge and the stores kept), "loads only" (the
+  tracks' arithmetic replaced by one xor a plane) and "no ring wait"
+  (neither role waits on the ring's barriers), each with wrong planes,
+  timed only; the horizontal pair on the transposed volume, this
+  checkout's two-order scan in turns with the other's, and as one launch;
+  and the main path by both routes of the two-order scans
+  (``routes_shape``: two launches or one, in turns), the K2 span of
+  ``stage_breakdown.staged_forward`` and the batch, at the four shapes and
+  at 720p B=1.
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -94,6 +100,7 @@ power limit and writes them all as JSON to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -136,6 +143,8 @@ SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
           ("cone B=32", 32, 375, 450, 64),
           ("Middlebury-half B=1", 1, 1000, 1500, 256))
 S1_SHAPES = SHAPES + (("37x45 B=4", 4, 37, 45, 48),)   # S1 also here
+# the main path's routes also at the 720p frame of the wire protocol
+ROUTE_SHAPES = (("720p B=1", 1, 720, 1280, 64),)
 # K1 ablations: (text in csrc/census_cost.cu, its replacement)
 ABLATIONS = {
     "no census window": [
@@ -257,18 +266,31 @@ S4_ABLATIONS = {
 }
 # the fused K2 forms' ablations: (text in csrc/aggregate.cu, its replacement)
 FUSED_ABLATIONS = {
-    "no row reduction": [("        if (s > 0) wta_row(s - 1, s);\n", ""),
-                         ("      wta_row(S - 1, S);\n", "")],
-    "no partial tracks": [("    if (active)\n      wta_partials(",
-                           "    if (false)\n      wta_partials(")],
+    # the rows still stored, handed over and freed; the reducers compute
+    # and store no planes
+    "no row reduction": [(
+        "    for (int p0 = 0; p0 < a.NP; p0 += per) {   // the same rounds for all\n",
+        "    for (int p0 = a.NP; p0 < a.NP; p0 += per) {\n")],
+    # no loads and no arithmetic over the chunks; the shuffles' merge, the
+    # reads beside the best plane and the stores kept
+    "no partial tracks": [(
+        "      wta_best<EVEN>(row, best, a.views, dmin, W, c0, on, valid1, d_lo, "
+        "d_hi);\n",
+        "      wta_best<EVEN>(row, best, a.views, dmin, W, c0, false, valid1, "
+        "d_lo, d_hi);\n")],
+    # the chunks' arithmetic replaced by one xor a plane, the loads kept
     "loads only": [(
-        "        if (d == d_lo)\n"
-        "          tracks_init(t[v], c[v][0][i], c[v][1][i], d);\n"
+        "        if (i == 0 && d0 == d_lo)\n"
+        "          best_init(t[v], c[v][i], d);\n"
         "        else\n"
-        "          tracks_step(t[v], c[v][0][i], c[v][1][i], d);\n",
-        "        t[v].m1 ^= (unsigned)(c[v][0][i] + c[v][1][i]);\n")],
-    "no cluster barrier": [("        cluster_arrive();\n", ""),
-                           ("        cluster_wait();\n", "")],
+        "          best_step(t[v], c[v][i], d);\n",
+        "        t[v].m1 ^= c[v][i];\n")],
+    # neither role waits on the ring's barriers (the arrivals are kept)
+    "no ring wait": [
+        ("    if (rt == 0) mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);\n",
+         ""),
+        ("      const bool reuse = epi && s >= kRing;\n",
+         "      const bool reuse = false;\n")],
 }
 # sgm_scan_group and its capacity entry before the two-order launch and the
 # WTA epilogue
@@ -277,6 +299,12 @@ GROUP_BEFORE_FUSED = {
         ctypes.c_void_p,),
     "sgm_scan_group_capacity": (ctypes.c_void_p, ctypes.c_void_p) + (
         ctypes.c_int,) * 3 + (ctypes.c_void_p,)}
+# sgm_scan_group in its first fused form (both orders in one launch, a
+# second roll set and its flag, the epilogue's views, dmin and 3-row ring):
+# 10 pointers, 20 ints and the stream
+GROUP_TWO_ORDER = {
+    "sgm_scan_group": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 20 + (
+        ctypes.c_void_p,)}
 RUN = 10    # back-to-back WTA launches between two events
 
 
@@ -288,6 +316,18 @@ def patched(text: str, edits) -> str | None:
             return None
         text = text.replace(old, new)
     return text
+
+
+def group_form(texts) -> str:
+    """The form of ``sgm_scan_group`` these sources define: "passes" (this
+    checkout's: ScanPass by pointer), "two_order" (its first fused form) or
+    "before" (before the fused forms)."""
+    texts = list(texts)
+    if any("struct ScanPass" in text for text in texts):
+        return "passes"
+    if any("int two_order" in text for text in texts):
+        return "two_order"
+    return "before"
 
 
 def build_library(name: str, sources: dict) -> ctypes.CDLL:
@@ -316,9 +356,10 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
         if hasattr(handle, entry):
             getattr(handle, entry).argtypes = argtypes
             getattr(handle, entry).restype = ctypes.c_int
-    if hasattr(handle, "sgm_scan_group") and not any(
-            "int two_order" in text for text in sources.values()):
-        for entry, argtypes in GROUP_BEFORE_FUSED.items():
+    if hasattr(handle, "sgm_scan_group"):
+        for entry, argtypes in {"passes": {}, "two_order": GROUP_TWO_ORDER,
+                                "before": GROUP_BEFORE_FUSED}[
+                                    group_form(sources.values())].items():
             getattr(handle, entry).argtypes = argtypes
     if (hasattr(handle, "sgm_probe_scan16")
             and not hasattr(handle, "sgm_probe_scan16_capacity")):
@@ -916,16 +957,23 @@ def s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated, reps):
 def old_group(lib, cost, img, acc, rolls, reverse: bool, p1: int, p2: int,
               accumulate: bool = True):
     """The group (rolls) added onto ``acc`` (stored into it without
-    ``accumulate``) by ``lib``'s ``sgm_scan_group`` before the two-order
-    launch (``GROUP_BEFORE_FUSED``), as many directions a launch as its
+    ``accumulate``) by ``lib``'s ``sgm_scan_group`` in the form
+    ``group_form`` names (the form before the fused launches or the first
+    fused form, one order a launch), as many directions a launch as its
     capacity entry says."""
     b, s, d, w = cost.shape
     dirs = ctypes.c_int(0)
-    if (lib.sgm_scan_group_capacity(cost.data_ptr(), acc.data_ptr(), b, d, w,
-                                    ctypes.addressof(dirs)) or dirs.value < 1):
+    first_fused = is_first_fused(lib)
+    capacity = ((cost.data_ptr(), acc.data_ptr(), b, d, w)
+                + ((0,) if first_fused else ()) + (ctypes.addressof(dirs),))
+    if lib.sgm_scan_group_capacity(*capacity) or dirs.value < 1:
         raise RuntimeError("sgm_scan_group_capacity failed")
     for k0 in range(0, len(rolls), dirs.value):
         sub = tuple(rolls[k0:k0 + dirs.value])
+        if first_fused:
+            two_order_call(lib, cost, img, acc, sub, reverse, p1, p2,
+                           accumulate or k0 > 0, n=len(rolls))
+            continue
         if lib.sgm_scan_group(cost.data_ptr(), img.data_ptr(), acc.data_ptr(),
                               None, None, None, None, None, b, s, d, w,
                               len(sub), *(sub + (0, 0))[:3], len(rolls),
@@ -933,6 +981,72 @@ def old_group(lib, cost, img, acc, rolls, reverse: bool, p1: int, p2: int,
                               int(accumulate or k0 > 0), _stream()):
             raise RuntimeError("sgm_scan_group failed")
     return acc
+
+
+def is_first_fused(lib) -> bool:
+    """Whether ``lib``'s ``sgm_scan_group`` is its first fused form."""
+    return (len(lib.sgm_scan_group.argtypes)
+            == len(GROUP_TWO_ORDER["sgm_scan_group"]))
+
+
+def two_order_call(lib, cost, img, acc, rolls, reverse: bool, p1: int,
+                   p2: int, accumulate: bool, rolls_b=None, wta=None,
+                   n=None):
+    """One launch of ``lib``'s ``sgm_scan_group`` in its first fused form
+    (``GROUP_TWO_ORDER``): the directions ``rolls`` in one order or, with
+    ``rolls_b``, both orders in the one launch; with ``wta`` = (dmin,
+    include_inverse) the epilogue's int32 planes (its ring of 3 rows), else
+    None."""
+    b, s, d, w = cost.shape
+    views = 0 if wta is None else 2 if wta[1] else 1
+    fin = planes = None
+    if views:
+        fin = torch.empty((b, 3, d, w), dtype=torch.uint16, device=cost.device)
+        planes = torch.empty((5 * views, b, s, w), dtype=torch.int32,
+                             device=cost.device)
+    pad = lambda r: (tuple(r) + (0, 0, 0))[:3]
+    if lib.sgm_scan_group(cost.data_ptr(), img.data_ptr(), acc.data_ptr(),
+                          None, None, None, None, None, kernels._ptr(fin),
+                          kernels._ptr(planes), b, s, d, w, len(rolls),
+                          *pad(rolls), int(rolls_b is not None),
+                          *pad(rolls_b or ()), n or len(rolls), int(reverse), 0,
+                          p1, p2, int(accumulate), views,
+                          0 if wta is None else wta[0], _stream()):
+        raise RuntimeError("sgm_scan_group (first fused form) failed")
+    return planes
+
+
+def one_launch_bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
+                     restart: bool, wta, counter: str):
+    """``kernels._bidir`` with each part of the group in one launch of this
+    checkout's kernel: one set of clusters runs both orders in turn (the
+    first over all rows, parking its sums; the second adding onto them,
+    with the epilogue).  The meeting at the middle row (two launches)
+    against one launch."""
+    b, s, d, w = cost.shape
+    n = len(rolls_f)
+    out = kernels._acc_or_new(acc, cost)
+    views, finished, planes = kernels._epilogue_buffers(cost, wta, 1)
+    for k0, k1 in kernels._launch_parts(cost, out, n, wta is not None):
+        epi = views if k1 == n else 0
+        kernels._launch_group(
+            counter, cost, img, out,
+            [kernels.scan_pass(rolls_f[k0:k1], False, 0, s, k0, d, w),
+             kernels.scan_pass(rolls_b[k0:k1], True, 0, s, k0, d, w)],
+            2, k1 - k0, n, restart, p1, p2_init, acc is not None or k0 > 0,
+            epi, 0 if wta is None else wta[0], finished if epi else None,
+            planes if epi else None)
+    return out if wta is None else kernels._planes_of(planes)
+
+
+class one_launch_route:
+    """Run the main path with ``one_launch_bidir`` for ``kernels._bidir``."""
+
+    def __enter__(self):
+        self.saved, kernels._bidir = kernels._bidir, one_launch_bidir
+
+    def __exit__(self, *exc):
+        kernels._bidir = self.saved
 
 
 class library:
@@ -948,45 +1062,70 @@ class library:
         _build._lib = self.saved
 
 
+def stacked(planes) -> torch.Tensor:
+    """(forward WTAPlanes, inverse WTAPlanes) -> an int32 (10, ...) tensor."""
+    return torch.stack(sum(planes, ()))
+
+
 def fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
                 fused_ablated, reps):
-    """The vertical pair's fused launch in turns with the other checkout's
-    two group launches + WTA; its volume form, ablations and bound; the
-    horizontal pair in turns."""
+    """The vertical pair's two-order scan with the WTA epilogue (this
+    checkout's two launches) in turns with the other checkout's first fused
+    form (one launch) and its two group launches + WTA; this checkout's
+    one-launch form, volume form, ablations and bound; the horizontal pair
+    in turns."""
     opt = SGMOptions(max_disparity=dmax)
     p1, p2 = opt.p1, opt.p2_init
     (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
     cost = kernels.census_cost_volume(left, right, 0, dmax)
     part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    first_fused = is_first_fused(other)
 
-    def parent(acc):
+    def parent_groups(acc):
         for rolls, reverse in ((rf, False), (rb, True)):
             old_group(other, cost, left, acc, rolls, reverse, p1, p2)
         return wta(other, acc, 0)
 
-    fused = lambda acc: torch.stack(sum(kernels.directional_scan_group_bidir(
-        cost, left, acc, rf, rb, p1, p2, False, (0, True)), ()))
+    def parent_fused(acc):
+        return two_order_call(other, cost, left, acc, rf, False, p1, p2, True,
+                              rb, (0, True))
+
+    this_scan = lambda acc: stacked(kernels.directional_scan_group_bidir(
+        cost, left, acc, rf, rb, p1, p2, False, (0, True)))
+    this_one = lambda acc: stacked(one_launch_bidir(
+        cost, left, acc, rf, rb, p1, p2, False, (0, True),
+        "directional_scan_group_bidir"))
     want = kernels.directional_scan_group_bidir(cost, left, part.clone(), rf,
                                                 rb, p1, p2, False)
-    want = torch.stack(sum(kernels.wta_reduce_plain(want, opt, True), ()))
-    same(parent(part.clone()), want, f"fused: parent's form {label}")
-    same(fused(part.clone()), want, f"fused: this {label}")
+    want = stacked(kernels.wta_reduce_plain(want, opt, True))
+    fns = {"parent": parent_groups, "this": this_scan}
+    if first_fused:
+        fns = {"parent groups + WTA": parent_groups,
+               "parent fused": parent_fused, "this": this_scan}
+    for name, fn in {**fns, "this, one launch": this_one}.items():
+        same(fn(part.clone()), want, f"fused: {name} {label}")
     del want
     # the sums the calls add onto wrap around over the runs: no kernel's
     # time depends on the values
-    ms = rec["fused_ms"] = in_turns({"parent": lambda: parent(part),
-                                     "this": lambda: fused(part)}, reps)
+    ms = rec["fused_ms"] = in_turns(
+        {name: (lambda fn=fn: fn(part)) for name, fn in fns.items()}, reps)
     px, vol = b * h * w, b * h * w * dmax
     rec["fused_bound_ms"] = (3 * vol + px + 40 * px) / HBM_BYTES_PER_S * 1e3
-    extra = {"two-order launch, volume form": event_ms(
-        lambda: kernels.directional_scan_group_bidir(cost, left, part, rf, rb,
-                                                     p1, p2, False), reps)}
+    extra = {
+        "this, one launch": event_ms(lambda: this_one(part), reps),
+        "two-order scan, volume form": event_ms(
+            lambda: kernels.directional_scan_group_bidir(
+                cost, left, part, rf, rb, p1, p2, False), reps),
+        "one launch, volume form": event_ms(
+            lambda: one_launch_bidir(cost, left, part, rf, rb, p1, p2, False,
+                                     None, "directional_scan_group_bidir"),
+            reps)}
     for name, lib in fused_ablated.items():
         if lib is None:
             extra[name] = None
             continue
         with library(lib):
-            extra[name] = event_ms(lambda: fused(part), reps)
+            extra[name] = event_ms(lambda: this_scan(part), reps)
     rec["fused_ablations_ms"] = extra
     del part
     cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
@@ -995,23 +1134,64 @@ def fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
     acc_t = torch.empty(cost_t.shape, dtype=torch.uint16, device=cost_t.device)
 
     def parent_pair():     # as the parent's horizontal_pair_transposed
+        if first_fused:
+            two_order_call(other, cost_t, img_t, acc_t, (0,), False, p1, p2,
+                           False, (0,))
+            return
         for reverse in (False, True):
             old_group(other, cost_t, img_t, acc_t, (0,), reverse, p1, p2,
                       accumulate=reverse)
 
-    same(kernels.horizontal_pair_transposed(cost_t, img_t, p1, p2),
-         (parent_pair(), acc_t)[1], f"horizontal pair {label}")
-    pair_ms = rec["horizontal_pair_ms"] = in_turns({
-        "parent": parent_pair,
-        "this": lambda: kernels.horizontal_pair_transposed(cost_t, img_t, p1,
-                                                           p2)}, reps)
-    print(f"{label} fused vertical pair ms parent {ms['parent']} this "
-          f"{ms['this']} (this over parent "
-          f"{statistics.median(ms['this']) / statistics.median(ms['parent']):.3f}"
-          f"); bound {rec['fused_bound_ms']:.4f} ms (bytes); "
+    this_pair = lambda: kernels.horizontal_pair_transposed(cost_t, img_t, p1,
+                                                           p2)
+    same(this_pair(), (parent_pair(), acc_t)[1], f"horizontal pair {label}")
+    pair_ms = rec["horizontal_pair_ms"] = in_turns(
+        {"parent": parent_pair, "this": this_pair}, reps)
+    rec["horizontal_pair_one_launch_ms"] = event_ms(
+        lambda: one_launch_bidir(cost_t, img_t, None, (0,), (0,), p1, p2,
+                                 False, None, "horizontal_partial"), reps)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"{label} vertical pair with the WTA epilogue, ms in turns "
+          f"{json.dumps(ms)}; this over "
+          + ", ".join(f"{name} {med['this'] / med[name]:.3f}"
+                      for name in med if name != "this")
+          + f"; bound {rec['fused_bound_ms']:.4f} ms (bytes); "
           f"{json.dumps(extra)}; horizontal pair on the transposed volume "
-          f"parent {pair_ms['parent']} this {pair_ms['this']}")
+          f"parent {pair_ms['parent']} this {pair_ms['this']}, this as one "
+          f"launch {rec['horizontal_pair_one_launch_ms']:.4f}")
     del cost_t, img_t, acc_t
+
+
+def routes_shape(rec, label, b, h, w, dmax, left, right, reps):
+    """The main path by the two routes of the two-order scans, in turns
+    (two launches, one launch, one launch, two launches): the K2 span of
+    ``stage_breakdown.staged_forward`` and the batch a call at a time
+    (``stage_breakdown.batch_and_enqueue``), medians of ``reps`` batches."""
+    from . import SGMEngine, stage_breakdown
+    from .utils.profiling import StageTimer
+
+    opt = SGMOptions(max_disparity=dmax)
+    engine = SGMEngine(opt, device="cuda")
+    want = engine.match_batch(left, right)
+    with one_launch_route():
+        same(engine.match_batch(left, right), want, f"routes {label}")
+        same(stage_breakdown.staged_forward(left, right, opt, StageTimer()),
+             want, f"routes, staged {label}")
+    out = {"two launches": {"k2_ms": [], "batch_ms": []},
+           "one launch": {"k2_ms": [], "batch_ms": []}}
+    for name in ("two launches", "one launch", "one launch", "two launches"):
+        route = one_launch_route() if name == "one launch" else \
+            contextlib.nullcontext()
+        with route:
+            stages = stage_breakdown.stage_times(left, right, opt, reps)
+            batch, _ = stage_breakdown.batch_and_enqueue(engine, left, right,
+                                                         reps)
+        out[name]["k2_ms"].append(
+            stages["scans + WTA epilogue (K2)"]["median"])
+        out[name]["batch_ms"].append(batch["median"])
+    rec["routes"] = out
+    print(f"{label} main path, two-order scans as two launches against one, "
+          f"in turns: {json.dumps(out)}")
 
 
 def main(argv=None) -> dict:
@@ -1058,8 +1238,16 @@ def main(argv=None) -> dict:
     result = {"card": ", ".join(card()), "shapes": {}}
     print(result["card"])
 
-    for label, b, h, w, dmax in S1_SHAPES:
+    for label, b, h, w, dmax in S1_SHAPES + ROUTE_SHAPES:
         rec = result["shapes"].setdefault(label, {})
+        if (label, b, h, w, dmax) in ROUTE_SHAPES:
+            if "fused" in only:
+                levels = tuple(dmax * f // 64 for f in (10, 20, 35))
+                left, right, _ = synthetic_pair(2, b, h, w, levels)
+                left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
+                routes_shape(rec, label, b, h, w, dmax, left, right, 5)
+                del left, right
+            continue
         if (label, b, h, w, dmax) not in SHAPES:
             if "s1" in only:
                 s1_shape(rec, label, b, h, w, dmax, other, this, s1_ablated,
@@ -1095,6 +1283,7 @@ def main(argv=None) -> dict:
         if "fused" in only:
             fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
                         fused_ablated, args.reps)
+            routes_shape(rec, label, b, h, w, dmax, left, right, 5)
         del left, right
         torch.cuda.empty_cache()
 

@@ -6,14 +6,15 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
     census_cost_volume      K1 csrc/census_cost.cu  <- census_cost_volume_pallas
                                (img_has_halo=True: the tiled path's mode)
     aggregate_paths         K2 csrc/aggregate.cu    <- aggregate_paths: the
-                               horizontal pair, then one two-order launch of
-                               the vertical group
+                               horizontal pair, then the vertical group's
+                               two-order scan (two launches, the orders
+                               meeting at the middle row)
     aggregate_paths_wta     K2 csrc/aggregate.cu    <- aggregate_paths_wta:
-                               the same, the two-order launch's second pass
+                               the same, the two-order scan's second launch
                                carrying the WTA epilogue (no volume stored)
     horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial: three
-                               transposes around one two-order launch on the
-                               transposed volume
+                               transposes around the two-order scan (two
+                               launches) on the transposed volume
     volume_transpose        P3 csrc/transpose.cu    <- aggr_transpose_probe.py
                                (the transposes around the horizontal pair)
     directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group /
@@ -22,8 +23,9 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
                                epilogue of the final launch), one launch
     directional_scan_group_bidir K2 csrc/aggregate.cu <-
                                _directional_scan_group_bidir / _bidir_kernel:
-                               both scan orders in one launch (volume or,
-                               with ``wta``, the planes only)
+                               both scan orders in two launches that each
+                               carry both, meeting at the middle row (volume
+                               or, with ``wta``, the planes only)
     scan_direction          K2 csrc/aggregate.cu    one direction alone, the
                                first design's kernel (a warp per path);
                                scan_directions sums several such launches
@@ -37,7 +39,9 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
     count_verdict           K4 csrc/speckle.cu      its count and verdict alone
 
 ``wta_epilogue_plain`` transcribes the group kernel's WTA epilogue (strips
-of columns, chunks of planes, partial tracks merged in order).  A wrapper
+of columns, chunks of planes, partial tracks merged in a tree), and
+``directional_scan_group_bidir_plain`` its two-order scan (half-scans,
+carries at the meeting row).  A wrapper
 given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
@@ -47,9 +51,8 @@ The counter is the wrapper's name, except that the halo census counts as
 ``census_cost_volume_halo``, ``scan_direction`` as ``aggregate_paths``,
 ``directional_scan_group`` with ``wta`` as ``directional_scan_group_wta``
 (``aggregate_paths`` and ``aggregate_paths_wta`` themselves count their
-vertical two-order launches; their horizontal pair counts as
-``horizontal_partial``, one two-order launch, and ``volume_transpose``,
-three), and ``union_find_labels`` and
+vertical two-order scan's two launches; their horizontal pair counts as
+``horizontal_partial``, two launches, and ``volume_transpose``, three), and ``union_find_labels`` and
 ``count_verdict`` as ``remove_speckles``, whose stages they are.  The
 ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.
 There is no fallback: any other device raises.
@@ -58,6 +61,7 @@ There is no fallback: any other device raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -323,9 +327,11 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
     two-order launch holds the same state as a one-order launch.  On an
     NVIDIA H100 80GB HBM3 a launch takes no direction, and this raises, for
     rows wider than 13,824 columns at D = 64, 6,720 at D = 128 and 3,264 at
-    D = 256 (a cluster of 16 blocks); with the epilogue, which takes fewer
-    threads a block, for rows wider than 13,824, 6,784 and 3,328
-    (``tests/test_torch_cuda.py`` finds the limits at D = 64 on the card)."""
+    D = 256 (a cluster of 16 blocks); with the epilogue, whose recurrence
+    takes fewer threads a block, for rows wider than 12,288, 6,912 and
+    3,328 (``tests/test_torch_cuda.py`` finds the limits on the card).  A
+    launch with the epilogue ends a group whose other launches have none
+    (``_launch_parts``), so the wrappers take the narrower of the two."""
     b, _, d, w = cost.shape
     dirs = ctypes.c_int(0)
     err = _build.load().sgm_scan_group_capacity(
@@ -339,58 +345,75 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
     return dirs.value
 
 
-def _launch_groups(counter: str, cost, img, out, rolls, reverse: bool,
-                   p1: int, p2_init: int, restart: bool, accumulate: bool,
-                   carry_in=(None, None), prev_gray=None,
-                   carry_out=(None, None), rolls_b=None, wta=None):
-    """``sgm_scan_group`` over ``rolls``, ``group_capacity`` directions a
-    launch (all of them in one, except for rows too large to keep three
-    directions' state on chip): the sum of their contributions stored (or,
-    with ``accumulate``, added) into ``out``.  ``rolls_b``: two-order
-    launches, each with its part of ``rolls_b`` as the second pass (in the
-    other scan order) adding onto the first.  ``wta`` = (dmin,
-    include_inverse): the last launch carries the WTA epilogue and stores no
-    volume (it takes as many directions as its capacity with the epilogue
-    allows, the leading launches the rest); returns its int32 (5 or 10, B,
-    S, W) planes (else None)."""
-    b, s, d, w = cost.shape
-    n = len(rolls)
+class ScanPass(ctypes.Structure):
+    """One scan order of a group over the rows [lo, hi), as the C entry
+    ``sgm_scan_group`` takes it (``ScanPass`` in csrc/aggregate.cu): the
+    carry-in (or NULL: fresh paths), the row before the first (image b's at
+    ``b * gray_stride``), the carry-out (or NULL), the rolls, the order."""
+
+    _fields_ = [("cin_cost", ctypes.c_void_p), ("cin_min", ctypes.c_void_p),
+                ("prev_gray", ctypes.c_void_p),
+                ("cout_cost", ctypes.c_void_p), ("cout_min", ctypes.c_void_p),
+                ("rolls", ctypes.c_int * MAX_GROUP), ("reverse", ctypes.c_int),
+                ("lo", ctypes.c_int), ("hi", ctypes.c_int),
+                ("gray_stride", ctypes.c_int)]
+
+
+WTA_RING = 4    # finished rows of a cluster in flight (kRing): the scratch ring
+
+
+def scan_pass(rolls, reverse: bool, lo: int, hi: int, k0: int, d: int,
+              w: int, carry_in=(None, None), prev_gray=None,
+              gray_stride: int = 0, carry_out=(None, None)) -> ScanPass:
+    """A ``ScanPass`` over the rows [lo, hi) for the directions ``rolls``,
+    the k0-th to the last of their group: the carries' pointers at
+    direction k0 of (B, n, D, W) / (B, n, 1, W) int32 tensors;
+    ``prev_gray`` is an address (``_ptr``)."""
+    return ScanPass(_ptr(carry_in[0], k0 * d * w), _ptr(carry_in[1], k0 * w),
+                    prev_gray, _ptr(carry_out[0], k0 * d * w),
+                    _ptr(carry_out[1], k0 * w),
+                    (ctypes.c_int * MAX_GROUP)(*rolls), int(reverse), lo, hi,
+                    gray_stride)
+
+
+def _launch_group(counter: str, cost, img, out, passes, npass: int, n: int,
+                  carry_n: int, restart: bool, p1: int, p2_init: int,
+                  accumulate: bool, views: int = 0, dmin: int = 0,
+                  finished=None, planes=None) -> None:
+    """One ``sgm_scan_group`` launch of n directions: ``passes`` (ScanPass)
+    for len(passes) // npass sets of clusters, npass passes each."""
     _check_penalties(p1, p2_init)
-    stream = _stream(out)
-    views = 0 if wta is None else 2 if wta[1] else 1
-    finished = planes = None
-    if wta is not None:
-        finished = torch.empty((b, 3, d, w), dtype=torch.uint16,
-                               device=cost.device)
-        planes = torch.empty((5 * views, b, s, w), dtype=torch.int32,
-                             device=cost.device)
+    b, s, d, w = cost.shape
+    arr = (ScanPass * len(passes))(*passes)
+    _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
+            out.data_ptr(), _ptr(finished), _ptr(planes),
+            ctypes.addressof(arr), npass, len(passes) // npass, b, s, d, w, n,
+            carry_n, int(restart), p1, p2_init, int(accumulate), views, dmin,
+            _stream(out))
 
-    def padded(r):
-        return (tuple(r) + (0,) * MAX_GROUP)[:MAX_GROUP]
 
-    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
-        sub = tuple(rolls[k0:k1])
-        epi = views if k1 == n else 0
-        _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
-                out.data_ptr(), _ptr(carry_in[0], k0 * d * w),
-                _ptr(carry_in[1], k0 * w), _ptr(prev_gray),
-                _ptr(carry_out[0], k0 * d * w), _ptr(carry_out[1], k0 * w),
-                _ptr(finished if epi else None), _ptr(planes if epi else None),
-                b, s, d, w, len(sub), *padded(sub), int(rolls_b is not None),
-                *padded(() if rolls_b is None else rolls_b[k0:k1]),
-                n, int(reverse), int(restart), p1, p2_init,
-                int(accumulate or k0 > 0), epi,
-                0 if wta is None else wta[0], stream)
-    return planes
+def _epilogue_buffers(cost, wta, sets: int):
+    """(views, the scratch ring, the planes) of a launch with the WTA
+    epilogue on ``sets`` sets of clusters, or (0, None, None)."""
+    if wta is None:
+        return 0, None, None
+    b, s, d, w = cost.shape
+    views = 2 if wta[1] else 1
+    finished = torch.empty((sets * b, WTA_RING, d, w), dtype=torch.uint16,
+                           device=cost.device)
+    planes = torch.empty((5 * views, b, s, w), dtype=torch.int32,
+                         device=cost.device)
+    return views, finished, planes
 
 
 def _launch_parts(cost, out, n: int, wta: bool):
     """The [k0, k1) ranges of a group's n directions, one a launch: as many
     as a launch takes; with the WTA epilogue (``wta``) the last range as
-    many as a launch with the epilogue takes, the ones before it as many as
-    a launch without it takes."""
+    many as a launch with the epilogue and one without it both take (a
+    two-order scan's first launch stores without it), the ones before it
+    as many as a launch without it takes."""
     per = group_capacity(cost, out)
-    lead = n - min(n, group_capacity(cost, out, True)) if wta else n
+    lead = n - min(n, per, group_capacity(cost, out, True)) if wta else n
     return [(k0, min(k0 + per, lead)) for k0 in range(0, lead, per)] + \
         ([(lead, n)] if wta else [])
 
@@ -406,8 +429,9 @@ def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
                     diagonal_mode: str = "wrap") -> torch.Tensor:
     """uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> uint16 (B, H, D, W)
     aggregated volume: the horizontal pair (``horizontal_partial``), then
-    one two-order launch of the vertical group of ``DIRECTIONS_8/4`` added
-    onto it (``directional_scan_group_bidir``, counted here)."""
+    the two-order scan of the vertical group of ``DIRECTIONS_8/4`` added
+    onto it (``directional_scan_group_bidir``'s two launches, counted
+    here)."""
     if _on_cpu(cost, img_left):
         return aggregation.aggregate_paths(cost, img_left, options, diagonal_mode)
     restart = _check_aggregate(cost, img_left, diagonal_mode)
@@ -551,8 +575,9 @@ def horizontal_pair_transposed(cost_t: torch.Tensor, img_t: torch.Tensor,
                                p1: int, p2_init: int) -> torch.Tensor:
     """Both horizontal directions on a transposed volume: uint8 (B, W, D, H)
     cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum.  There a
-    horizontal path is a column: one two-order launch of the direction
-    (0,), forward then reverse, counted as ``horizontal_partial``."""
+    horizontal path is a column: the two-order scan of the direction (0,),
+    forward and reverse meeting at the middle (two launches), counted as
+    ``horizontal_partial``."""
     if _on_cpu(cost_t, img_t):
         return directional_scan_group_bidir_plain(cost_t, img_t, None, (0,),
                                                   (0,), p1, p2_init, False)
@@ -566,9 +591,9 @@ def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
     """Both horizontal directions: uint8 (B, H, D, W) cost + uint8 (B, H, W)
     image -> their uint16 (B, H, D, W) sum.  Tile-local in the H-tiled
     layout.  Nothing walks the volume along W: the cost and the image are
-    transposed, the pair runs as one two-order launch along the (B, W, D, H)
-    volume's columns, and the sum is transposed back (3 transposes, 1
-    scan).  ``restart`` changes nothing here (it resets
+    transposed, the pair runs as a two-order scan along the (B, W, D, H)
+    volume's columns, and the sum is transposed back (3 transposes, 2
+    scan launches).  ``restart`` changes nothing here (it resets
     diagonals); the argument mirrors the entry this replaces."""
     if _on_cpu(cost, img):
         return horizontal_partial_plain(cost, img, p1, p2_init, restart)
@@ -594,17 +619,17 @@ def wta_epilogue_plain(total: torch.Tensor, dmin: int,
     """The group kernel's WTA epilogue, transcribed: int (B, S, D, W)
     finished totals -> (forward WTAPlanes, inverse WTAPlanes or None).
 
-    As the kernel splits a row, a block a ``strip`` of columns (default:
-    the whole row) and a thread a ``chunk`` of planes: per strip, view and
-    chunk a partial track over the chunk's contiguous planes (the min and
-    its first plane, the min over the other planes, the costs beside the
-    min where they lie in the chunk, the chunk's first and last cost), then
-    the chunks' tracks merged in order (a tie keeps the earlier plane; a
-    neighbour beside the min that lay past a chunk's edge is the next
-    chunk's edge cost).  The inverse view of column x reads plane k at
-    column x + dmin + k of the whole row, across strip edges, 65535 past
-    the row's end.  Rows are independent, so all rows go at once.  Same
-    result as ``wta_reduce_plain``."""
+    As the kernel's reducers split a row, a block a ``strip`` of columns
+    (default: the whole row) and a reducer a ``chunk`` of planes at a
+    column pair: per strip, view and chunk the best of the chunk's planes
+    (the min, the min over the other planes, the first plane holding the
+    min), then the chunks' bests merged in a tree, neighbours in rounds, as
+    the reducers' lanes merge them by shuffles (a tie keeps the earlier
+    plane), then the costs beside the best plane read from the row.  The
+    inverse view of column x reads plane k at column x + dmin + k of the
+    whole row, across strip edges, 65535 past the row's end.  Rows are
+    independent, so all rows go at once.  Same result as
+    ``wta_reduce_plain``."""
     b, s, d, w = total.shape
     if not 1 <= d <= 1 << WTA_KEY_SHIFT:
         raise ValueError(f"disparity range {d} outside the kernel's 1..256")
@@ -626,15 +651,18 @@ def wta_epilogue_plain(total: torch.Tensor, dmin: int,
             at = cols[None, :] + (torch.clamp(dmin + ks, max=w)[:, None]
                                   if v else 0)
             costs = row.gather(-1, at.expand(b, s, d, -1).contiguous())
-            track = None
-            for k0 in range(0, d, chunk):
-                part = _chunk_track(costs[:, :, k0:k0 + chunk], k0)
-                track = part if track is None else _merge_tracks(track, part,
-                                                                 k0)
-            m1, m2, lo, hi, _, _, bk = track
+            bests = [_chunk_best(costs[:, :, k0:k0 + chunk], k0)
+                     for k0 in range(0, d, chunk)]
+            while len(bests) > 1:    # neighbours in rounds, as the shuffles
+                bests = [bests[i] if i + 1 == len(bests) else
+                         _merge_bests(bests[i], bests[i + 1])
+                         for i in range(0, len(bests), 2)]
+            m1, m2, bk = bests[0]
+            beside = [costs.gather(-2, (bk + step).clamp(0, d - 1)[..., None, :])
+                      .squeeze(-2) for step in (-1, 1)]
             planes = (bk, m1, m2 if d > 1 else torch.full_like(m2, wta_ops.BIG),
-                      torch.where(bk == 0, m1, lo),
-                      torch.where(bk == d - 1, m1, hi))
+                      torch.where(bk == 0, m1, beside[0]),
+                      torch.where(bk == d - 1, m1, beside[1]))
             for i, x in enumerate(planes):
                 out[v][i].append(x)
     res = [WTAPlanes(*(torch.cat(x, dim=-1).to(torch.int32) for x in o))
@@ -642,33 +670,23 @@ def wta_epilogue_plain(total: torch.Tensor, dmin: int,
     return res[0], (res[1] if include_inverse else None)
 
 
-def _chunk_track(c: torch.Tensor, k0: int):
-    """A thread's track of the planes [k0, k0 + K) of (..., K, P) costs:
-    (m1, m2, lo, hi, first, last, bk), each (..., P); m2 is 0xFFFF for one
-    plane; lo and hi, where they lie outside the chunk, are 0 here and
-    whatever the kernel's latches hold there: the merge never reads them."""
-    kk = c.shape[-2]
+def _chunk_best(c: torch.Tensor, k0: int):
+    """A reducer's best of the planes [k0, k0 + K) of (..., K, P) costs:
+    (m1, m2, bk), each (..., P); m2 is 0xFFFF for one plane."""
     m1, arg = c.min(dim=-2)          # the first minimal plane
-    idx = torch.arange(kk, device=c.device)[:, None]
+    idx = torch.arange(c.shape[-2], device=c.device)[:, None]
     m2 = torch.where(idx == arg[..., None, :], 0xFFFF, c).amin(dim=-2)
-    lo = c.gather(-2, (arg - 1).clamp(min=0)[..., None, :]).squeeze(-2)
-    hi = c.gather(-2, (arg + 1).clamp(max=kk - 1)[..., None, :]).squeeze(-2)
-    lo = torch.where(arg > 0, lo, 0)
-    hi = torch.where(arg < kk - 1, hi, 0)
-    return m1, m2, lo, hi, c[..., 0, :], c[..., -1, :], arg + k0
+    return m1, m2, arg + k0
 
 
-def _merge_tracks(left, right, kr: int):
-    """``merge_track`` of csrc/aggregate.cu: the track of planes [.., kr)
-    followed by the track of planes [kr, ..)."""
-    m1, m2, lo, hi, first, _, bk = left
-    r1, r2, rlo, rhi, rfirst, rlast, rbk = right
-    lower = r1 < m1
-    return (torch.where(lower, r1, m1),
-            torch.where(lower, torch.minimum(m1, r2), torch.minimum(m2, r1)),
-            torch.where(lower, torch.where(rbk == kr, left[5], rlo), lo),
-            torch.where(lower, rhi, torch.where(bk == kr - 1, rfirst, hi)),
-            first, rlast, torch.where(lower, rbk, bk))
+def _merge_bests(left, right):
+    """``best_merge`` of csrc/aggregate.cu: the best of a range of planes
+    followed by the best of the next range; a tie keeps the left's plane."""
+    lower = right[0] < left[0]
+    return (torch.where(lower, right[0], left[0]),
+            torch.minimum(torch.maximum(left[0], right[0]),
+                          torch.minimum(left[1], right[1])),
+            torch.where(lower, right[2], left[2]))
 
 
 def _group_sum(cost, img, rolls, reverse: bool, p1: int, p2_init: int,
@@ -776,11 +794,19 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     if has_carry:
         cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
         cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
-    planes = _launch_groups(
-        "directional_scan_group" if wta is None else "directional_scan_group_wta",
-        cost, img, out, tuple(rolls), reverse, p1, p2_init, restart,
-        acc is not None, (cin_cost, cin_min), prev_gray, (cout_cost, cout_min),
-        wta=wta)
+    counter = ("directional_scan_group" if wta is None
+               else "directional_scan_group_wta")
+    views, finished, planes = _epilogue_buffers(cost, wta, 1)
+    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
+        epi = views if k1 == n else 0
+        _launch_group(counter, cost, img, out,
+                      [scan_pass(rolls[k0:k1], reverse, 0, s, k0, d, w,
+                                 (cin_cost, cin_min), _ptr(prev_gray), w,
+                                 (cout_cost, cout_min))],
+                      1, k1 - k0, n, restart, p1, p2_init,
+                      acc is not None or k0 > 0, epi,
+                      0 if wta is None else wta[0],
+                      finished if epi else None, planes if epi else None)
     if wta is not None:
         return _planes_of(planes)
     return (out, (cout_cost, cout_min)) if has_carry else out
@@ -801,22 +827,55 @@ def _check_wta(dmin: int) -> None:
         raise ValueError(f"the WTA epilogue takes dmin >= 0, got {dmin}")
 
 
+def meeting_row(s: int) -> int:
+    """The row where a two-order scan's orders meet: the first launch scans
+    the first order over rows [0, m) and the second over [m, S), the second
+    launch each over the other half."""
+    return s // 2
+
+
 def directional_scan_group_bidir_plain(cost, img, acc, rolls_f, rolls_b,
                                        p1: int, p2_init: int, restart: bool,
                                        wta=None, strip=None, chunk=None):
-    """The two-order launch, in the kernel's order of work: the first pass
-    (``rolls_f``, rows forward) parks its sums, added in place onto ``acc``
-    (or a new volume); the second (``rolls_b``, rows in reverse) adds them
-    and its own; its totals are stored there, or with ``wta`` reduced by
-    the epilogue (``wta_epilogue_plain``, ``strip`` and ``chunk``)."""
+    """The two-order launches, in the kernel's order of work (m =
+    ``meeting_row(S)``): the first launch scans the first order
+    (``rolls_f``, rows forward) over [0, m) and the second (``rolls_b``,
+    rows in reverse) over [m, S), each adding its sums in place onto
+    ``acc`` (or a new volume) and keeping its paths' state at the meeting
+    row; the second launch continues each order over the other half from
+    that state, adding onto the other order's sums, which are final there.
+    Its totals are stored, or with ``wta`` reduced by the epilogue
+    (``wta_epilogue_plain``, ``strip`` and ``chunk``)."""
     mode = "restart" if restart else "wrap"
-    fwd, _ = _group_sum(cost, img, rolls_f, False, p1, p2_init, mode)
-    park = fwd if acc is None else fwd + acc.to(torch.int32)
-    park = park.to(torch.uint16)
+    s = cost.shape[-3]
+    m = meeting_row(s)
+    first_half, second_half = slice(0, m), slice(m, s)
+    orders = ((rolls_f, False), (rolls_b, True))
+
+    def scan(order, rows, carries=None):
+        """(the order's int32 sums over ``rows``, its carries)."""
+        (rolls, reverse), sums, out = order, 0, []
+        for k, roll in enumerate(rolls):
+            contrib, carry = aggregation.directional_scan(
+                cost[:, rows], img[:, rows], p1, p2_init, reverse, roll, mode,
+                None if carries is None else carries[k])
+            sums, out = sums + contrib, out + [carry]
+        return sums, out
+
+    part = (torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
+            if acc is None else acc.to(torch.int32))
+    carries = [None, None]
+    for i, rows in enumerate((first_half, second_half)):    # launch 1
+        if rows.stop > rows.start:
+            sums, carries[i] = scan(orders[i], rows)
+            part[:, rows] += sums
+    park = part.to(torch.uint16)
     if acc is not None:
         park = acc.copy_(park)
-    bwd, _ = _group_sum(cost, img, rolls_b, True, p1, p2_init, mode)
-    total = park.to(torch.int32) + bwd
+    total = park.to(torch.int32)
+    for i, rows in enumerate((second_half, first_half)):    # launch 2
+        if rows.stop > rows.start:
+            total[:, rows] += scan(orders[i], rows, carries[i])[0]
     if wta is not None:
         return wta_epilogue_plain(total, wta[0], wta[1], strip, chunk)
     return park.copy_(total.to(torch.uint16))
@@ -825,25 +884,28 @@ def directional_scan_group_bidir_plain(cost, img, acc, rolls_f, rolls_b,
 def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
                                  rolls_f, rolls_b, p1: int, p2_init: int,
                                  restart: bool, wta=None):
-    """Both scan orders of a direction group in one launch (the Pallas
+    """Both scan orders of a direction group (the Pallas
     ``_directional_scan_group_bidir``): uint8 (B, S, D, W) cost + uint8
-    (B, S, W) image.  The first pass walks the rows forward with
-    ``rolls_f`` and parks its sums in the volume: added in place onto
-    ``acc`` (uint16, same shape), or stored into a new one; the second walks
-    them in reverse with ``rolls_b`` and adds its sums onto the parked ones.
-    A thread owns the same columns and planes in both passes, so each read
-    of a parked sum is of its own store.
+    (B, S, W) image, ``rolls_f`` walking the rows forward and ``rolls_b`` in
+    reverse.  Two launches, each carrying both orders on clusters of their
+    own, that meet at the middle row m = ``meeting_row(S)``: the first
+    scans the forward order over rows [0, m) and the reverse order over
+    [m, S), each adding its sums onto ``acc`` (uint16, same shape; else a
+    new volume) and keeping its paths' state at m as a carry; the second
+    continues each order over the other half from its carry, adding onto
+    the other order's sums, which are final there.  S serial steps in all,
+    where one launch of both orders takes 2 S.
 
     Without ``wta`` the result is the volume (``acc`` itself when given):
     acc + both orders' sums.  With ``wta`` = (dmin, include_inverse) the
-    second pass carries the WTA epilogue and stores no volume: the result is
-    (forward WTAPlanes, inverse WTAPlanes or None) of the totals, and
-    ``acc`` is left holding the parked sums (acc + the first pass's sums
-    where the group takes one launch; a launch before the last adds both
-    of its orders).  Counted as
-    ``directional_scan_group_bidir``; a group split over launches
-    (``group_capacity``) is several two-order launches, the last carrying
-    the epilogue."""
+    second launch carries the WTA epilogue and stores no volume: the result
+    is (forward WTAPlanes, inverse WTAPlanes or None) of the totals, and
+    ``acc`` is left holding the first launch's sums (acc + the forward
+    order's on rows [0, m), the reverse order's on [m, S), where the group
+    takes one pair of launches; a part before the last adds both orders).
+    Counted as ``directional_scan_group_bidir``, two a part of a group
+    split over launches (``group_capacity``), the last part's second
+    launch carrying the epilogue."""
     if len(rolls_f) != len(rolls_b):
         raise ValueError(f"the two orders differ in directions: {rolls_f} "
                          f"and {rolls_b}")
@@ -860,13 +922,56 @@ def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
 def _bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
            restart: bool, wta, counter: str):
     """The two-order launches of checked inputs, counted as ``counter``."""
+    out = _acc_or_new(acc, cost)
+    launches, planes = bidir_launches(cost, img, out, rolls_f, rolls_b, p1,
+                                      p2_init, restart, wta, counter,
+                                      acc is not None)
+    for launch in launches:
+        launch()
+    return out if wta is None else _planes_of(planes)
+
+
+def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
+                   restart: bool, wta, counter: str, accumulate: bool):
+    """(the launches of a two-order scan onto ``out`` as calls, in order;
+    the epilogue's int32 planes or None): for each part of the group
+    (``_launch_parts``) two launches, each carrying both orders on clusters
+    of their own, that meet at ``meeting_row`` (see
+    ``directional_scan_group_bidir_plain``); the last part's second launch
+    carries the epilogue.  A first launch writes the carries its second
+    reads."""
     if wta is not None:
         _check_wta(wta[0])
-    out = _acc_or_new(acc, cost)
-    planes = _launch_groups(counter, cost, img, out, rolls_f, False, p1,
-                            p2_init, restart, acc is not None,
-                            rolls_b=rolls_b, wta=wta)
-    return out if wta is None else _planes_of(planes)
+    b, s, d, w = cost.shape
+    n = len(rolls_f)
+    m = meeting_row(s)
+    views, finished, planes = _epilogue_buffers(cost, wta, 2)
+    # each order's paths' state at the meeting row (none where m = 0: the
+    # first order then starts at row 0 in the second launch)
+    cf = cr = (None, None)
+    if m > 0:
+        cf, cr = ((torch.empty((b, n, d, w), dtype=torch.int32,
+                               device=cost.device),
+                   torch.empty((b, n, 1, w), dtype=torch.int32,
+                               device=cost.device)) for _ in range(2))
+    gray_f = _ptr(img, (m - 1) * w) if m > 0 else None
+    launches = []
+    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
+        f, r = rolls_f[k0:k1], rolls_b[k0:k1]
+        launches.append(functools.partial(
+            _launch_group, counter, cost, img, out,
+            [scan_pass(f, False, 0, m, k0, d, w, carry_out=cf),
+             scan_pass(r, True, m, s, k0, d, w, carry_out=cr)],
+            1, k1 - k0, n, restart, p1, p2_init, accumulate or k0 > 0))
+        epi = views if k1 == n else 0
+        launches.append(functools.partial(
+            _launch_group, counter, cost, img, out,
+            [scan_pass(f, False, m, s, k0, d, w, cf, gray_f, s * w),
+             scan_pass(r, True, 0, m, k0, d, w, cr, _ptr(img, m * w), s * w)],
+            1, k1 - k0, n, restart, p1, p2_init, True, epi,
+            0 if wta is None else wta[0], finished if epi else None,
+            planes if epi else None))
+    return launches, planes
 
 
 def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
@@ -984,11 +1089,11 @@ def aggregate_paths_wta(cost: torch.Tensor, img_left: torch.Tensor,
                         options: SGMOptions, diagonal_mode: str = "wrap",
                         include_inverse: bool = True):
     """Aggregation and WTA without storing the aggregated volume: the
-    horizontal pair (``horizontal_partial``), then one two-order launch of
-    the vertical group whose second pass carries the WTA epilogue
-    (``directional_scan_group_bidir`` with ``wta``, counted here): (forward
-    WTAPlanes, inverse WTAPlanes or None), as ``wta_reduce`` of
-    ``aggregate_paths`` gives.  On CPU tensors the same route runs the plain
+    horizontal pair (``horizontal_partial``), then the vertical group's
+    two-order scan whose second launch carries the WTA epilogue
+    (``directional_scan_group_bidir`` with ``wta``, two launches counted
+    here): (forward WTAPlanes, inverse WTAPlanes or None), as ``wta_reduce``
+    of ``aggregate_paths`` gives.  On CPU tensors the same route runs the plain
     versions."""
     on_cpu = _on_cpu(cost, img_left)
     restart = _check_aggregate(cost, img_left, diagonal_mode, on_cpu)

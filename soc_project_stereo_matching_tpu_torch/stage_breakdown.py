@@ -16,11 +16,12 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
 * the device idle share over a three-batch ``torch.profiler`` window:
   1 - (union of the device activity intervals) / (CUDA-event window); the
   window's Chrome trace is written to ``<--out without .json>/trace.json``;
-* the K2 scans per launch as the main path runs them (the group kernel:
-  the horizontal pair's two-order launch with its three transposes, the
-  vertical pair's two-order launch with the WTA epilogue) and the vertical
-  pair's two-order launch without it (the volume, as ``aggregate_paths``
-  makes it), median of five launches, and beside them each
+* the K2 scans as the main path runs them (the group kernel: the
+  horizontal pair's two-order scan, two launches, with its three
+  transposes; the vertical pair's two-order scan with the WTA epilogue, its
+  two launches together and each alone) and the vertical pair's two-order
+  scan without the epilogue (the volume, as ``aggregate_paths`` makes it),
+  median of five calls, and beside them each
   of the eight directions alone by the first design's kernel
   (``scan_direction``, a warp per path), with the bytes one such direction
   must move (1 cost byte read + a 2-byte read and a 2-byte write of the
@@ -128,16 +129,18 @@ def scan_directions(left, right, opt, reps=5):
 
 
 def scan_groups(left, right, opt, reps=5):
-    """Milliseconds of each launch of ``kernels.aggregate_paths_wta``: the
-    horizontal pair (and its transposes alone), then the vertical pair's
-    two-order launch adding onto its sum with the WTA epilogue, and the
-    same launch without the epilogue (``aggregate_paths``'s)."""
+    """Milliseconds of the launches of ``kernels.aggregate_paths_wta``: the
+    horizontal pair (its transposes and its two-order scan's two launches,
+    and the transposes alone), then the vertical pair's two-order scan
+    adding onto its sum with the WTA epilogue, each of its two launches
+    alone, and the same scan without the epilogue (``aggregate_paths``'s)."""
     cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                       opt.max_disparity)
     p1, p2 = opt.p1, opt.p2_init
-    out = {"horizontal pair (3 transposes, 1 two-order scan)": cuda_time(
-        lambda: kernels.horizontal_partial(cost, left, p1, p2, False),
-        reps)["median"]}
+    out = {"horizontal pair (3 transposes, a two-order scan of 2 launches)":
+           cuda_time(lambda: kernels.horizontal_partial(cost, left, p1, p2,
+                                                        False),
+                     reps)["median"]}
     aggr = kernels.horizontal_partial(cost, left, p1, p2, False)
     pitch, h = kernels.TRANSPOSED_PITCH, cost.shape[1]
     aggr_t = kernels.volume_transpose(aggr, pad_to=pitch)
@@ -149,11 +152,19 @@ def scan_groups(left, right, opt, reps=5):
     wta = (opt.min_disparity, True)
     # the sums these launches add onto wrap around over the runs: their
     # time does not depend on the values
-    out["vertical pair, two-order with the WTA epilogue"] = cuda_time(
-        lambda: kernels.directional_scan_group_bidir(cost, left, aggr, rf, rb,
-                                                     p1, p2, False, wta),
-        reps)["median"]
-    out["vertical pair, two-order (the volume)"] = cuda_time(
+    out["vertical pair, two-order scan with the WTA epilogue (2 launches)"] = \
+        cuda_time(lambda: kernels.directional_scan_group_bidir(
+            cost, left, aggr, rf, rb, p1, p2, False, wta), reps)["median"]
+    launches, _ = kernels.bidir_launches(cost, left, aggr, rf, rb, p1, p2,
+                                         False, wta, "aggregate_paths_wta",
+                                         True)
+    names = ("its first launch (each order over its first half)",
+             "its second launch (each order over the other half, the WTA "
+             "epilogue)")
+    if len(launches) == len(names):     # the group in one part
+        for name, launch in zip(names, launches):
+            out[name] = cuda_time(launch, reps)["median"]
+    out["vertical pair, two-order scan (the volume)"] = cuda_time(
         lambda: kernels.directional_scan_group_bidir(cost, left, aggr, rf, rb,
                                                      p1, p2, False),
         reps)["median"]

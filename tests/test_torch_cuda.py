@@ -142,7 +142,7 @@ def test_stage_breakdown_runs_and_matches_the_engine(cuda, tmp_path):
                                    "--dmax", "16", "--reps", "2",
                                    "--out", str(out)])
     assert out.exists() and len(result["scan_direction_ms"]) == 8
-    assert len(result["scan_group_ms"]) == 4
+    assert len(result["scan_group_ms"]) == 6
     assert result["stages_ms"]["total"]["median"] > 0
 
 
@@ -215,11 +215,12 @@ def test_tiled_engine_on_card_matches_untiled(cuda):
         got = SGMEngine(opt, EngineConfig(tile_mode=mode), device="cuda",
                         mesh=make_mesh(1, 1)).match_batch(left, right)
         same(got, want)
-        # one tile: the vertical pair is one two-order launch, the stored
-        # volume's WTA a launch of its own
+        # one tile: the vertical pair is one two-order scan (two launches
+        # meeting at the middle row), the stored volume's WTA a launch of
+        # its own
         assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
-            "census_cost_volume_halo": 1, "horizontal_partial": 1,
-            "volume_transpose": 3, "directional_scan_group_bidir": 1,
+            "census_cost_volume_halo": 1, "horizontal_partial": 2,
+            "volume_transpose": 3, "directional_scan_group_bidir": 2,
             "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 
 
@@ -890,21 +891,31 @@ def test_main_path_launches_each_entry_once_per_batch(cuda):
     kernels.reset_launch_counts()
     engine.match_batch(left, right)
     torch.cuda.synchronize()
-    # one fused two-order launch for the vertical pair and one for the
-    # horizontal pair, the 3 transposes; no wta_reduce: no volume is stored
+    # the vertical pair's two-order scan with the WTA epilogue and the
+    # horizontal pair's, two launches each (the orders meet at the middle
+    # row), the 3 transposes; no wta_reduce: no volume is stored
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
-        "census_cost_volume": 1, "aggregate_paths_wta": 1,
-        "horizontal_partial": 1, "volume_transpose": 3, "lr_check": 1,
+        "census_cost_volume": 1, "aggregate_paths_wta": 2,
+        "horizontal_partial": 2, "volume_transpose": 3, "lr_check": 1,
         "remove_speckles": 1}
 
 
-# --- the fused K2 forms: the two-order launch, the WTA epilogue ----------------
+# --- the fused K2 forms: the two-order scan, the WTA epilogue ----------------
+
+# the widest row one sgm_scan_group launch takes (one direction) by D on one
+# H100 80GB HBM3: kernels.group_capacity's docstring states the same
+GROUP_WIDTH_LIMIT = {64: 13824, 128: 6720, 256: 3264}
+# ... and a launch with the WTA epilogue
+GROUP_WTA_WIDTH_LIMIT = {64: 12288, 128: 6912, 256: 3328}
+
 
 def _planes(got):
     return [x for view in got if view is not None for x in view]
 
 
 @pytest.mark.parametrize("b,h,d,w,dmin", [
+    (2, 1, 16, 53, 3),         # S = 1: the forward order's first half empty
+    (2, 2, 16, 53, 0),         # S = 2: a row a half
     (2, 9, 1, 53, 0),          # D = 1
     (2, 9, 3, 31, 2),          # D = 3, odd W
     (2, 7, 16, 5, 0),          # narrow W
@@ -913,12 +924,14 @@ def _planes(got):
     (1, 12, 128, 1242, 24),    # KITTI-2012's range: the reach crosses strips
     (1, 6, 256, 1500, 0)])     # Middlebury-half: 16 blocks a cluster
 def test_fused_launches_match_plain_on_card(cuda, b, h, d, w, dmin):
-    """The two-order launch (volume form, with and without an accumulator;
+    """The two-order scan (volume form, with and without an accumulator;
     planes form, both views or the forward view, the accumulator left
-    holding the first pass's sums) and the group launch with the WTA
-    epilogue, 8 and 4 paths, wrap and restart, against their plain
-    versions; where ``group_capacity`` splits the group, the launches the
-    wrapper makes are the split's (the last with the epilogue)."""
+    holding the first launch's sums) and the group launch with the WTA
+    epilogue, 8 and 4 paths (the 4-path roll set is the horizontal pair's
+    form), wrap and restart, odd and even S, S = 1 and 2, against their
+    plain versions; two launches a part of the group where
+    ``group_capacity`` splits it (the last part's second with the
+    epilogue)."""
     cost = _rand(80, 0, 128, (b, h, d, w), np.uint8, cuda)
     img = _rand(81, 0, 256, (b, h, w), np.uint8, cuda)
     acc = _rand(82, 0, 900, (b, h, d, w), np.uint16, cuda)
@@ -942,10 +955,10 @@ def test_fused_launches_match_plain_on_card(cuda, b, h, d, w, dmin):
                 for g, w_ in zip(_planes(got), _planes(want)):
                     same(g, w_)
                 parts = kernels._launch_parts(cost, acc, len(rf), True)
-                if len(parts) == 1:      # one launch: acc + the first pass
+                if len(parts) == 1:      # acc + the first launch's sums
                     same(parks[0], parks[1])
                 assert (got[1] is None) == (not inverse)
-                assert launches == len(parts)
+                assert launches == 2 * len(parts)
                 got = kernels.directional_scan_group(
                     cost, img, acc.clone(), rb, True, 10, 150, restart,
                     wta=wta_args)
@@ -975,19 +988,22 @@ def test_fused_launch_split_over_launches_on_card(cuda):
     kernels.reset_launch_counts()
     got = kernels.directional_scan_group_bidir(cost, img, acc.clone(), *args,
                                                wta=(3, True))
-    assert kernels.LAUNCHES["directional_scan_group_bidir"] == len(parts)
+    assert kernels.LAUNCHES["directional_scan_group_bidir"] == 2 * len(parts)
     want = kernels.directional_scan_group_bidir_plain(cost, img, acc.clone(),
                                                       *args, wta=(3, True))
     for g, w_ in zip(_planes(got), _planes(want)):
         same(g, w_)
 
 
-def test_fused_widest_row_on_card(cuda):
-    """The widest row at D = 64 that a launch with the WTA epilogue takes
-    (by bisection of ``group_capacity(..., wta=True)``): the fused
-    vertical launch there against its plain version, and one column more
-    refused with a ValueError."""
-    d = 64
+@pytest.mark.parametrize("d", sorted(GROUP_WTA_WIDTH_LIMIT))
+def test_fused_widest_row_on_card(cuda, d):
+    """The widest row at D = 64, 128 and 256 that a launch with the WTA
+    epilogue takes (by bisection of ``group_capacity(..., wta=True)``): the
+    vertical pair's two-order scan with the epilogue against its plain
+    version at that row or, where a launch without the epilogue takes
+    fewer columns, at that one's widest; one column more refused with a
+    ValueError; and the two-order scan without the epilogue (the volume)
+    at the widest row a launch without it takes."""
 
     def takes(w):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
@@ -1002,10 +1018,12 @@ def test_fused_widest_row_on_card(cuda):
     while hi - lo > 1:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if takes(mid) else (lo, mid)
-    assert lo == GROUP_WTA_WIDTH_LIMIT
+    assert lo == GROUP_WTA_WIDTH_LIMIT[d]
     assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")
-    cost = _rand(83, 0, 128, (1, 3, d, lo), np.uint8, cuda)
-    img = _rand(84, 0, 256, (1, 3, lo), np.uint8, cuda)
+    # the scan's first launch stores without the epilogue: the narrower row
+    widest = min(lo, GROUP_WIDTH_LIMIT[d])
+    cost = _rand(83, 0, 128, (1, 3, d, widest), np.uint8, cuda)
+    img = _rand(84, 0, 256, (1, 3, widest), np.uint8, cuda)
     args = ((0, 1, -1), (0, -1, 1), 10, 150, False)
     got = kernels.directional_scan_group_bidir(cost, img, None, *args,
                                                wta=(0, True))
@@ -1017,6 +1035,11 @@ def test_fused_widest_row_on_card(cuda):
     with pytest.raises(ValueError, match="on-chip memory"):
         kernels.directional_scan_group_bidir(
             wider, img.new_zeros((1, 3, hi)), None, *args, wta=(0, True))
+    w = GROUP_WIDTH_LIMIT[d]
+    cost = _rand(88, 0, 128, (1, 3, d, w), np.uint8, cuda)
+    img = _rand(89, 0, 256, (1, 3, w), np.uint8, cuda)
+    same(kernels.directional_scan_group_bidir(cost, img, None, *args),
+         kernels.directional_scan_group_bidir_plain(cost, img, None, *args))
 
 
 # --- K2 WTA (csrc/wta.cu) -------------------------------------------------------
@@ -1082,13 +1105,6 @@ def test_wta_kernel_refuses_beyond_its_limits(cuda):
     deep = torch.zeros((1, 1, 257, 8), dtype=torch.uint16, device=cuda)
     with pytest.raises(ValueError, match="1..256"):
         kernels.wta_reduce(deep, SGMOptions(max_disparity=257))
-
-
-# the widest row one sgm_scan_group launch takes (one direction) by D on one
-# H100 80GB HBM3: kernels.group_capacity's docstring states the same
-GROUP_WIDTH_LIMIT = {64: 13824, 128: 6720, 256: 3264}
-# ... and a launch with the WTA epilogue, at D = 64
-GROUP_WTA_WIDTH_LIMIT = 13824
 
 
 @pytest.mark.parametrize("d", sorted(GROUP_WIDTH_LIMIT))

@@ -84,8 +84,8 @@ def padded(x, rows):
     return jnp.pad(jnp.asarray(x), pad)
 
 
-def hp():
-    return -(-H // ROWS) * ROWS
+def hp(h=H):
+    return -(-h // ROWS) * ROWS
 
 
 @pytest.fixture
@@ -96,28 +96,26 @@ def no_launch():
 
 
 def pallas_bidir(cost, img, acc, rolls_f, rolls_b, restart, wta):
+    h = cost.shape[1]
     img32 = jnp.asarray(img.astype(np.int32))
     p2 = pk._stack_p2_fb(
-        padded(pk._p2_planes(img32, rolls_f, +1, P1, P2_INIT), hp()),
-        padded(pk._p2_planes(img32, rolls_b, -1, P1, P2_INIT), hp()))
+        padded(pk._p2_planes(img32, rolls_f, +1, P1, P2_INIT), hp(h)),
+        padded(pk._p2_planes(img32, rolls_b, -1, P1, P2_INIT), hp(h)))
     res = pk._directional_scan_group_bidir(
-        padded(cost.astype(np.int8), hp()), p2,
-        None if acc is None else padded(acc, hp()), rolls_f, rolls_b, P1,
+        padded(cost.astype(np.int8), hp(h)), p2,
+        None if acc is None else padded(acc, hp(h)), rolls_f, rolls_b, P1,
         restart, ROWS, wta=wta)
     if wta is None:
-        return res[:, :H]
-    return [p[:, :H] for p in res]
+        return res[:, :h]
+    return [p[:, :h] for p in res]
 
 
-# --- the two-order launch -----------------------------------------------------
+# --- the two-order scan --------------------------------------------------------
 
-@pytest.mark.parametrize("with_acc,form", [(False, "volume"), (True, "volume"),
-                                           (False, "fwd"), (True, "dmin_both")])
-@pytest.mark.parametrize("d", [1, 16])
-@pytest.mark.parametrize("paths,restart", [(8, False), (8, True), (4, False)])
-def test_bidir_plain_matches_pallas(paths, restart, d, with_acc, form,
-                                    no_launch):
-    cost, img, acc = inputs(70 + d, d)
+def check_bidir(paths, restart, d, with_acc, form, h=H):
+    """The two-order scan's plain version (two launches meeting at the
+    middle row) against the Pallas entry, at ``h`` rows."""
+    cost, img, acc = inputs(70 + d, d, h)
     rolls_f, rolls_b = ROLLS[paths]
     wta = WTA_FORMS.get(form)
     start = t(acc.copy()) if with_acc else None
@@ -132,11 +130,40 @@ def test_bidir_plain_matches_pallas(paths, restart, d, with_acc, form,
             assert got.data_ptr() == start.data_ptr()
     else:
         same_planes(got, want)
-        if with_acc:                 # left holding acc + the first pass
-            fwd = kernels.directional_scan_group_plain(
-                t(cost), t(img), t(acc.copy()), rolls_f, False, P1, P2_INIT,
-                restart)
-            same(start, fwd)
+        if with_acc:                 # left holding the first launch's sums:
+            m = kernels.meeting_row(h)   # each order's over its first half
+            parked = acc.copy()
+            for rows, rolls, reverse in ((slice(0, m), rolls_f, False),
+                                         (slice(m, h), rolls_b, True)):
+                if rows.stop > rows.start:
+                    parked[:, rows] = kernels.directional_scan_group_plain(
+                        t(cost[:, rows]), t(img[:, rows]),
+                        t(acc[:, rows].copy()), rolls, reverse, P1, P2_INIT,
+                        restart).numpy()
+            same(start, parked)
+
+
+@pytest.mark.parametrize("with_acc,form", [(False, "volume"), (True, "volume"),
+                                           (False, "fwd"), (True, "dmin_both")])
+@pytest.mark.parametrize("d", [1, 16])
+@pytest.mark.parametrize("paths,restart", [(8, False), (8, True), (4, False)])
+def test_bidir_plain_matches_pallas(paths, restart, d, with_acc, form,
+                                    no_launch):
+    check_bidir(paths, restart, d, with_acc, form)
+
+
+@pytest.mark.parametrize("h,paths,restart,d,with_acc,form", [
+    (1, 8, False, 16, True, "dmin_both"), (1, 8, True, 1, False, "volume"),
+    (2, 8, True, 16, True, "volume"), (2, 4, False, 16, False, "fwd"),
+    (40, 8, False, 16, True, "dmin_both"), (40, 8, True, 16, True, "volume"),
+    (5, 8, True, 16, False, "both")])
+def test_bidir_plain_meets_at_the_middle_row_of_any_scan(h, paths, restart, d,
+                                                         with_acc, form,
+                                                         no_launch):
+    """S = 1 (the forward order's first half is empty: it starts fresh in
+    the second launch), S = 2 (one row a half), an odd S (the reverse
+    order's half the longer) and an even S."""
+    check_bidir(paths, restart, d, with_acc, form, h)
 
 
 @pytest.mark.parametrize("with_acc,form", [(False, "both"), (True, "dmin_fwd")])
@@ -184,8 +211,21 @@ def test_aggregate_paths_wta_matches_pallas_both_forms(paths, mode, dmin, dmax,
     """The port's one route against both of the JAX package's: the
     two-order launch (``bidir=True``) and the two group launches, the last
     with the WTA epilogue (``bidir=False``)."""
+    check_aggregate_wta(paths, mode, dmin, dmax, inverse, bidir)
+
+
+@pytest.mark.parametrize("bidir", [True, False])
+@pytest.mark.parametrize("h", [1, 2])
+def test_aggregate_paths_wta_matches_pallas_at_one_and_two_rows(h, bidir,
+                                                                no_launch):
+    """The meeting row at S = 1 (the forward order's first half empty) and
+    S = 2, through the main path's wrappers, against both JAX forms."""
+    check_aggregate_wta(8, "restart", 6, 22, True, bidir, h)
+
+
+def check_aggregate_wta(paths, mode, dmin, dmax, inverse, bidir, h=H):
     d = dmax - dmin
-    cost, img, _ = inputs(73, d)
+    cost, img, _ = inputs(73, d, h)
     opt = SGMOptions(num_paths=paths, min_disparity=dmin, max_disparity=dmax)
     jc, ji = jnp.asarray(cost), jnp.asarray(img)
     got = kernels.aggregate_paths_wta(t(cost), t(img), from_jax(opt), mode,
@@ -247,18 +287,19 @@ def test_tiled_local_mode_matches_jax(no_launch):
     (3, 3, 3, [(0, 3)]), (3, 2, 2, [(0, 1), (1, 3)]),
     (3, 3, 2, [(0, 1), (1, 3)]), (3, 2, 1, [(0, 2), (2, 3)]),
     (3, 1, 1, [(0, 1), (1, 2), (2, 3)]), (1, 3, 1, [(0, 1)]),
-    (2, 1, 1, [(0, 1), (1, 2)])])
+    (2, 1, 1, [(0, 1), (1, 2)]), (3, 2, 3, [(0, 1), (1, 3)])])
 def test_launch_parts_split_a_group_with_its_epilogue_last(monkeypatch, n,
                                                            plain, with_wta,
                                                            want):
     """A group the card cannot hold in one launch: the leading launches take
-    what a launch without the epilogue takes, the last what a launch with it
-    takes; without the epilogue the split is the capacity's from the front."""
+    what a launch without the epilogue takes, the last what launches with
+    it and without it both take; without the epilogue the split is the
+    capacity's from the front."""
     monkeypatch.setattr(kernels, "group_capacity",
                         lambda cost, out, wta=False: with_wta if wta else plain)
     parts = kernels._launch_parts(None, None, n, True)
     assert parts == want
-    assert [k1 - k0 for k0, k1 in parts][-1] <= with_wta
+    assert [k1 - k0 for k0, k1 in parts][-1] <= min(with_wta, plain)
     plain_parts = kernels._launch_parts(None, None, n, False)
     assert plain_parts == [(k0, min(k0 + plain, n)) for k0 in range(0, n, plain)]
 
@@ -281,12 +322,99 @@ def test_kernel_ab_fused_ablations_still_apply_to_the_scan_source(ablation):
 
 def test_kernel_ab_calls_the_parent_group_entry_with_its_signature():
     """The other checkout's group entry before the two-order launch took 8
-    pointers, 14 ints and the stream; this one adds the ring, the planes and
-    8 ints (the second roll set and its flag, the views, dmin)."""
+    pointers, 14 ints and the stream; its first fused form added the ring,
+    the planes and 8 ints (the second roll set and its flag, the views,
+    dmin); this one takes the ScanPass array instead of the carries and
+    rolls: 6 pointers, 14 ints and the stream.  ``group_form`` tells the
+    three apart by their sources."""
     old = kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group"]
+    first = kernel_ab.GROUP_TWO_ORDER["sgm_scan_group"]
     new = _build.SIGNATURES["sgm_scan_group"]
-    assert len(old) == 23 and len(new) == 31
-    assert old[:8] + old[22:] == new[:8] + new[30:]
+    assert (len(old), len(first), len(new)) == (23, 31, 21)
+    assert old[:8] + old[22:] == first[:8] + first[30:]
+    assert new[-1] == first[-1]
     assert kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group_capacity"] == \
         _build.SIGNATURES["sgm_scan_group_capacity"][:5] + \
         _build.SIGNATURES["sgm_scan_group_capacity"][6:]
+    text = (_build.CSRC / "aggregate.cu").read_text()
+    assert kernel_ab.group_form([text]) == "passes"
+    assert kernel_ab.group_form(["int two_order, int q0"]) == "two_order"
+    assert kernel_ab.group_form(["int accumulate, void* stream"]) == "before"
+
+
+def test_scan_pass_matches_the_kernels_struct():
+    """``kernels.ScanPass`` has the fields of csrc/aggregate.cu's
+    ``ScanPass`` in its order, at the offsets the C ABI gives them."""
+    text = (_build.CSRC / "aggregate.cu").read_text()
+    body = text[text.index("struct ScanPass {"):]
+    body = body[:body.index("};")]
+    c_fields = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            c_fields += [name.strip().split("[")[0].lstrip("*")
+                         for name in decl.split(" ", 1)[1].split(",")]
+    c_fields = [f.split()[-1].lstrip("*") for f in c_fields]
+    names = [name for name, _ in kernels.ScanPass._fields_]
+    assert c_fields == names
+    offsets = [getattr(kernels.ScanPass, name).offset for name in names]
+    assert offsets == [0, 8, 16, 24, 32, 40, 52, 56, 60, 64]
+
+
+@pytest.mark.parametrize("s,cap,cap_wta", [(1, 3, 3), (2, 3, 3), (7, 3, 3),
+                                           (8, 2, 2), (8, 3, 1)])
+def test_two_order_scans_launch_twice_meeting_at_the_middle_row(
+        monkeypatch, s, cap, cap_wta, no_launch):
+    """The card route of ``aggregate_paths_wta`` (and so of
+    ``horizontal_pair_transposed``) and of ``aggregate_paths``, run on CPU
+    tensors with the C entries recorded instead of called: each two-order
+    scan is two launches a part of its group, each with the two orders on
+    sets of clusters of their own; the first over [0, m) forward and
+    [m, S) in reverse with carries out where the other half is not empty,
+    the second over the other halves from those carries; the epilogue on
+    the last part's second launch."""
+    launches = []
+    monkeypatch.setattr(kernels, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(kernels, "_stream", lambda t: 0)
+    monkeypatch.setattr(kernels, "group_capacity",
+                        lambda cost, out, wta=False: cap_wta if wta else cap)
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda entry, counter, *args: launches.append(counter))
+
+    def group(counter, cost, img, out, passes, npass, n, carry_n, restart, p1,
+              p2_init, accumulate, views=0, dmin=0, finished=None,
+              planes=None):
+        launches.append((counter, cost.shape[1], npass, n, accumulate, views,
+                         [(p.lo, p.hi, p.reverse, bool(p.cin_cost),
+                           bool(p.cout_cost), bool(p.prev_gray))
+                          for p in passes]))
+
+    monkeypatch.setattr(kernels, "_launch_group", group)
+    b, w, d = 2, 6, 4
+    cost = torch.zeros((b, s, d, w), dtype=torch.uint8)
+    img = torch.zeros((b, s, w), dtype=torch.uint8)
+    opt = from_jax(SGMOptions(max_disparity=d))
+
+    def scan(counter, length, acc, epilogue, parts):
+        m = length // 2
+        out = []
+        for k0, k1 in parts:
+            first = [(0, m, 0, False, m > 0, False),
+                     (m, length, 1, False, m > 0, False)]
+            second = [(m, length, 0, m > 0, False, m > 0),
+                      (0, m, 1, m > 0, False, True)]
+            out += [(counter, length, 1, k1 - k0, acc or k0 > 0, 0, first),
+                    (counter, length, 1, k1 - k0, True,
+                     2 if epilogue and k1 == 3 else 0, second)]
+        return out
+
+    pair = ["volume_transpose"] * 2 + scan("horizontal_partial", w, False,
+                                           False, [(0, 1)]) + \
+        ["volume_transpose"]
+    parts = kernels._launch_parts(None, None, 3, True)
+    kernels.aggregate_paths_wta(cost, img, opt)
+    assert launches == pair + scan("aggregate_paths_wta", s, True, True, parts)
+    launches.clear()
+    kernels.aggregate_paths(cost, img, opt)
+    assert launches == pair + scan("aggregate_paths", s, True, False,
+                                   kernels._launch_parts(None, None, 3, False))
