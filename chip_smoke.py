@@ -158,7 +158,22 @@ Phases (each raises on failure, so the script exits non-zero):
    e. ``benches.scaling`` on the cards present (sizes beyond them print a
       "not run" line), each size bit-equal to the single-rank engine, each
       rank's timed steps making the tiled path's launches;
-10. the per-kernel JSON line (each kernel's time beside its plain version's,
+10. wide range phase (disparity ranges above 256 and rows over several
+   clusters an image; about 35 s): every mode of ``sgm_scan_group`` (one
+   order stored and added, carries, the epilogue, the two-order scan's two
+   forms), the WTA kernel, K1 (both modes), K3, K4 and ``match_batch`` (its
+   launches counted) bit-equal to their plain versions at D = 257, 384 and
+   1024 (``WIDE_KERNELS``), at rows where no cluster holds the state (the
+   vertical pair's plan printed: G clusters an image, in waves); the
+   engine through ``SGMEngine.match`` on full-size frames (``WIDE_FRAMES``:
+   1500x1000 D=380, 2964x1988 D=280 and D=760), each bit-equal to the
+   tiled engine on a 1x1 mesh in exact mode, 0.95 of its finite pixels
+   within 1 of the truth, its launches counted, its ms and peak device
+   memory printed; at 2964x1988 D=760 each K2 form and the WTA timed with
+   its calls, plan and bound (kernel table rows 2, 2c, 2w, 3, 3w, 4); one
+   ``cli eval --device cuda`` through a Middlebury-2014 folder written at
+   2964x1988 with ``ndisp=280``, its measurement equal to the script's;
+11. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time; its launches from the path that runs
    it: the main path, the tiled engine, the chained tiles, the two-launch
@@ -282,6 +297,22 @@ TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 2,
                   "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 AGREE = 0.10
 BIG_ITERS, STREAM_BATCHES, LOOP_FRAMES = 2, 8, 3
+# phase 10: disparity ranges above 256 and rows over several clusters.  The
+# kernels at shapes the plain versions still run quickly but wide enough that
+# no cluster holds a row's state, so an image takes G >= 2 clusters (the
+# last one in waves: the card does not hold all the images' clusters at
+# once); the engine on full-size frames (Middlebury-2014 at half and at full
+# resolution, with the range of the widest published half-size scene and of
+# the repo's own full-size calibration, and Vintage's full-size 760); one
+# cli eval through a full-size Middlebury-2014 folder
+WIDE_KERNELS = (dict(batch=1, h=5, d=257, w=3400), dict(batch=1, h=6, d=384, w=2400),
+                dict(batch=2, h=48, d=1024, w=1800))
+WIDE_FRAMES = (dict(batch=1, h=1000, w=1500, dmax=380, levels=(40, 130, 250, 350)),
+               dict(batch=1, h=1988, w=2964, dmax=280, levels=(30, 100, 190, 260)),
+               dict(batch=1, h=1988, w=2964, dmax=760, levels=(80, 300, 520, 720)))
+WIDE_EVAL = dict(h=1988, w=2964, dmax=280, levels=(30, 100, 190, 260))
+# the repo's full-size Middlebury-2014 calibration (tests/test_eval_platform.py)
+MIDDLEBURY_FULL_CALIB = dict(fx=3997.684, baseline=193.001, doffs=131.111)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1870,6 +1901,317 @@ def surfaces_phase(tmp, card: str) -> None:
           f"save_disparity_png of SGMEngine(SGMOptions()).match")
 
 
+def main_path_launches(b: int, h: int, w: int, d: int) -> dict:
+    """C entry calls of one untiled match_batch at this shape: the scans'
+    two launches a part of a group (``_launch_parts``: the vertical pair's
+    with the epilogue, the horizontal pair's on the transposed volume)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    def parts(rows, n, wta):
+        probe = torch.empty((b, 1, d, rows), dtype=torch.uint8, device="cuda")
+        return len(kernels._launch_parts(probe, probe.to(torch.uint16), n, wta))
+
+    h_pad = -(-h // kernels.TRANSPOSED_PITCH) * kernels.TRANSPOSED_PITCH
+    return {"census_cost_volume": 1, "aggregate_paths_wta": 2 * parts(w, 3, True),
+            "horizontal_partial": 2 * parts(h_pad, 1, False),
+            "volume_transpose": 3, "lr_check": 1, "remove_speckles": 1}
+
+
+def wide_kernel_checks(cfg) -> dict:
+    """Every mode of sgm_scan_group, the WTA kernel, K1 (both modes), K3 and
+    K4 against their plain versions at D > 256 where an image takes G >= 2
+    clusters; the main path through ``match_batch`` against the plain path
+    with its launches counted.  Returns the plan of the vertical pair."""
+    import numpy as np
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMEngine, SGMOptions
+    from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    b, h, d, w = cfg["batch"], cfg["h"], cfg["d"], cfg["w"]
+    rng = np.random.default_rng(d)
+
+    def rand(high, shape, dtype):
+        return torch.from_numpy(rng.integers(0, high, shape).astype(dtype)).cuda()
+
+    cost = rand(128, (b, h, d, w), np.uint8)
+    img = rand(256, (b, h, w), np.uint8)
+    acc = rand(900, (b, h, d, w), np.uint16)
+    plan = kernels.group_plan(cost, acc, 3, True, 2)
+    if min(kernels.group_plan(cost, acc, n, False).clusters_an_image
+           for n in (1, 3)) < 2:
+        raise AssertionError(f"D={d} W={w}: a cluster holds the row: no "
+                             f"multi-cluster launch")
+    for restart in (False, True):
+        for rolls, reverse in GROUPS + (((1,), False), ((0,), True)):
+            args = (rolls, reverse, 10, 150, restart)
+            for start in (None, acc):
+                max_abs_err(
+                    kernels.directional_scan_group(
+                        cost, img, None if start is None else start.clone(), *args),
+                    kernels.directional_scan_group_plain(
+                        cost, img, None if start is None else start.clone(), *args))
+            carry = kernels.directional_scan_group_plain(
+                cost, img, None, *args, want_carry=True)[1]
+            gray = img[:, -1].contiguous()
+            got = kernels.directional_scan_group(cost, img, acc.clone(), *args,
+                                                 carry_in=carry, want_carry=True,
+                                                 prev_gray=gray)
+            want = kernels.directional_scan_group_plain(
+                cost, img, acc.clone(), *args, carry_in=carry, want_carry=True,
+                prev_gray=gray)
+            for g, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
+                max_abs_err(g, w_)
+            planes_err(*(_flat(f(cost, img, acc.clone(), *args, wta=(24, True)))
+                         for f in (kernels.directional_scan_group,
+                                   kernels.directional_scan_group_plain)))
+        for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
+            args = (rf, rb, 10, 150, restart)
+            max_abs_err(kernels.directional_scan_group_bidir(cost, img, acc.clone(), *args),
+                        kernels.directional_scan_group_bidir_plain(cost, img, acc.clone(), *args))
+            for wta in ((0, True), (24, False)):
+                parks = acc.clone(), acc.clone()
+                planes_err(_flat(kernels.directional_scan_group_bidir(
+                               cost, img, parks[0], *args, wta=wta)),
+                           _flat(kernels.directional_scan_group_bidir_plain(
+                               cost, img, parks[1], *args, wta=wta)))
+    for dmin in (0, 24):
+        opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+        planes_err(_flat(kernels.wta_reduce(acc, opt)),
+                   _flat(kernels.wta_reduce_plain(acc, opt)))
+    left, right = rand(256, (b, h, w), np.uint8), rand(256, (b, h, w), np.uint8)
+    for dmin in (0, 3):
+        max_abs_err(kernels.census_cost_volume(left, right, dmin, dmin + d),
+                    kernels.census_cost_volume_plain(left, right, dmin, dmin + d))
+    halo = rand(256, (b, h + 4, w), np.uint8)
+    max_abs_err(kernels.census_cost_volume(halo, halo.flip(-1).contiguous(), 0, d, True),
+                kernels.census_cost_volume_plain(halo, halo.flip(-1).contiguous(), 0, d, True))
+    dl = torch.from_numpy(rng.uniform(0, d, (b, h, w)).astype(np.float32)).cuda()
+    dr = torch.from_numpy(rng.uniform(0, d, (b, h, w)).astype(np.float32)).cuda()
+    max_abs_err(kernels.lr_check(dl, dr, 1.0, d),
+                kernels.postprocess.lr_check(dl, dr, 1.0, d))
+    opt = SGMOptions(max_disparity=d, min_speckle_area=20)
+    engine = SGMEngine(opt, device="cuda")
+    kernels.reset_launch_counts()
+    disp = engine.match_batch(left, right)
+    torch.cuda.synchronize()
+    counted_launches(kernels.LAUNCHES, main_path_launches(b, h, w, d), 1,
+                     f"match_batch at D={d}")
+    max_abs_err(disp, sgm_forward(left, right, opt, use_kernels=False))
+    # a speckled map of its own: integer steps, invalid where the engine's is
+    raw = torch.where(torch.isfinite(disp), dl.floor(), disp)
+    max_abs_err(kernels.remove_speckles(raw, 1.0, 20),
+                kernels.postprocess.remove_speckles(raw, 1.0, 20))
+    return plan
+
+
+def _flat(planes) -> list:
+    """(forward WTAPlanes, inverse or None) -> their planes in order."""
+    return [p for view in planes if view is not None for p in view]
+
+
+def wide_frame(cfg, card: str) -> dict:
+    """One full-size frame through ``SGMEngine.match`` (untiled) and the
+    tiled engine on a 1x1 mesh in exact mode (the halo census, the carried
+    scans, csrc/wta.cu): bit-equal, 0.95 of the finite pixels within 1 of
+    the truth, the main path's launches counted; ms a frame and the peak
+    of device memory."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import (EngineConfig, SGMEngine,
+                                                       SGMOptions)
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
+
+    opt = SGMOptions(max_disparity=cfg["dmax"])
+    left, right, field = pair(cfg, seed=cfg["dmax"])
+    untiled = SGMEngine(opt, device="cuda")
+    tiled = SGMEngine(opt, EngineConfig(tile_mode="exact"), device="cuda",
+                      mesh=make_mesh(1, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    got = untiled.match(left, right)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    per_call = main_path_launches(1, cfg["h"], cfg["w"], cfg["dmax"])
+    launches = counted_launches(kernels.LAUNCHES, per_call, 1,
+                                f"match at {cfg['w']}x{cfg['h']} D={cfg['dmax']}")
+    max_abs_err(tiled.match_batch(left, right), got)
+    valid = torch.isfinite(got)
+    good = ((got - field).abs() <= 1.0)[valid].float().mean().item()
+    if good < MIN_GOOD:
+        raise AssertionError(f"{cfg['w']}x{cfg['h']} D={cfg['dmax']}: only "
+                             f"{good} of the finite pixels lie within 1 of "
+                             f"the truth")
+    ms = cuda_ms(lambda: untiled.match(left, right), 3)
+    tiled_ms = cuda_ms(lambda: tiled.match_batch(left, right), 3)
+    vplan = kernels.group_plan(torch.empty((1, 1, cfg["dmax"], cfg["w"]),
+                                           dtype=torch.uint8, device="cuda"),
+                               torch.empty((1, 1, cfg["dmax"], cfg["w"]),
+                                           dtype=torch.uint16, device="cuda"),
+                               kernels.group_capacity(
+                                   torch.empty((1, 1, cfg["dmax"], cfg["w"]),
+                                               dtype=torch.uint8, device="cuda"),
+                                   torch.empty((1, 1, cfg["dmax"], cfg["w"]),
+                                               dtype=torch.uint16, device="cuda"),
+                                   True), True, 2)
+    print(f"wide range, frame {cfg['w']}x{cfg['h']} D={cfg['dmax']} B=1 "
+          f"through SGMEngine.match: {ms:.3f} ms (CUDA events, median of 3), "
+          f"tiled exact on a 1x1 mesh {tiled_ms:.3f} ms and bit-equal; finite "
+          f"{valid.float().mean().item():.4f}, {good:.4f} of them within 1 "
+          f"of the truth; launches {launches}; the vertical pair's plan "
+          f"{vplan._asdict()}; peak device memory "
+          f"{peak / 2**30:.3f} GiB above the inputs; {card}")
+    return {"ms": ms, "tiled_ms": tiled_ms, "peak_bytes": peak,
+            "launches": launches}
+
+
+def wide_eval(tmp, card: str) -> None:
+    """``cli eval`` through a full-size Middlebury-2014 folder (2964x1988,
+    ndisp=280 in calib.txt, the repo's calibration): its measurement must
+    equal the harness's metrics of this script's own engine result."""
+    from pathlib import Path
+
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMEngine, SGMOptions, cli
+    from soc_project_stereo_matching_tpu_torch.data import (convert, datasets,
+                                                            synthetic)
+    from soc_project_stereo_matching_tpu_torch.eval import harness
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    cfg = WIDE_EVAL
+    left, right, field = synthetic.synthetic_pair(13, 1, cfg["h"], cfg["w"],
+                                                  cfg["levels"])
+    calib = datasets.synthetic_calib(cfg["w"], cfg["h"], **MIDDLEBURY_FULL_CALIB)
+    root = Path(tmp) / "middlebury_full"
+    folder = convert.pair_to_middlebury2014(
+        synthetic.stereo_pair("full", left[0], right[0], field, calib,
+                              cfg["dmax"]), root / "full")
+    stats_path = Path(tmp) / "middlebury_full_stats.json"
+    kernels.reset_launch_counts()
+    rc = cli.main(["eval", "--data", str(root), "--device", "cuda", "--stats",
+                   str(stats_path)])
+    torch.cuda.synchronize()
+    calls = 1 + harness.HarnessConfig().timing_repeats
+    counted_launches(kernels.LAUNCHES,
+                     main_path_launches(1, cfg["h"], cfg["w"], cfg["dmax"]),
+                     calls, "cli eval at full size")
+    stats = json.loads(stats_path.read_text())
+    loaded = datasets.load_pair_2014(folder)
+    if rc != 0 or stats["total_frames"] != 1 or loaded.dmax != cfg["dmax"]:
+        raise AssertionError(f"cli eval: rc {rc}, {stats['total_frames']} "
+                             f"frames, ndisp {loaded.dmax}")
+    disp = SGMEngine(SGMOptions(max_disparity=cfg["dmax"]), device="cuda").match(
+        torch.from_numpy(loaded.img_left).cuda(),
+        torch.from_numpy(loaded.img_right).cuda()).cpu().numpy()
+    want = harness.EvaluationHarness(SGMOptions())._metrics_for(loaded, disp, 0.0)
+    got = stats["measurements"][0]
+    same_measurements(got, want, [k for k in want if k != "duration_s"])
+    if not got["disp_bad3"] <= BAD3_MAX:
+        raise AssertionError(f"cli eval at full size: disp_bad3 "
+                             f"{got['disp_bad3']} above {BAD3_MAX}")
+    print(f"wide range, cli eval through a Middlebury-2014 folder "
+          f"{cfg['w']}x{cfg['h']} ndisp={cfg['dmax']}: {got['duration_s'] * 1e3:.3f} "
+          f"ms a frame (CUDA events, median of {calls - 1}); measurement equal "
+          f"to the script's; disp_bad3 {got['disp_bad3']:.5f}, valid "
+          f"{got['valid_frac']:.4f}; {card}")
+
+
+def wide_kernel_times(cfg, card: str) -> None:
+    """Each K2 form and the WTA at a full-size frame's shape with D > 256
+    (kernel table rows 2, 2c, 2w, 3, 3w and 4): CUDA-event ms, the entry
+    calls a call makes, the plan (clusters an image) of its largest launch
+    and its bound (inputs read once, outputs written once; 10 32-bit
+    operations an element and direction for the recurrence, 3 an element and
+    view for a WTA)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
+
+    left, right, _ = pair(cfg, seed=cfg["dmax"])
+    b, h, w = left.shape
+    d = cfg["dmax"]
+    cost = kernels.census_cost_volume(left, right, 0, d)
+    px, vol = b * h * w, b * h * w * d
+    acc = kernels.horizontal_partial(cost, left, 10, 150, False)
+    cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+    img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+    carry = (torch.zeros((b, 3, d, w), dtype=torch.int32, device="cuda"),
+             torch.zeros((b, 3, 1, w), dtype=torch.int32, device="cuda"))
+    gray = left[:, -1].contiguous()
+    (rf, _), (rb, _) = GROUPS
+    carry_bytes = 2 * 4 * b * 3 * (d + 1) * w
+    rows = {
+        "2 group": (lambda: kernels.directional_scan_group(
+            cost, left, None, rf, False, 10, 150, False),
+            vol + px + 2 * vol, 3 * 10 * vol, (cost, 3, False)),
+        "2c carries": (lambda: kernels.directional_scan_group(
+            cost, left, None, rf, False, 10, 150, False, carry_in=carry,
+            want_carry=True, prev_gray=gray),
+            vol + px + w * b + 2 * vol + carry_bytes, 3 * 10 * vol,
+            (cost, 3, False)),
+        "2w epilogue": (lambda: kernels.directional_scan_group(
+            cost, left, acc, rb, True, 10, 150, False, wta=(0, True)),
+            vol + px + 2 * vol + 40 * px, 3 * 10 * vol + 2 * 3 * vol,
+            (cost, 3, True)),
+        "3 horizontal pair": (lambda: kernels.horizontal_pair_transposed(
+            cost_t, img_t, 10, 150),
+            cost_t.numel() + img_t.numel() + 2 * cost_t.numel(),
+            2 * 10 * cost_t.numel(), (cost_t, 1, False)),
+        "3w vertical pair": (lambda: kernels.directional_scan_group_bidir(
+            cost, left, acc, rf, rb, 10, 150, False, wta=(0, True)),
+            vol + px + 2 * vol + 40 * px, 6 * 10 * vol + 2 * 3 * vol,
+            (cost, 3, True)),
+        "4 wta": (lambda: kernels.wta_reduce(acc, SGMOptions(max_disparity=d)),
+                  2 * vol + 40 * px, 2 * 3 * vol, None)}
+    for name, (fn, nbytes, ops, planned) in rows.items():
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        calls = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        ms = cuda_ms(fn, 3)
+        lim = bound(nbytes, ops)
+        plan = ""
+        if planned is not None:
+            x, n, wta = planned
+            probe = x[:, :1]
+            per = kernels.group_capacity(probe, probe.to(torch.uint16), wta)
+            p = kernels.group_plan(probe, probe.to(torch.uint16), min(n, per),
+                                   wta, 2 if name.startswith("3") else 1)
+            plan = (f", {min(n, per)} directions a launch over "
+                    f"{p.clusters_an_image} clusters of {p.cluster_blocks} "
+                    f"blocks, {p.images_a_wave} images a wave")
+        print(f"wide range, kernel row {name} at {w}x{h} D={d} B={b}: "
+              f"{ms:.3f} ms, calls {calls}{plan}; bound {lim['bound_ms']:.3f} "
+              f"ms ({lim['bound_by']}); {card}")
+
+
+def wide_phase(tmp, card: str) -> None:
+    """Phase 10: D > 256 on every main-path kernel and rows over several
+    clusters (see the module's docstring)."""
+    t0 = time.perf_counter()
+    for cfg in WIDE_KERNELS:
+        plan = wide_kernel_checks(cfg)
+        print(f"wide range, kernels at D={cfg['d']} B={cfg['batch']} "
+              f"{cfg['w']}x{cfg['h']}: every mode of sgm_scan_group, the WTA "
+              f"kernel, K1 (both modes), K3, K4 and match_batch bit-equal to "
+              f"their plain versions (max_abs_err 0.0); the vertical pair's "
+              f"plan {plan._asdict()}")
+    for cfg in WIDE_FRAMES:
+        wide_frame(cfg, card)
+    wide_kernel_times(WIDE_FRAMES[-1], card)
+    wide_eval(tmp, card)
+    print(f"wide range phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import tempfile
 
@@ -1984,12 +2326,13 @@ def main() -> None:
               f"ms (cone B={SPECKLE['batch']} 375x450, min_area 50, bit-equal; "
               f"also at 37x45 B=4 and on hand-made frames)")
 
-    # 8. surfaces, 9. benches
+    # 8. surfaces, 9. benches, 10. disparity ranges above 256, wide rows
     with tempfile.TemporaryDirectory() as tmp:
         surfaces_phase(tmp, smi.splitlines()[0])
         launches.update(benches_phase(tmp, smi.splitlines()[0]))
+        wide_phase(tmp, smi.splitlines()[0])
 
-    # 10. results
+    # 11. results
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

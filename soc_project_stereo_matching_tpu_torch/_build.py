@@ -36,8 +36,9 @@ SIGNATURES = {
     "sgm_census_cost_max_width": (_I, _I, _P),
     "sgm_scan_direction": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
-    "sgm_scan_group": (_P,) * 6 + (_I,) * 14 + (_P,),
+    "sgm_scan_group": (_P,) * 7 + (_I,) * 14 + (_P,),
     "sgm_scan_group_capacity": (_P, _P, _I, _I, _I, _I, _P),
+    "sgm_scan_group_plan": (_P, _P) + (_I,) * 6 + (_P,),
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),

@@ -39,8 +39,29 @@
 //     SMs idle; 16 (not a portable size: the card is asked before the launch
 //     whether it can place such a cluster) where D x W needs it, as at 1500
 //     columns and D = 256.  The size is chosen before the one launch an entry
-//     makes; a group that no size takes is refused, and the wrapper, which
-//     asks sgm_scan_group_capacity first, splits it into smaller groups.
+//     makes; a group that no size takes in one cluster is split by the
+//     wrapper, which asks sgm_scan_group_capacity first, into smaller groups
+//     where one direction fits, else runs over several clusters (below).
+//   * Several clusters an image (MULTI, where no cluster holds a row's state
+//     for even one direction: D x W large, as at full-resolution Middlebury
+//     or D > 256).  G clusters of CS = 16 blocks (8 where the card places no
+//     16) own the image's G * CS strips in order, the row's column pairs
+//     shared out as evenly as they can be (strip_start); G is the fewest
+//     that holds the state (plan_multi; kernels.group_clusters transcribes
+//     it).  Inside a cluster the strips hand over as below; at a cluster's
+//     edge (and at the image's wrap, the last cluster to the first) the one
+//     column a diagonal moves goes through device memory (`xchg`, three
+//     slots by receiving block) and a block's step count (`ticks`,
+//     published with release at GPU scope after the step's block barrier,
+//     read with acquire) says it is there; each edge block waits for both
+//     neighbours' counts, so they stay a step apart and a slot is free again
+//     when it is written.  The roll-0 direction hands nothing over.  An
+//     image's clusters wait on each other, so all of them must be resident
+//     at once: the launch runs the images in waves of as many as the card
+//     holds at once (cudaOccupancyMaxActiveClusters), and an image that
+//     does not fit is refused before any launch.  With the epilogue, a row's
+//     columns come from every cluster, so the ring's "ready" and "free" are
+//     every block's step and row counts there instead of mbarriers.
 //   * Per step the block stages its (D, TW) slab of the cost row into a ring
 //     of 2 to 4 shared-memory buffers with 16-byte cp.async copies, up to
 //     three steps ahead.  Rows of W bytes are not 16-byte aligned (W = 450),
@@ -315,6 +336,8 @@ int scan_direction(const void* cost, const void* img, void* aggr, int B,
                    int restart, int p1, int p2_init, int accumulate,
                    void* stream) {
   if (B * H * W == 0) return 0;
+  // the first design keeps a lane's DPL = D / 32 disparities in registers:
+  // D <= 256, for the tools (the group kernel takes D up to kMaxRange)
   if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   const uint8_t* c = (const uint8_t*)cost;
   const uint8_t* g = (const uint8_t*)img;
@@ -358,6 +381,7 @@ constexpr long long kWaitCycles = 1LL << 32;   // about 2 s
 constexpr long long kHeavyStrip = 16384;   // columns x D of a strip
 constexpr int kGroupSmem = 232448; // 227 KB, the most a block can take
 constexpr unsigned kByte2 = 0x00FF00FFu;
+constexpr int kMaxRange = 16384;   // D: the WTA's key, cost << 14 | k
 
 // One scan order of a group over the rows [lo, hi) (reverse: hi - 1 down to
 // lo).  The host's layout is kernels.ScanPass (ctypes).
@@ -408,6 +432,15 @@ struct GroupArgs {
   int ring_bars;   // byte offset of the ring's barriers (kRing "ready",
                    // kRing "free"), or -1 without the epilogue
   int smem_bytes;  // all of the dynamic shared memory
+  // several clusters an image (MULTI): G clusters of CS blocks own the
+  // image's G * CS strips in order; the launch (a wave) runs the images
+  // img0 .. img0 + gridDim.x / (G * CS) - 1 of the sets x B
+  int G, img0;
+  int* ticks;      // (sets * B, 2, G * CS) int32, zero at the launch: per
+                   // block, the steps its recurrence has finished and the
+                   // rows its reducers have reduced
+  uint8_t* xchg;   // (sets * B, G * CS, kSlots, n, recv_dir) bytes: the
+                   // columns handed over between clusters, by receiving block
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -433,6 +466,16 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 
 __device__ __forceinline__ int strip_cols(int rank, int TW, int W) {
   return min(W, (rank + 1) * TW) - rank * TW;
+}
+
+// Several clusters an image (MULTI): the first column of strip r of
+// `strips`, which share the row's column pairs as evenly as they can (a
+// strip of width TW each would leave the last ones empty at many strip
+// counts); strip_start(strips, ...) = W.
+__host__ __device__ __forceinline__ int strip_start(int r, int strips, int W) {
+  const long long pairs = (W + 1) / 2;
+  const long long c = 2 * ((long long)r * pairs / strips);
+  return (int)(c < W ? c : W);
 }
 
 // --- cluster hand-off: asynchronous remote stores that complete a barrier ---
@@ -568,6 +611,50 @@ __device__ __forceinline__ void mbar_wait_cluster(unsigned bar, int parity) {
   }
 }
 
+// --- between clusters (MULTI) ----------------------------------------------
+// Clusters of one image meet only in device memory: a block publishes how
+// many steps (or rows) it has finished with release at GPU scope, after a
+// block barrier that orders its threads' stores before it; a waiter reads
+// the count with acquire at GPU scope and passes it on with a barrier of
+// its role, whose threads then read the data from the L2 (__ldcg).
+
+__device__ __forceinline__ void tick_publish(int* at, int value) {
+  asm volatile("fence.acq_rel.gpu;\n"
+               "st.relaxed.gpu.global.s32 [%0], %1;\n" ::"l"(at),
+               "r"(value)
+               : "memory");
+}
+
+__device__ __forceinline__ int tick_read(const int* at) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(at)
+               : "memory");
+  return v;
+}
+
+// One thread: until *at >= target; traps after kWaitCycles, as mbar_wait.
+__device__ __forceinline__ void tick_wait(const int* at, int target) {
+  const long long start = clock64();
+  while (tick_read(at) < target)
+    if (clock64() - start > kWaitCycles) __trap();
+}
+
+// A whole warp: until at[i] >= target for every i < n, 32 at a time.
+__device__ __forceinline__ void ticks_wait_all(const int* at, int n,
+                                               int target) {
+  const int lane = threadIdx.x & 31;
+  const long long start = clock64();
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    bool ok = i0 + lane >= n;
+    while (!__all_sync(kFull, ok)) {
+      if (!ok) ok = tick_read(at + i0 + lane) >= target;
+      if (clock64() - start > kWaitCycles) __trap();
+    }
+  }
+}
+
 constexpr int kBig = 1 << 30;   // sec_min where D = 1
 constexpr int kWtaBatch = 4;    // planes whose loads a reducer issues at once
 
@@ -681,14 +768,19 @@ __device__ __forceinline__ void wta_best(const uint16_t* row, Best2 (&t)[2],
 // neighbouring lanes of a warp, whose bests merge in a tree by shuffles
 // (no shared memory); the first lane of a pair then reads the costs beside
 // each column's best plane (one round trip) and stores the five planes.
-// Pairs beyond the reducers' count take further rounds.
-template <bool EVEN>
+// Pairs beyond the reducers' count take further rounds.  MULTI: the row's
+// columns come from every cluster of the image, so "ready" is every block's
+// step count (ticks[0 .. GR), ahead by `base` steps of the earlier passes)
+// and "free" this block's row count (ticks[GR + R]), both in device memory.
+template <bool EVEN, bool MULTI>
 __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
                                             const ScanPass& P, int rt, int b,
                                             int cstart, int Lb, int CS,
                                             const uint16_t* fin,
                                             unsigned long long* ready,
-                                            unsigned long long* freed) {
+                                            unsigned long long* freed,
+                                            int* ticks, int GR, int R,
+                                            int base) {
   const int D = a.D, W = a.W, dmin = a.dmin;
   const int nchr = a.red_chunks, dcr = a.red_dc, per = kReducers / nchr;
   const int chunk = rt % nchr;
@@ -697,7 +789,11 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
   const int steps = P.hi - P.lo;
   for (int s = 0; s < steps; ++s) {
     const int slot = s % kRing;
-    if (rt == 0) mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);
+    if (MULTI) {
+      if (rt < 32) ticks_wait_all(ticks, GR, base + s + 1);
+    } else if (rt == 0) {
+      mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);
+    }
     bar_sync(2, kReducers);
     const uint16_t* row = fin + (size_t)slot * D * W;
     const int t = P.reverse ? P.hi - 1 - s : P.lo + s;
@@ -752,7 +848,11 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
       }
     }
     bar_sync(2, kReducers);   // every reducer is done with the slot
-    if (rt < CS) mbar_arrive_cluster(peer_addr(smem_addr(freed + slot), rt));
+    if (MULTI) {
+      if (rt == 0) tick_publish(ticks + GR + R, s + 1);
+    } else if (rt < CS) {
+      mbar_arrive_cluster(peer_addr(smem_addr(freed + slot), rt));
+    }
   }
 }
 
@@ -760,7 +860,10 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
 // a multiple of 4, so a column pair of the cost slab is one 16-bit load and a
 // pair of sums one 32-bit access; else bytes and halves.  WTA: the last pass
 // carries the epilogue (a.views > 0), reduced by warps of their own.
-template <int N, bool EVEN, bool WTA>
+// MULTI: an image takes a.G clusters; the strips at a cluster's two edges
+// hand over through device memory (a.xchg) and the reducers pace the ring
+// by counts there (a.ticks).
+template <int N, bool EVEN, bool WTA, bool MULTI>
 __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
                                       : kGroupThreads)
     group_kernel(const __grid_constant__ GroupArgs a) {
@@ -768,7 +871,11 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int image = blockIdx.x / CS;   // the launch's sets x B clusters
+  const int G = MULTI ? a.G : 1;
+  const int cl = blockIdx.x / CS;       // the launch's cluster
+  const int image = a.img0 + cl / G;    // of the sets x B
+  const int GR = G * CS;                // strips of the image
+  const int strip = (cl - (cl / G) * G) * CS + rank;   // this block's
   const int set = image / a.B, b = image - set * a.B;
   const int tid = threadIdx.x;
   const int R = a.rec_threads;   // the recurrence's; the reducers follow
@@ -799,8 +906,13 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       WTA ? (unsigned long long*)(smem + a.ring_bars) : nullptr;
   unsigned long long* freed = WTA ? ready + kRing : nullptr;
 
-  const int cstart = rank * a.TW;
-  const int Lb = strip_cols(rank, a.TW, W);
+  const int cstart = MULTI ? strip_start(strip, GR, W) : strip * a.TW;
+  const int Lb = MULTI ? strip_start(strip + 1, GR, W) - cstart
+                       : strip_cols(strip, a.TW, W);
+  // MULTI: the neighbour strips in other clusters, and this image's counts
+  const bool gleft = MULTI && rank == 0, gright = MULTI && rank == CS - 1;
+  const int left_strip = (strip + GR - 1) % GR, right_strip = (strip + 1) % GR;
+  int* ticks = MULTI ? a.ticks + (size_t)image * 2 * GR : nullptr;
   const uint8_t* cost_b = a.cost + (size_t)b * S * D * W;
   const uint8_t* cost_end = a.cost + (size_t)a.B * S * D * W;
   const uint8_t* img_b = a.img + (size_t)b * S * W;
@@ -829,11 +941,14 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   if (WTA && tid >= R) {
     // the reducers: a cluster barrier with the recurrence at each pass's
     // start, the rows of the last pass as they are finished
+    int base = 0;   // the recurrence's steps in the passes before
     for (int pass = 0; pass < a.npass; ++pass) {
+      const ScanPass& P = a.pass[set * a.npass + pass];
       cluster.sync();
       if (pass == a.npass - 1)
-        reduce_rows<EVEN>(a, a.pass[set * a.npass + pass], tid - R, b, cstart,
-                          Lb, CS, fin, ready, freed);
+        reduce_rows<EVEN, MULTI>(a, P, tid - R, b, cstart, Lb, CS, fin, ready,
+                                 freed, ticks, GR, strip, base);
+      base += P.hi - P.lo;
     }
     cluster.sync();   // no block leaves while a peer may still arrive
     return;
@@ -891,6 +1006,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   const unsigned tokens_left = peer_addr(smem_addr(tokens), left);
   // the next parity of each hand-off barrier (thread 0 waits on them)
   unsigned phases = 0;
+  int tick0 = 0;   // MULTI: the steps of the passes before, as published
 
   for (int pass = 0; pass < a.npass; ++pass) {
     const ScanPass& P = a.pass[set * a.npass + pass];
@@ -906,9 +1022,21 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
 #pragma unroll
     for (int k = 0; k < N; ++k) diagonals += rolls[k] != 0;
     // bytes a step's hand-off brings in: a token from each neighbour, and
-    // per diagonal direction a column and its partial minima
+    // per diagonal direction a column and its partial minima; MULTI: only
+    // what comes from a neighbour in the cluster (the next cluster's comes
+    // through device memory, `gtake` the directions that do)
     const int dir_bytes = a.NCH * a.DC + 4 * a.NCH;
-    const int step_bytes = 8 + diagonals * dir_bytes;
+    int step_bytes = 8 + diagonals * dir_bytes;
+    bool gtake[N];
+    bool any_gtake = false;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      gtake[k] = (rolls[k] > 0 && gleft) || (rolls[k] < 0 && gright);
+      any_gtake |= gtake[k];
+      if (MULTI && gtake[k]) step_bytes -= dir_bytes;
+    }
+    if (MULTI) step_bytes -= (gleft ? 4 : 0) + (gright ? 4 : 0);
+    const bool smem_link = step_bytes > 0;   // the cluster has a peer
 
     // The carry-in is the first state buffer, halo columns included.
     if (!fresh_start) {
@@ -992,15 +1120,17 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       const int slot = s % kSlots;
       if (s + a.NST - 1 < steps) stage_row(s + a.NST - 1);
       cp_async_commit();
-      if (hand_off && tid == 0) {
+      if (hand_off && tid == 0 && smem_link) {
         // arm this step's barrier; tell both peers that this block has left
         // step s - 1 behind (a peer never runs more than a step ahead, so a
         // hand-off buffer is free again two steps after it was read)
         mbar_expect(smem_addr(bars + slot), step_bytes);
-        send_word(tokens_right + 4 * (slot * 2), (unsigned)s,
-                  bars_right + 8 * slot);
-        send_word(tokens_left + 4 * (slot * 2 + 1), (unsigned)s,
-                  bars_left + 8 * slot);
+        if (!gright)
+          send_word(tokens_right + 4 * (slot * 2), (unsigned)s,
+                    bars_right + 8 * slot);
+        if (!gleft)
+          send_word(tokens_left + 4 * (slot * 2 + 1), (unsigned)s,
+                    bars_left + 8 * slot);
       }
 
       // one thread waits for what the neighbours handed over at the last
@@ -1010,18 +1140,49 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       // where it landed
       const bool handed = diagonals > 0 && s > 0;
       const bool reuse = epi && s >= kRing;
-      if (handed || reuse) {
+      // MULTI: a later pass starts when the neighbour clusters have left the
+      // one before (the hand-off buffers in device memory are used again),
+      // and a step when they have finished the step before it, which also
+      // keeps them at most a step apart
+      const bool rejoin = MULTI && diagonals > 0 && s == 0 && pass > 0;
+      if (handed || reuse || rejoin) {
+        if (MULTI && tid < 32) {
+          if ((handed || rejoin) && tid == 0) {
+            if (gleft) tick_wait(ticks + left_strip, tick0 + s);
+            if (gright) tick_wait(ticks + right_strip, tick0 + s);
+          }
+          if (reuse) ticks_wait_all(ticks + GR, GR, s - kRing + 1);
+        }
         if (tid == 0) {
-          if (handed) {
+          if (handed && smem_link) {
             const int prev_slot = (s - 1) % kSlots;
             mbar_wait(smem_addr(bars + prev_slot), (phases >> prev_slot) & 1);
             phases ^= 1u << prev_slot;
           }
-          if (reuse)
+          if (reuse && !MULTI)
             mbar_wait_cluster(smem_addr(freed + s % kRing),
                               (s / kRing - 1) & 1);
         }
         rec_sync();
+        if (MULTI && handed && any_gtake) {
+          // the columns from the next cluster, into the hand-off buffer
+          // where a peer's would land: the bytes and the partial minima
+          const int slot_in = (s - 1) % kSlots;
+          const int cw = a.NCH * a.DC / 4;
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            if (!gtake[k]) continue;
+            const uint8_t* src =
+                a.xchg + ((((size_t)image * GR + strip) * kSlots + slot_in) *
+                              N + k) * a.recv_dir;
+            uint8_t* dst = smem + recv + slot_in * recv_slot + k * recv_dir;
+            for (int i = tid; i < cw + a.NCH; i += R) {
+              const int off = i < cw ? 16 + 4 * i : recv_pm + 4 * (i - cw);
+              *(unsigned*)(dst + off) = __ldcg((const unsigned*)(src + off));
+            }
+          }
+          rec_sync();
+        }
       }
 
       if (active) {
@@ -1050,7 +1211,8 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
         // onto (src) and the row it stores (o): the volume, or in the
         // epilogue the ring of finished rows
         int cp = ring + (s % a.NST) * slab_bytes + d_lo * pitchC + lc;
-        int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) + d_lo * W) & 15);
+        int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) +
+                          (uintptr_t)d_lo * W) & 15);
         const uint16_t* src = out_b + row_off + (size_t)d_lo * W;
         uint16_t* o = epi ? (uint16_t*)fin + (size_t)(s % kRing) * D * W +
                                 (size_t)d_lo * W + c0
@@ -1210,14 +1372,26 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
             const unsigned dst = (to_right ? recv_right : recv_left) +
                                  slot * recv_slot + k * recv_dir;
             const unsigned bar = (to_right ? bars_right : bars_left) + 8 * slot;
-            if (a.DC % 16 == 0) {
-              for (int i = 0; i < a.DC; i += 16)
-                send_vec(dst + 16 + d_lo + i, src_col + i / 4, bar);
-            } else {
+            if (MULTI && (to_right ? gright : gleft)) {
+              // to the next cluster: its buffer of this step in device
+              // memory, published with this block's step count
+              uint8_t* g =
+                  a.xchg + ((((size_t)image * GR +
+                              (to_right ? right_strip : left_strip)) *
+                                 kSlots + slot) * N + k) * a.recv_dir;
               for (int i = 0; i < a.DC; i += 4)
-                send_word(dst + 16 + d_lo + i, src_col[i / 4], bar);
+                *(unsigned*)(g + 16 + d_lo + i) = src_col[i / 4];
+              *(unsigned*)(g + recv_pm + 4 * ch) = mn;
+            } else {
+              if (a.DC % 16 == 0) {
+                for (int i = 0; i < a.DC; i += 16)
+                  send_vec(dst + 16 + d_lo + i, src_col + i / 4, bar);
+              } else {
+                for (int i = 0; i < a.DC; i += 4)
+                  send_word(dst + 16 + d_lo + i, src_col[i / 4], bar);
+              }
+              send_word(dst + recv_pm + 4 * ch, mn, bar);
             }
-            send_word(dst + recv_pm + 4 * ch, mn, bar);
           }
         }
         g0 = n_g0, g1 = gc0, g2 = n_g2, g3 = n_g3;
@@ -1225,11 +1399,17 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       }
       cp_async_wait(a.NST - 2);
       rec_sync();
-      // row s is in the ring: tell every block's reducers
-      if (epi && tid < CS)
+      // row s is in the ring: tell every block's reducers (MULTI: by this
+      // block's step count, which also tells the next clusters that this
+      // step's hand-off is in device memory)
+      if (!MULTI && epi && tid < CS)
         mbar_arrive_cluster(peer_addr(smem_addr(ready + s % kRing), tid));
+      if (MULTI && tid == 0 && (epi || (diagonals > 0 && (gleft || gright))))
+        tick_publish(ticks + strip, tick0 + s + 1);
       buf ^= 1;
     }
+    tick0 += steps;
+    if (MULTI && tid == 0) tick_publish(ticks + strip, tick0);   // the pass
     if (P.cout_cost != nullptr) {  // the state after the last step
       const uint8_t* st = smem + state + buf * state_buf;
       const uint16_t* pmv = pm + buf * pm_buf;
@@ -1253,13 +1433,22 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
 
 inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// The launch shape for a cluster of `cs` blocks per image; returns the
-// dynamic shared memory it needs, or -1 if `cs` strips leave a block empty.
-// With `wta` the recurrence takes at most kWtaThreads threads, the reducers'
-// partition is chosen and the ring's barriers are held too.
-int group_shape(GroupArgs& a, int n, int cs, bool wta) {
-  a.TW = round_up((a.W + cs - 1) / cs, 2);
-  if ((cs - 1) * a.TW >= a.W) return -1;
+// The launch shape for clusters of `cs` blocks, `g` of them an image;
+// returns the dynamic shared memory it needs, or -1 if g * cs strips leave
+// a block empty (g = 1: strips of TW columns, the last the rest; g > 1:
+// strip_start's).  With `wta` the recurrence takes at most kWtaThreads
+// threads, the reducers' partition is chosen and the ring's barriers are
+// held too.  (kernels.group_smem_bytes transcribes it.)
+int group_shape(GroupArgs& a, int n, int cs, int g, bool wta) {
+  const int strips = cs * g;
+  if (g == 1) {
+    a.TW = round_up((a.W + strips - 1) / strips, 2);
+    if ((strips - 1) * a.TW >= a.W) return -1;
+  } else {   // strip_start: the pairs shared out, the widest strip's
+    const int pairs = (a.W + 1) / 2;
+    if (strips > pairs) return -1;
+    a.TW = 2 * ((pairs + strips - 1) / strips);
+  }
   a.NP = a.TW / 2;
   const int threads = wta ? kWtaThreads : kGroupThreads;
   if (a.NP > threads) return kGroupSmem + 1;   // a wider cluster
@@ -1302,12 +1491,13 @@ int group_shape(GroupArgs& a, int n, int cs, bool wta) {
   return kGroupSmem + 1;
 }
 
-// A launch of `cs` blocks per image; `bytes` from group_shape at that size.
-template <int N, bool EVEN, bool WTA>
-cudaError_t group_config(const GroupArgs& a, int cs, int bytes,
+// A launch of `images` images, a.G clusters of `cs` blocks each; `bytes`
+// from group_shape at that size.
+template <int N, bool EVEN, bool WTA, bool MULTI>
+cudaError_t group_config(const GroupArgs& a, int cs, int bytes, int images,
                          cudaLaunchAttribute* attr,
                          cudaLaunchConfig_t* config) {
-  auto* kernel = group_kernel<N, EVEN, WTA>;
+  auto* kernel = group_kernel<N, EVEN, WTA, MULTI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1316,7 +1506,7 @@ cudaError_t group_config(const GroupArgs& a, int cs, int bytes,
                              cs > 8);
   if (err != cudaSuccess) return err;
   *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3((unsigned)(a.sets * a.B * cs));
+  config->gridDim = dim3((unsigned)((long long)images * a.G * cs));
   config->blockDim = dim3((unsigned)(a.rec_threads + (WTA ? kReducers : 0)));
   config->dynamicSmemBytes = (size_t)bytes;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1345,7 +1535,8 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
   int cs = 0;
   for (int c = 1; c <= kMaxCluster; c *= 2) {
     GroupArgs trial = a;
-    const int need = group_shape(trial, N, c, WTA);
+    trial.G = 1;
+    const int need = group_shape(trial, N, c, 1, WTA);
     if (need < 0) break;
     if (need > kGroupSmem) continue;
     if (cs != 0 && clusters_wanted * cs >= sms) break;
@@ -1355,11 +1546,12 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
     if (c > 8 || (WTA && cs != 0)) {
       cudaLaunchAttribute attr[1];
       cudaLaunchConfig_t config;
-      err = group_config<N, EVEN, WTA>(trial, c, need, attr, &config);
+      err = group_config<N, EVEN, WTA, false>(trial, c, need, a.sets * a.B,
+                                               attr, &config);
       if (err != cudaSuccess) return err;
       int clusters = 0;
       err = cudaOccupancyMaxActiveClusters(
-          &clusters, group_kernel<N, EVEN, WTA>, &config);
+          &clusters, group_kernel<N, EVEN, WTA, false>, &config);
       if (err != cudaSuccess) return err;
       if (clusters < 1) break;
       // the epilogue's clusters wait on each other's rows: grow a cluster
@@ -1372,24 +1564,96 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
   return cudaSuccess;
 }
 
-// One launch; its error is the entry's.
+// Where no cluster holds an image's row: clusters of the largest size the
+// card places (16 blocks, else 8), as few of them an image as hold its
+// state (g = 2, 3, ...).  An image's clusters wait on each other's steps,
+// so they must all be resident at once: the launch runs the images in
+// waves of as many as the card holds at once (per_wave, asked of the card
+// for this kernel and shape); per_wave = 0 where one image's clusters do
+// not fit the card at once.  G = 0: no number of clusters takes N
+// directions (strips of two columns still do not fit).
+struct Plan {
+  long long G, CS, per_wave, clusters, work;   // work: bytes of ticks + xchg
+};
+
 template <int N, bool EVEN, bool WTA>
-int launch_group(GroupArgs a, cudaStream_t stream) {
+cudaError_t plan_multi(const GroupArgs& a, Plan* p) {
+  *p = Plan{};
+  for (int cs = kMaxCluster; cs >= 8; cs /= 2) {
+    for (int g = 2;; ++g) {
+      GroupArgs trial = a;
+      trial.G = g;
+      const int need = group_shape(trial, N, cs, g, WTA);
+      if (need < 0) break;
+      if (need > kGroupSmem) continue;
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t config;
+      cudaError_t err =
+          group_config<N, EVEN, WTA, true>(trial, cs, need, 1, attr, &config);
+      if (err != cudaSuccess) return err;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, group_kernel<N, EVEN, WTA, true>, &config);
+      if (err != cudaSuccess) return err;
+      if (clusters < 1) break;   // the card places no cluster of cs blocks
+      const long long images = (long long)a.sets * a.B, strips = (long long)g * cs;
+      *p = Plan{g, cs, clusters / g, clusters,
+                round_up((int)(images * 2 * strips * 4), 256) +
+                    images * strips * kSlots * N * trial.recv_dir};
+      if (p->per_wave >= 1) return cudaSuccess;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
+// One entry call: one launch where a cluster holds an image's row (G = 1),
+// else (MULTI) a launch per wave of images, with `work` (zeroed, plan.work
+// bytes) for the counts and the hand-off between clusters.
+template <int N, bool EVEN, bool WTA>
+int launch_group(GroupArgs a, void* work, cudaStream_t stream) {
   int cs = 0;
   cudaError_t err = choose_cluster<N, EVEN, WTA>(a, &cs);
   if (err != cudaSuccess) return (int)err;
-  if (cs == 0) return (int)cudaErrorInvalidConfiguration;
-  const int bytes = group_shape(a, N, cs, WTA);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config;
-  err = group_config<N, EVEN, WTA>(a, cs, bytes, attr, &config);
+  if (cs != 0) {
+    a.G = 1, a.img0 = 0;
+    const int bytes = group_shape(a, N, cs, 1, WTA);
+    err = group_config<N, EVEN, WTA, false>(a, cs, bytes, a.sets * a.B, attr,
+                                            &config);
+    if (err != cudaSuccess) return (int)err;
+    config.stream = stream;
+    return (int)cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA, false>,
+                                   a);
+  }
+  Plan p;
+  err = plan_multi<N, EVEN, WTA>(a, &p);
   if (err != cudaSuccess) return (int)err;
-  config.stream = stream;
-  return (int)cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA>, a);
+  if (p.G == 0 || p.per_wave < 1) return (int)cudaErrorInvalidConfiguration;
+  if (work == nullptr) return (int)cudaErrorInvalidValue;
+  a.G = (int)p.G;
+  const int bytes = group_shape(a, N, (int)p.CS, a.G, WTA);
+  const int images = a.sets * a.B;
+  a.ticks = (int*)work;
+  a.xchg = (uint8_t*)work + round_up(images * 2 * a.G * (int)p.CS * 4, 256);
+  for (int img0 = 0; img0 < images; img0 += (int)p.per_wave) {
+    a.img0 = img0;
+    const int n_img = images - img0 < p.per_wave ? images - img0
+                                                 : (int)p.per_wave;
+    err = group_config<N, EVEN, WTA, true>(a, (int)p.CS, bytes, n_img, attr,
+                                           &config);
+    if (err != cudaSuccess) return (int)err;
+    config.stream = stream;
+    err = cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA, true>, a);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 using Chooser = cudaError_t (*)(const GroupArgs&, int*);
-using Launcher = int (*)(GroupArgs, cudaStream_t);
+using Planner = cudaError_t (*)(const GroupArgs&, Plan*);
+using Launcher = int (*)(GroupArgs, void*, cudaStream_t);
 // [directions - 1][even][wta]
 #define SGM_GROUP_TABLE(F, N)                                   \
   {{F<N, false, false>, F<N, false, true>},                     \
@@ -1397,6 +1661,9 @@ using Launcher = int (*)(GroupArgs, cudaStream_t);
 constexpr Chooser kChoose[kMaxDirs][2][2] = {
     SGM_GROUP_TABLE(choose_cluster, 1), SGM_GROUP_TABLE(choose_cluster, 2),
     SGM_GROUP_TABLE(choose_cluster, 3)};
+constexpr Planner kPlan[kMaxDirs][2][2] = {
+    SGM_GROUP_TABLE(plan_multi, 1), SGM_GROUP_TABLE(plan_multi, 2),
+    SGM_GROUP_TABLE(plan_multi, 3)};
 constexpr Launcher kLaunch[kMaxDirs][2][2] = {
     SGM_GROUP_TABLE(launch_group, 1), SGM_GROUP_TABLE(launch_group, 2),
     SGM_GROUP_TABLE(launch_group, 3)};
@@ -1434,20 +1701,22 @@ extern "C" int sgm_scan_direction(const void* cost, const void* img,
 // first direction.  views=1 or 2: the WTA epilogue on each set's last
 // pass, which stores no volume but the int32 (views * 5, B, S, W) planes of
 // its rows' totals (forward view, then the inverse view at dmin), through
-// `finished`, a uint16 (sets * B, kRing, D, W) scratch ring.  A group that
-// no cluster takes at this shape is refused (cudaErrorInvalidConfiguration;
-// see sgm_scan_group_capacity).
+// `finished`, a uint16 (sets * B, kRing, D, W) scratch ring.  Where no
+// cluster holds a row, an image takes several (sgm_scan_group_plan) and
+// `work` must point at that plan's `work` bytes of zeros in device memory
+// (else it may be null).  A group that no plan takes at this shape is
+// refused (cudaErrorInvalidConfiguration; see sgm_scan_group_capacity).
 extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
-                              void* finished, void* planes,
+                              void* finished, void* planes, void* work,
                               const void* passes, int npass, int sets, int B,
                               int S, int D, int W, int n, int carry_n,
                               int restart, int p1, int p2_init,
                               int accumulate, int views, int dmin,
                               void* stream) {
   if ((long long)B * S * W == 0) return 0;
-  if (D < 1 || D > 256 || n < 1 || n > kMaxDirs || p1 < 0 || p2_init < 0 ||
-      views < 0 || views > 2 || npass < 1 || sets < 1 || npass * sets > 2 ||
-      passes == nullptr)
+  if (D < 1 || D > kMaxRange || n < 1 || n > kMaxDirs || p1 < 0 ||
+      p2_init < 0 || views < 0 || views > 2 || npass < 1 || sets < 1 ||
+      npass * sets > 2 || passes == nullptr)
     return (int)cudaErrorInvalidValue;
   if (views && (finished == nullptr || planes == nullptr || dmin < 0))
     return (int)cudaErrorInvalidValue;
@@ -1477,33 +1746,82 @@ extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
   a.views = views, a.dmin = dmin;
   a.finished = views ? (uint16_t*)finished : nullptr;
   a.planes = (int*)planes;
-  return kLaunch[n - 1][even_access(a)][views > 0](a, (cudaStream_t)stream);
+  return kLaunch[n - 1][even_access(a)][views > 0](a, work,
+                                                   (cudaStream_t)stream);
+}
+
+// How a launch of n directions on `sets` sets of B images runs at this
+// shape on the current card, into the host int64 out[5]: G (clusters an
+// image; 0: no plan), CS (blocks a cluster), the images a launch (a wave)
+// takes, the clusters of that shape the card holds at once (0 where G = 1:
+// no wave is needed) and the bytes of `work` sgm_scan_group needs (0 where
+// G = 1).  An empty volume's launch does nothing: G = 1, no work.
+extern "C" int sgm_scan_group_plan(const void* cost, const void* aggr, int B,
+                                   int D, int W, int n, int wta, int sets,
+                                   void* out) {
+  long long* o = (long long*)out;
+  for (int i = 0; i < 5; ++i) o[i] = 0;
+  if (D < 1 || D > kMaxRange || n < 1 || n > kMaxDirs || B < 0 || W < 0 ||
+      sets < 1 || sets > 2)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * W == 0) {
+    o[0] = 1;
+    return 0;
+  }
+  GroupArgs a{};
+  a.cost = (const uint8_t*)cost;
+  a.out = (uint16_t*)aggr;
+  a.npass = 1, a.sets = sets;
+  a.B = B, a.D = D, a.W = W;
+  const bool even = even_access(a);
+  int cs = 0;
+  cudaError_t err = kChoose[n - 1][even][wta != 0](a, &cs);
+  if (err != cudaSuccess) return (int)err;
+  if (cs != 0) {
+    o[0] = 1, o[1] = cs, o[2] = (long long)sets * B;
+    return 0;
+  }
+  Plan p;
+  err = kPlan[n - 1][even][wta != 0](a, &p);
+  if (err != cudaSuccess) return (int)err;
+  o[0] = p.G, o[1] = p.CS, o[2] = p.per_wave, o[3] = p.clusters, o[4] = p.work;
+  return 0;
 }
 
 // The most directions (0..3) one sgm_scan_group launch takes for these
 // volumes at this shape on the current card, with (wta=1) or without the
 // WTA epilogue, into the host int *dirs (3 for an empty volume: its launch
-// does nothing).
+// does nothing): the most that one cluster an image takes, else the most
+// that several clusters take with one image's clusters resident at once.
 extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
                                        int B, int D, int W, int wta,
                                        void* dirs) {
   *(int*)dirs = kMaxDirs;
   if ((long long)B * W == 0) return 0;
   *(int*)dirs = 0;
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxRange) return (int)cudaErrorInvalidValue;
   GroupArgs a{};
   a.cost = (const uint8_t*)cost;
   a.out = (uint16_t*)aggr;
   a.npass = a.sets = 1;
   a.B = B, a.D = D, a.W = W;
+  const bool even = even_access(a);
   for (int n = kMaxDirs; n >= 1; --n) {
     int cs = 0;
-    const cudaError_t err =
-        kChoose[n - 1][even_access(a)][wta != 0](a, &cs);
+    const cudaError_t err = kChoose[n - 1][even][wta != 0](a, &cs);
     if (err != cudaSuccess) return (int)err;
     if (cs != 0) {
       *(int*)dirs = n;
-      break;
+      return 0;
+    }
+  }
+  for (int n = kMaxDirs; n >= 1; --n) {
+    Plan p;
+    const cudaError_t err = kPlan[n - 1][even][wta != 0](a, &p);
+    if (err != cudaSuccess) return (int)err;
+    if (p.G != 0 && p.per_wave >= 1) {
+      *(int*)dirs = n;
+      return 0;
     }
   }
   return 0;

@@ -52,8 +52,9 @@
 //     of the planes that lost to it (the min over k != best, ties
 //     included), one Hopper VIMNMX.U16x2 each, whose two predicates say
 //     where the min stays (m1 <= cost: ties keep the first plane).  Where
-//     the min changes hands a column latches prev << 8 | k, c1 and best in
-//     one word; c2 is the cost of the plane after one that took the min.
+//     the min changes hands a column latches prev << 14 | k, c1 and best in
+//     one word (a cost is at most 65535, so the latch fits an int32 for k <
+//     2^14); c2 is the cost of the plane after one that took the min.
 //     No branch depends on the data, and c1 and c2 need no second read.
 //     Packed 24-bit keys cost << 8 | k per column, as the Pallas kernel
 //     keeps them, took some six integer operations a column, plane and view
@@ -62,15 +63,16 @@
 //   * The ten planes leave as 8-byte stores of the column pair where W is
 //     even (a row of 450 int32 starts 8-byte aligned), as 4-byte stores
 //     otherwise.
-// Rows up to kMaxWidth columns at any D in 1..256 and any dmin >= 0: wider
-// than any row the group scan kernel (csrc/aggregate.cu) takes.
+// Rows up to kMaxWidth columns at any D in 1..16,384 (the JAX package's
+// bound, the latch's) and any dmin >= 0, where a plane's staged window fits
+// a block's shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kShift = 8;                     // latch = cost << kShift | k
+constexpr int kShift = 14;                    // latch = cost << kShift | k
 constexpr int kMaxD = 1 << kShift;
 constexpr int kBig = 1 << 30;                 // sec_min where D = 1
 constexpr unsigned kSentinel = 0xFFFFu;       // the inverse view off the row
@@ -200,7 +202,7 @@ __device__ __forceinline__ unsigned ld32(unsigned a) {
 // halves (x low, x + 1 high).
 struct Pair {
   unsigned m1, m2;  // the min and the min over the planes that lost, by half
-  int rk[2];        // per column: cost at the plane before the min << 8 | k
+  int rk[2];        // per column: cost at the plane before the min << 14 | k
   int rc2[2];       // per column: cost at the plane after the min, latched
   int prev[2];      // per column: cost at the plane before
   bool took[2];     // per column: the plane before took the min
@@ -223,9 +225,10 @@ __device__ __forceinline__ void pair_step(Pair& p, unsigned vp, int v0,
   const unsigned m1 = __vibmin_u16x2(p.m1, vp, &keep1, &keep0);
   p.m2 = __vminu2(p.m2, __vmaxu2(p.m1, vp));
   p.m1 = m1;
-  int l0, l1;   // prev << 8 | k, on the multiply-add pipe
-  asm("mad.lo.s32 %0, %1, 256, %2;" : "=r"(l0) : "r"(p.prev[0]), "r"(k));
-  asm("mad.lo.s32 %0, %1, 256, %2;" : "=r"(l1) : "r"(p.prev[1]), "r"(k));
+  int l0, l1;   // prev << kShift | k, on the multiply-add pipe
+  static_assert(kMaxD == 16384, "the latch's multiplier below is kMaxD");
+  asm("mad.lo.s32 %0, %1, 16384, %2;" : "=r"(l0) : "r"(p.prev[0]), "r"(k));
+  asm("mad.lo.s32 %0, %1, 16384, %2;" : "=r"(l1) : "r"(p.prev[1]), "r"(k));
   p.rk[0] = keep0 ? p.rk[0] : l0;
   p.rk[1] = keep1 ? p.rk[1] : l1;
   p.rc2[0] = p.took[0] ? v0 : p.rc2[0];
@@ -428,8 +431,9 @@ int launch(const uint16_t* aggr, int* out, int rows, int D, int W, int dmin,
 
 // WTA planes of a uint16 (B, H, D, W) volume into out = int32 (5 or 10, B,
 // H, W): best, min, sec_min, c1, c2 of the forward view, then of the
-// inverse.  Refused (cudaErrorInvalidValue) outside D in 1..256, dmin >= 0,
-// W <= 32768 (kMaxWidth).
+// inverse.  Refused (cudaErrorInvalidValue) outside D in 1..16,384, dmin >=
+// 0, W <= 32768 (kMaxWidth), or where a segment's staged plane does not fit
+// shared memory.
 extern "C" int sgm_wta_reduce(const void* aggr, void* out, int B, int H,
                               int D, int W, int dmin, int include_inverse,
                               void* stream) {

@@ -287,7 +287,7 @@ FUSED_ABLATIONS = {
         "        t[v].m1 ^= c[v][i];\n")],
     # neither role waits on the ring's barriers (the arrivals are kept)
     "no ring wait": [
-        ("    if (rt == 0) mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);\n",
+        ("      mbar_wait_cluster(smem_addr(ready + slot), (s / kRing) & 1);\n",
          ""),
         ("      const bool reuse = epi && s >= kRing;\n",
          "      const bool reuse = false;\n")],
@@ -305,6 +305,11 @@ GROUP_BEFORE_FUSED = {
 GROUP_TWO_ORDER = {
     "sgm_scan_group": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 20 + (
         ctypes.c_void_p,)}
+# sgm_scan_group with ScanPass but before it took the work buffer of
+# several clusters an image: 6 pointers, 14 ints and the stream
+GROUP_PASSES = {
+    "sgm_scan_group": (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 14 + (
+        ctypes.c_void_p,)}
 RUN = 10    # back-to-back WTA launches between two events
 
 
@@ -319,12 +324,14 @@ def patched(text: str, edits) -> str | None:
 
 
 def group_form(texts) -> str:
-    """The form of ``sgm_scan_group`` these sources define: "passes" (this
-    checkout's: ScanPass by pointer), "two_order" (its first fused form) or
-    "before" (before the fused forms)."""
+    """The form of ``sgm_scan_group`` these sources define: "work" (this
+    checkout's: ScanPass by pointer and the work buffer of several clusters
+    an image), "passes" (ScanPass, no work buffer), "two_order" (its first
+    fused form) or "before" (before the fused forms)."""
     texts = list(texts)
     if any("struct ScanPass" in text for text in texts):
-        return "passes"
+        return ("work" if any("void* planes, void* work" in text
+                              for text in texts) else "passes")
     if any("int two_order" in text for text in texts):
         return "two_order"
     return "before"
@@ -357,7 +364,8 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
             getattr(handle, entry).argtypes = argtypes
             getattr(handle, entry).restype = ctypes.c_int
     if hasattr(handle, "sgm_scan_group"):
-        for entry, argtypes in {"passes": {}, "two_order": GROUP_TWO_ORDER,
+        for entry, argtypes in {"work": {}, "passes": GROUP_PASSES,
+                                "two_order": GROUP_TWO_ORDER,
                                 "before": GROUP_BEFORE_FUSED}[
                                     group_form(sources.values())].items():
             getattr(handle, entry).argtypes = argtypes

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -235,6 +236,22 @@ def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
 
 # --- K2: path aggregation + WTA -------------------------------------------------
 
+# The WTA's latch is cost << WTA_KEY_SHIFT | k in an int32: a cost is at most
+# 65535 (the inverse view's sentinel), so k < 2^14 and D <= 16,384, the
+# bound of the JAX package's wta_reduce_pallas.
+WTA_KEY_SHIFT = 14
+MAX_RANGE = 1 << WTA_KEY_SHIFT
+
+
+def check_range(d: int) -> None:
+    """Refuse a disparity range the kernels and their plain versions do not
+    take: D outside 1..16,384."""
+    if not 1 <= d <= MAX_RANGE:
+        raise ValueError(f"disparity range {d} outside 1..{MAX_RANGE}: "
+                         f"cost << {WTA_KEY_SHIFT} | k no longer fits an "
+                         f"int32 argmin key")
+
+
 def _check_scan(cost: torch.Tensor, img: torch.Tensor):
     """Validate a scan's uint8 (B, S, D, W) cost and (B, S, W) image for
     the kernel; return (B, S, D, W)."""
@@ -244,8 +261,7 @@ def _check_scan(cost: torch.Tensor, img: torch.Tensor):
     if img.shape != (b, s, w):
         raise ValueError(f"image {tuple(img.shape)} does not match cost "
                          f"{tuple(cost.shape)}")
-    if not 1 <= d <= 256:
-        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    check_range(d)
     return b, s, d, w
 
 
@@ -322,15 +338,21 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
                    wta: bool = False) -> int:
     """The most directions one ``sgm_scan_group`` launch takes for this
     uint8 (B, S, D, W) cost and uint16 sum on the current card, with
-    (``wta``) or without the WTA epilogue's tracks in shared memory: as many
-    as the kernel's on-chip state has room for, ``MAX_GROUP`` at most.  A
-    two-order launch holds the same state as a one-order launch.  On an
-    NVIDIA H100 80GB HBM3 a launch takes no direction, and this raises, for
-    rows wider than 13,824 columns at D = 64, 6,720 at D = 128 and 3,264 at
-    D = 256 (a cluster of 16 blocks); with the epilogue, whose recurrence
-    takes fewer threads a block, for rows wider than 12,288, 6,912 and
-    3,328 (``tests/test_torch_cuda.py`` finds the limits on the card).  A
-    launch with the epilogue ends a group whose other launches have none
+    (``wta``) or without the WTA epilogue's tracks in shared memory,
+    ``MAX_GROUP`` at most: as many as one cluster an image holds the state
+    of, else as many as several clusters an image hold with all of one
+    image's clusters resident at once (``group_plan``).  A two-order launch
+    holds the same state as a one-order launch.  On an NVIDIA H100 80GB
+    HBM3 one cluster (16 blocks) takes a direction of rows up to 13,824
+    columns at D = 64, 6,720 at D = 128 and 3,264 at D = 256; with the
+    epilogue, whose recurrence takes fewer threads a block, up to 12,288,
+    6,912 and 3,328 (``tests/test_torch_cuda.py`` finds the limits on the
+    card); wider rows take several clusters, up to the 15 clusters of 8
+    blocks the card holds at once: 103,680 columns at D = 64, 50,400 at
+    D = 128, 24,480 at D = 256, 7,200 at D = 760 for one direction.  Past
+    that, or where not even strips of two columns hold the state (D above
+    about 2,500), this raises ``ValueError``.  A launch
+    with the epilogue ends a group whose other launches have none
     (``_launch_parts``), so the wrappers take the narrower of the two."""
     b, _, d, w = cost.shape
     dirs = ctypes.c_int(0)
@@ -340,9 +362,123 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
     if dirs.value < 1:
-        raise ValueError(f"D={d}, W={w}: a row's scan state does not fit "
-                         f"the group kernel's on-chip memory")
+        plan = group_plan(cost, out, 1, wta)
+        if plan.clusters_an_image == 0:
+            why = "does not fit even strips of two columns"
+        else:
+            why = (f"needs {plan.clusters_an_image} clusters of "
+                   f"{plan.cluster_blocks} blocks resident at once, and the "
+                   f"card holds {plan.clusters_at_once}")
+        raise ValueError(f"D={d}, W={w}: a row's scan state {why}")
     return dirs.value
+
+
+class GroupPlan(NamedTuple):
+    """How one ``sgm_scan_group`` launch runs (``sgm_scan_group_plan``)."""
+    clusters_an_image: int    # G: 1, or several (0: no plan)
+    cluster_blocks: int       # CS
+    images_a_wave: int        # images one kernel launch takes (0: none fit)
+    clusters_at_once: int     # of this shape on the card (0 where G = 1)
+    work_bytes: int           # zeroed device memory the launch needs
+
+
+def group_plan(cost: torch.Tensor, out: torch.Tensor, n: int,
+               wta: bool = False, sets: int = 1) -> GroupPlan:
+    """The C entry's plan for a launch of n directions on ``sets`` sets of
+    the B images of this cost and sum: one cluster an image where one holds
+    the state, else G clusters (``group_clusters`` transcribes the count),
+    in waves of as many images as the card holds at once."""
+    b, _, d, w = cost.shape
+    key = (cost.device.index, b, d, w, n, bool(wta), sets,
+           cost.data_ptr() % 2, out.data_ptr() % 4)
+    if key not in _PLANS:
+        res = (ctypes.c_longlong * 5)()
+        with torch.cuda.device(cost.device):
+            err = _build.load().sgm_scan_group_plan(
+                cost.data_ptr(), out.data_ptr(), b, d, w, n, int(wta), sets,
+                ctypes.addressof(res))
+        if err != 0:
+            raise RuntimeError(f"sgm_scan_group_plan: CUDA error {err}")
+        _PLANS[key] = GroupPlan(*(int(v) for v in res))
+    return _PLANS[key]
+
+
+_PLANS = {}     # (device, shape, n, wta, sets, alignments) -> GroupPlan
+
+
+# constants of csrc/aggregate.cu (a CPU test reads them from the source)
+GROUP_SMEM = 232448       # kGroupSmem: the most a block takes
+GROUP_THREADS = 768       # kGroupThreads
+GROUP_WTA_THREADS = 384   # kWtaThreads: the recurrence's with the epilogue
+GROUP_MAX_CHUNKS = 8      # kMaxChunks
+GROUP_MAX_STAGES = 4      # kMaxStages
+GROUP_MAX_CLUSTER = 16    # kMaxCluster
+
+
+def group_smem_bytes(d: int, w: int, n: int, cs: int, g: int = 1,
+                     wta: bool = False):
+    """Shared memory of one group-kernel block of n directions, with clusters
+    of ``cs`` blocks, ``g`` of them an image: the cost slabs' ring, two
+    buffers of every
+    direction's state (D + 2 rows), the partial minima, the staged and the
+    handed-over columns; ``GROUP_SMEM + 1`` where a strip's column pairs
+    outnumber the threads; None where the strips leave a block empty.  One
+    cluster's strips are ``ceil(W / cs)`` columns rounded up to even, the
+    last the rest; several clusters share the row's column pairs out as
+    evenly as they can (``strip_bounds``).  A transcription of
+    ``group_shape`` in csrc/aggregate.cu."""
+    strips = cs * g
+    if g == 1:
+        tw = _padded(-(-w // strips), 2)
+        if (strips - 1) * tw >= w:
+            return None
+    else:       # the row's column pairs shared out (strip_start)
+        if strips > (w + 1) // 2:
+            return None
+        tw = 2 * -(-((w + 1) // 2) // strips)
+    pairs = tw // 2
+    threads = GROUP_WTA_THREADS if wta else GROUP_THREADS
+    if pairs > threads:
+        return GROUP_SMEM + 1
+    nch = max(1, min(threads // pairs, GROUP_MAX_CHUNKS, d))
+    dc = _padded(-(-d // nch), 4)
+    nch = -(-d // dc)
+    pitch_c, pitch_s = _padded(tw + 15, 16), _padded(tw + 8, 4)
+    col_bytes = _padded(nch * dc, 16)
+    recv_dir = 32 + col_bytes + _padded(4 * nch, 16)
+    body = _padded(2 * n * (d + 2) * pitch_s + 4 * n * nch * (tw + 4), 16)
+    tail = n * col_bytes + 3 * n * recv_dir + (2 * WTA_RING * 8 if wta else 0)
+    for stages in range(GROUP_MAX_STAGES, 1, -1):
+        need = 576 + stages * d * pitch_c + body + tail
+        if need <= GROUP_SMEM:
+            return need
+    return GROUP_SMEM + 1
+
+
+def strip_bounds(w: int, strips: int) -> list:
+    """The first column of each of ``strips`` strips of a row, and W: the
+    row's column pairs shared out as evenly as they can be, as the group
+    kernel splits a row over several clusters (``strip_start``)."""
+    pairs = (w + 1) // 2
+    return [min(w, 2 * (r * pairs // strips)) for r in range(strips + 1)]
+
+
+def group_clusters(d: int, w: int, n: int, wta: bool = False,
+                   cs: int = GROUP_MAX_CLUSTER):
+    """G, the clusters an image takes for n directions at (D, W): 1 where a
+    cluster of up to ``cs`` blocks holds a row's state, else the fewest
+    clusters of ``cs`` blocks whose strips hold it; None where not even
+    strips of two columns do.  The rule of ``choose_cluster`` and
+    ``plan_multi`` in csrc/aggregate.cu on a card that places clusters of
+    ``cs`` blocks (the H100 places 16)."""
+    g = 1
+    while True:
+        need = group_smem_bytes(d, w, n, cs, g, wta)
+        if need is None:
+            return None
+        if need <= GROUP_SMEM:
+            return g
+        g += 1
 
 
 class ScanPass(ctypes.Structure):
@@ -368,12 +504,17 @@ def scan_pass(rolls, reverse: bool, lo: int, hi: int, k0: int, d: int,
     """A ``ScanPass`` over the rows [lo, hi) for the directions ``rolls``,
     the k0-th to the last of their group: the carries' pointers at
     direction k0 of (B, n, D, W) / (B, n, 1, W) int32 tensors;
-    ``prev_gray`` is an address (``_ptr``)."""
-    return ScanPass(_ptr(carry_in[0], k0 * d * w), _ptr(carry_in[1], k0 * w),
-                    prev_gray, _ptr(carry_out[0], k0 * d * w),
-                    _ptr(carry_out[1], k0 * w),
-                    (ctypes.c_int * MAX_GROUP)(*rolls), int(reverse), lo, hi,
-                    gray_stride)
+    ``prev_gray`` is an address (``_ptr``).  The pass holds the carries
+    (``tensors``): a launch made later from it (``bidir_launches``) must not
+    find their memory handed to another tensor, such as the work buffer of
+    a launch of several clusters an image."""
+    sp = ScanPass(_ptr(carry_in[0], k0 * d * w), _ptr(carry_in[1], k0 * w),
+                  prev_gray, _ptr(carry_out[0], k0 * d * w),
+                  _ptr(carry_out[1], k0 * w),
+                  (ctypes.c_int * MAX_GROUP)(*rolls), int(reverse), lo, hi,
+                  gray_stride)
+    sp.tensors = (*carry_in, *carry_out)
+    return sp
 
 
 def _launch_group(counter: str, cost, img, out, passes, npass: int, n: int,
@@ -384,10 +525,15 @@ def _launch_group(counter: str, cost, img, out, passes, npass: int, n: int,
     for len(passes) // npass sets of clusters, npass passes each."""
     _check_penalties(p1, p2_init)
     b, s, d, w = cost.shape
+    sets = len(passes) // npass
+    plan = group_plan(cost, out, n, views > 0, sets)
+    # several clusters an image: their counts and hand-off in device memory
+    work = (torch.zeros(plan.work_bytes, dtype=torch.uint8, device=cost.device)
+            if plan.clusters_an_image > 1 else None)
     arr = (ScanPass * len(passes))(*passes)
     _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
-            out.data_ptr(), _ptr(finished), _ptr(planes),
-            ctypes.addressof(arr), npass, len(passes) // npass, b, s, d, w, n,
+            out.data_ptr(), _ptr(finished), _ptr(planes), _ptr(work),
+            ctypes.addressof(arr), npass, sets, b, s, d, w, n,
             carry_n, int(restart), p1, p2_init, int(accumulate), views, dmin,
             _stream(out))
 
@@ -467,6 +613,9 @@ def scan_direction_plain(cost, img, axis: str, reverse: bool, roll: int,
     return out.to(torch.uint16)
 
 
+FIRST_DESIGN_MAX_RANGE = 256     # sgm_scan_direction: 8 disparities a lane
+
+
 def scan_direction(cost: torch.Tensor, img: torch.Tensor, axis: str,
                    reverse: bool, roll: int, p1: int, p2_init: int,
                    restart: bool = False, out=None) -> torch.Tensor:
@@ -487,6 +636,11 @@ def scan_direction(cost: torch.Tensor, img: torch.Tensor, axis: str,
         return out.copy_((out.to(torch.int32) + res.to(torch.int32))
                          .to(torch.uint16))
     b, h, d, w = _check_scan(cost, img)
+    if d > FIRST_DESIGN_MAX_RANGE:
+        raise ValueError(f"D={d}: the first design's kernel keeps D / 32 "
+                         f"disparities a lane in registers, D <= "
+                         f"{FIRST_DESIGN_MAX_RANGE} (the group kernel takes "
+                         f"more)")
     accumulate = out is not None
     if accumulate:
         _check(out, "out", torch.uint16, 4)
@@ -631,8 +785,7 @@ def wta_epilogue_plain(total: torch.Tensor, dmin: int,
     independent, so all rows go at once.  Same result as
     ``wta_reduce_plain``."""
     b, s, d, w = total.shape
-    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
-        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    check_range(d)
     strip = w if strip is None else strip
     chunk = WTA_CHUNK if chunk is None else chunk
     if strip < 1 or chunk < 1:
@@ -725,6 +878,85 @@ def directional_scan_group_plain(cost, img, acc, rolls, reverse: bool, p1: int,
         return out
     return out, (torch.stack([c.cost for c in carries], 1),
                  torch.stack([c.mincost for c in carries], 1)[:, :, None])
+
+
+def directional_scan_clusters_plain(cost, img, rolls, reverse: bool, p1: int,
+                                    p2_init: int, restart: bool,
+                                    clusters: int, blocks: int,
+                                    chunk: int = 8) -> torch.Tensor:
+    """The group kernel's decomposition of a row over several clusters an
+    image, transcribed: uint8 (B, S, D, W) cost + (B, S, W) image -> the
+    int32 (B, S, D, W) sum of the group's contributions (``rolls``), as
+    ``directional_scan_group_plain`` gives.
+
+    The row's ``clusters * blocks`` strips (``strip_bounds``) each hold
+    their columns' state and, per ``chunk`` of planes, its partial minima;
+    a step reads the previous state at column c - roll, so a diagonal's one
+    column that crosses a strip's edge is handed over with its chunks'
+    partial minima: from the block beside it in the cluster, or, at a
+    cluster's edge, from the next cluster through a buffer in device
+    memory (three slots by receiving strip, written at step t into slot t %
+    3 and read at t + 1).  The wrap at the image's edge is the hop from the
+    last strip to the first, a cluster's edge where ``clusters`` > 1.  The
+    gray values come from the image, as the kernel reads them."""
+    mode = "restart" if restart else "wrap"
+    b, s, d, w = cost.shape
+    strips = clusters * blocks
+    bounds = strip_bounds(w, strips)
+    if clusters < 1 or blocks < 1 or any(
+            lo >= hi for lo, hi in zip(bounds, bounds[1:])):
+        raise ValueError(f"{clusters} x {blocks} strips leave one of {w} "
+                         f"columns empty")
+    c, g = cost.to(torch.int32), img.to(torch.int32)
+    if reverse:
+        c, g = c.flip(1), g.flip(1)
+    total = torch.zeros(c.shape, dtype=torch.int32, device=c.device)
+    cols = torch.arange(w, device=c.device)
+
+    def chunk_mins(x):          # (B, D, n) -> (B, chunks, n)
+        return torch.stack([x[:, k0:k0 + chunk].amin(dim=1)
+                            for k0 in range(0, d, chunk)], 1)
+
+    for roll in rolls:
+        state, xchg = [], {}
+        for t in range(s):
+            new = []
+            for r, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+                row = c[:, t, :, lo:hi]
+                if t == 0:
+                    new.append(row)
+                    continue
+                prev, pm = state[r]
+                if roll:
+                    src = (r - roll) % strips
+                    edge = -1 if roll > 0 else 0
+                    if src // blocks != r // blocks:    # from another cluster
+                        col, col_pm = xchg.pop((r, (t - 1) % 3))
+                    else:
+                        col = state[src][0][..., edge:][..., :1]
+                        col_pm = state[src][1][..., edge:][..., :1]
+                    if roll > 0:
+                        prev = torch.cat([col, prev[..., :-1]], -1)
+                        pm = torch.cat([col_pm, pm[..., :-1]], -1)
+                    else:
+                        prev = torch.cat([prev[..., 1:], col], -1)
+                        pm = torch.cat([pm[..., 1:], col_pm], -1)
+                prev_gray = g[:, t - 1, (cols[lo:hi] - roll) % w]
+                cur = aggregation._dp_step(prev, pm.amin(dim=1), prev_gray,
+                                           row, g[:, t, lo:hi], p1, p2_init)
+                reset = 0 if roll > 0 else w - 1
+                if roll and mode == "restart" and lo <= reset < hi:
+                    cur[..., reset - lo] = row[..., reset - lo]
+                new.append(cur)
+            state = [(x, chunk_mins(x)) for x in new]
+            for r, x in enumerate(new):
+                total[:, t, :, bounds[r]:bounds[r + 1]] += x
+                dst = (r + roll) % strips
+                if roll and dst // blocks != r // blocks:   # to another cluster
+                    edge = -1 if roll > 0 else 0
+                    xchg[(dst, t % 3)] = (x[..., edge:][..., :1],
+                                          state[r][1][..., edge:][..., :1])
+    return total.flip(1) if reverse else total
 
 
 def _refuse_carry_with_wta(carry_in, want_carry: bool) -> None:
@@ -981,7 +1213,6 @@ def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
     return fwd, inv
 
 
-WTA_KEY_SHIFT = 8       # the kernel's latch: cost << 8 | k, so D <= 256
 WTA_MAX_WIDTH = 32768   # columns of a row the kernel takes (kMaxWidth)
 
 
@@ -989,7 +1220,7 @@ class _Track:
     """One view's online reduction, all columns at once, with the kernel's
     arithmetic for a column: the min and the min over the planes that lost
     to it (ties lose, so the first plane keeps the min), the latch
-    ``prev << 8 | k`` (c1 and best) where the min changes hands, c2 of the
+    ``prev << WTA_KEY_SHIFT | k`` (c1 and best) where the min changes hands,
     plane after one that took the min, and the cost at the plane before.
     Plane 0 starts it."""
 
@@ -1010,7 +1241,7 @@ class _Track:
         self.prev, self.took = v, ~keep
 
     def planes(self, d: int) -> WTAPlanes:
-        best = self.rk & 0xFF
+        best = self.rk & (MAX_RANGE - 1)
         sec = self.m2 if d > 1 else torch.full_like(best, wta_ops.BIG)
         return WTAPlanes(best, self.m1, sec, self.rk >> WTA_KEY_SHIFT,
                          torch.where(best == d - 1, self.prev, self.rc2))
@@ -1025,8 +1256,7 @@ def wta_online_plain(aggr, options: SGMOptions, include_inverse: bool = True,
     (no second read for c1 and c2).  Same result as ``wta_reduce_plain``;
     for the tests, which hold the kernel's algorithm against the JAX op."""
     b, h, d, w = aggr.shape
-    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
-        raise ValueError(f"disparity range {d} outside the kernel's 1..256")
+    check_range(d)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dmin = options.min_disparity
@@ -1057,14 +1287,13 @@ def wta_reduce(aggr: torch.Tensor, options: SGMOptions,
                include_inverse: bool = True):
     """uint16 (B, H, D, W) -> (forward WTAPlanes, inverse WTAPlanes or None),
     int32 (B, H, W) planes, like ``wta_reduce_pallas``.  On the card the
-    kernel takes D in 1..256 and rows of up to ``WTA_MAX_WIDTH`` columns,
+    kernel takes D in 1..16,384 and rows of up to ``WTA_MAX_WIDTH`` columns,
     wider than the group scan kernel takes at any D; beyond that it raises."""
     if _on_cpu(aggr):
         return wta_reduce_plain(aggr, options, include_inverse)
     _check(aggr, "aggr", torch.uint16, 4)
     b, h, d, w = aggr.shape
-    if not 1 <= d <= 1 << WTA_KEY_SHIFT:
-        raise ValueError(f"disparity range {d} outside the WTA kernel's 1..256")
+    check_range(d)
     if w > WTA_MAX_WIDTH:
         raise ValueError(f"W={w}: the WTA kernel takes rows of at most "
                          f"{WTA_MAX_WIDTH} columns")

@@ -114,9 +114,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernels.census_cost_volume(img.transpose(1, 2), img, 0, 4)
     with pytest.raises(ValueError):
         kernels.census_cost_volume(img, img.cpu(), 0, 4)
-    cost = torch.zeros((1, 8, 257, 8), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.aggregate_paths(cost, img, SGMOptions(max_disparity=257))
+    deep = kernels.MAX_RANGE + 1      # the JAX package's bound: D <= 16,384
+    cost = torch.zeros((1, 8, deep, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="argmin key"):
+        kernels.aggregate_paths(cost, img, SGMOptions(max_disparity=deep))
 
 
 def test_uniqueness_threshold_on_card_is_the_f32_product(cuda):
@@ -997,44 +998,40 @@ def test_fused_launch_split_over_launches_on_card(cuda):
 
 @pytest.mark.parametrize("d", sorted(GROUP_WTA_WIDTH_LIMIT))
 def test_fused_widest_row_on_card(cuda, d):
-    """The widest row at D = 64, 128 and 256 that a launch with the WTA
-    epilogue takes (by bisection of ``group_capacity(..., wta=True)``): the
-    vertical pair's two-order scan with the epilogue against its plain
-    version at that row or, where a launch without the epilogue takes
-    fewer columns, at that one's widest; one column more refused with a
-    ValueError; and the two-order scan without the epilogue (the volume)
-    at the widest row a launch without it takes."""
+    """The widest row at D = 64, 128 and 256 that one cluster takes for a
+    launch with the WTA epilogue (by bisection of ``group_plan(...,
+    wta=True)``): the vertical pair's two-order scan with the epilogue
+    against its plain version at that row or, where a launch without the
+    epilogue takes fewer columns in one cluster, at that one's widest; one
+    column more runs over two clusters an image, bit-equal too; and the
+    two-order scan without the epilogue (the volume) at the widest row one
+    cluster takes without it."""
 
-    def takes(w):
+    def one_cluster(w):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
-        out = torch.zeros((1, 1, d, w), dtype=torch.uint16, device=cuda)
-        try:
-            return kernels.group_capacity(cost, out, True) >= 1
-        except ValueError:
-            return False
+        plan = kernels.group_plan(cost, cost.to(torch.uint16), 1, True)
+        return plan.clusters_an_image == 1
 
     lo, hi = 16, 1 << 16
-    assert takes(lo) and not takes(hi)
+    assert one_cluster(lo) and not one_cluster(hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+        lo, hi = (mid, hi) if one_cluster(mid) else (lo, mid)
     assert lo == GROUP_WTA_WIDTH_LIMIT[d]
     assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")
-    # the scan's first launch stores without the epilogue: the narrower row
-    widest = min(lo, GROUP_WIDTH_LIMIT[d])
-    cost = _rand(83, 0, 128, (1, 3, d, widest), np.uint8, cuda)
-    img = _rand(84, 0, 256, (1, 3, widest), np.uint8, cuda)
     args = ((0, 1, -1), (0, -1, 1), 10, 150, False)
-    got = kernels.directional_scan_group_bidir(cost, img, None, *args,
-                                               wta=(0, True))
-    want = kernels.directional_scan_group_bidir_plain(cost, img, None, *args,
-                                                      wta=(0, True))
-    for g, w_ in zip(_planes(got), _planes(want)):
-        same(g, w_)
-    wider = torch.zeros((1, 3, d, hi), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="on-chip memory"):
-        kernels.directional_scan_group_bidir(
-            wider, img.new_zeros((1, 3, hi)), None, *args, wta=(0, True))
+    # the scan's first launch stores without the epilogue: the narrower row
+    for w, seed in ((min(lo, GROUP_WIDTH_LIMIT[d]), 83), (hi, 90)):
+        cost = _rand(seed, 0, 128, (1, 3, d, w), np.uint8, cuda)
+        img = _rand(seed + 1, 0, 256, (1, 3, w), np.uint8, cuda)
+        got = kernels.directional_scan_group_bidir(cost, img, None, *args,
+                                                   wta=(0, True))
+        want = kernels.directional_scan_group_bidir_plain(cost, img, None,
+                                                          *args, wta=(0, True))
+        for g, w_ in zip(_planes(got), _planes(want)):
+            same(g, w_)
+    plan = kernels.group_plan(cost, cost.to(torch.uint16), 1, True, 2)
+    assert plan.clusters_an_image == 2 and plan.work_bytes > 0
     w = GROUP_WIDTH_LIMIT[d]
     cost = _rand(88, 0, 128, (1, 3, d, w), np.uint8, cuda)
     img = _rand(89, 0, 256, (1, 3, w), np.uint8, cuda)
@@ -1102,30 +1099,193 @@ def test_wta_kernel_refuses_beyond_its_limits(cuda):
                        dtype=torch.uint16, device=cuda)
     with pytest.raises(ValueError, match=str(kernels.WTA_MAX_WIDTH)):
         kernels.wta_reduce(wide, opt)
-    deep = torch.zeros((1, 1, 257, 8), dtype=torch.uint16, device=cuda)
-    with pytest.raises(ValueError, match="1..256"):
-        kernels.wta_reduce(deep, SGMOptions(max_disparity=257))
+    d = kernels.MAX_RANGE + 1
+    deep = torch.zeros((1, 1, d, 8), dtype=torch.uint16, device=cuda)
+    with pytest.raises(ValueError, match="argmin key"):
+        kernels.wta_reduce(deep, SGMOptions(max_disparity=d))
 
 
-@pytest.mark.parametrize("d", sorted(GROUP_WIDTH_LIMIT))
+# the widest row one direction's launch takes at all on one H100 80GB HBM3,
+# its image's clusters all resident at once (kernels.group_capacity's
+# docstring states the same)
+GROUP_RESIDENT_LIMIT = {64: 103680, 128: 50400, 256: 24480}
+
+
+@pytest.mark.parametrize("d", sorted(GROUP_RESIDENT_LIMIT))
 def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
-    """Where ``group_capacity`` starts to refuse a row: the widest W that
-    still takes a direction, found by bisection and checked on both sides."""
-    def takes(w):
-        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
-        out = torch.zeros((1, 1, d, w), dtype=torch.uint16, device=cuda)
-        try:
-            return kernels.group_capacity(cost, out) >= 1
-        except ValueError:
-            return False
+    """Where ``group_capacity`` starts to refuse a row: past the widest W
+    whose G clusters (``group_clusters``, the card's cluster size) the card
+    holds at once, found by bisection and checked on both sides; the
+    refusal names the clusters needed and held."""
 
-    lo, hi = 16, 1 << 16
-    assert takes(lo) and not takes(hi)
+    def plan(w):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        out = cost.to(torch.uint16)
+        try:
+            return kernels.group_capacity(cost, out), None
+        except ValueError as err:
+            return 0, (str(err), kernels.group_plan(cost, out, 1))
+
+    lo, hi = 16, 1 << 19
+    assert plan(lo)[0] >= 1 and plan(hi)[0] == 0
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
-    assert (d, lo) == (d, GROUP_WIDTH_LIMIT[d])
+        lo, hi = (mid, hi) if plan(mid)[0] else (lo, mid)
+    assert (d, lo) == (d, GROUP_RESIDENT_LIMIT[d])
     assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")
+    why, refused = plan(hi)[1]
+    assert refused.clusters_an_image > refused.clusters_at_once >= 1
+    assert f"needs {refused.clusters_an_image} clusters" in why
+    assert refused.clusters_an_image == kernels.group_clusters(
+        d, hi, 1, cs=refused.cluster_blocks)
+
+
+# D > 256 at rows no cluster holds (G >= 2; the last in waves of one image:
+# the card does not hold both orders' clusters at once)
+WIDE = [(1, 5, 257, 3400), (1, 6, 384, 2400), (2, 12, 1024, 1800)]
+
+
+@pytest.mark.parametrize("b,h,d,w", WIDE)
+def test_group_modes_over_several_clusters_on_card(cuda, b, h, d, w):
+    """Every mode of ``sgm_scan_group`` at D > 256 over several clusters an
+    image: one order stored and added, carries in and out, the epilogue;
+    the two-order scan's volume and planes forms; wrap and restart; the
+    8-path group, one diagonal alone, the roll-0 direction (no hand-off);
+    against their plain versions."""
+    cost = _rand(100 + d, 0, 128, (b, h, d, w), np.uint8, cuda)
+    img = _rand(101 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(102 + d, 0, 900, (b, h, d, w), np.uint16, cuda)
+    for n in (1, 3):
+        assert kernels.group_plan(cost, acc, n).clusters_an_image >= 2
+    for restart in (False, True):
+        for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True),
+                               ((1,), False), ((0,), True)):
+            args = (rolls, reverse, 10, 150, restart)
+            same(kernels.directional_scan_group(cost, img, None, *args),
+                 kernels.directional_scan_group_plain(cost, img, None, *args))
+            same(kernels.directional_scan_group(cost, img, acc.clone(), *args),
+                 kernels.directional_scan_group_plain(cost, img, acc.clone(),
+                                                      *args))
+            carry = kernels.directional_scan_group_plain(
+                cost, img, None, *args, want_carry=True)[1]
+            gray = img[:, -1].contiguous()
+            got = kernels.directional_scan_group(cost, img, acc.clone(), *args,
+                                                 carry_in=carry,
+                                                 want_carry=True,
+                                                 prev_gray=gray)
+            want = kernels.directional_scan_group_plain(
+                cost, img, acc.clone(), *args, carry_in=carry,
+                want_carry=True, prev_gray=gray)
+            for g, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
+                same(g, w_)
+            for g, w_ in zip(*(_planes(f(cost, img, acc.clone(), *args,
+                                          wta=(24, True)))
+                               for f in (kernels.directional_scan_group,
+                                         kernels.directional_scan_group_plain))):
+                same(g, w_)
+        for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
+            args = (rf, rb, 10, 150, restart)
+            same(kernels.directional_scan_group_bidir(cost, img, acc.clone(),
+                                                      *args),
+                 kernels.directional_scan_group_bidir_plain(cost, img,
+                                                            acc.clone(), *args))
+            for wta_args in ((0, True), (24, False)):
+                parks = acc.clone(), acc.clone()
+                got = kernels.directional_scan_group_bidir(
+                    cost, img, parks[0], *args, wta=wta_args)
+                want = kernels.directional_scan_group_bidir_plain(
+                    cost, img, parks[1], *args, wta=wta_args)
+                for g, w_ in zip(_planes(got), _planes(want)):
+                    same(g, w_)
+
+
+@pytest.mark.parametrize("b,h,d,w", WIDE)
+def test_main_path_above_256_on_card(cuda, b, h, d, w):
+    """K1 (both modes), the WTA kernel (rows in segments), K3 and K4 at
+    D > 256 against their plain versions, and ``match_batch`` against the
+    plain path with the main path's launches: the scans' two a part of a
+    group, K1, K3 and K4 one each."""
+    rng = np.random.default_rng(d)
+    left = _rand(110 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    right = _rand(111 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    for dmin in (0, 3):
+        same(kernels.census_cost_volume(left, right, dmin, dmin + d),
+             kernels.census_cost_volume_plain(left, right, dmin, dmin + d))
+    halo = _rand(112 + d, 0, 256, (b, h + 4, w), np.uint8, cuda)
+    same(kernels.census_cost_volume(halo, halo.flip(-1).contiguous(), 0, d,
+                                    True),
+         kernels.census_cost_volume_plain(halo, halo.flip(-1).contiguous(), 0,
+                                          d, True))
+    aggr = _rand(113 + d, 0, 2000, (b, h, d, w), np.uint16, cuda)
+    for dmin in (0, 24):
+        opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+        for g, w_ in zip(_planes(kernels.wta_reduce(aggr, opt)),
+                         _planes(kernels.wta_reduce_plain(aggr, opt))):
+            same(g, w_)
+    dl = torch.from_numpy(rng.uniform(0, d, (b, h, w)).astype(np.float32)).to(cuda)
+    dr = torch.from_numpy(rng.uniform(0, d, (b, h, w)).astype(np.float32)).to(cuda)
+    same(kernels.lr_check(dl, dr, 1.0, d), postprocess.lr_check(dl, dr, 1.0, d))
+    opt = SGMOptions(max_disparity=d, min_speckle_area=20)
+    kernels.reset_launch_counts()
+    disp = SGMEngine(opt, device="cuda").match_batch(left, right)
+    torch.cuda.synchronize()
+    parts = [len(kernels._launch_parts(x, x.to(torch.uint16), n, wta))
+             for x, n, wta in (
+                 (torch.empty((b, 1, d, w), dtype=torch.uint8, device=cuda),
+                  3, True),
+                 (torch.empty((b, 1, d, -(-h // 16) * 16), dtype=torch.uint8,
+                              device=cuda), 1, False))]
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "census_cost_volume": 1, "aggregate_paths_wta": 2 * parts[0],
+        "horizontal_partial": 2 * parts[1], "volume_transpose": 3,
+        "lr_check": 1, "remove_speckles": 1}
+    same(disp, sgm_forward(left, right, opt, use_kernels=False))
+    raw = torch.where(torch.isfinite(disp), dl.floor(), disp)
+    same(kernels.remove_speckles(raw, 1.0, 20),
+         postprocess.remove_speckles(raw, 1.0, 20))
+
+
+def test_wta_kernel_at_the_deepest_range_on_card(cuda):
+    """The WTA kernel's latch at D = 16,384 (cost << 14 | k), whole rows and
+    rows in segments, ties and 65535 costs, against the plain version."""
+    for w in (6, 2100):
+        aggr = _rand(120 + w, 0, 3, (1, 1, kernels.MAX_RANGE, w), np.uint16,
+                     cuda)
+        aggr[0, 0, ::7, 1] = 65535
+        opt = SGMOptions(min_disparity=2, max_disparity=2 + kernels.MAX_RANGE)
+        for g, w_ in zip(_planes(kernels.wta_reduce(aggr, opt)),
+                         _planes(kernels.wta_reduce_plain(aggr, opt))):
+            same(g, w_)
+
+
+def test_group_plan_matches_the_transcription_on_card(cuda):
+    """The C entry's cluster count equals ``group_clusters`` at the card's
+    cluster size, with and without the epilogue, one and three
+    directions."""
+    for d, w in ((64, 450), (256, 3265), (257, 3400), (384, 2400),
+                 (760, 2964), (760, 1992), (1024, 1800), (280, 2964)):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        for n in (1, 3):
+            for wta in (False, True):
+                plan = kernels.group_plan(cost, cost.to(torch.uint16), n, wta)
+                if plan.images_a_wave:
+                    assert plan.clusters_an_image == kernels.group_clusters(
+                        d, w, n, wta, plan.cluster_blocks), (d, w, n, wta)
+
+
+def test_group_refuses_what_the_card_cannot_hold_before_a_launch(cuda):
+    """An image whose clusters the card cannot hold at once, and a range
+    whose state does not fit strips of two columns: ``ValueError`` from
+    ``group_capacity``, before any launch."""
+    kernels.reset_launch_counts()
+    for d, w, why in ((2000, 30000, "resident at once"),
+                      (2516, 64, "two columns")):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        img = torch.zeros((1, 1, w), dtype=torch.uint8, device=cuda)
+        with pytest.raises(ValueError, match=why):
+            kernels.directional_scan_group(cost, img, None, (0,), False, 10,
+                                           150, False)
+    assert not any(kernels.LAUNCHES.values())
 
 
 # (dmin, D) at which K1's width limit is found on the card

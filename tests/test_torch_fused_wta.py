@@ -324,20 +324,23 @@ def test_kernel_ab_calls_the_parent_group_entry_with_its_signature():
     """The other checkout's group entry before the two-order launch took 8
     pointers, 14 ints and the stream; its first fused form added the ring,
     the planes and 8 ints (the second roll set and its flag, the views,
-    dmin); this one takes the ScanPass array instead of the carries and
-    rolls: 6 pointers, 14 ints and the stream.  ``group_form`` tells the
-    three apart by their sources."""
+    dmin); the next took the ScanPass array instead of the carries and
+    rolls: 6 pointers, 14 ints and the stream; this one adds the work
+    buffer of several clusters an image.  ``group_form`` tells the four
+    apart by their sources."""
     old = kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group"]
     first = kernel_ab.GROUP_TWO_ORDER["sgm_scan_group"]
+    passes = kernel_ab.GROUP_PASSES["sgm_scan_group"]
     new = _build.SIGNATURES["sgm_scan_group"]
-    assert (len(old), len(first), len(new)) == (23, 31, 21)
+    assert (len(old), len(first), len(passes), len(new)) == (23, 31, 21, 22)
     assert old[:8] + old[22:] == first[:8] + first[30:]
-    assert new[-1] == first[-1]
+    assert new[-1] == first[-1] and new[:6] + new[7:] == passes
     assert kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group_capacity"] == \
         _build.SIGNATURES["sgm_scan_group_capacity"][:5] + \
         _build.SIGNATURES["sgm_scan_group_capacity"][6:]
     text = (_build.CSRC / "aggregate.cu").read_text()
-    assert kernel_ab.group_form([text]) == "passes"
+    assert kernel_ab.group_form([text]) == "work"
+    assert kernel_ab.group_form(["struct ScanPass"]) == "passes"
     assert kernel_ab.group_form(["int two_order, int q0"]) == "two_order"
     assert kernel_ab.group_form(["int accumulate, void* stream"]) == "before"
 

@@ -177,16 +177,17 @@ def test_wta_online_plain_matches_pallas_and_plain(d, dmin, w, chunk, inverse,
 
 def test_wta_kernel_width_limit_matches_the_source():
     """The wrapper's row limit and key shift are the kernel's (``kMaxWidth``,
-    ``kShift`` in csrc/wta.cu); the transcription refuses D > 256 as the
-    wrapper does."""
+    ``kShift`` in csrc/wta.cu); the transcription refuses D > 16,384 (the
+    JAX package's bound, the latch's) as the wrapper does."""
     text = (_build.CSRC / "wta.cu").read_text()
     assert re.search(r"constexpr int kMaxWidth = (\d+);", text).group(1) == \
         str(kernels.WTA_MAX_WIDTH)
     assert re.search(r"constexpr int kShift = (\d+);", text).group(1) == \
         str(kernels.WTA_KEY_SHIFT)
-    with pytest.raises(ValueError, match="1..256"):
-        kernels.wta_online_plain(torch.zeros((1, 1, 257, 4), dtype=torch.int32),
-                                 from_jax(SGMOptions(max_disparity=257)))
+    d = kernels.MAX_RANGE + 1
+    with pytest.raises(ValueError, match="1..16384"):
+        kernels.wta_online_plain(torch.zeros((1, 1, d, 4), dtype=torch.int32),
+                                 from_jax(SGMOptions(max_disparity=d)))
 
 
 def test_lr_check_matches_pallas_and_oracle(no_launch):
