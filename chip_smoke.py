@@ -147,8 +147,9 @@ Phases (each raises on failure, so the script exits non-zero):
       ``AGREE`` of ``stage_breakdown.batch_and_enqueue``'s on the same
       inputs (the same timer, run again), of ``stage_breakdown``'s "total"
       span around the staged forward and of the bench's own window; a
-      forced failure (``bench.report`` with a row wider than K1 takes)
-      prints one line with ``value: null`` and an ``error`` and returns 1;
+      forced failure (``bench.report`` at D = 16,385, past the JAX
+      package's bound; a row wider than one K1 block now runs) prints one
+      line with ``value: null`` and an ``error`` and returns 1;
    b. the four cells of ``benches.big_configs`` (``BIG_ITERS`` batches a
       window), each with at least 0.95 of its finite pixels within 1 of the
       truth, the tiled Middlebury-half cell bit-equal to the untiled one;
@@ -173,7 +174,19 @@ Phases (each raises on failure, so the script exits non-zero):
    its calls, plan and bound (kernel table rows 2, 2c, 2w, 3, 3w, 4); one
    ``cli eval --device cuda`` through a Middlebury-2014 folder written at
    2964x1988 with ``ndisp=280``, its measurement equal to the script's;
-11. the per-kernel JSON line (each kernel's time beside its plain version's,
+11. the shapes where the port once refused and the JAX package
+   computes (about 30 s): K1 in segments (rows of 9,000, 20,000 and 40,000
+   columns at D = 64, dmin 24, untiled and in halo mode; 7,000 columns at
+   D = 16,384), the WTA at 32,769 and 70,000 columns (both views, dmin 0
+   and 24), every mode of ``sgm_scan_group`` at D = 2,516, 4,096 and
+   16,384 (the plan splits D over a cluster's blocks), each bit-equal to
+   its plain version, K1's and the WTA's times beside their bounds;
+   ``SGMEngine.match_batch`` at 256x512 D=4096 and at 20000x48 D=64, each
+   bit-equal to the plain path with its launches counted, the long frame
+   also through the tiled engine on a 1x1 mesh, bit-equal; phase 10's
+   full-size frames again, untiled bit-equal to tiled; the K2 forms and
+   the WTA at the D = 4,096 frame with their calls, plans and bounds;
+12. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time; its launches from the path that runs
    it: the main path, the tiled engine, the chained tiles, the two-launch
@@ -313,6 +326,18 @@ WIDE_FRAMES = (dict(batch=1, h=1000, w=1500, dmax=380, levels=(40, 130, 250, 350
 WIDE_EVAL = dict(h=1988, w=2964, dmax=280, levels=(30, 100, 190, 260))
 # the repo's full-size Middlebury-2014 calibration (tests/test_eval_platform.py)
 MIDDLEBURY_FULL_CALIB = dict(fx=3997.684, baseline=193.001, doffs=131.111)
+# phase 11: shapes the port once refused and the JAX package takes.
+# K1 past the widest row one block holds (8,924 columns at D = 64), in
+# segments (h, w, dmin, D); the WTA past the 32,768 columns it refused; the
+# group scan past D = 2,515, where the plan splits D over a cluster's
+# blocks; the engine at D = 4,096 and on a row of 20,000 columns
+UNREFUSED_K1 = ((8, 9000, 24, 64), (4, 20000, 24, 64), (2, 40000, 24, 64),
+                (2, 7000, 0, 16384))
+UNREFUSED_WTA = ((4, 64, 32769), (2, 64, 70000))   # (h, D, w)
+DEEP_KERNELS = (dict(batch=1, h=5, d=2516, w=96), dict(batch=2, h=4, d=4096, w=128),
+                dict(batch=1, h=3, d=16384, w=40))
+DEEP_FRAME = dict(batch=1, h=256, w=512, dmax=4096, levels=(30, 120, 260, 400))
+LONG_FRAME = dict(batch=1, h=48, w=20000, dmax=64, levels=(10, 20, 35))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1636,9 +1661,10 @@ def benches_phase(tmp, card: str) -> dict:
           f"within 1 of the truth; aggregate_paths {agg['ms_per_frame']:.4f} "
           f"ms a frame, {agg['share_of_bound']:.1%} of its "
           f"{agg['bound_ms']:.4f} ms bound ({card})")
-    # a row wider than K1 takes: one line with value null, exit 1
+    # a range past the JAX package's D = 16,384 (every width
+    # runs): one line with value null, exit 1
     rc, lines = stdout_of(lambda: bench.report(
-        "cuda", batch=2, w=20000, out=tmp / "bench_fail.json"))
+        "cuda", batch=1, h=16, w=64, dmax=16385, out=tmp / "bench_fail.json"))
     line = json.loads(lines[0]) if len(lines) == 1 else {}
     if rc != 1 or line.get("value", 0) is not None or "error" not in line:
         raise AssertionError(f"bench forced failure: exit {rc}, stdout {lines}")
@@ -1945,39 +1971,7 @@ def wide_kernel_checks(cfg) -> dict:
            for n in (1, 3)) < 2:
         raise AssertionError(f"D={d} W={w}: a cluster holds the row: no "
                              f"multi-cluster launch")
-    for restart in (False, True):
-        for rolls, reverse in GROUPS + (((1,), False), ((0,), True)):
-            args = (rolls, reverse, 10, 150, restart)
-            for start in (None, acc):
-                max_abs_err(
-                    kernels.directional_scan_group(
-                        cost, img, None if start is None else start.clone(), *args),
-                    kernels.directional_scan_group_plain(
-                        cost, img, None if start is None else start.clone(), *args))
-            carry = kernels.directional_scan_group_plain(
-                cost, img, None, *args, want_carry=True)[1]
-            gray = img[:, -1].contiguous()
-            got = kernels.directional_scan_group(cost, img, acc.clone(), *args,
-                                                 carry_in=carry, want_carry=True,
-                                                 prev_gray=gray)
-            want = kernels.directional_scan_group_plain(
-                cost, img, acc.clone(), *args, carry_in=carry, want_carry=True,
-                prev_gray=gray)
-            for g, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
-                max_abs_err(g, w_)
-            planes_err(*(_flat(f(cost, img, acc.clone(), *args, wta=(24, True)))
-                         for f in (kernels.directional_scan_group,
-                                   kernels.directional_scan_group_plain)))
-        for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
-            args = (rf, rb, 10, 150, restart)
-            max_abs_err(kernels.directional_scan_group_bidir(cost, img, acc.clone(), *args),
-                        kernels.directional_scan_group_bidir_plain(cost, img, acc.clone(), *args))
-            for wta in ((0, True), (24, False)):
-                parks = acc.clone(), acc.clone()
-                planes_err(_flat(kernels.directional_scan_group_bidir(
-                               cost, img, parks[0], *args, wta=wta)),
-                           _flat(kernels.directional_scan_group_bidir_plain(
-                               cost, img, parks[1], *args, wta=wta)))
+    every_group_mode(cost, img, acc)
     for dmin in (0, 24):
         opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
         planes_err(_flat(kernels.wta_reduce(acc, opt)),
@@ -2123,7 +2117,7 @@ def wide_eval(tmp, card: str) -> None:
           f"{got['valid_frac']:.4f}; {card}")
 
 
-def wide_kernel_times(cfg, card: str) -> None:
+def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
     """Each K2 form and the WTA at a full-size frame's shape with D > 256
     (kernel table rows 2, 2c, 2w, 3, 3w and 4): CUDA-event ms, the entry
     calls a call makes, the plan (clusters an image) of its largest launch
@@ -2188,10 +2182,181 @@ def wide_kernel_times(cfg, card: str) -> None:
                                    wta, 2 if name.startswith("3") else 1)
             plan = (f", {min(n, per)} directions a launch over "
                     f"{p.clusters_an_image} clusters of {p.cluster_blocks} "
-                    f"blocks, {p.images_a_wave} images a wave")
-        print(f"wide range, kernel row {name} at {w}x{h} D={d} B={b}: "
+                    f"blocks ({p.ranges} splitting D), {p.images_a_wave} "
+                    f"images a wave")
+        print(f"{phase}, kernel row {name} at {w}x{h} D={d} B={b}: "
               f"{ms:.3f} ms, calls {calls}{plan}; bound {lim['bound_ms']:.3f} "
               f"ms ({lim['bound_by']}); {card}")
+
+
+def every_group_mode(cost, img, acc) -> None:
+    """Every mode of ``sgm_scan_group`` against its plain version (raises
+    on the first difference): one order stored and added, carries in and
+    out, the epilogue; the two-order scan's volume and planes forms; wrap
+    and restart; the 8-path group, one diagonal alone, the roll-0
+    direction."""
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    for restart in (False, True):
+        for rolls, reverse in GROUPS + (((1,), False), ((0,), True)):
+            args = (rolls, reverse, 10, 150, restart)
+            for start in (None, acc):
+                max_abs_err(
+                    kernels.directional_scan_group(
+                        cost, img, None if start is None else start.clone(), *args),
+                    kernels.directional_scan_group_plain(
+                        cost, img, None if start is None else start.clone(), *args))
+            carry = kernels.directional_scan_group_plain(
+                cost, img, None, *args, want_carry=True)[1]
+            gray = img[:, -1].contiguous()
+            got = kernels.directional_scan_group(cost, img, acc.clone(), *args,
+                                                 carry_in=carry, want_carry=True,
+                                                 prev_gray=gray)
+            want = kernels.directional_scan_group_plain(
+                cost, img, acc.clone(), *args, carry_in=carry, want_carry=True,
+                prev_gray=gray)
+            for g, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
+                max_abs_err(g, w_)
+            planes_err(*(_flat(f(cost, img, acc.clone(), *args, wta=(24, True)))
+                         for f in (kernels.directional_scan_group,
+                                   kernels.directional_scan_group_plain)))
+        for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
+            args = (rf, rb, 10, 150, restart)
+            max_abs_err(kernels.directional_scan_group_bidir(cost, img, acc.clone(), *args),
+                        kernels.directional_scan_group_bidir_plain(cost, img, acc.clone(), *args))
+            for wta in ((0, True), (24, False)):
+                parks = acc.clone(), acc.clone()
+                planes_err(_flat(kernels.directional_scan_group_bidir(
+                               cost, img, parks[0], *args, wta=wta)),
+                           _flat(kernels.directional_scan_group_bidir_plain(
+                               cost, img, parks[1], *args, wta=wta)))
+
+
+def unrefused_kernels(card: str) -> None:
+    """K1 in segments (both modes but at D = 16,384), the WTA past 32,768
+    columns and every mode of the group scan with D split, each bit-equal
+    to its plain version at a shape the port once refused; K1's and the
+    WTA's times beside their byte bounds (kernel table rows 1, 1h, 4)."""
+    import numpy as np
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.utils.profiling import bound
+
+    rng = np.random.default_rng(16)
+
+    def rand(high, shape, dtype):
+        return torch.from_numpy(rng.integers(0, high, shape).astype(dtype)).cuda()
+
+    for h, w, dmin, d in UNREFUSED_K1:
+        left, right = rand(256, (1, h + 4, w), np.uint8), rand(256, (1, h + 4, w), np.uint8)
+        plan = kernels.census_segments(left.device, w, dmin, d)
+        if not plan.segmented:
+            raise AssertionError(f"K1 at {w} columns D={d}: one block holds the row")
+        for halo in (False, True) if d <= 256 else (False,):
+            il, ir = ((left, right) if halo else
+                      (left[:, :h].contiguous(), right[:, :h].contiguous()))
+            fn = lambda: kernels.census_cost_volume(il, ir, dmin, dmin + d, halo)
+            err = max_abs_err(fn(), kernels.census_cost_volume_plain(
+                il, ir, dmin, dmin + d, halo))
+            lim = bound(il.numel() + ir.numel() + h * d * w, 0)
+            print(f"unrefused, K1 {'halo ' if halo else ''}{w}x{h} dmin={dmin} "
+                  f"D={d}: {cuda_ms(fn, 5):.4f} ms, {plan.blocks} segments of "
+                  f"{plan.columns} columns a row, bound {lim['bound_ms']:.4f} ms "
+                  f"(bytes), max_abs_err {err}; {card}")
+        del left, right
+    for h, d, w in UNREFUSED_WTA:
+        aggr = rand(4000, (1, h, d, w), np.uint16)
+        for dmin in (0, 24):
+            opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+            fn = lambda: kernels.wta_reduce(aggr, opt)
+            err = planes_err(_flat(fn()), _flat(kernels.wta_reduce_plain(aggr, opt)))
+        lim = bound(2 * aggr.numel() + 40 * h * w, 2 * 3 * aggr.numel())
+        print(f"unrefused, WTA {w}x{h} D={d} both views: {cuda_ms(fn, 5):.4f} ms, "
+              f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), "
+              f"max_abs_err {err}; {card}")
+        del aggr
+    for cfg in DEEP_KERNELS:
+        b, h, d, w = cfg["batch"], cfg["h"], cfg["d"], cfg["w"]
+        cost, img = rand(128, (b, h, d, w), np.uint8), rand(256, (b, h, w), np.uint8)
+        acc = rand(900, (b, h, d, w), np.uint16)
+        plans = {(n, wta): kernels.group_plan(cost, acc, n, wta)
+                 for n in (1, 3) for wta in (False, True)}
+        if any(p.ranges < 2 for p in plans.values()):
+            raise AssertionError(f"D={d}: a plan does not split D: {plans}")
+        every_group_mode(cost, img, acc)
+        print(f"unrefused, sgm_scan_group at D={d} B={b} {w}x{h}: every mode "
+              f"bit-equal to its plain version (max_abs_err 0.0); the 3-direction "
+              f"plan with the epilogue {plans[3, True]._asdict()}")
+        del cost, img, acc
+
+
+def unrefused_frames(card: str) -> None:
+    """The engine where it once refused: ``match_batch`` at D =
+    4,096 (256x512) and on a row of 20,000 columns (48 rows, D = 64), each
+    bit-equal to the plain path on the card with the main path's launches
+    counted; the long frame through the tiled engine on a 1x1 mesh,
+    bit-equal to the untiled; phase 10's full-size frames again, untiled
+    bit-equal to tiled; the K2 forms and the WTA at the D = 4,096 frame
+    beside their bounds (kernel table rows 2-4)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import (EngineConfig, SGMEngine,
+                                                       SGMOptions)
+    from soc_project_stereo_matching_tpu_torch.models.sgm import sgm_forward
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+    from soc_project_stereo_matching_tpu_torch.parallel.mesh import make_mesh
+
+    for cfg in (DEEP_FRAME, LONG_FRAME):
+        opt = SGMOptions(max_disparity=cfg["dmax"])
+        left, right, field = pair(cfg, seed=cfg["dmax"] + 1)
+        engine = SGMEngine(opt, device="cuda")
+        kernels.reset_launch_counts()
+        disp = engine.match_batch(left, right)
+        torch.cuda.synchronize()
+        launches = counted_launches(
+            kernels.LAUNCHES, main_path_launches(cfg["batch"], cfg["h"], cfg["w"],
+                                                 cfg["dmax"]), 1,
+            f"match_batch at {cfg['w']}x{cfg['h']} D={cfg['dmax']}")
+        max_abs_err(disp, sgm_forward(left, right, opt, use_kernels=False))
+        valid = torch.isfinite(disp)
+        good = ((disp - field).abs() <= 1.0)[valid].float().mean().item()
+        ms = cuda_ms(lambda: engine.match_batch(left, right), 3)
+        line = (f"unrefused, match_batch {cfg['w']}x{cfg['h']} D={cfg['dmax']} "
+                f"B={cfg['batch']}: bit-equal to the plain path, {ms:.3f} ms "
+                f"(CUDA events, median of 3), finite "
+                f"{valid.float().mean().item():.4f}, {good:.4f} of them within 1 "
+                f"of the truth, launches {launches}")
+        if cfg is LONG_FRAME:
+            tiled = SGMEngine(opt, EngineConfig(tile_mode="exact"), device="cuda",
+                              mesh=make_mesh(1, 1))
+            max_abs_err(tiled.match_batch(left, right), disp)
+            line += (f"; tiled exact on a 1x1 mesh bit-equal, "
+                     f"{cuda_ms(lambda: tiled.match_batch(left, right), 3):.3f} ms")
+        print(f"{line}; {card}")
+        del left, right, field, disp
+        torch.cuda.empty_cache()
+    for cfg in WIDE_FRAMES:
+        opt = SGMOptions(max_disparity=cfg["dmax"])
+        left, right, _ = pair(cfg, seed=cfg["dmax"])
+        tiled = SGMEngine(opt, EngineConfig(tile_mode="exact"), device="cuda",
+                          mesh=make_mesh(1, 1))
+        max_abs_err(SGMEngine(opt, device="cuda").match(left, right),
+                    tiled.match_batch(left, right))
+        print(f"unrefused, phase 10's frame {cfg['w']}x{cfg['h']} D={cfg['dmax']} "
+              f"again: SGMEngine.match bit-equal to the tiled engine")
+        del left, right
+        torch.cuda.empty_cache()
+    wide_kernel_times(DEEP_FRAME, card, "unrefused")
+
+
+def unrefused_phase(card: str) -> None:
+    """Phase 11: shapes the port once refused (see the module's docstring)."""
+    t0 = time.perf_counter()
+    unrefused_kernels(card)
+    unrefused_frames(card)
+    print(f"unrefused phase: {time.perf_counter() - t0:.1f} s")
 
 
 def wide_phase(tmp, card: str) -> None:
@@ -2326,13 +2491,15 @@ def main() -> None:
               f"ms (cone B={SPECKLE['batch']} 375x450, min_area 50, bit-equal; "
               f"also at 37x45 B=4 and on hand-made frames)")
 
-    # 8. surfaces, 9. benches, 10. disparity ranges above 256, wide rows
+    # 8. surfaces, 9. benches, 10. disparity ranges above 256, wide rows,
+    # 11. the shapes the port once refused
     with tempfile.TemporaryDirectory() as tmp:
         surfaces_phase(tmp, smi.splitlines()[0])
         launches.update(benches_phase(tmp, smi.splitlines()[0]))
         wide_phase(tmp, smi.splitlines()[0])
+        unrefused_phase(smi.splitlines()[0])
 
-    # 11. results
+    # 12. results
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name],

@@ -33,12 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 SIGNATURES = {
     "sgm_census_cost": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "sgm_census_cost_max_width": (_I, _I, _P),
+    "sgm_census_cost_plan": (_I, _I, _I, _P),
     "sgm_scan_direction": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P),
-    "sgm_scan_group": (_P,) * 7 + (_I,) * 14 + (_P,),
-    "sgm_scan_group_capacity": (_P, _P, _I, _I, _I, _I, _P),
-    "sgm_scan_group_plan": (_P, _P) + (_I,) * 6 + (_P,),
+    "sgm_scan_group": (_P,) * 7 + (_I,) * 15 + (_P,),
+    "sgm_scan_group_capacity": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "sgm_scan_group_plan": (_P, _P) + (_I,) * 7 + (_P,),
     "sgm_wta_reduce": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "sgm_lr_check": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     "sgm_remove_speckles": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),

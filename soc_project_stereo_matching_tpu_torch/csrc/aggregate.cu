@@ -62,6 +62,33 @@
 //     does not fit is refused before any launch.  With the epilogue, a row's
 //     columns come from every cluster, so the ring's "ready" and "free" are
 //     every block's step and row counts there instead of mbarriers.
+//   * D split over the blocks of a cluster (SPLIT, with MULTI's hand-off):
+//     from D = 280 on where no one cluster holds a row (measured faster
+//     there, PERF.md section 6), and wherever strips of two columns do not
+//     hold one direction's state (the slab ring and two state buffers of
+//     D + 2 rows: D above 2,515).  A cluster of KR blocks (8, else 16, 4,
+//     2; plan_split) is one of the image's G strips, block r holds the
+//     disparities [r DK, (r + 1) DK) of its state and cost slabs, DK a
+//     multiple of 4 (the last block the rest), with up to kSplitChunks
+//     chunks a column pair.  A step needs from the other blocks only the
+//     state at d0 - 1 and d0 + DK (rows 0 and DK + 1 of its state, which
+//     hold the sentinels at D's ends) and each column's minimum over all
+//     D: after the step's block barrier every block sends its range's
+//     minimum of each column pair to every block of the cluster (row r of
+//     their range minima, three slots by step) and its two edge rows to
+//     the blocks below and above, all by st.async onto the receiver's
+//     hand-off barrier of the step.  Every block waits for every other
+//     block's message each step, so the blocks stay a step apart and need
+//     no tokens.  The strip's edge column goes to the neighbour strip's
+//     cluster through device memory (`xchg`, by receiving strip: each
+//     block writes its range of the column, thread 0 its range minimum,
+//     then its step count); a block waits for the counts of every block of
+//     both neighbour strips and copies rows d0 - 1 .. d0 + DK of the column
+//     and the KR minima into its hand-off buffer.  With one strip (G = 1)
+//     the wrap is the strip's hand-off to itself.  The epilogue's reducers
+//     need no merge across blocks: the ring holds whole rows in device
+//     memory, so the KR blocks of a strip share its column pairs, each
+//     over all D, with up to kSplitChunks chunks a pair.
 //   * Per step the block stages its (D, TW) slab of the cost row into a ring
 //     of 2 to 4 shared-memory buffers with 16-byte cp.async copies, up to
 //     three steps ahead.  Rows of W bytes are not 16-byte aligned (W = 450),
@@ -382,6 +409,13 @@ constexpr long long kHeavyStrip = 16384;   // columns x D of a strip
 constexpr int kGroupSmem = 232448; // 227 KB, the most a block can take
 constexpr unsigned kByte2 = 0x00FF00FFu;
 constexpr int kMaxRange = 16384;   // D: the WTA's key, cost << 14 | k
+// D split over the blocks of a cluster (SPLIT): chunks of a range per
+// column pair, the recurrence's and the reducers'
+constexpr int kSplitChunks = 32;
+// From this D on the split takes the place of several clusters an image
+// where no one cluster holds a row: measured faster at D = 280 and 760
+// (PERF.md section 6), not measured below
+constexpr int kSplitFrom = 280;
 
 // One scan order of a group over the rows [lo, hi) (reverse: hi - 1 down to
 // lo).  The host's layout is kernels.ScanPass (ctypes).
@@ -440,7 +474,21 @@ struct GroupArgs {
                    // block, the steps its recurrence has finished and the
                    // rows its reducers have reduced
   uint8_t* xchg;   // (sets * B, G * CS, kSlots, n, recv_dir) bytes: the
-                   // columns handed over between clusters, by receiving block
+                   // columns handed over between clusters, by receiving
+                   // block; SPLIT: (sets * B, G, kSlots, n, xchg_dir), by
+                   // receiving strip
+  // (last, so that the fields before keep their offsets)
+  // D split over the blocks of a cluster (SPLIT, with MULTI's hand-off):
+  // a cluster of KR blocks owns one of the image's G strips, block r the
+  // disparities [r * DK, min(D, (r + 1) * DK)); 1 and D otherwise
+  int KR, DK;
+  int red_np;      // the reducers' rounds of column pairs (NP unless SPLIT)
+  int rm_off;      // SPLIT: byte offset of the range minima, (kSlots, n,
+                   // KR, pitchM) uint16: block r's minimum over its range
+                   // of each column, row r, slot step % kSlots; else -1
+  int xchg_dir;    // SPLIT: bytes of a direction's column in xchg: 16, the
+                   // D bytes at 16 + d, then at xchg_pm a word per block
+  int xchg_pm;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -772,7 +820,7 @@ __device__ __forceinline__ void wta_best(const uint16_t* row, Best2 (&t)[2],
 // columns come from every cluster of the image, so "ready" is every block's
 // step count (ticks[0 .. GR), ahead by `base` steps of the earlier passes)
 // and "free" this block's row count (ticks[GR + R]), both in device memory.
-template <bool EVEN, bool MULTI>
+template <bool EVEN, bool MULTI, bool SPLIT>
 __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
                                             const ScanPass& P, int rt, int b,
                                             int cstart, int Lb, int CS,
@@ -782,6 +830,7 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
                                             int* ticks, int GR, int R,
                                             int base) {
   const int D = a.D, W = a.W, dmin = a.dmin;
+  const int np = SPLIT ? a.red_np : a.NP;   // rounds of column pairs
   const int nchr = a.red_chunks, dcr = a.red_dc, per = kReducers / nchr;
   const int chunk = rt % nchr;
   const int d_lo = chunk * dcr, d_hi = min(D, d_lo + dcr);
@@ -799,7 +848,7 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
     const int t = P.reverse ? P.hi - 1 - s : P.lo + s;
     int* out = a.planes + ((size_t)b * a.S + t) * W;
 #pragma unroll 1
-    for (int p0 = 0; p0 < a.NP; p0 += per) {   // the same rounds for all
+    for (int p0 = 0; p0 < np; p0 += per) {   // the same rounds for all
       const int lc = 2 * (p0 + rt / nchr), c0 = cstart + lc;
       const bool on = lc < Lb && d_lo < D;
       const bool valid1 = lc + 1 < Lb;
@@ -862,8 +911,9 @@ __device__ __forceinline__ void reduce_rows(const GroupArgs& a,
 // carries the epilogue (a.views > 0), reduced by warps of their own.
 // MULTI: an image takes a.G clusters; the strips at a cluster's two edges
 // hand over through device memory (a.xchg) and the reducers pace the ring
-// by counts there (a.ticks).
-template <int N, bool EVEN, bool WTA, bool MULTI>
+// by counts there (a.ticks).  SPLIT (with MULTI): a cluster is one strip
+// and its blocks split D (see the header).
+template <int N, bool EVEN, bool WTA, bool MULTI, bool SPLIT = false>
 __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
                                       : kGroupThreads)
     group_kernel(const __grid_constant__ GroupArgs a) {
@@ -881,18 +931,29 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   const int R = a.rec_threads;   // the recurrence's; the reducers follow
   const int D = a.D, W = a.W, S = a.S;
   const int pitchS = a.pitchS, pitchC = a.pitchC, pitchM = a.pitchM;
+  // SPLIT: this block's strip of the image, its disparities [d0, d0 + DL)
+  // and the range every block's layout is sized for (DS)
+  const int sg = cl - (cl / G) * G;
+  const int d0 = SPLIT ? rank * a.DK : 0;
+  const int DL = SPLIT ? min(D, d0 + a.DK) - d0 : D;
+  const int DS = SPLIT ? a.DK : D;
 
   // shared memory, by byte offset (GroupArgs and group_shape agree on it)
   uint16_t* lut = (uint16_t*)smem;                              // 256
   unsigned long long* bars = (unsigned long long*)(smem + 512); // kSlots
   unsigned* tokens = (unsigned*)(smem + 544);                   // kSlots x 2
   const int ring = 576;                                         // NST slabs
-  const int slab_bytes = D * pitchC;
-  // state rows 0 and D + 1 hold the sentinels of d = -1 and d = D
+  const int slab_bytes = DS * pitchC;
+  // state rows 0 and D + 1 hold the sentinels of d = -1 and d = D (SPLIT:
+  // rows 0 and DL + 1, the state at d0 - 1 and d0 + DL, from the blocks of
+  // the ranges below and above, or the sentinels at D's ends)
   const int state = ring + a.NST * slab_bytes;                  // (2, N, D+2)
-  const int state_dir = (D + 2) * pitchS, state_buf = N * state_dir;
+  const int state_dir = (DS + 2) * pitchS, state_buf = N * state_dir;
   uint16_t* pm = (uint16_t*)(smem + state + 2 * state_buf);     // (2, N, NCH)
   const int pm_buf = N * a.NCH * pitchM;
+  // SPLIT: every block's range minima, by step (kSlots, N, KR, pitchM)
+  uint16_t* rm = SPLIT ? (uint16_t*)(smem + a.rm_off) : nullptr;
+  const int rm_slot = N * CS * pitchM;
   // the column that leaves the strip, per direction: written in the loop by
   // the edge pair's threads, sent from here
   const int stage = a.stage_off, col_bytes = a.col_bytes;       // (N, col)
@@ -906,19 +967,27 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       WTA ? (unsigned long long*)(smem + a.ring_bars) : nullptr;
   unsigned long long* freed = WTA ? ready + kRing : nullptr;
 
-  const int cstart = MULTI ? strip_start(strip, GR, W) : strip * a.TW;
-  const int Lb = MULTI ? strip_start(strip + 1, GR, W) - cstart
-                       : strip_cols(strip, a.TW, W);
+  const int cstart = SPLIT   ? strip_start(sg, G, W)
+                     : MULTI ? strip_start(strip, GR, W)
+                             : strip * a.TW;
+  const int Lb = SPLIT   ? strip_start(sg + 1, G, W) - cstart
+                 : MULTI ? strip_start(strip + 1, GR, W) - cstart
+                         : strip_cols(strip, a.TW, W);
   // MULTI: the neighbour strips in other clusters, and this image's counts
-  const bool gleft = MULTI && rank == 0, gright = MULTI && rank == CS - 1;
+  // (SPLIT: every block is at both edges of its strip)
+  const bool gleft = MULTI && (SPLIT || rank == 0);
+  const bool gright = MULTI && (SPLIT || rank == CS - 1);
   const int left_strip = (strip + GR - 1) % GR, right_strip = (strip + 1) % GR;
+  const int left_g = (sg + G - 1) % G, right_g = (sg + 1) % G;   // SPLIT
   int* ticks = MULTI ? a.ticks + (size_t)image * 2 * GR : nullptr;
-  const uint8_t* cost_b = a.cost + (size_t)b * S * D * W;
+  // the planes of this block's range: the cost, the sums, the ring's rows
+  const uint8_t* cost_b = a.cost + (size_t)b * S * D * W + (size_t)d0 * W;
   const uint8_t* cost_end = a.cost + (size_t)a.B * S * D * W;
   const uint8_t* img_b = a.img + (size_t)b * S * W;
-  uint16_t* out_b = a.out + (size_t)b * S * D * W;
+  uint16_t* out_b = a.out + (size_t)b * S * D * W + (size_t)d0 * W;
   const uint16_t* fin = WTA ? a.finished + (size_t)image * kRing * D * W
                             : nullptr;
+  uint16_t* fin_d = WTA ? (uint16_t*)fin + (size_t)d0 * W : nullptr;
 
   for (int i = tid; i < 256; i += blockDim.x)
     lut[i] = (uint16_t)min(max(a.p1, a.p2_init / (i + 1)), kClampP);
@@ -930,7 +999,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   }
   for (int i = tid; i < 2 * N * 2 * pitchS; i += blockDim.x) {
     const int row = i / pitchS;   // (buffer, direction, first or last row)
-    smem[state + (row >> 1) * state_dir + (row & 1) * (D + 1) * pitchS +
+    smem[state + (row >> 1) * state_dir + (row & 1) * (DL + 1) * pitchS +
          i % pitchS] = (uint8_t)kSentinel;
   }
   // the staged and the received columns start as sentinels: what no message
@@ -945,9 +1014,16 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
     for (int pass = 0; pass < a.npass; ++pass) {
       const ScanPass& P = a.pass[set * a.npass + pass];
       cluster.sync();
-      if (pass == a.npass - 1)
-        reduce_rows<EVEN, MULTI>(a, P, tid - R, b, cstart, Lb, CS, fin, ready,
-                                 freed, ticks, GR, strip, base);
+      if (pass == a.npass - 1) {
+        // SPLIT: the blocks of a strip share its column pairs, each over
+        // all D (the ring holds whole rows)
+        const int sp = (Lb + 1) / 2;
+        const int r0 = SPLIT ? min(Lb, 2 * (rank * sp / CS)) : 0;
+        const int r1 = SPLIT ? min(Lb, 2 * ((rank + 1) * sp / CS)) : Lb;
+        reduce_rows<EVEN, MULTI, SPLIT>(a, P, tid - R, b, cstart + r0,
+                                        r1 - r0, CS, fin, ready, freed, ticks,
+                                        GR, strip, base);
+      }
       base += P.hi - P.lo;
     }
     cluster.sync();   // no block leaves while a peer may still arrive
@@ -972,7 +1048,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
     const int t = reverse ? hi - 1 - step : lo + step;
     uint8_t* slab = smem + ring + (step % a.NST) * slab_bytes;
     const uint8_t* g_row = cost_b + (size_t)t * D * W + cstart;
-    for (int idx = tid; idx < D * cpr; idx += R) {
+    for (int idx = tid; idx < DL * cpr; idx += R) {
       const int d = idx / cpr, j = idx - d * cpr;
       const uint8_t* g = g_row + (size_t)d * W;
       const int o = (int)((uintptr_t)g & 15);
@@ -991,7 +1067,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
   const int c0 = cstart + lc;
   const bool active = ch < a.NCH && lc < Lb;
   const bool valid1 = lc + 1 < Lb;
-  const int d_lo = ch * a.DC, d_hi = min(D, d_lo + a.DC);
+  const int d_lo = ch * a.DC, d_hi = min(DL, d_lo + a.DC);
   const int cm1 = (c0 + W - 1) % W, cp1 = (c0 + 1) % W, cp2 = (c0 + 2) % W;
   const unsigned dead = valid1 ? 0u : 0xFFFF0000u;  // lane 1 holds no column
   const bool first_col = lc == 0;
@@ -1036,10 +1112,41 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       if (MULTI && gtake[k]) step_bytes -= dir_bytes;
     }
     if (MULTI) step_bytes -= (gleft ? 4 : 0) + (gright ? 4 : 0);
+    // SPLIT: every block's range minima of the strip's column pairs, and
+    // the rows at d0 - 1 and d0 + DL from the blocks below and above
+    if (SPLIT)
+      step_bytes = CS * N * a.NP * 4 +
+                   ((rank > 0) + (rank < CS - 1)) * N * ((a.TW + 3) / 4 * 4);
     const bool smem_link = step_bytes > 0;   // the cluster has a peer
 
     // The carry-in is the first state buffer, halo columns included.
-    if (!fresh_start) {
+    if (SPLIT && !fresh_start) {
+      // rows 0 .. DL + 1: the disparities d0 - 1 .. d0 + DL, sentinels
+      // past D's ends; the minima as block 0's range minima of the step
+      // before the first, the other blocks' neutral
+      const int span = Lb + 2;
+      for (int idx = tid; idx < N * (DL + 2) * span; idx += R) {
+        const int j = idx % span - 1;
+        const int kd = idx / span;  // k * (DL + 2) + row
+        const int k = kd / (DL + 2), row = kd - k * (DL + 2);
+        const int d = d0 + row - 1, col = (cstart + j + W) % W;
+        smem[state + k * state_dir + row * pitchS + 4 + j] =
+            d >= 0 && d < D
+                ? (uint8_t)P.cin_cost[((size_t)b * a.carry_n * D +
+                                       (size_t)k * D + d) * W + col]
+                : (uint8_t)kSentinel;
+      }
+      uint16_t* rm0 = rm + (kSlots - 1) * rm_slot;
+      for (int idx = tid; idx < N * CS * span; idx += R) {
+        const int j = idx % span - 1;
+        const int kr = idx / span;  // k * CS + r
+        const int k = kr / CS, col = (cstart + j + W) % W;
+        rm0[kr * pitchM + 2 + j] =
+            kr - k * CS == 0
+                ? (uint16_t)P.cin_min[((size_t)b * a.carry_n + k) * W + col]
+                : (uint16_t)0xFFFF;
+      }
+    } else if (!fresh_start) {
       const int span = Lb + 2;  // columns -1 .. Lb of the strip
       for (int idx = tid; idx < N * D * span; idx += R) {
         const int j = idx % span - 1;
@@ -1117,10 +1224,13 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
     for (int s = 0; s < steps; ++s) {
       const int t = reverse ? hi - 1 - s : lo + s;
       const bool hand_off = diagonals > 0 && s + 1 < steps;   // this step sends
+      // SPLIT: this step's range minima and edge rows go to the cluster's
+      // blocks (after the last step only for the carry-out's minima)
+      const bool exch = SPLIT && (s + 1 < steps || P.cout_cost != nullptr);
       const int slot = s % kSlots;
       if (s + a.NST - 1 < steps) stage_row(s + a.NST - 1);
       cp_async_commit();
-      if (hand_off && tid == 0 && smem_link) {
+      if (SPLIT ? exch && tid == 0 : hand_off && tid == 0 && smem_link) {
         // arm this step's barrier; tell both peers that this block has left
         // step s - 1 behind (a peer never runs more than a step ahead, so a
         // hand-off buffer is free again two steps after it was read)
@@ -1138,7 +1248,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       // in the epilogue, until every block's reducers are done with the
       // ring slot this step overwrites; the edge pairs read the hand-off
       // where it landed
-      const bool handed = diagonals > 0 && s > 0;
+      const bool handed = (SPLIT || diagonals > 0) && s > 0;
       const bool reuse = epi && s >= kRing;
       // MULTI: a later pass starts when the neighbour clusters have left the
       // one before (the hand-off buffers in device memory are used again),
@@ -1147,7 +1257,12 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       const bool rejoin = MULTI && diagonals > 0 && s == 0 && pass > 0;
       if (handed || reuse || rejoin) {
         if (MULTI && tid < 32) {
-          if ((handed || rejoin) && tid == 0) {
+          if (SPLIT) {   // every block of both neighbour strips
+            if (diagonals > 0 && (handed || rejoin)) {
+              ticks_wait_all(ticks + left_g * CS, CS, tick0 + s);
+              ticks_wait_all(ticks + right_g * CS, CS, tick0 + s);
+            }
+          } else if ((handed || rejoin) && tid == 0) {
             if (gleft) tick_wait(ticks + left_strip, tick0 + s);
             if (gright) tick_wait(ticks + right_strip, tick0 + s);
           }
@@ -1164,7 +1279,29 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
                               (s / kRing - 1) & 1);
         }
         rec_sync();
-        if (MULTI && handed && any_gtake) {
+        if (SPLIT && diagonals > 0 && handed) {
+          // the neighbour strip's column, d0 - 1 .. d0 + DL of it (written
+          // by up to three of its blocks; sentinels stay past D's ends),
+          // and its blocks' range minima there
+          const int slot_in = (s - 1) % kSlots;
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            if (!gtake[k]) continue;
+            const uint8_t* src =
+                a.xchg + ((((size_t)image * G + sg) * kSlots + slot_in) * N +
+                          k) * a.xchg_dir;
+            uint8_t* dst = smem + recv + slot_in * recv_slot + k * recv_dir;
+            for (int i = tid; i < DL + 2 + CS; i += R) {
+              const int d = d0 - 1 + i;
+              if (i >= DL + 2)
+                *(unsigned*)(dst + recv_pm + 4 * (i - DL - 2)) = __ldcg(
+                    (const unsigned*)(src + a.xchg_pm + 4 * (i - DL - 2)));
+              else if (d >= 0 && d < D)
+                dst[15 + i] = __ldcg(src + 16 + d);
+            }
+          }
+          rec_sync();
+        } else if (MULTI && handed && any_gtake) {
           // the columns from the next cluster, into the hand-off buffer
           // where a peer's would land: the bytes and the partial minima
           const int slot_in = (s - 1) % kSlots;
@@ -1214,7 +1351,7 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
         int coff = (int)(((uintptr_t)(cost_b + (row_off - lc)) +
                           (uintptr_t)d_lo * W) & 15);
         const uint16_t* src = out_b + row_off + (size_t)d_lo * W;
-        uint16_t* o = epi ? (uint16_t*)fin + (size_t)(s % kRing) * D * W +
+        uint16_t* o = epi ? fin_d + (size_t)(s % kRing) * D * W +
                                 (size_t)d_lo * W + c0
                           : out_b + row_off + (size_t)d_lo * W;
         unsigned runmin[N];
@@ -1269,15 +1406,19 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
             const unsigned p2 = (unsigned)lut[abs(gc0 - ga)] |
                                 ((unsigned)lut[abs(gc1 - gb)] << 16);
             // min over D of the previous columns: the chunks' partial minima
-            const uint16_t* q = pm_prev + k * a.NCH * pitchM + 2 + lc - roll;
+            // (SPLIT: every block's range minima)
+            const uint16_t* q =
+                SPLIT ? rm + ((s + kSlots - 1) % kSlots) * rm_slot +
+                            k * CS * pitchM + 2 + lc - roll
+                      : pm_prev + k * a.NCH * pitchM + 2 + lc - roll;
             unsigned m0 = 0xFFFFu, m1 = 0xFFFFu;
             if (roll == 0) {
               unsigned m = 0xFFFFFFFFu;
-              for (int c = 0; c < a.NCH; ++c)
+              for (int c = 0; c < (SPLIT ? CS : a.NCH); ++c)
                 m = __vminu2(m, *(const unsigned*)(q + c * pitchM));
               m0 = m & 0xFFFFu, m1 = m >> 16;
             } else {
-              for (int c = 0; c < a.NCH; ++c) {
+              for (int c = 0; c < (SPLIT ? CS : a.NCH); ++c) {
                 m0 = min(m0, (unsigned)q[c * pitchM]);
                 m1 = min(m1, (unsigned)q[c * pitchM + 1]);
               }
@@ -1290,7 +1431,8 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
               const unsigned* mins =
                   (const unsigned*)(smem + from + k * recv_dir + recv_pm);
               unsigned mh = 0xFFFFu;
-              for (int c = 0; c < a.NCH; ++c) mh = min(mh, mins[c]);
+              for (int c = 0; c < (SPLIT ? CS : a.NCH); ++c)
+                mh = min(mh, mins[c]);
               if (roll < 0 && valid1) {
                 pb[k] = col, sb[k] = 1, m1 = mh;
               } else {
@@ -1372,7 +1514,16 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
             const unsigned dst = (to_right ? recv_right : recv_left) +
                                  slot * recv_slot + k * recv_dir;
             const unsigned bar = (to_right ? bars_right : bars_left) + 8 * slot;
-            if (MULTI && (to_right ? gright : gleft)) {
+            if (SPLIT) {
+              // to the next strip's cluster, this block's range of the
+              // column (whole words: a range but the last is one); its range
+              // minimum follows after the step (split_exchange)
+              uint8_t* g =
+                  a.xchg + ((((size_t)image * G + (to_right ? right_g : left_g)) *
+                                 kSlots + slot) * N + k) * a.xchg_dir;
+              for (int i = 0; i < d_hi - d_lo; i += 4)
+                *(unsigned*)(g + 16 + d0 + d_lo + i) = src_col[i / 4];
+            } else if (MULTI && (to_right ? gright : gleft)) {
               // to the next cluster: its buffer of this step in device
               // memory, published with this block's step count
               uint8_t* g =
@@ -1404,6 +1555,55 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
       // step's hand-off is in device memory)
       if (!MULTI && epi && tid < CS)
         mbar_arrive_cluster(peer_addr(smem_addr(ready + s % kRing), tid));
+      if (SPLIT && exch) {
+        const uint16_t* pmn = pm + (buf ^ 1) * pm_buf;   // this step's
+        const uint8_t* nst = smem + state + (buf ^ 1) * state_buf;
+        const unsigned bar = smem_addr(bars + slot);
+        // each column pair's minimum over this block's range, to row
+        // `rank` of every block's range minima (its own included)
+        for (int i = tid; i < N * a.NP; i += R) {
+          const int k = i / a.NP, pp = i - k * a.NP;
+          unsigned m = 0xFFFFFFFFu;
+          for (int c = 0; c < a.NCH; ++c)
+            m = __vminu2(m, *(const unsigned*)(pmn + (k * a.NCH + c) * pitchM +
+                                               2 + 2 * pp));
+          const unsigned at = smem_addr(rm + slot * rm_slot +
+                                        (k * CS + rank) * pitchM + 2 + 2 * pp);
+#pragma unroll 1
+          for (int r = 0; r < CS; ++r)
+            send_word(peer_addr(at, r), m, peer_addr(bar, r));
+        }
+        // the rows at the range's two ends, to the blocks below (their row
+        // DK + 1) and above (their row 0), whole words of the strip
+        const int nw = (a.TW + 3) / 4;
+        for (int i = tid; i < N * 2 * nw; i += R) {
+          const int k = i / (2 * nw), up = (i / nw) & 1, wi = i % nw;
+          const int peer = up ? rank + 1 : rank - 1;
+          if (peer < 0 || peer >= CS) continue;
+          const int off = k * state_dir + 4 + 4 * wi;
+          const unsigned v =
+              *(const unsigned*)(nst + off + (up ? DL : 1) * pitchS);
+          send_word(peer_addr(smem_addr(nst + off + (up ? 0 : DS + 1) * pitchS),
+                              peer),
+                    v, peer_addr(bar, peer));
+        }
+        // the range minimum of the column each diagonal hands to the next
+        // strip, beside its bytes (tick_publish below orders them)
+        if (tid == 0 && hand_off) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) {
+            if (rolls[k] == 0) continue;
+            const int col = rolls[k] > 0 ? Lb - 1 : 0;
+            unsigned m = 0xFFFFu;
+            for (int c = 0; c < a.NCH; ++c)
+              m = min(m, (unsigned)pmn[(k * a.NCH + c) * pitchM + 2 + col]);
+            uint8_t* g =
+                a.xchg + ((((size_t)image * G + (rolls[k] > 0 ? right_g : left_g)) *
+                               kSlots + slot) * N + k) * a.xchg_dir;
+            *(unsigned*)(g + a.xchg_pm + 4 * rank) = m;
+          }
+        }
+      }
       if (MULTI && tid == 0 && (epi || (diagonals > 0 && (gleft || gright))))
         tick_publish(ticks + strip, tick0 + s + 1);
       buf ^= 1;
@@ -1411,18 +1611,33 @@ __global__ void __launch_bounds__(WTA ? kWtaThreads + kReducers
     tick0 += steps;
     if (MULTI && tid == 0) tick_publish(ticks + strip, tick0);   // the pass
     if (P.cout_cost != nullptr) {  // the state after the last step
+      if (SPLIT && steps > 0) {    // every block's range minima of it
+        if (tid == 0) {
+          const int last = (steps - 1) % kSlots;
+          mbar_wait(smem_addr(bars + last), (phases >> last) & 1);
+          phases ^= 1u << last;
+        }
+        rec_sync();
+      }
       const uint8_t* st = smem + state + buf * state_buf;
       const uint16_t* pmv = pm + buf * pm_buf;
-      for (int idx = tid; idx < N * D * Lb; idx += R) {
-        const int j = idx % Lb, kd = idx / Lb, k = kd / D, d = kd - k * D;
-        P.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d) * W +
+      for (int idx = tid; idx < N * DL * Lb; idx += R) {
+        const int j = idx % Lb, kd = idx / Lb, k = kd / DL, d = kd - k * DL;
+        P.cout_cost[((size_t)b * a.carry_n * D + (size_t)k * D + d0 + d) * W +
                     cstart + j] = st[k * state_dir + (d + 1) * pitchS + 4 + j];
       }
-      for (int idx = tid; idx < N * Lb; idx += R) {
+      const uint16_t* rmv = SPLIT ? rm + ((steps + kSlots - 1) % kSlots) * rm_slot
+                                  : nullptr;
+      for (int idx = tid; idx < (SPLIT && rank > 0 ? 0 : N * Lb); idx += R) {
         const int j = idx % Lb, k = idx / Lb;
         int m = 0xFFFF;
-        for (int c = 0; c < a.NCH; ++c)
-          m = min(m, (int)pmv[(k * a.NCH + c) * pitchM + 2 + j]);
+        if (SPLIT) {
+          for (int r = 0; r < CS; ++r)
+            m = min(m, (int)rmv[(k * CS + r) * pitchM + 2 + j]);
+        } else {
+          for (int c = 0; c < a.NCH; ++c)
+            m = min(m, (int)pmv[(k * a.NCH + c) * pitchM + 2 + j]);
+        }
         P.cout_min[((size_t)b * a.carry_n + k) * W + cstart + j] = m;
       }
       rec_sync();   // before a next pass's carry-in overwrites the state
@@ -1438,10 +1653,14 @@ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 // a block empty (g = 1: strips of TW columns, the last the rest; g > 1:
 // strip_start's).  With `wta` the recurrence takes at most kWtaThreads
 // threads, the reducers' partition is chosen and the ring's barriers are
-// held too.  (kernels.group_smem_bytes transcribes it.)
-int group_shape(GroupArgs& a, int n, int cs, int g, bool wta) {
-  const int strips = cs * g;
-  if (g == 1) {
+// held too.  kr > 1 (SPLIT): a cluster of cs = kr blocks is one of g
+// strips, its blocks split D in ranges of DK (a multiple of 4; -1 where
+// that leaves a block without a disparity), with up to kSplitChunks chunks
+// a pair and the range minima of every block held beside the state.
+// (kernels.group_smem_bytes transcribes it.)
+int group_shape(GroupArgs& a, int n, int cs, int g, bool wta, int kr = 1) {
+  const int strips = kr > 1 ? g : cs * g;
+  if (g == 1 && kr == 1) {
     a.TW = round_up((a.W + strips - 1) / strips, 2);
     if ((strips - 1) * a.TW >= a.W) return -1;
   } else {   // strip_start: the pairs shared out, the widest strip's
@@ -1449,19 +1668,26 @@ int group_shape(GroupArgs& a, int n, int cs, int g, bool wta) {
     if (strips > pairs) return -1;
     a.TW = 2 * ((pairs + strips - 1) / strips);
   }
+  a.KR = kr;
+  a.DK = kr > 1 ? round_up((a.D + kr - 1) / kr, 4) : a.D;
+  if ((long long)(kr - 1) * a.DK >= a.D) return -1;
   a.NP = a.TW / 2;
   const int threads = wta ? kWtaThreads : kGroupThreads;
   if (a.NP > threads) return kGroupSmem + 1;   // a wider cluster
+  const int max_chunks = kr > 1 ? kSplitChunks : kMaxChunks;
   int nch = threads / a.NP;
   nch = nch < 1 ? 1 : nch;
-  nch = nch > kMaxChunks ? kMaxChunks : nch;
-  nch = nch > a.D ? a.D : nch;
-  a.DC = round_up((a.D + nch - 1) / nch, 4);   // whole words to hand over
-  a.NCH = (a.D + a.DC - 1) / a.DC;
+  nch = nch > max_chunks ? max_chunks : nch;
+  nch = nch > a.DK ? a.DK : nch;
+  a.DC = round_up((a.DK + nch - 1) / nch, 4);   // whole words to hand over
+  a.NCH = (a.DK + a.DC - 1) / a.DC;
   a.rec_threads = round_up(a.NP * a.NCH, 32);
   // the reducers: a power of two of chunks a pair, as many as fill them
+  // (SPLIT: the strip's pairs shared out over its blocks)
+  a.red_np = (a.NP + kr - 1) / kr;
   int rch = 1;
-  while (2 * rch <= kMaxChunks && 2 * rch <= a.D && 2 * rch * a.NP <= kReducers)
+  while (2 * rch <= max_chunks && 2 * rch <= a.D &&
+         2 * rch * a.red_np <= kReducers)
     rch *= 2;
   a.red_chunks = rch;
   a.red_dc = (a.D + rch - 1) / rch;
@@ -1469,17 +1695,24 @@ int group_shape(GroupArgs& a, int n, int cs, int g, bool wta) {
   a.pitchS = round_up(4 + a.TW + 4, 4);
   a.pitchM = 2 + a.TW + 2;
   // the table, barriers and tokens; then the ring, the state, the partial
-  // minima, the hand-off buffers (3 slots of a column per direction) and
-  // the epilogue's ring barriers
+  // minima (SPLIT: and every block's range minima), the hand-off buffers
+  // (3 slots of a column per direction) and the epilogue's ring barriers
   a.col_bytes = round_up(a.NCH * a.DC, 16);
-  a.recv_dir = 32 + a.col_bytes + round_up(4 * a.NCH, 16);
-  const long long body = round_up(2 * n * (a.D + 2) * a.pitchS +
-                                  2 * n * a.NCH * a.pitchM * 2, 16);
+  a.recv_dir = 32 + a.col_bytes +
+               round_up(4 * (a.NCH > kr ? a.NCH : kr), 16);
+  const long long state_pm = round_up(2 * n * (a.DK + 2) * a.pitchS +
+                                      2 * n * a.NCH * a.pitchM * 2, 16);
+  const long long minima = kr > 1 ? round_up(kSlots * n * kr * a.pitchM * 2, 16)
+                                  : 0;
+  const long long body = state_pm + minima;
+  a.xchg_pm = 16 + round_up(a.D + 4, 16);
+  a.xchg_dir = a.xchg_pm + round_up(4 * kr, 16);
   const long long tail = (long long)n * a.col_bytes + 3LL * n * a.recv_dir;
   const long long ring_bars = wta ? 2LL * kRing * 8 : 0;
   for (a.NST = kMaxStages; a.NST >= 2; --a.NST) {
-    const long long at = 576 + (long long)a.NST * a.D * a.pitchC + body;
+    const long long at = 576 + (long long)a.NST * a.DK * a.pitchC + body;
     if (at + tail + ring_bars <= kGroupSmem) {
+      a.rm_off = kr > 1 ? (int)(at - minima) : -1;
       a.stage_off = (int)at;
       a.recv_off = a.stage_off + n * a.col_bytes;
       a.fill_end = (int)(at + tail);
@@ -1493,11 +1726,11 @@ int group_shape(GroupArgs& a, int n, int cs, int g, bool wta) {
 
 // A launch of `images` images, a.G clusters of `cs` blocks each; `bytes`
 // from group_shape at that size.
-template <int N, bool EVEN, bool WTA, bool MULTI>
+template <int N, bool EVEN, bool WTA, bool MULTI, bool SPLIT = false>
 cudaError_t group_config(const GroupArgs& a, int cs, int bytes, int images,
                          cudaLaunchAttribute* attr,
                          cudaLaunchConfig_t* config) {
-  auto* kernel = group_kernel<N, EVEN, WTA, MULTI>;
+  auto* kernel = group_kernel<N, EVEN, WTA, MULTI, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1571,9 +1804,11 @@ cudaError_t choose_cluster(const GroupArgs& a, int* chosen) {
 // waves of as many as the card holds at once (per_wave, asked of the card
 // for this kernel and shape); per_wave = 0 where one image's clusters do
 // not fit the card at once.  G = 0: no number of clusters takes N
-// directions (strips of two columns still do not fit).
+// directions (strips of two columns still do not fit).  KR: the blocks a
+// strip's D is split over (plan_split), 1 here.
 struct Plan {
   long long G, CS, per_wave, clusters, work;   // work: bytes of ticks + xchg
+  long long KR;
 };
 
 template <int N, bool EVEN, bool WTA>
@@ -1599,7 +1834,8 @@ cudaError_t plan_multi(const GroupArgs& a, Plan* p) {
       const long long images = (long long)a.sets * a.B, strips = (long long)g * cs;
       *p = Plan{g, cs, clusters / g, clusters,
                 round_up((int)(images * 2 * strips * 4), 256) +
-                    images * strips * kSlots * N * trial.recv_dir};
+                    images * strips * kSlots * N * trial.recv_dir,
+                1};
       if (p->per_wave >= 1) return cudaSuccess;
       break;
     }
@@ -1607,17 +1843,134 @@ cudaError_t plan_multi(const GroupArgs& a, Plan* p) {
   return cudaSuccess;
 }
 
-// One entry call: one launch where a cluster holds an image's row (G = 1),
-// else (MULTI) a launch per wave of images, with `work` (zeroed, plan.work
-// bytes) for the counts and the hand-off between clusters.
+// D split over the blocks of a cluster (SPLIT): where no one cluster holds
+// a row's state and D >= kSplitFrom, or where not even strips of two
+// columns hold it for one direction (D above about 2,515), or where the
+// caller asks for it (ranges >= 2).  A cluster of KR blocks takes one of
+// the image's G strips, block r the disparities [r DK, (r + 1) DK); G is
+// the fewest strips whose blocks fit shared memory.  KR is the first of
+// 8, 16, 4, 2 (or `ranges` alone) whose clusters the card holds at once:
+// 8 blocks were the fastest at 2964x1988 D = 280 and 760 for the vertical
+// pair with the epilogue, and within 1.15x of the fastest (16) for the
+// horizontal pair at D = 760 (PERF.md section 6).  Where none fits, the plan
+// reported is KR = 16's (the widest rows), else the last that splits; as
+// plan_multi, per_wave = 0 then, and G = 0 where no KR takes N directions.
 template <int N, bool EVEN, bool WTA>
-int launch_group(GroupArgs a, void* work, cudaStream_t stream) {
-  int cs = 0;
-  cudaError_t err = choose_cluster<N, EVEN, WTA>(a, &cs);
-  if (err != cudaSuccess) return (int)err;
+cudaError_t plan_split(const GroupArgs& a, int ranges, Plan* p) {
+  *p = Plan{};
+  constexpr int kOrder[] = {8, 16, 4, 2};
+  for (int i = 0; i < (ranges ? 1 : 4); ++i) {
+    const int kr = ranges ? ranges : kOrder[i];
+    for (int g = 1;; ++g) {
+      GroupArgs trial = a;
+      trial.G = g;
+      const int need = group_shape(trial, N, kr, g, WTA, kr);
+      if (need < 0) break;
+      if (need > kGroupSmem) continue;
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t config;
+      cudaError_t err = group_config<N, EVEN, WTA, true, true>(
+          trial, kr, need, 1, attr, &config);
+      if (err != cudaSuccess) return err;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, group_kernel<N, EVEN, WTA, true, true>, &config);
+      if (err != cudaSuccess) return err;
+      if (clusters < 1) break;   // the card places no cluster of kr blocks
+      const long long images = (long long)a.sets * a.B;
+      const Plan q{g, kr, clusters / g, clusters,
+                   round_up((int)(images * 2 * g * kr * 4), 256) +
+                       images * g * kSlots * N * trial.xchg_dir,
+                   kr};
+      if (q.per_wave >= 1) {
+        *p = q;
+        return cudaSuccess;
+      }
+      if (p->KR != 16) *p = q;   // the plan to report if none fits
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
+// The plan of a launch that no one cluster an image takes.  From D =
+// kSplitFrom on, D split (plan_split) where it fits the card at once;
+// else, and below kSplitFrom, several clusters an image where strips of
+// two columns hold the state of N directions (from kSplitFrom on, only
+// where they fit at once; where neither does, the split's plan is the one
+// reported); D split where strips do not hold even one direction's; the
+// split alone where the caller asks for it (ranges >= 2).  G = 0 where
+// strips hold one direction but not N: the group is split over launches
+// (sgm_scan_group_capacity), as before the split existed.
+template <int N, bool EVEN, bool WTA>
+cudaError_t plan_wide(const GroupArgs& a, int ranges, Plan* p) {
+  if (ranges == 0) {
+    Plan split{};
+    cudaError_t err;
+    if (a.D >= kSplitFrom) {
+      err = plan_split<N, EVEN, WTA>(a, 0, &split);
+      if (err != cudaSuccess) return err;
+      if (split.G != 0 && split.per_wave >= 1) {
+        *p = split;
+        return err;
+      }
+    }
+    err = plan_multi<N, EVEN, WTA>(a, p);
+    if (err != cudaSuccess) return err;
+    // neither fits the card at once: the split's plan is the one reported
+    if (split.G != 0 && !(p->G != 0 && p->per_wave >= 1)) *p = split;
+    if (p->G != 0) return err;
+    if (N > 1) {
+      Plan one;
+      err = plan_multi<1, EVEN, WTA>(a, &one);
+      if (err != cudaSuccess || one.G != 0) return err;
+    }
+  }
+  return plan_split<N, EVEN, WTA>(a, ranges, p);
+}
+
+// One wave-launched plan (MULTI or SPLIT): a launch per wave of images,
+// with `work` (zeroed, plan.work bytes) for the counts and the hand-off
+// between clusters.
+template <int N, bool EVEN, bool WTA, bool SPLIT>
+int launch_waves(GroupArgs a, const Plan& p, void* work, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t config;
+  a.G = (int)p.G;
+  const int bytes = group_shape(a, N, (int)p.CS, a.G, WTA, (int)p.KR);
+  const int images = a.sets * a.B;
+  a.ticks = (int*)work;
+  a.xchg = (uint8_t*)work + round_up(images * 2 * a.G * (int)p.CS * 4, 256);
+  for (int img0 = 0; img0 < images; img0 += (int)p.per_wave) {
+    a.img0 = img0;
+    const int n_img = images - img0 < p.per_wave ? images - img0
+                                                 : (int)p.per_wave;
+    cudaError_t err = group_config<N, EVEN, WTA, true, SPLIT>(
+        a, (int)p.CS, bytes, n_img, attr, &config);
+    if (err != cudaSuccess) return (int)err;
+    config.stream = stream;
+    err = cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA, true, SPLIT>,
+                             a);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// One entry call: one launch where a cluster holds an image's row (G = 1),
+// else a launch per wave of images over several clusters an image (MULTI)
+// or with D split over a cluster's blocks (SPLIT; also where the caller
+// asks for it, ranges >= 2).
+template <int N, bool EVEN, bool WTA>
+int launch_group(GroupArgs a, void* work, int ranges, cudaStream_t stream) {
+  int cs = 0;
+  cudaError_t err = cudaSuccess;
+  if (ranges == 0) {
+    err = choose_cluster<N, EVEN, WTA>(a, &cs);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (cs != 0) {
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t config;
     a.G = 1, a.img0 = 0;
     const int bytes = group_shape(a, N, cs, 1, WTA);
     err = group_config<N, EVEN, WTA, false>(a, cs, bytes, a.sets * a.B, attr,
@@ -1628,32 +1981,17 @@ int launch_group(GroupArgs a, void* work, cudaStream_t stream) {
                                    a);
   }
   Plan p;
-  err = plan_multi<N, EVEN, WTA>(a, &p);
+  err = plan_wide<N, EVEN, WTA>(a, ranges, &p);
   if (err != cudaSuccess) return (int)err;
   if (p.G == 0 || p.per_wave < 1) return (int)cudaErrorInvalidConfiguration;
   if (work == nullptr) return (int)cudaErrorInvalidValue;
-  a.G = (int)p.G;
-  const int bytes = group_shape(a, N, (int)p.CS, a.G, WTA);
-  const int images = a.sets * a.B;
-  a.ticks = (int*)work;
-  a.xchg = (uint8_t*)work + round_up(images * 2 * a.G * (int)p.CS * 4, 256);
-  for (int img0 = 0; img0 < images; img0 += (int)p.per_wave) {
-    a.img0 = img0;
-    const int n_img = images - img0 < p.per_wave ? images - img0
-                                                 : (int)p.per_wave;
-    err = group_config<N, EVEN, WTA, true>(a, (int)p.CS, bytes, n_img, attr,
-                                           &config);
-    if (err != cudaSuccess) return (int)err;
-    config.stream = stream;
-    err = cudaLaunchKernelEx(&config, group_kernel<N, EVEN, WTA, true>, a);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return p.KR > 1 ? launch_waves<N, EVEN, WTA, true>(a, p, work, stream)
+                  : launch_waves<N, EVEN, WTA, false>(a, p, work, stream);
 }
 
 using Chooser = cudaError_t (*)(const GroupArgs&, int*);
-using Planner = cudaError_t (*)(const GroupArgs&, Plan*);
-using Launcher = int (*)(GroupArgs, void*, cudaStream_t);
+using Planner = cudaError_t (*)(const GroupArgs&, int, Plan*);
+using Launcher = int (*)(GroupArgs, void*, int, cudaStream_t);
 // [directions - 1][even][wta]
 #define SGM_GROUP_TABLE(F, N)                                   \
   {{F<N, false, false>, F<N, false, true>},                     \
@@ -1662,8 +2000,11 @@ constexpr Chooser kChoose[kMaxDirs][2][2] = {
     SGM_GROUP_TABLE(choose_cluster, 1), SGM_GROUP_TABLE(choose_cluster, 2),
     SGM_GROUP_TABLE(choose_cluster, 3)};
 constexpr Planner kPlan[kMaxDirs][2][2] = {
-    SGM_GROUP_TABLE(plan_multi, 1), SGM_GROUP_TABLE(plan_multi, 2),
-    SGM_GROUP_TABLE(plan_multi, 3)};
+    SGM_GROUP_TABLE(plan_wide, 1), SGM_GROUP_TABLE(plan_wide, 2),
+    SGM_GROUP_TABLE(plan_wide, 3)};
+constexpr Planner kSplit[kMaxDirs][2][2] = {
+    SGM_GROUP_TABLE(plan_split, 1), SGM_GROUP_TABLE(plan_split, 2),
+    SGM_GROUP_TABLE(plan_split, 3)};
 constexpr Launcher kLaunch[kMaxDirs][2][2] = {
     SGM_GROUP_TABLE(launch_group, 1), SGM_GROUP_TABLE(launch_group, 2),
     SGM_GROUP_TABLE(launch_group, 3)};
@@ -1704,19 +2045,22 @@ extern "C" int sgm_scan_direction(const void* cost, const void* img,
 // `finished`, a uint16 (sets * B, kRing, D, W) scratch ring.  Where no
 // cluster holds a row, an image takes several (sgm_scan_group_plan) and
 // `work` must point at that plan's `work` bytes of zeros in device memory
-// (else it may be null).  A group that no plan takes at this shape is
-// refused (cudaErrorInvalidConfiguration; see sgm_scan_group_capacity).
+// (else it may be null).  ranges = 0: the plan's own choice; 2..16: D split
+// over that many blocks of a cluster whatever D (for measurements).  A
+// group that no plan takes at this shape is refused
+// (cudaErrorInvalidConfiguration; see sgm_scan_group_capacity).
 extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
                               void* finished, void* planes, void* work,
                               const void* passes, int npass, int sets, int B,
                               int S, int D, int W, int n, int carry_n,
                               int restart, int p1, int p2_init,
-                              int accumulate, int views, int dmin,
+                              int accumulate, int views, int dmin, int ranges,
                               void* stream) {
   if ((long long)B * S * W == 0) return 0;
   if (D < 1 || D > kMaxRange || n < 1 || n > kMaxDirs || p1 < 0 ||
       p2_init < 0 || views < 0 || views > 2 || npass < 1 || sets < 1 ||
-      npass * sets > 2 || passes == nullptr)
+      npass * sets > 2 || passes == nullptr || ranges == 1 || ranges < 0 ||
+      ranges > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   if (views && (finished == nullptr || planes == nullptr || dmin < 0))
     return (int)cudaErrorInvalidValue;
@@ -1746,24 +2090,28 @@ extern "C" int sgm_scan_group(const void* cost, const void* img, void* aggr,
   a.views = views, a.dmin = dmin;
   a.finished = views ? (uint16_t*)finished : nullptr;
   a.planes = (int*)planes;
-  return kLaunch[n - 1][even_access(a)][views > 0](a, work,
+  return kLaunch[n - 1][even_access(a)][views > 0](a, work, ranges,
                                                    (cudaStream_t)stream);
 }
 
 // How a launch of n directions on `sets` sets of B images runs at this
-// shape on the current card, into the host int64 out[5]: G (clusters an
+// shape on the current card, into the host int64 out[6]: G (clusters an
 // image; 0: no plan), CS (blocks a cluster), the images a launch (a wave)
 // takes, the clusters of that shape the card holds at once (0 where G = 1:
-// no wave is needed) and the bytes of `work` sgm_scan_group needs (0 where
-// G = 1).  An empty volume's launch does nothing: G = 1, no work.
+// no wave is needed), the bytes of `work` sgm_scan_group needs (0 where
+// G = 1) and KR (the blocks a strip's D is split over; 1: no split).  An
+// empty volume's launch does nothing: G = 1, no work.  ranges as
+// sgm_scan_group's.
 extern "C" int sgm_scan_group_plan(const void* cost, const void* aggr, int B,
                                    int D, int W, int n, int wta, int sets,
-                                   void* out) {
+                                   int ranges, void* out) {
   long long* o = (long long*)out;
-  for (int i = 0; i < 5; ++i) o[i] = 0;
+  for (int i = 0; i < 6; ++i) o[i] = 0;
   if (D < 1 || D > kMaxRange || n < 1 || n > kMaxDirs || B < 0 || W < 0 ||
-      sets < 1 || sets > 2)
+      sets < 1 || sets > 2 || ranges == 1 || ranges < 0 ||
+      ranges > kMaxCluster)
     return (int)cudaErrorInvalidValue;
+  o[5] = 1;
   if ((long long)B * W == 0) {
     o[0] = 1;
     return 0;
@@ -1775,16 +2123,20 @@ extern "C" int sgm_scan_group_plan(const void* cost, const void* aggr, int B,
   a.B = B, a.D = D, a.W = W;
   const bool even = even_access(a);
   int cs = 0;
-  cudaError_t err = kChoose[n - 1][even][wta != 0](a, &cs);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  if (ranges == 0) {
+    err = kChoose[n - 1][even][wta != 0](a, &cs);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (cs != 0) {
     o[0] = 1, o[1] = cs, o[2] = (long long)sets * B;
     return 0;
   }
   Plan p;
-  err = kPlan[n - 1][even][wta != 0](a, &p);
+  err = kPlan[n - 1][even][wta != 0](a, ranges, &p);
   if (err != cudaSuccess) return (int)err;
   o[0] = p.G, o[1] = p.CS, o[2] = p.per_wave, o[3] = p.clusters, o[4] = p.work;
+  o[5] = p.KR ? p.KR : 1;
   return 0;
 }
 
@@ -1792,21 +2144,43 @@ extern "C" int sgm_scan_group_plan(const void* cost, const void* aggr, int B,
 // volumes at this shape on the current card, with (wta=1) or without the
 // WTA epilogue, into the host int *dirs (3 for an empty volume: its launch
 // does nothing): the most that one cluster an image takes, else the most
-// that several clusters take with one image's clusters resident at once.
+// that several clusters take with one image's clusters resident at once
+// (plan_wide: with D split where strips of two columns do not hold one
+// direction).  From D = kSplitFrom on, a group one cluster does not hold
+// whole takes D split with all its directions where that fits, rather than
+// launches of fewer directions in one cluster each (2 launches instead of
+// 4 for the vertical pair at 2964x1988 D = 280: 42.2 ms against 90.5,
+// PERF.md section 6).  ranges as sgm_scan_group's: the most the split takes.
 extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
                                        int B, int D, int W, int wta,
-                                       void* dirs) {
+                                       int ranges, void* dirs) {
   *(int*)dirs = kMaxDirs;
   if ((long long)B * W == 0) return 0;
   *(int*)dirs = 0;
-  if (D < 1 || D > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxRange || ranges == 1 || ranges < 0 ||
+      ranges > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
   GroupArgs a{};
   a.cost = (const uint8_t*)cost;
   a.out = (uint16_t*)aggr;
   a.npass = a.sets = 1;
   a.B = B, a.D = D, a.W = W;
   const bool even = even_access(a);
-  for (int n = kMaxDirs; n >= 1; --n) {
+  if (ranges == 0 && D >= kSplitFrom) {
+    int cs = 0;
+    cudaError_t err = kChoose[kMaxDirs - 1][even][wta != 0](a, &cs);
+    if (err != cudaSuccess) return (int)err;
+    for (int n = kMaxDirs; n >= 1 && cs == 0; --n) {
+      Plan p;
+      err = kSplit[n - 1][even][wta != 0](a, 0, &p);
+      if (err != cudaSuccess) return (int)err;
+      if (p.G != 0 && p.per_wave >= 1) {
+        *(int*)dirs = n;
+        return 0;
+      }
+    }
+  }
+  for (int n = kMaxDirs; n >= 1 && ranges == 0; --n) {
     int cs = 0;
     const cudaError_t err = kChoose[n - 1][even][wta != 0](a, &cs);
     if (err != cudaSuccess) return (int)err;
@@ -1817,7 +2191,7 @@ extern "C" int sgm_scan_group_capacity(const void* cost, const void* aggr,
   }
   for (int n = kMaxDirs; n >= 1; --n) {
     Plan p;
-    const cudaError_t err = kPlan[n - 1][even][wta != 0](a, &p);
+    const cudaError_t err = kPlan[n - 1][even][wta != 0](a, ranges, &p);
     if (err != cudaSuccess) return (int)err;
     if (p.G != 0 && p.per_wave >= 1) {
       *(int*)dirs = n;

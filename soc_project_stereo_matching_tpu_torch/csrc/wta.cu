@@ -63,9 +63,14 @@
 //   * The ten planes leave as 8-byte stores of the column pair where W is
 //     even (a row of 450 int32 starts 8-byte aligned), as 4-byte stores
 //     otherwise.
-// Rows up to kMaxWidth columns at any D in 1..16,384 (the JAX package's
-// bound, the latch's) and any dmin >= 0, where a plane's staged window fits
-// a block's shared memory.
+// Rows of any width at any D in 1..16,384 (the JAX package's bound, the
+// latch's) and any dmin >= 0, where a plane's staged window (a segment's
+// columns and the inverse view's reach, min(dmin + D - 1, W) columns past
+// them) fits half a block's shared memory (shape_of); only rows wider than
+// that window can pass it, and then only where dmin + D - 1 does too.
+// Nothing else in the kernel depends on W: the grid is B * H * segments
+// blocks, the offsets into the volume and the planes are 64-bit, a plane's
+// table holds kMaxPlanes entries whatever W.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,7 +83,6 @@ constexpr int kBig = 1 << 30;                 // sec_min where D = 1
 constexpr unsigned kSentinel = 0xFFFFu;       // the inverse view off the row
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxSegment = 2 * kMaxThreads;  // columns of a block
-constexpr int kMaxWidth = 32768;              // columns of a row
 constexpr int kMaxPlanes = 32;                // a copy per lane of warp 0
 constexpr int kStages = 2;                    // buffers in the ring
 constexpr int kSmRegisters = 65536;
@@ -431,15 +435,15 @@ int launch(const uint16_t* aggr, int* out, int rows, int D, int W, int dmin,
 
 // WTA planes of a uint16 (B, H, D, W) volume into out = int32 (5 or 10, B,
 // H, W): best, min, sec_min, c1, c2 of the forward view, then of the
-// inverse.  Refused (cudaErrorInvalidValue) outside D in 1..16,384, dmin >=
-// 0, W <= 32768 (kMaxWidth), or where a segment's staged plane does not fit
+// inverse.  Refused (cudaErrorInvalidValue) outside D in 1..16,384 and dmin
+// >= 0, past 2^31 - 1 blocks, or where a segment's staged plane does not fit
 // shared memory.
 extern "C" int sgm_wta_reduce(const void* aggr, void* out, int B, int H,
                               int D, int W, int dmin, int include_inverse,
                               void* stream) {
   const long long n = (long long)B * H * W;
   if (n == 0) return 0;
-  if (D < 1 || D > kMaxD || dmin < 0 || W > kMaxWidth ||
+  if (D < 1 || D > kMaxD || dmin < 0 ||
       (long long)B * H * ((W + kMaxSegment - 1) / kMaxSegment) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Shape s = shape_of(W, D, dmin);

@@ -3,7 +3,7 @@
 this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused] \
+        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused,split,sass] \
         [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
@@ -91,7 +91,25 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   and the main path by both routes of the two-order scans
   (``routes_shape``: two launches or one, in turns), the K2 span of
   ``stage_breakdown.staged_forward`` and the batch, at the four shapes and
-  at 720p B=1.
+  at 720p B=1;
+* D split over the blocks of a cluster (group ``split``, this checkout
+  alone: no parent library is built for it) at full-resolution
+  Middlebury-2014, 2964x1988 B=1, D = 280 and 760: the vertical pair's
+  two-order scan with the WTA epilogue (kernel table row 3w) and the
+  horizontal pair on the transposed volume (row 3) with the split forced
+  through the C entry's plan argument (``ranges`` = 2, 4, 8, 16 blocks,
+  where the card holds such a plan's clusters at once), each held
+  bit-equal to the plan's own result, then in turns with it (plan, the
+  splits, the splits in reverse, plan); and ``SGMEngine.match`` with the
+  fastest split of row 3w forced into every two-order scan, in turns with
+  the plan's own route;
+* the SASS of ``aggregate.cu``, ``census_cost.cu`` and ``wta.cu`` (group
+  ``sass``; nvcc and cuobjdump, no launch): each source of both checkouts
+  compiled to a cubin with the build's flags, and every kernel both
+  define compared instruction by instruction (the group kernel's fifth
+  template argument, SPLIT = false, and the anonymous namespace's hashed
+  name mapped away): identical, different (with the count of differing
+  lines), or in one checkout only.
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -102,8 +120,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -125,7 +145,8 @@ GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "wta": "sgm_wta_reduce", "scan16": "sgm_probe_scan16",
                  "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
                  "s2": "sgm_probe_speckle_hist",
-                 "s4": "sgm_probe_speckle_fused", "fused": "sgm_scan_group"}
+                 "s4": "sgm_probe_speckle_fused", "fused": "sgm_scan_group",
+                 "split": None, "sass": None}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
@@ -145,6 +166,10 @@ SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
 S1_SHAPES = SHAPES + (("37x45 B=4", 4, 37, 45, 48),)   # S1 also here
 # the main path's routes also at the 720p frame of the wire protocol
 ROUTE_SHAPES = (("720p B=1", 1, 720, 1280, 64),)
+# full-resolution Middlebury-2014 at two of its ranges (chip_smoke phase 10)
+SPLIT_SHAPES = (("Middlebury full D=280", 1, 1988, 2964, 280),
+                ("Middlebury full D=760", 1, 1988, 2964, 760))
+SPLIT_RANGES = (2, 4, 8, 16)
 # K1 ablations: (text in csrc/census_cost.cu, its replacement)
 ABLATIONS = {
     "no census window": [
@@ -269,8 +294,8 @@ FUSED_ABLATIONS = {
     # the rows still stored, handed over and freed; the reducers compute
     # and store no planes
     "no row reduction": [(
-        "    for (int p0 = 0; p0 < a.NP; p0 += per) {   // the same rounds for all\n",
-        "    for (int p0 = a.NP; p0 < a.NP; p0 += per) {\n")],
+        "    for (int p0 = 0; p0 < np; p0 += per) {   // the same rounds for all\n",
+        "    for (int p0 = np; p0 < np; p0 += per) {\n")],
     # no loads and no arithmetic over the chunks; the shuffles' merge, the
     # reads beside the best plane and the stores kept
     "no partial tracks": [(
@@ -310,6 +335,15 @@ GROUP_TWO_ORDER = {
 GROUP_PASSES = {
     "sgm_scan_group": (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 14 + (
         ctypes.c_void_p,)}
+# sgm_scan_group and its plan entries with the work buffer but before they
+# took the plan argument `ranges` (D split over a cluster's blocks)
+GROUP_WORK = {
+    "sgm_scan_group": (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 14 + (
+        ctypes.c_void_p,),
+    "sgm_scan_group_capacity": (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 4 + (
+        ctypes.c_void_p,),
+    "sgm_scan_group_plan": (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 6 + (
+        ctypes.c_void_p,)}
 RUN = 10    # back-to-back WTA launches between two events
 
 
@@ -324,14 +358,17 @@ def patched(text: str, edits) -> str | None:
 
 
 def group_form(texts) -> str:
-    """The form of ``sgm_scan_group`` these sources define: "work" (this
-    checkout's: ScanPass by pointer and the work buffer of several clusters
-    an image), "passes" (ScanPass, no work buffer), "two_order" (its first
-    fused form) or "before" (before the fused forms)."""
+    """The form of ``sgm_scan_group`` these sources define: "ranges" (this
+    checkout's: ScanPass by pointer, the work buffer of several clusters an
+    image and the plan argument that splits D), "work" (no plan argument),
+    "passes" (ScanPass, no work buffer), "two_order" (its first fused form)
+    or "before" (before the fused forms)."""
     texts = list(texts)
     if any("struct ScanPass" in text for text in texts):
-        return ("work" if any("void* planes, void* work" in text
-                              for text in texts) else "passes")
+        if not any("void* planes, void* work" in text for text in texts):
+            return "passes"
+        return ("ranges" if any("int dmin, int ranges," in text
+                                for text in texts) else "work")
     if any("int two_order" in text for text in texts):
         return "two_order"
     return "before"
@@ -364,7 +401,8 @@ def build_library(name: str, sources: dict) -> ctypes.CDLL:
             getattr(handle, entry).argtypes = argtypes
             getattr(handle, entry).restype = ctypes.c_int
     if hasattr(handle, "sgm_scan_group"):
-        for entry, argtypes in {"work": {}, "passes": GROUP_PASSES,
+        for entry, argtypes in {"ranges": {}, "work": GROUP_WORK,
+                                "passes": GROUP_PASSES,
                                 "two_order": GROUP_TWO_ORDER,
                                 "before": GROUP_BEFORE_FUSED}[
                                     group_form(sources.values())].items():
@@ -1202,10 +1240,177 @@ def routes_shape(rec, label, b, h, w, dmax, left, right, reps):
           f"in turns: {json.dumps(out)}")
 
 
+class forced_split:
+    """Run every two-order scan of the main path with D split over
+    ``ranges`` blocks (``kernels._bidir``'s plan argument)."""
+
+    def __init__(self, ranges: int):
+        self.ranges = ranges
+
+    def __enter__(self):
+        self.saved = kernels._bidir
+        kernels._bidir = functools.partial(self.saved, ranges=self.ranges)
+
+    def __exit__(self, *exc):
+        kernels._bidir = self.saved
+
+
+def split_fits(x, n: int, wta: bool, ranges: int) -> bool:
+    """Whether a two-order launch of n directions on ``x``'s shape takes D
+    split over ``ranges`` blocks, its clusters all on the card at once."""
+    out = torch.empty(x.shape, dtype=torch.uint16, device=x.device)
+    plan = kernels.group_plan(x, out, n, wta, 2, ranges)
+    return plan.clusters_an_image > 0 and plan.images_a_wave > 0
+
+
+def split_shape(rec, label, b, h, w, dmax, left, right, reps):
+    """Rows 3w and 3 with D split (``SPLIT_RANGES``) in turns with the
+    plan's own launches, bit-equal first; the main path with the fastest
+    split of row 3w in turns with its own route."""
+    from . import SGMEngine
+
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    plans = {}
+
+    def vertical(ranges):
+        return lambda acc: stacked(kernels._bidir(
+            cost, left, acc, rf, rb, p1, p2, False, (0, True),
+            "directional_scan_group_bidir", ranges))
+
+    fns = {"plan": vertical(0)}
+    want = fns["plan"](part.clone())
+    for k in SPLIT_RANGES:
+        if not split_fits(cost, 1, True, k):
+            continue
+        fns[f"split {k}"] = vertical(k)
+        same(fns[f"split {k}"](part.clone()), want, f"split {k} {label}")
+        plans[f"split {k}"] = kernels.group_plan(
+            cost, part, kernels.group_capacity(cost, part, True, k), True, 2,
+            k)._asdict()
+    del want
+    # the sums the calls park on wrap around over the runs: no kernel's time
+    # depends on the values
+    ms = rec["split_vertical_ms"] = in_turns(
+        {name: (lambda fn=fn: fn(part)) for name, fn in fns.items()}, reps)
+    del part
+    cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+    img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+    del cost
+
+    def horizontal(ranges):
+        return lambda: kernels._bidir(cost_t, img_t, None, (0,), (0,), p1, p2,
+                                      False, None, "horizontal_partial",
+                                      ranges)
+
+    hfns = {"plan": horizontal(0)}
+    want = hfns["plan"]()
+    for k in SPLIT_RANGES:
+        if not split_fits(cost_t, 1, False, k):
+            continue
+        hfns[f"split {k}"] = horizontal(k)
+        same(hfns[f"split {k}"](), want, f"horizontal split {k} {label}")
+    del want
+    hms = rec["split_horizontal_ms"] = in_turns(hfns, reps)
+    del cost_t, img_t
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    best = min((n for n in med if n != "plan"), key=med.get, default=None)
+    engine = SGMEngine(opt, device="cuda")
+
+    def forced_match(ranges):
+        def run():
+            with forced_split(ranges):
+                return engine.match(left, right)
+        return run
+
+    match = {"plan": lambda: engine.match(left, right)}
+    if best is not None:
+        match[best] = forced_match(int(best.split()[1]))
+        same(match[best](), match["plan"](), f"match, {best} {label}")
+    mms = rec["split_match_ms"] = in_turns(match, max(3, reps // 4))
+    rec["split_plans"] = plans
+    print(f"{label} D split over a cluster's blocks, ms in turns: the "
+          f"vertical pair with the WTA epilogue {json.dumps(ms)}, the "
+          f"horizontal pair on the transposed volume {json.dumps(hms)}, "
+          f"SGMEngine.match {json.dumps(mms)}; the splits' plans "
+          f"{json.dumps(plans)}; {rec.get('card', '')}")
+
+
+SASS_SOURCES = ("aggregate.cu", "census_cost.cu", "wta.cu")
+# the anonymous namespace's mangled name, which hashes the file it is in
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)")
+
+
+def sass_functions(src: Path, tmp: Path) -> dict:
+    """{kernel name: its SASS instructions} of one source compiled to a
+    cubin with the build's flags: each instruction without its address and
+    encoding, branch targets as ``ADDR`` (an instruction added ahead moves
+    every address after it), the anonymous namespace's name mapped
+    away."""
+    cubin = tmp / (src.parent.parent.parent.name + "_" + src.stem + ".cubin")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-cubin", "-o",
+                    str(cubin), str(src)], check=True)
+    text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = _ANON.sub("ANON", m.group(1))
+            funcs[cur] = []
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            ins = re.sub(r"/\*.*?\*/", "", line).strip().rstrip(" ;")
+            if re.search(r"\b(BRA|BRX|BSSY|CALL|JMP|RET|WARPSYNC)\b", ins):
+                ins = re.sub(r"0x[0-9a-f]+", "ADDR", ins)
+            funcs[cur].append(_ANON.sub("ANON", ins))
+    return funcs
+
+
+def _changed(a: list, b: list) -> int:
+    """Instructions inserted, deleted or replaced between two listings."""
+    import difflib
+
+    return sum(max(i2 - i1, j2 - j1) for op, i1, i2, j1, j2 in
+               difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+               if op != "equal")
+
+
+def sass_compare(csrc_other: Path) -> dict:
+    """This checkout's kernels against the other's, SASS line by line."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(csrc / name, Path(tmp)) for csrc in (_build.CSRC, csrc_other)
+                for name in SASS_SOURCES]
+        with ThreadPoolExecutor(len(jobs)) as ex:
+            found = list(ex.map(lambda job: sass_functions(*job), jobs))
+    this = {re.sub(r"(group_kernelILi\dELb\dELb\dELb\d)ELb0EEEv", r"\1EEEv",
+                   k): v for f in found[:len(SASS_SOURCES)] for k, v in f.items()}
+    other = {k: v for f in found[len(SASS_SOURCES):] for k, v in f.items()}
+    both = sorted(set(this) & set(other))
+    out = {"identical": [k for k in both if this[k] == other[k]],
+           "different": {k: {"changed": _changed(other[k], this[k]),
+                             "this": len(this[k]), "other": len(other[k])}
+                         for k in both if this[k] != other[k]},
+           "only_other": sorted(set(other) - set(this)),
+           "only_this": sorted(set(this) - set(other))}
+    print(f"SASS of {', '.join(SASS_SOURCES)}: {len(out['identical'])} kernels "
+          f"identical to the other checkout's, {len(out['different'])} "
+          f"different {out['different']}, {len(out['only_other'])} only in "
+          f"the other, {len(out['only_this'])} only in this one")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="an unpacked checkout of the commit to compare with")
+    ap.add_argument("--parent",
+                    help="an unpacked checkout of the commit to compare with "
+                         "(every group but split needs one)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default=",".join(GROUPS),
                     help="comma-separated groups: " + ", ".join(GROUPS))
@@ -1216,12 +1421,15 @@ def main(argv=None) -> dict:
         raise SystemExit(f"kernel_ab: --only takes {', '.join(GROUPS)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
-    csrc_other = (Path(args.parent) / "soc_project_stereo_matching_tpu_torch"
-                  / "csrc")
-    entries = [GROUP_ENTRIES[g] for g in GROUPS if g in only]
+    csrc_other = (Path(args.parent or ".") /
+                  "soc_project_stereo_matching_tpu_torch" / "csrc")
+    entries = [GROUP_ENTRIES[g] for g in GROUPS if g in only and GROUP_ENTRIES[g]]
     if "fused" in only and "sgm_wta_reduce" not in entries:
         entries.append("sgm_wta_reduce")    # the parent's form ends with it
-    other = build_library("parent", sources_defining(csrc_other, entries))
+    if (entries or "sass" in only) and args.parent is None:
+        raise SystemExit("kernel_ab: --parent is needed but for --only split")
+    other = (build_library("parent", sources_defining(csrc_other, entries))
+             if entries else None)
     this = _build.load()
 
     def ablations(prefix, fname, table, group):
@@ -1246,7 +1454,19 @@ def main(argv=None) -> dict:
     result = {"card": ", ".join(card()), "shapes": {}}
     print(result["card"])
 
-    for label, b, h, w, dmax in S1_SHAPES + ROUTE_SHAPES:
+    if "sass" in only:
+        result["sass"] = sass_compare(csrc_other)
+    for label, b, h, w, dmax in SPLIT_SHAPES if "split" in only else ():
+        rec = result["shapes"].setdefault(label, {"card": result["card"]})
+        levels = tuple(dmax * f // 64 for f in (10, 20, 35))
+        left, right, _ = synthetic_pair(2, b, h, w, levels)
+        left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
+        split_shape(rec, label, b, h, w, dmax, left, right,
+                    max(3, args.reps // 4))
+        del left, right
+        torch.cuda.empty_cache()
+    for label, b, h, w, dmax in S1_SHAPES + ROUTE_SHAPES \
+            if only - {"split", "sass"} else ():
         rec = result["shapes"].setdefault(label, {})
         if (label, b, h, w, dmax) in ROUTE_SHAPES:
             if "fused" in only:

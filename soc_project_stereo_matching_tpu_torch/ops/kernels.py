@@ -46,7 +46,7 @@ given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
 returns a CUDA error, and adds one to ``LAUNCHES[<counter>]`` per C entry
-call that launches (``group_capacity`` and ``census_capacity`` only ask).
+call that launches (``group_capacity`` and ``census_segments`` only ask).
 The counter is the wrapper's name, except that the halo census counts as
 ``census_cost_volume_halo``, ``scan_direction`` as ``aggregate_paths``,
 ``directional_scan_group`` with ``wta`` as ``directional_scan_group_wta``
@@ -151,49 +151,153 @@ CENSUS_WARPS = 8    # kWarps of csrc/census_cost.cu: one staging row each
 
 
 def census_smem_bytes(w: int, dmin: int, d: int) -> int:
-    """Shared memory of one K1 block for rows of ``w`` columns: the warps'
-    staging rows (``w + 15`` bytes rounded up to 16, each), the left and
-    right census codes (int32; the right row with ``dmin + d - 1``
-    columns of margin on the left and ``-dmin`` on the right) and the two
-    images' 5-row slabs.  A transcription of ``smem_bytes`` in
-    ``csrc/census_cost.cu``."""
+    """Shared memory of one K1 block that holds a whole row of ``w``
+    columns: the warps' staging rows (``w + 15`` bytes rounded up to 16,
+    each), the left and right census codes (int32; the right row with
+    ``dmin + d - 1`` columns of margin on the left and ``-dmin`` on the
+    right) and the two images' 5-row slabs.  A transcription of
+    ``smem_bytes`` in ``csrc/census_cost.cu``."""
     left = max(dmin + d - 1, 0)
     right = max(-dmin, 0)
     stage = (w + 30) // 16 * 16
     return CENSUS_WARPS * stage + 4 * (w + left + w + right) + 10 * w
 
 
-def census_max_width(dmin: int, d: int, smem_limit: int) -> int:
-    """The widest row whose K1 block fits ``smem_limit`` bytes of shared
-    memory (the C entry ``sgm_census_cost_max_width`` computes the same
-    from the device's opt-in limit)."""
-    lo, hi = 0, 1 << 20          # census_smem_bytes grows with w
+def census_segment_smem_bytes(seg: int, d: int) -> int:
+    """Shared memory of one K1 block that takes a segment of ``seg``
+    columns: the staging rows, the left codes of its columns, the right
+    codes of the ``seg + d - 1`` columns its costs read, and both slabs
+    with the census window's 2 columns on each side.  A transcription of
+    ``segment_smem_bytes`` in ``csrc/census_cost.cu``."""
+    reach = seg + d - 1
+    stage = (seg + 30) // 16 * 16
+    return CENSUS_WARPS * stage + 4 * (seg + reach) + 5 * (seg + 4) + \
+        5 * (reach + 4)
+
+
+def _last_fit(size, limit: int, hi: int) -> int:
+    """The largest n in 0..hi with size(n) <= limit (size grows with n)."""
+    lo = 0
     while lo < hi:
         mid = lo + (hi - lo + 1) // 2
-        if census_smem_bytes(mid, dmin, d) <= smem_limit:
+        if size(mid) <= limit:
             lo = mid
         else:
             hi = mid - 1
     return lo
 
 
-_CENSUS_WIDTHS = {}     # (device index, dmin, D) -> K1's widest row
+def census_max_width(dmin: int, d: int, smem_limit: int) -> int:
+    """The widest row one K1 block holds whole within ``smem_limit`` bytes
+    of shared memory; wider rows run in segments (``census_plan``)."""
+    return _last_fit(lambda w: census_smem_bytes(w, dmin, d), smem_limit,
+                     1 << 20)
 
 
-def census_capacity(device: torch.device, dmin: int, d: int) -> int:
-    """K1's widest row at (dmin, D) on ``device``, asked once per key from
-    the C entry (about 8,900 columns at D = 64 on an H100;
-    ``tests/test_torch_cuda.py`` finds it on the card by bisection)."""
-    key = (device.index, dmin, d)
-    if key not in _CENSUS_WIDTHS:
-        width = ctypes.c_int(0)
+class CensusPlan(NamedTuple):
+    """How K1 runs a row (``sgm_census_cost_plan``)."""
+    blocks: int         # blocks a row (0: no plan)
+    columns: int        # columns a block takes (the last the rest)
+    segmented: bool     # segments (census_segment_kernel), else a whole row
+
+
+def census_plan(w: int, dmin: int, d: int, smem_limit: int) -> CensusPlan:
+    """K1's plan under ``smem_limit`` bytes: one block a row where
+    ``census_smem_bytes`` fits, else segments of equal width, as few as
+    ``census_segment_smem_bytes`` allows; no plan (0 blocks) where not even
+    one column fits (D past about 25,000).  A transcription of ``plan`` in
+    ``csrc/census_cost.cu``."""
+    if census_smem_bytes(w, dmin, d) <= smem_limit:
+        return CensusPlan(1, w, False)
+    widest = _last_fit(lambda n: census_segment_smem_bytes(n, d), smem_limit,
+                       w)
+    if widest == 0:
+        return CensusPlan(0, w, True)
+    blocks = -(-w // widest)
+    return CensusPlan(blocks, -(-w // blocks), True)
+
+
+_CENSUS_PLANS = {}     # (device index, W, dmin, D) -> CensusPlan
+
+
+def census_segments(device: torch.device, w: int, dmin: int,
+                    d: int) -> CensusPlan:
+    """K1's plan for a row of ``w`` columns at (dmin, D) on ``device``,
+    asked once per key from the C entry: one block a row up to 8,924
+    columns at D = 64 on an H100, segments past it."""
+    key = (device.index, w, dmin, d)
+    if key not in _CENSUS_PLANS:
+        out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
-            err = _build.load().sgm_census_cost_max_width(
-                dmin, d, ctypes.addressof(width))
+            err = _build.load().sgm_census_cost_plan(w, dmin, d,
+                                                      ctypes.addressof(out))
         if err != 0:
-            raise RuntimeError(f"sgm_census_cost_max_width: CUDA error {err}")
-        _CENSUS_WIDTHS[key] = width.value
-    return _CENSUS_WIDTHS[key]
+            raise RuntimeError(f"sgm_census_cost_plan: CUDA error {err}")
+        _CENSUS_PLANS[key] = CensusPlan(out[0], out[1], bool(out[2]))
+    return _CENSUS_PLANS[key]
+
+
+def census_cost_segments_plain(img_left, img_right, min_disparity: int,
+                               max_disparity: int, img_has_halo: bool,
+                               seg: int) -> torch.Tensor:
+    """K1's segments, transcribed: the row cut into segments of ``seg``
+    columns (the last the rest), each computed from its own windows as a
+    segment's block stages them: the left slab over its columns and the
+    census window's 2 columns on each side, the right slab over the
+    ``seg + D - 1`` columns from x0 - dmin - D + 1 (zeros outside the
+    image), codes zero on the image's 2-px border (and on its border rows
+    unless ``img_has_halo``), costs ``popcount(cl[i] ^ cr[i + D - 1 - k])``,
+    127 where x0 + i - dmin - k leaves the image.  Same result as
+    ``census_cost_volume_plain``."""
+    if seg < 1:
+        raise ValueError(f"seg must be >= 1, got {seg}")
+    left, right = img_left.to(torch.int32), img_right.to(torch.int32)
+    h_in, w = left.shape[-2:]
+    h = h_in - 4 if img_has_halo else h_in
+    d = max_disparity - min_disparity
+    dev = left.device
+    rows = torch.arange(h, device=dev)
+    y0 = rows - 2 + (2 if img_has_halo else 0)          # slab row 0
+
+    def slab(img, x_first, n):
+        """(..., H, 5, n + 4): image rows y0 .. y0 + 4, columns x_first - 2
+        .. x_first + n + 1, zeros outside the image."""
+        ys = y0[:, None] + torch.arange(5, device=dev)
+        xs = x_first - 2 + torch.arange(n + 4, device=dev)
+        inside = ((ys >= 0) & (ys < h_in))[:, :, None] & \
+            ((xs >= 0) & (xs < w))[None, None, :]
+        vals = img[..., ys.clamp(0, h_in - 1)[:, :, None],
+                   xs.clamp(0, w - 1)[None, None, :]]
+        return torch.where(inside, vals, 0)
+
+    def codes(img, x_first, n):
+        s = slab(img, x_first, n)
+        center = s[..., 2:3, 2:n + 2]
+        code = torch.zeros_like(center)
+        for r in range(5):
+            for c in range(5):
+                code = (code << 1) | (s[..., r:r + 1, c:c + n] < center).to(
+                    torch.int32)
+        code = code[..., 0, :]
+        xs = x_first + torch.arange(n, device=dev)
+        keep = (xs >= 2) & (xs < w - 2)
+        if not img_has_halo:
+            keep = keep & ((rows >= 2) & (rows < h - 2))[:, None]
+        return torch.where(keep, code, 0)
+
+    out = []
+    ks = torch.arange(d, device=dev)
+    for x0 in range(0, w, seg):
+        n = min(seg, w - x0)
+        r0 = x0 - min_disparity - (d - 1)
+        cl, cr = codes(left, x0, n), codes(right, r0, n + d - 1)
+        at = torch.arange(n, device=dev)[None, :] + (d - 1 - ks)[:, None]
+        ham = cost_volume.popcount32(cl[..., None, :] ^ cr[..., at])
+        src = x0 + torch.arange(n, device=dev)[None, :] - \
+            (min_disparity + ks)[:, None]
+        out.append(torch.where((src >= 0) & (src < w), ham,
+                               cost_volume.BORDER_COST).to(torch.uint8))
+    return torch.cat(out, dim=-1)
 
 
 def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
@@ -205,8 +309,10 @@ def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
     rows on each side; the output has H rows and no row-border masking (the
     tiled caller fixes the image's global border rows).  On the card a block
     holds one row's image slab, census codes and staging rings in shared
-    memory, which bounds W (``census_capacity``: about 8,900 columns at
-    D = 64); a wider image raises ``ValueError``."""
+    memory up to 8,924 columns at D = 64; a wider row runs in segments, a
+    block each (``census_segments``), at any width.  Only a range too deep
+    for a segment of one column (D past about 25,000) raises
+    ``ValueError``."""
     if _on_cpu(img_left, img_right):
         return census_cost_volume_plain(img_left, img_right, min_disparity,
                                         max_disparity, img_has_halo)
@@ -220,12 +326,11 @@ def census_cost_volume(img_left: torch.Tensor, img_right: torch.Tensor,
         if h < 0:
             raise ValueError(f"a halo image needs >= 4 rows, got {h + 4}")
     d = max_disparity - min_disparity
-    limit = census_capacity(img_left.device, min_disparity, d)
-    if w > limit:
-        raise ValueError(f"W={w}: K1 (census_cost_volume) takes rows of at "
-                         f"most {limit} columns at dmin={min_disparity}, "
-                         f"D={d} on this device (a row's census state must "
-                         f"fit a block's shared memory)")
+    if census_segments(img_left.device, w, min_disparity, d).blocks == 0:
+        raise ValueError(f"D={d}: K1 (census_cost_volume) holds the right "
+                         f"image's D - 1 columns of reach in a block's "
+                         f"shared memory; not even a segment of one column "
+                         f"fits at this depth")
     out = torch.empty((b, h, d, w), dtype=torch.uint8, device=img_left.device)
     _launch("sgm_census_cost",
             "census_cost_volume_halo" if img_has_halo else "census_cost_volume",
@@ -335,7 +440,7 @@ def _check_penalties(p1: int, p2_init: int) -> None:
 
 
 def group_capacity(cost: torch.Tensor, out: torch.Tensor,
-                   wta: bool = False) -> int:
+                   wta: bool = False, ranges: int = 0) -> int:
     """The most directions one ``sgm_scan_group`` launch takes for this
     uint8 (B, S, D, W) cost and uint16 sum on the current card, with
     (``wta``) or without the WTA epilogue's tracks in shared memory,
@@ -349,22 +454,33 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
     6,912 and 3,328 (``tests/test_torch_cuda.py`` finds the limits on the
     card); wider rows take several clusters, up to the 15 clusters of 8
     blocks the card holds at once: 103,680 columns at D = 64, 50,400 at
-    D = 128, 24,480 at D = 256, 7,200 at D = 760 for one direction.  Past
-    that, or where not even strips of two columns hold the state (D above
-    about 2,500), this raises ``ValueError``.  A launch
-    with the epilogue ends a group whose other launches have none
+    D = 128, 24,480 at D = 256 for one direction.  From D =
+    ``GROUP_SPLIT_FROM`` (280) on, a group one cluster does not hold whole
+    takes clusters whose blocks split D instead, all its directions in one
+    launch where they fit (``group_plan``'s ``ranges``, ``group_split``;
+    measured faster at 2964x1988 D = 280 and 760 than launches of fewer
+    directions or several clusters, PERF.md section 6), and so does every row
+    where not even strips of two columns hold one direction's state (D
+    above 2,515, 2,514 with the epilogue): up to 24,552 columns at D =
+    280, 8,448 at D = 760, 6,336 at D = 1,024 (66 clusters of 2 blocks),
+    2,340 at D = 2,516, 1,380 at D = 4,096 and 224 at D = 16,384 for one
+    direction (2,400, 1,410 and 224 with the epilogue at the last three).
+    Past the widest row the card holds at once this raises ``ValueError``;
+    so it does at any D and width with ``ranges`` >= 2 (the split forced
+    over that many blocks, for measurements) where the split does not fit.
+    A launch with the epilogue ends a group whose other launches have none
     (``_launch_parts``), so the wrappers take the narrower of the two."""
     b, _, d, w = cost.shape
     dirs = ctypes.c_int(0)
     err = _build.load().sgm_scan_group_capacity(
-        cost.data_ptr(), out.data_ptr(), b, d, w, int(wta),
+        cost.data_ptr(), out.data_ptr(), b, d, w, int(wta), ranges,
         ctypes.addressof(dirs))
     if err != 0:
         raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
     if dirs.value < 1:
-        plan = group_plan(cost, out, 1, wta)
+        plan = group_plan(cost, out, 1, wta, ranges=ranges)
         if plan.clusters_an_image == 0:
-            why = "does not fit even strips of two columns"
+            why = "fits no plan"
         else:
             why = (f"needs {plan.clusters_an_image} clusters of "
                    f"{plan.cluster_blocks} blocks resident at once, and the "
@@ -380,30 +496,37 @@ class GroupPlan(NamedTuple):
     images_a_wave: int        # images one kernel launch takes (0: none fit)
     clusters_at_once: int     # of this shape on the card (0 where G = 1)
     work_bytes: int           # zeroed device memory the launch needs
+    ranges: int               # blocks a strip's D is split over (1: none)
 
 
 def group_plan(cost: torch.Tensor, out: torch.Tensor, n: int,
-               wta: bool = False, sets: int = 1) -> GroupPlan:
+               wta: bool = False, sets: int = 1,
+               ranges: int = 0) -> GroupPlan:
     """The C entry's plan for a launch of n directions on ``sets`` sets of
     the B images of this cost and sum: one cluster an image where one holds
-    the state, else G clusters (``group_clusters`` transcribes the count),
-    in waves of as many images as the card holds at once."""
+    the state; else, from D = ``GROUP_SPLIT_FROM`` on and wherever not even
+    strips of two columns hold one direction's state, G clusters of
+    ``ranges`` blocks that split D (8 where the card holds them at once,
+    else 16, 4, 2; ``group_split`` transcribes G); else G clusters of 16 (or
+    8) blocks (``group_clusters``); in waves of as many images as the card
+    holds at once.  ``ranges`` >= 2 forces the split over that many
+    blocks."""
     b, _, d, w = cost.shape
-    key = (cost.device.index, b, d, w, n, bool(wta), sets,
+    key = (cost.device.index, b, d, w, n, bool(wta), sets, ranges,
            cost.data_ptr() % 2, out.data_ptr() % 4)
     if key not in _PLANS:
-        res = (ctypes.c_longlong * 5)()
+        res = (ctypes.c_longlong * 6)()
         with torch.cuda.device(cost.device):
             err = _build.load().sgm_scan_group_plan(
                 cost.data_ptr(), out.data_ptr(), b, d, w, n, int(wta), sets,
-                ctypes.addressof(res))
+                ranges, ctypes.addressof(res))
         if err != 0:
             raise RuntimeError(f"sgm_scan_group_plan: CUDA error {err}")
         _PLANS[key] = GroupPlan(*(int(v) for v in res))
     return _PLANS[key]
 
 
-_PLANS = {}     # (device, shape, n, wta, sets, alignments) -> GroupPlan
+_PLANS = {}     # (device, shape, n, wta, sets, ranges, alignments) -> GroupPlan
 
 
 # constants of csrc/aggregate.cu (a CPU test reads them from the source)
@@ -413,10 +536,21 @@ GROUP_WTA_THREADS = 384   # kWtaThreads: the recurrence's with the epilogue
 GROUP_MAX_CHUNKS = 8      # kMaxChunks
 GROUP_MAX_STAGES = 4      # kMaxStages
 GROUP_MAX_CLUSTER = 16    # kMaxCluster
+GROUP_SPLIT_CHUNKS = 32   # kSplitChunks: chunks of a range a pair, split
+GROUP_SPLIT_FROM = 280    # kSplitFrom: the D from which the split comes first
+GROUP_SLOTS = 3           # kSlots: hand-off buffers
+
+
+def split_depth(d: int, ranges: int):
+    """DK, the disparities of each of ``ranges`` blocks that split D (the
+    last the rest): ceil(D / ranges) rounded up to a multiple of 4; None
+    where that leaves a block without a disparity."""
+    dk = _padded(-(-d // ranges), 4)
+    return None if (ranges - 1) * dk >= d else dk
 
 
 def group_smem_bytes(d: int, w: int, n: int, cs: int, g: int = 1,
-                     wta: bool = False):
+                     wta: bool = False, ranges: int = 1):
     """Shared memory of one group-kernel block of n directions, with clusters
     of ``cs`` blocks, ``g`` of them an image: the cost slabs' ring, two
     buffers of every
@@ -425,10 +559,15 @@ def group_smem_bytes(d: int, w: int, n: int, cs: int, g: int = 1,
     outnumber the threads; None where the strips leave a block empty.  One
     cluster's strips are ``ceil(W / cs)`` columns rounded up to even, the
     last the rest; several clusters share the row's column pairs out as
-    evenly as they can (``strip_bounds``).  A transcription of
-    ``group_shape`` in csrc/aggregate.cu."""
-    strips = cs * g
-    if g == 1:
+    evenly as they can (``strip_bounds``).  ``ranges`` > 1 (D split): a
+    cluster of ``cs = ranges`` blocks is one of ``g`` strips, each block
+    ``split_depth`` disparities of it (None where a block gets none), up
+    to ``GROUP_SPLIT_CHUNKS`` chunks a pair, and every block's range minima
+    (three slots) beside the state.  A transcription of ``group_shape`` in
+    csrc/aggregate.cu."""
+    split = ranges > 1
+    strips = g if split else cs * g
+    if g == 1 and not split:
         tw = _padded(-(-w // strips), 2)
         if (strips - 1) * tw >= w:
             return None
@@ -436,20 +575,27 @@ def group_smem_bytes(d: int, w: int, n: int, cs: int, g: int = 1,
         if strips > (w + 1) // 2:
             return None
         tw = 2 * -(-((w + 1) // 2) // strips)
+    dk = split_depth(d, ranges) if split else d
+    if dk is None:
+        return None
     pairs = tw // 2
     threads = GROUP_WTA_THREADS if wta else GROUP_THREADS
     if pairs > threads:
         return GROUP_SMEM + 1
-    nch = max(1, min(threads // pairs, GROUP_MAX_CHUNKS, d))
-    dc = _padded(-(-d // nch), 4)
-    nch = -(-d // dc)
+    nch = max(1, min(threads // pairs,
+                     GROUP_SPLIT_CHUNKS if split else GROUP_MAX_CHUNKS, dk))
+    dc = _padded(-(-dk // nch), 4)
+    nch = -(-dk // dc)
     pitch_c, pitch_s = _padded(tw + 15, 16), _padded(tw + 8, 4)
+    pitch_m = tw + 4
     col_bytes = _padded(nch * dc, 16)
-    recv_dir = 32 + col_bytes + _padded(4 * nch, 16)
-    body = _padded(2 * n * (d + 2) * pitch_s + 4 * n * nch * (tw + 4), 16)
+    recv_dir = 32 + col_bytes + _padded(4 * max(nch, ranges), 16)
+    body = _padded(2 * n * (dk + 2) * pitch_s + 4 * n * nch * pitch_m, 16)
+    if split:
+        body += _padded(GROUP_SLOTS * n * ranges * pitch_m * 2, 16)
     tail = n * col_bytes + 3 * n * recv_dir + (2 * WTA_RING * 8 if wta else 0)
     for stages in range(GROUP_MAX_STAGES, 1, -1):
-        need = 576 + stages * d * pitch_c + body + tail
+        need = 576 + stages * dk * pitch_c + body + tail
         if need <= GROUP_SMEM:
             return need
     return GROUP_SMEM + 1
@@ -464,21 +610,30 @@ def strip_bounds(w: int, strips: int) -> list:
 
 
 def group_clusters(d: int, w: int, n: int, wta: bool = False,
-                   cs: int = GROUP_MAX_CLUSTER):
+                   cs: int = GROUP_MAX_CLUSTER, ranges: int = 1):
     """G, the clusters an image takes for n directions at (D, W): 1 where a
     cluster of up to ``cs`` blocks holds a row's state, else the fewest
     clusters of ``cs`` blocks whose strips hold it; None where not even
     strips of two columns do.  The rule of ``choose_cluster`` and
     ``plan_multi`` in csrc/aggregate.cu on a card that places clusters of
-    ``cs`` blocks (the H100 places 16)."""
+    ``cs`` blocks (the H100 places 16).  ``ranges`` > 1: the fewest strips
+    (clusters of ``ranges`` blocks splitting D) that hold it, the rule of
+    ``plan_split`` for one number of blocks (``group_split``)."""
     g = 1
     while True:
-        need = group_smem_bytes(d, w, n, cs, g, wta)
+        need = group_smem_bytes(d, w, n, cs, g, wta, ranges)
         if need is None:
             return None
         if need <= GROUP_SMEM:
             return g
         g += 1
+
+
+def group_split(d: int, w: int, n: int, wta: bool = False,
+                ranges: int = 2):
+    """G where a cluster of ``ranges`` blocks splits D: the fewest strips
+    whose blocks hold the state; None where none do."""
+    return group_clusters(d, w, n, wta, ranges, ranges)
 
 
 class ScanPass(ctypes.Structure):
@@ -520,22 +675,24 @@ def scan_pass(rolls, reverse: bool, lo: int, hi: int, k0: int, d: int,
 def _launch_group(counter: str, cost, img, out, passes, npass: int, n: int,
                   carry_n: int, restart: bool, p1: int, p2_init: int,
                   accumulate: bool, views: int = 0, dmin: int = 0,
-                  finished=None, planes=None) -> None:
+                  finished=None, planes=None, ranges: int = 0) -> None:
     """One ``sgm_scan_group`` launch of n directions: ``passes`` (ScanPass)
-    for len(passes) // npass sets of clusters, npass passes each."""
+    for len(passes) // npass sets of clusters, npass passes each;
+    ``ranges`` as ``group_plan``'s."""
     _check_penalties(p1, p2_init)
     b, s, d, w = cost.shape
     sets = len(passes) // npass
-    plan = group_plan(cost, out, n, views > 0, sets)
-    # several clusters an image: their counts and hand-off in device memory
+    plan = group_plan(cost, out, n, views > 0, sets, ranges)
+    # several clusters an image, or D split: their counts and hand-off in
+    # device memory
     work = (torch.zeros(plan.work_bytes, dtype=torch.uint8, device=cost.device)
-            if plan.clusters_an_image > 1 else None)
+            if plan.clusters_an_image > 1 or plan.ranges > 1 else None)
     arr = (ScanPass * len(passes))(*passes)
     _launch("sgm_scan_group", counter, cost.data_ptr(), img.data_ptr(),
             out.data_ptr(), _ptr(finished), _ptr(planes), _ptr(work),
             ctypes.addressof(arr), npass, sets, b, s, d, w, n,
             carry_n, int(restart), p1, p2_init, int(accumulate), views, dmin,
-            _stream(out))
+            ranges, _stream(out))
 
 
 def _epilogue_buffers(cost, wta, sets: int):
@@ -552,14 +709,15 @@ def _epilogue_buffers(cost, wta, sets: int):
     return views, finished, planes
 
 
-def _launch_parts(cost, out, n: int, wta: bool):
+def _launch_parts(cost, out, n: int, wta: bool, ranges: int = 0):
     """The [k0, k1) ranges of a group's n directions, one a launch: as many
     as a launch takes; with the WTA epilogue (``wta``) the last range as
     many as a launch with the epilogue and one without it both take (a
     two-order scan's first launch stores without it), the ones before it
     as many as a launch without it takes."""
-    per = group_capacity(cost, out)
-    lead = n - min(n, per, group_capacity(cost, out, True)) if wta else n
+    per = group_capacity(cost, out, ranges=ranges)
+    lead = n - min(n, per, group_capacity(cost, out, True, ranges)) if wta \
+        else n
     return [(k0, min(k0 + per, lead)) for k0 in range(0, lead, per)] + \
         ([(lead, n)] if wta else [])
 
@@ -959,6 +1117,150 @@ def directional_scan_clusters_plain(cost, img, rolls, reverse: bool, p1: int,
     return total.flip(1) if reverse else total
 
 
+def _split_scan(c, g, roll: int, p1: int, p2_init: int, restart: bool,
+                ranges: int, bounds, carry=None, prev_gray=None):
+    """One direction of ``directional_scan_split_plain`` on int32 (B, S, D,
+    W) costs and (B, S, W) gray values in scan order: (the contribution,
+    the state after the last row, its minimum over D)."""
+    b, s, d, w = c.shape
+    dk = split_depth(d, ranges)
+    if dk is None or not 1 <= ranges <= GROUP_MAX_CLUSTER:
+        raise ValueError(f"D={d} does not split over {ranges} blocks of "
+                         f"{dk} disparities")
+    spans = [(r * dk, min(d, (r + 1) * dk)) for r in range(ranges)]
+    strips = [(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    out = torch.empty_like(c)
+    sent = aggregation.SENTINEL
+    state, rmin, start = {}, {}, 0
+    if carry is None:       # a path's first pixel contributes its raw cost
+        out[:, 0] = c[:, 0]
+        gray = g[:, 0]
+        for j, (lo, hi) in enumerate(strips):
+            for r, (d0, d1) in enumerate(spans):
+                state[j, r] = c[:, 0, d0:d1, lo:hi]
+        start = 1
+    else:                   # the carry split as the blocks hold it
+        gray = prev_gray
+        for j, (lo, hi) in enumerate(strips):
+            for r, (d0, d1) in enumerate(spans):
+                state[j, r] = carry[0][:, d0:d1, lo:hi]
+                rmin[j, r] = (carry[1][:, lo:hi] if r == 0 else
+                              torch.full_like(carry[1][:, lo:hi], 0xFFFF))
+    if carry is None:
+        rmin = {key: x.amin(dim=1) for key, x in state.items()}
+    cols = torch.arange(w, device=c.device)
+    for t in range(start, s):
+        new = {}
+        for j, (lo, hi) in enumerate(strips):
+            n = hi - lo
+            # every block's range minima of this strip's columns
+            mins = torch.stack([rmin[j, r] for r in range(ranges)]).amin(0)
+            if roll:    # the neighbour strip's edge column, all D of it
+                sj = (j - roll) % len(strips)
+                edge = -1 if roll > 0 else 0
+                halo = torch.cat([state[sj, r][..., edge]
+                                  for r in range(ranges)], dim=1)
+                halo_min = torch.stack([rmin[sj, r][..., edge]
+                                        for r in range(ranges)]).amin(0)
+            gp = gray[:, (cols[lo:hi] - roll) % w]
+            p2 = torch.clamp(p2_init // ((g[:, t, lo:hi] - gp).abs() + 1),
+                             min=p1)
+            for r, (d0, d1) in enumerate(spans):
+                # the state this block reads: its range, the rows at d0 - 1
+                # and d1 from the blocks below and above, the halo column
+                ext = torch.full((b, d1 - d0 + 2, n + 2), sent,
+                                 dtype=torch.int32, device=c.device)
+                ext[:, 1:-1, 1:-1] = state[j, r]
+                if r > 0:
+                    ext[:, 0, 1:-1] = state[j, r - 1][:, -1]
+                if r < ranges - 1:
+                    ext[:, -1, 1:-1] = state[j, r + 1][:, 0]
+                mext = torch.full((b, n + 2), 0xFFFF, dtype=torch.int32,
+                                  device=c.device)
+                mext[:, 1:-1] = mins
+                if roll:
+                    hc = 0 if roll > 0 else -1
+                    lo_d, hi_d = max(d0 - 1, 0), min(d1 + 1, d)
+                    ext[:, lo_d - d0 + 1:hi_d - d0 + 1, hc] = halo[:, lo_d:hi_d]
+                    mext[:, hc] = halo_min
+                prev = ext[..., 1 - roll:1 - roll + n]
+                pm = mext[:, 1 - roll:1 - roll + n]
+                m = torch.minimum(
+                    torch.minimum(prev[:, 1:-1], prev[:, :-2] + p1),
+                    torch.minimum(prev[:, 2:] + p1, (pm + p2)[:, None]))
+                cur = (c[:, t, d0:d1, lo:hi] + m - pm[:, None]) & 0xFF
+                reset = 0 if roll > 0 else w - 1
+                if roll and restart and lo <= reset < hi:
+                    cur[..., reset - lo] = c[:, t, d0:d1, reset]
+                new[j, r] = cur
+                out[:, t, d0:d1, lo:hi] = cur
+        state = new
+        rmin = {key: x.amin(dim=1) for key, x in state.items()}
+        gray = g[:, t]
+    last = torch.cat([torch.cat([state[j, r] for r in range(ranges)], 1)
+                      for j in range(len(strips))], -1)
+    return out, last, last.amin(dim=1)
+
+
+def directional_scan_split_plain(cost, img, acc, rolls, reverse: bool,
+                                 p1: int, p2_init: int, restart: bool,
+                                 ranges: int, strips: int = 1,
+                                 carry_in=None, want_carry: bool = False,
+                                 prev_gray=None, wta=None, chunk=None):
+    """The group kernel's split of D over the blocks of a cluster,
+    transcribed: ``directional_scan_group_plain``'s arguments and result,
+    computed as ``strips`` clusters of ``ranges`` blocks hold it.
+
+    The row's columns form ``strips`` strips (``strip_bounds``), D forms
+    ``ranges`` ranges of ``split_depth`` disparities (the last the rest),
+    and a block holds one range of one strip's state.  A step of a block
+    reads its own range's state and, from the other blocks, only: the rows
+    at d0 - 1 and d1 of its columns (the blocks below and above), each
+    column's minimum over D as every block's minimum over its range, and,
+    for a diagonal, the column that crosses the strip's edge, all D of it
+    and its blocks' range minima (the neighbour strip's cluster, through
+    device memory; the strip itself at the wrap where ``strips`` is 1).
+    The state starts from the carry split the same way (its minimum as the
+    first block's range minimum).  The epilogue reduces the totals as
+    ``wta_epilogue_plain`` with strips of a column pair and ``chunk``
+    planes a reducer."""
+    mode_restart = bool(restart)
+    if wta is not None:
+        _refuse_carry_with_wta(carry_in, want_carry)
+    if prev_gray is None and carry_in is not None:
+        prev_gray = _edge_gray(img, reverse)
+    b, s, d, w = cost.shape
+    bounds = strip_bounds(w, strips)
+    if any(lo >= hi for lo, hi in zip(bounds, bounds[1:])):
+        raise ValueError(f"{strips} strips leave one of {w} columns empty")
+    c, g = cost.to(torch.int32), img.to(torch.int32)
+    if reverse:
+        c, g = c.flip(1), g.flip(1)
+    total = torch.zeros(c.shape, dtype=torch.int32, device=c.device)
+    carries = []
+    for k, roll in enumerate(rolls):
+        carry = None if carry_in is None else (
+            carry_in[0][:, k].to(torch.int32), carry_in[1][:, k, 0].to(torch.int32))
+        contrib, last, last_min = _split_scan(
+            c, g, roll, p1, p2_init, mode_restart, ranges, bounds, carry,
+            None if prev_gray is None else prev_gray.to(torch.int32))
+        total += contrib
+        carries.append((last, last_min))
+    if reverse:
+        total = total.flip(1)
+    if acc is not None:
+        total = total + acc.to(torch.int32)
+    if wta is not None:
+        return wta_epilogue_plain(total, wta[0], wta[1], 2, chunk)
+    out = total.to(torch.uint16)
+    if acc is not None:
+        out = acc.copy_(out)
+    if carry_in is None and not want_carry:
+        return out
+    return out, (torch.stack([x for x, _ in carries], 1),
+                 torch.stack([m for _, m in carries], 1)[:, :, None])
+
+
 def _refuse_carry_with_wta(carry_in, want_carry: bool) -> None:
     if carry_in is not None or want_carry:
         raise ValueError("the WTA epilogue ends a frame's aggregation: it "
@@ -969,7 +1271,7 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
                            rolls, reverse: bool, p1: int, p2_init: int,
                            restart: bool, carry_in=None,
                            want_carry: bool = False, prev_gray=None,
-                           wta=None):
+                           wta=None, ranges: int = 0):
     """A group of vertical directions that share a scan order (rolls, e.g.
     (0, 1, -1)) over an H-tile: uint8 (B, S, D, W) cost + uint8 (B, S, W)
     image -> the uint16 (B, S, D, W) sum of their contributions, added in
@@ -995,7 +1297,10 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     leading launches too).
 
     One launch (see ``group_capacity``): the group's sum is formed on chip
-    and the uint16 volume is touched once."""
+    and the uint16 volume is touched once.  ``ranges`` >= 2 forces D split
+    over that many blocks of a cluster (``group_plan``; for measurements
+    and tests: the plan takes the split by itself only where strips of two
+    columns do not hold one direction's state)."""
     if prev_gray is None and carry_in is not None:
         prev_gray = _edge_gray(img, reverse)
     extra = [t for t in (acc, prev_gray, *(carry_in or ())) if t is not None]
@@ -1029,7 +1334,7 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     counter = ("directional_scan_group" if wta is None
                else "directional_scan_group_wta")
     views, finished, planes = _epilogue_buffers(cost, wta, 1)
-    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
+    for k0, k1 in _launch_parts(cost, out, n, wta is not None, ranges):
         epi = views if k1 == n else 0
         _launch_group(counter, cost, img, out,
                       [scan_pass(rolls[k0:k1], reverse, 0, s, k0, d, w,
@@ -1038,7 +1343,8 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
                       1, k1 - k0, n, restart, p1, p2_init,
                       acc is not None or k0 > 0, epi,
                       0 if wta is None else wta[0],
-                      finished if epi else None, planes if epi else None)
+                      finished if epi else None, planes if epi else None,
+                      ranges)
     if wta is not None:
         return _planes_of(planes)
     return (out, (cout_cost, cout_min)) if has_carry else out
@@ -1115,7 +1421,7 @@ def directional_scan_group_bidir_plain(cost, img, acc, rolls_f, rolls_b,
 
 def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
                                  rolls_f, rolls_b, p1: int, p2_init: int,
-                                 restart: bool, wta=None):
+                                 restart: bool, wta=None, ranges: int = 0):
     """Both scan orders of a direction group (the Pallas
     ``_directional_scan_group_bidir``): uint8 (B, S, D, W) cost + uint8
     (B, S, W) image, ``rolls_f`` walking the rows forward and ``rolls_b`` in
@@ -1137,7 +1443,8 @@ def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
     takes one pair of launches; a part before the last adds both orders).
     Counted as ``directional_scan_group_bidir``, two a part of a group
     split over launches (``group_capacity``), the last part's second
-    launch carrying the epilogue."""
+    launch carrying the epilogue.  ``ranges`` >= 2 forces D split over
+    that many blocks of a cluster (``directional_scan_group``'s)."""
     if len(rolls_f) != len(rolls_b):
         raise ValueError(f"the two orders differ in directions: {rolls_f} "
                          f"and {rolls_b}")
@@ -1148,30 +1455,33 @@ def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
                                                   restart, wta)
     _check_scan(cost, img)
     return _bidir(cost, img, acc, tuple(rolls_f), tuple(rolls_b), p1, p2_init,
-                  restart, wta, "directional_scan_group_bidir")
+                  restart, wta, "directional_scan_group_bidir", ranges)
 
 
 def _bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
-           restart: bool, wta, counter: str):
-    """The two-order launches of checked inputs, counted as ``counter``."""
+           restart: bool, wta, counter: str, ranges: int = 0):
+    """The two-order launches of checked inputs, counted as ``counter``
+    (``ranges`` as ``bidir_launches``')."""
     out = _acc_or_new(acc, cost)
     launches, planes = bidir_launches(cost, img, out, rolls_f, rolls_b, p1,
                                       p2_init, restart, wta, counter,
-                                      acc is not None)
+                                      acc is not None, ranges)
     for launch in launches:
         launch()
     return out if wta is None else _planes_of(planes)
 
 
 def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
-                   restart: bool, wta, counter: str, accumulate: bool):
+                   restart: bool, wta, counter: str, accumulate: bool,
+                   ranges: int = 0):
     """(the launches of a two-order scan onto ``out`` as calls, in order;
     the epilogue's int32 planes or None): for each part of the group
     (``_launch_parts``) two launches, each carrying both orders on clusters
     of their own, that meet at ``meeting_row`` (see
     ``directional_scan_group_bidir_plain``); the last part's second launch
     carries the epilogue.  A first launch writes the carries its second
-    reads."""
+    reads.  ``ranges`` >= 2 forces D split over that many blocks
+    (``group_plan``; the measurement tools)."""
     if wta is not None:
         _check_wta(wta[0])
     b, s, d, w = cost.shape
@@ -1188,13 +1498,14 @@ def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
                                device=cost.device)) for _ in range(2))
     gray_f = _ptr(img, (m - 1) * w) if m > 0 else None
     launches = []
-    for k0, k1 in _launch_parts(cost, out, n, wta is not None):
+    for k0, k1 in _launch_parts(cost, out, n, wta is not None, ranges):
         f, r = rolls_f[k0:k1], rolls_b[k0:k1]
         launches.append(functools.partial(
             _launch_group, counter, cost, img, out,
             [scan_pass(f, False, 0, m, k0, d, w, carry_out=cf),
              scan_pass(r, True, m, s, k0, d, w, carry_out=cr)],
-            1, k1 - k0, n, restart, p1, p2_init, accumulate or k0 > 0))
+            1, k1 - k0, n, restart, p1, p2_init, accumulate or k0 > 0,
+            ranges=ranges))
         epi = views if k1 == n else 0
         launches.append(functools.partial(
             _launch_group, counter, cost, img, out,
@@ -1202,7 +1513,7 @@ def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
              scan_pass(r, True, 0, m, k0, d, w, cr, _ptr(img, m * w), s * w)],
             1, k1 - k0, n, restart, p1, p2_init, True, epi,
             0 if wta is None else wta[0], finished if epi else None,
-            planes if epi else None))
+            planes if epi else None, ranges))
     return launches, planes
 
 
@@ -1211,9 +1522,6 @@ def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
     inv = wta_ops.wta_reduce(aggr, options, inverse=True) if include_inverse \
         else None
     return fwd, inv
-
-
-WTA_MAX_WIDTH = 32768   # columns of a row the kernel takes (kMaxWidth)
 
 
 class _Track:
@@ -1287,16 +1595,13 @@ def wta_reduce(aggr: torch.Tensor, options: SGMOptions,
                include_inverse: bool = True):
     """uint16 (B, H, D, W) -> (forward WTAPlanes, inverse WTAPlanes or None),
     int32 (B, H, W) planes, like ``wta_reduce_pallas``.  On the card the
-    kernel takes D in 1..16,384 and rows of up to ``WTA_MAX_WIDTH`` columns,
-    wider than the group scan kernel takes at any D; beyond that it raises."""
+    kernel takes D in 1..16,384 and rows of any width, cut into segments of
+    up to 2,048 columns (a block each) past that width."""
     if _on_cpu(aggr):
         return wta_reduce_plain(aggr, options, include_inverse)
     _check(aggr, "aggr", torch.uint16, 4)
     b, h, d, w = aggr.shape
     check_range(d)
-    if w > WTA_MAX_WIDTH:
-        raise ValueError(f"W={w}: the WTA kernel takes rows of at most "
-                         f"{WTA_MAX_WIDTH} columns")
     n_out = 10 if include_inverse else 5
     out = torch.empty((n_out, b, h, w), dtype=torch.int32, device=aggr.device)
     _launch("sgm_wta_reduce", "wta_reduce", aggr.data_ptr(), out.data_ptr(),

@@ -1,8 +1,9 @@
-"""K1's width limit on the CPU: ``kernels.census_smem_bytes`` (the
+"""K1's whole-row width on the CPU: ``kernels.census_smem_bytes`` (the
 transcription of ``smem_bytes`` in ``csrc/census_cost.cu``) and
-``census_max_width``, from which the wrapper's ``ValueError`` takes its
-number.  ``tests/test_torch_cuda.py`` finds the limit on the card by
-bisection."""
+``census_max_width``, the widest row one block holds whole; past it the
+plan (``census_plan``, ``tests/test_torch_census_segments.py``) cuts rows
+into segments, and no width is refused.  ``tests/test_torch_cuda.py``
+finds where the segments start on the card by bisection."""
 
 import re
 from pathlib import Path
@@ -17,8 +18,12 @@ SOURCE = Path(kernels.__file__).resolve().parents[1] / "csrc" / "census_cost.cu"
 
 
 def test_transcription_follows_the_kernel_source():
-    """The constants the transcription copies are the kernel's."""
+    """The constants the transcription copies are the kernel's, and the C
+    entry that asks the card is the plan's (the old width limit's is
+    gone)."""
     text = SOURCE.read_text()
+    assert 'extern "C" int sgm_census_cost_plan(' in text
+    assert "sgm_census_cost_max_width" not in text
     threads = int(re.search(r"constexpr int kThreads = (\d+);", text).group(1))
     assert "constexpr int kWarps = kThreads / 32;" in text
     assert kernels.CENSUS_WARPS == threads // 32
@@ -42,19 +47,27 @@ def test_smem_bytes_is_about_26w_plus_4d(dmin, d):
 
 @pytest.mark.parametrize("limit", [48 * 1024, 100_000, H100_OPTIN])
 def test_max_width_is_the_last_row_that_fits(limit):
+    """``census_max_width`` is the last row one block holds whole; the
+    plan keeps it whole up to there and cuts the next one into
+    segments."""
     for dmin, d in ((0, 64), (0, 192), (24, 128), (0, 256)):
         cap = kernels.census_max_width(dmin, d, limit)
         assert kernels.census_smem_bytes(cap, dmin, d) <= limit
         assert kernels.census_smem_bytes(cap + 1, dmin, d) > limit
+        assert kernels.census_plan(cap, dmin, d, limit) == (1, cap, False)
+        assert kernels.census_plan(cap + 1, dmin, d, limit).segmented
 
 
 def test_h100_limits():
-    """About 8,900 columns at D = 64 (the wrapper's docstring); the
-    KITTI-2015 frame (1242 columns, D = 192) is far inside."""
+    """8,924 columns at D = 64 in one block (the wrapper's docstring), 8,817
+    at D = 760 and 6,414 at D = 16,384; the KITTI-2015 frame (1242 columns,
+    D = 192) is far inside; wider rows are segments, not refusals."""
     widths = {d: kernels.census_max_width(0, d, H100_OPTIN)
-              for d in (64, 128, 192, 256)}
-    assert widths == {64: 8924, 128: 8913, 192: 8903, 256: 8896}
-    assert "8,900" in kernels.census_cost_volume.__doc__
+              for d in (64, 128, 192, 256, 760, 16384)}
+    assert widths == {64: 8924, 128: 8913, 192: 8903, 256: 8896, 760: 8817,
+                      16384: 6414}
+    assert "8,924" in kernels.census_cost_volume.__doc__
+    assert "segments" in kernels.census_cost_volume.__doc__
 
 
 def test_cpu_wrapper_has_no_width_limit():

@@ -1078,7 +1078,9 @@ def _wta_volume_on_card(b, h, d, w, pattern, offset, cuda):
     (1, 3, 128, 4100, 24, "random", 1),      # rows cut into segments
     (1, 3, 16, 2049, 0, "max", 0),
     (2, 5, 16, 45, 100, "random", 0),        # the inverse view all off the row
-    (1, 2, 256, kernels.WTA_MAX_WIDTH, 0, "random", 0)])   # the widest row
+    (1, 2, 256, 32768, 0, "random", 0),      # the widest row it once took
+    (1, 2, 64, 32769, 24, "random", 0),      # rows of any width since
+    (1, 1, 64, 70000, 0, "ties", 3)])
 def test_wta_kernel_matches_plain_on_card(cuda, b, h, d, w, dmin, pattern,
                                           offset):
     opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
@@ -1094,11 +1096,15 @@ def test_wta_kernel_matches_plain_on_card(cuda, b, h, d, w, dmin, pattern,
 
 
 def test_wta_kernel_refuses_beyond_its_limits(cuda):
+    """Only D > 16,384 is refused (the latch); a row of 32,769 columns, once
+    refused, runs (one launch) and equals the plain version."""
     opt = SGMOptions(max_disparity=256)
-    wide = torch.zeros((1, 1, 256, kernels.WTA_MAX_WIDTH + 1),
-                       dtype=torch.uint16, device=cuda)
-    with pytest.raises(ValueError, match=str(kernels.WTA_MAX_WIDTH)):
-        kernels.wta_reduce(wide, opt)
+    wide = _rand(125, 0, 4000, (1, 1, 256, 32769), np.uint16, cuda)
+    before = kernels.LAUNCHES["wta_reduce"]
+    for g, w_ in zip(_planes(kernels.wta_reduce(wide, opt)),
+                     _planes(kernels.wta_reduce_plain(wide, opt))):
+        same(g, w_)
+    assert kernels.LAUNCHES["wta_reduce"] == before + 1
     d = kernels.MAX_RANGE + 1
     deep = torch.zeros((1, 1, d, 8), dtype=torch.uint16, device=cuda)
     with pytest.raises(ValueError, match="argmin key"):
@@ -1107,8 +1113,10 @@ def test_wta_kernel_refuses_beyond_its_limits(cuda):
 
 # the widest row one direction's launch takes at all on one H100 80GB HBM3,
 # its image's clusters all resident at once (kernels.group_capacity's
-# docstring states the same)
-GROUP_RESIDENT_LIMIT = {64: 103680, 128: 50400, 256: 24480}
+# docstring states the same): several clusters of 8 blocks to D = 256,
+# clusters of 2 blocks splitting D from D = 280
+GROUP_RESIDENT_LIMIT = {64: 103680, 128: 50400, 256: 24480, 280: 24552,
+                        760: 8448, 1024: 6336}
 
 
 @pytest.mark.parametrize("d", sorted(GROUP_RESIDENT_LIMIT))
@@ -1136,8 +1144,48 @@ def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
     why, refused = plan(hi)[1]
     assert refused.clusters_an_image > refused.clusters_at_once >= 1
     assert f"needs {refused.clusters_an_image} clusters" in why
-    assert refused.clusters_an_image == kernels.group_clusters(
-        d, hi, 1, cs=refused.cluster_blocks)
+    assert (refused.ranges > 1) == (d >= kernels.GROUP_SPLIT_FROM)
+    assert refused.clusters_an_image == (
+        kernels.group_split(d, hi, 1, False, refused.ranges)
+        if refused.ranges > 1 else
+        kernels.group_clusters(d, hi, 1, cs=refused.cluster_blocks))
+
+
+# the widest row one direction's launch takes where the plan splits D, on
+# one H100 80GB HBM3 (kernels.group_capacity's docstring states the same)
+GROUP_SPLIT_RESIDENT_LIMIT = {2516: 2340, 4096: 1380, 16384: 224}
+
+
+@pytest.mark.parametrize("d", sorted(GROUP_SPLIT_RESIDENT_LIMIT))
+def test_group_split_refuses_rows_from_its_limit_on_card(cuda, d):
+    """Where ``group_capacity`` starts to refuse a row at D > 2,515: past
+    the widest W whose clusters splitting D the card holds at once, found
+    by bisection with and without the epilogue; the refusal names the
+    clusters needed and held, and the plan reported is a split's."""
+
+    def plan(w, wta):
+        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
+        out = cost.to(torch.uint16)
+        try:
+            return kernels.group_capacity(cost, out, wta), None
+        except ValueError as err:
+            return 0, (str(err), kernels.group_plan(cost, out, 1, wta))
+
+    for wta in (False, True):
+        lo, hi = 2, 1 << 16
+        assert plan(lo, wta)[0] >= 1 and plan(hi, wta)[0] == 0
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if plan(mid, wta)[0] else (lo, mid)
+        if not wta:
+            assert (d, lo) == (d, GROUP_SPLIT_RESIDENT_LIMIT[d])
+            assert str(lo) in kernels.group_capacity.__doc__.replace(",", "")
+        why, refused = plan(hi, wta)[1]
+        assert refused.ranges > 1
+        assert refused.clusters_an_image > refused.clusters_at_once >= 1
+        assert f"needs {refused.clusters_an_image} clusters" in why
+        assert refused.clusters_an_image == kernels.group_split(
+            d, hi, 1, wta, refused.ranges)
 
 
 # D > 256 at rows no cluster holds (G >= 2; the last in waves of one image:
@@ -1145,25 +1193,21 @@ def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
 WIDE = [(1, 5, 257, 3400), (1, 6, 384, 2400), (2, 12, 1024, 1800)]
 
 
-@pytest.mark.parametrize("b,h,d,w", WIDE)
-def test_group_modes_over_several_clusters_on_card(cuda, b, h, d, w):
-    """Every mode of ``sgm_scan_group`` at D > 256 over several clusters an
-    image: one order stored and added, carries in and out, the epilogue;
-    the two-order scan's volume and planes forms; wrap and restart; the
-    8-path group, one diagonal alone, the roll-0 direction (no hand-off);
-    against their plain versions."""
-    cost = _rand(100 + d, 0, 128, (b, h, d, w), np.uint8, cuda)
-    img = _rand(101 + d, 0, 256, (b, h, w), np.uint8, cuda)
-    acc = _rand(102 + d, 0, 900, (b, h, d, w), np.uint16, cuda)
-    for n in (1, 3):
-        assert kernels.group_plan(cost, acc, n).clusters_an_image >= 2
+def _every_group_mode(cost, img, acc, ranges=0):
+    """Every mode of ``sgm_scan_group`` against its plain version: one order
+    stored and added, carries in and out, the epilogue; the two-order
+    scan's volume and planes forms; wrap and restart; the 8-path group, one
+    diagonal alone, the roll-0 direction (no hand-off); ``ranges`` >= 2
+    forces D split over that many blocks."""
     for restart in (False, True):
         for rolls, reverse in (((0, 1, -1), False), ((0, -1, 1), True),
                                ((1,), False), ((0,), True)):
             args = (rolls, reverse, 10, 150, restart)
-            same(kernels.directional_scan_group(cost, img, None, *args),
+            same(kernels.directional_scan_group(cost, img, None, *args,
+                                                ranges=ranges),
                  kernels.directional_scan_group_plain(cost, img, None, *args))
-            same(kernels.directional_scan_group(cost, img, acc.clone(), *args),
+            same(kernels.directional_scan_group(cost, img, acc.clone(), *args,
+                                                ranges=ranges),
                  kernels.directional_scan_group_plain(cost, img, acc.clone(),
                                                       *args))
             carry = kernels.directional_scan_group_plain(
@@ -1172,27 +1216,29 @@ def test_group_modes_over_several_clusters_on_card(cuda, b, h, d, w):
             got = kernels.directional_scan_group(cost, img, acc.clone(), *args,
                                                  carry_in=carry,
                                                  want_carry=True,
-                                                 prev_gray=gray)
+                                                 prev_gray=gray, ranges=ranges)
             want = kernels.directional_scan_group_plain(
                 cost, img, acc.clone(), *args, carry_in=carry,
                 want_carry=True, prev_gray=gray)
             for g, w_ in zip((got[0], *got[1]), (want[0], *want[1])):
                 same(g, w_)
-            for g, w_ in zip(*(_planes(f(cost, img, acc.clone(), *args,
-                                          wta=(24, True)))
-                               for f in (kernels.directional_scan_group,
-                                         kernels.directional_scan_group_plain))):
+            for g, w_ in zip(
+                    _planes(kernels.directional_scan_group(
+                        cost, img, acc.clone(), *args, wta=(24, True),
+                        ranges=ranges)),
+                    _planes(kernels.directional_scan_group_plain(
+                        cost, img, acc.clone(), *args, wta=(24, True)))):
                 same(g, w_)
         for rf, rb in (((0, 1, -1), (0, -1, 1)), ((0,), (0,))):
             args = (rf, rb, 10, 150, restart)
             same(kernels.directional_scan_group_bidir(cost, img, acc.clone(),
-                                                      *args),
+                                                      *args, ranges=ranges),
                  kernels.directional_scan_group_bidir_plain(cost, img,
                                                             acc.clone(), *args))
             for wta_args in ((0, True), (24, False)):
                 parks = acc.clone(), acc.clone()
                 got = kernels.directional_scan_group_bidir(
-                    cost, img, parks[0], *args, wta=wta_args)
+                    cost, img, parks[0], *args, wta=wta_args, ranges=ranges)
                 want = kernels.directional_scan_group_bidir_plain(
                     cost, img, parks[1], *args, wta=wta_args)
                 for g, w_ in zip(_planes(got), _planes(want)):
@@ -1200,11 +1246,57 @@ def test_group_modes_over_several_clusters_on_card(cuda, b, h, d, w):
 
 
 @pytest.mark.parametrize("b,h,d,w", WIDE)
+def test_group_modes_over_several_clusters_on_card(cuda, b, h, d, w):
+    """Every mode of ``sgm_scan_group`` at D > 256 over several clusters an
+    image (``_every_group_mode``) against their plain versions."""
+    cost = _rand(100 + d, 0, 128, (b, h, d, w), np.uint8, cuda)
+    img = _rand(101 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(102 + d, 0, 900, (b, h, d, w), np.uint16, cuda)
+    for n in (1, 3):
+        assert kernels.group_plan(cost, acc, n).clusters_an_image >= 2
+    _every_group_mode(cost, img, acc)
+
+
+# D above 2,515: no strip of two columns holds one direction's state, and
+# the plan splits D over the blocks of a cluster by itself
+SPLIT = [(1, 5, 2516, 96), (2, 4, 4096, 128), (1, 3, 16384, 40)]
+
+
+@pytest.mark.parametrize("b,h,d,w", SPLIT)
+def test_group_modes_with_d_split_on_card(cuda, b, h, d, w):
+    """Every mode of ``sgm_scan_group`` (``_every_group_mode``) where the
+    plan splits D, against their plain versions."""
+    cost = _rand(140 + d, 0, 128, (b, h, d, w), np.uint8, cuda)
+    img = _rand(141 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(142 + d, 0, 900, (b, h, d, w), np.uint16, cuda)
+    for n in (1, 3):
+        for wta in (False, True):
+            plan = kernels.group_plan(cost, acc, n, wta)
+            assert plan.ranges > 1 and plan.images_a_wave >= 1
+    _every_group_mode(cost, img, acc)
+
+
+@pytest.mark.parametrize("ranges,b,h,d,w", [(2, 2, 5, 64, 53), (3, 1, 4, 40, 45),
+                                            (16, 1, 5, 64, 37),
+                                            (5, 1, 6, 300, 700)])
+def test_group_modes_with_a_forced_split_on_card(cuda, ranges, b, h, d, w):
+    """The split forced through the plan argument at small D (3, 5 and 16
+    blocks: ranges that are no power of two, the last range shorter, one
+    strip and several): every mode against the plain versions."""
+    cost = _rand(150 + d, 0, 128, (b, h, d, w), np.uint8, cuda)
+    img = _rand(151 + d, 0, 256, (b, h, w), np.uint8, cuda)
+    acc = _rand(152 + d, 0, 900, (b, h, d, w), np.uint16, cuda)
+    assert kernels.group_plan(cost, acc, 1, False, 1, ranges).ranges == ranges
+    _every_group_mode(cost, img, acc, ranges)
+
+
+@pytest.mark.parametrize("b,h,d,w", WIDE + [(1, 6, 2600, 80)])
 def test_main_path_above_256_on_card(cuda, b, h, d, w):
     """K1 (both modes), the WTA kernel (rows in segments), K3 and K4 at
     D > 256 against their plain versions, and ``match_batch`` against the
     plain path with the main path's launches: the scans' two a part of a
-    group, K1, K3 and K4 one each."""
+    group, K1, K3 and K4 one each; also at D = 2,600, where the scans split
+    D over a cluster's blocks."""
     rng = np.random.default_rng(d)
     left = _rand(110 + d, 0, 256, (b, h, w), np.uint8, cuda)
     right = _rand(111 + d, 0, 256, (b, h, w), np.uint8, cuda)
@@ -1261,25 +1353,38 @@ def test_wta_kernel_at_the_deepest_range_on_card(cuda):
 def test_group_plan_matches_the_transcription_on_card(cuda):
     """The C entry's cluster count equals ``group_clusters`` at the card's
     cluster size, with and without the epilogue, one and three
-    directions."""
+    directions; where it splits D (D above 2,515, or forced), ``group_split``
+    at its number of blocks.  No plan below D = 2,516 splits D by itself."""
     for d, w in ((64, 450), (256, 3265), (257, 3400), (384, 2400),
-                 (760, 2964), (760, 1992), (1024, 1800), (280, 2964)):
+                 (760, 2964), (760, 1992), (1024, 1800), (280, 2964),
+                 (2515, 64), (2516, 64), (2600, 700), (4096, 512),
+                 (16384, 100)):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
         for n in (1, 3):
             for wta in (False, True):
-                plan = kernels.group_plan(cost, cost.to(torch.uint16), n, wta)
-                if plan.images_a_wave:
-                    assert plan.clusters_an_image == kernels.group_clusters(
-                        d, w, n, wta, plan.cluster_blocks), (d, w, n, wta)
+                for ranges in (0, 4):
+                    plan = kernels.group_plan(cost, cost.to(torch.uint16), n,
+                                              wta, 1, ranges)
+                    if not plan.images_a_wave:
+                        continue
+                    if plan.ranges > 1:
+                        assert plan.clusters_an_image == kernels.group_split(
+                            d, w, n, wta, plan.ranges), (d, w, n, wta, ranges)
+                    else:
+                        assert d <= 2515 and ranges == 0
+                        assert plan.clusters_an_image == kernels.group_clusters(
+                            d, w, n, wta, plan.cluster_blocks), (d, w, n, wta)
 
 
 def test_group_refuses_what_the_card_cannot_hold_before_a_launch(cuda):
-    """An image whose clusters the card cannot hold at once, and a range
-    whose state does not fit strips of two columns: ``ValueError`` from
-    ``group_capacity``, before any launch."""
+    """An image whose clusters the card cannot hold at once, several
+    clusters an image or D split over their blocks (D = 16,384 at 2,000
+    columns): ``ValueError`` from ``group_capacity``, before any launch.
+    A range whose state does not fit strips of two columns (D = 2,516) is
+    no longer refused: D is split (``test_group_modes_with_d_split_on_card``)."""
     kernels.reset_launch_counts()
     for d, w, why in ((2000, 30000, "resident at once"),
-                      (2516, 64, "two columns")):
+                      (16384, 2000, "resident at once")):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
         img = torch.zeros((1, 1, w), dtype=torch.uint8, device=cuda)
         with pytest.raises(ValueError, match=why):
@@ -1288,61 +1393,87 @@ def test_group_refuses_what_the_card_cannot_hold_before_a_launch(cuda):
     assert not any(kernels.LAUNCHES.values())
 
 
-# (dmin, D) at which K1's width limit is found on the card
+# (dmin, D) at which K1's whole-row width is found on the card
 CENSUS_LIMIT_CASES = [(0, 64), (0, 192), (24, 128), (0, 256), (8, 40)]
 
 
-def census_launches(cuda, w, dmin, d):
-    """Whether K1's raw C entry launches a (1, 5, w) pair (no wrapper
-    check in the way)."""
+def census_plan_on_card(cuda, w, dmin, d):
+    """K1's plan as the C entry gives it (not cached)."""
+    import ctypes
+
     from soc_project_stereo_matching_tpu_torch import _build
 
-    img = torch.zeros((1, 5, w), dtype=torch.uint8, device=cuda)
-    out = torch.empty((1, 5, d, w), dtype=torch.uint8, device=cuda)
-    err = _build.load().sgm_census_cost(
-        img.data_ptr(), img.data_ptr(), out.data_ptr(), 1, 5, w, dmin, d, 0,
-        torch.cuda.current_stream(cuda).cuda_stream)
-    torch.cuda.synchronize()
-    return err == 0
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(cuda):
+        assert _build.load().sgm_census_cost_plan(w, dmin, d,
+                                                  ctypes.addressof(out)) == 0
+    return kernels.CensusPlan(out[0], out[1], bool(out[2]))
 
 
 @pytest.mark.parametrize("dmin,d", CENSUS_LIMIT_CASES)
 def test_census_refuses_rows_from_its_limit_on_card(cuda, dmin, d):
-    """The widest row K1's entry launches, found by bisection, is
-    ``census_capacity``; the wrapper takes that row and refuses one column
-    more with a ValueError that names the limit."""
+    """Where K1 stops taking a row in one block, found by bisection over
+    the card's plan, is ``census_max_width`` at the card's 227 KB (H100):
+    that row runs whole and one column more in two segments, both
+    bit-equal to the plain version; nothing is refused."""
     lo, hi = 16, 1 << 15
-    assert census_launches(cuda, lo, dmin, d)
-    assert not census_launches(cuda, hi, dmin, d)
+    assert not census_plan_on_card(cuda, lo, dmin, d).segmented
+    assert census_plan_on_card(cuda, hi, dmin, d).segmented
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if census_launches(cuda, mid, dmin, d) else (lo, mid)
-    assert lo == kernels.census_capacity(cuda, dmin, d)
-    img = torch.randint(0, 256, (1, 5, lo + 1), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match=f"at most {lo} columns"):
-        kernels.census_cost_volume(img, img, dmin, dmin + d)
-    fit = img[..., :lo].contiguous()
-    same(kernels.census_cost_volume(fit, fit, dmin, dmin + d),
-         kernels.census_cost_volume_plain(fit.cpu(), fit.cpu(), dmin, dmin + d))
+        lo, hi = ((mid, hi) if not census_plan_on_card(cuda, mid, dmin,
+                                                       d).segmented
+                  else (lo, mid))
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert lo == kernels.census_max_width(dmin, d, 227 * 1024)
+    assert census_plan_on_card(cuda, lo + 1, dmin, d) == \
+        (2, -(-(lo + 1) // 2), True)
+    img = torch.randint(0, 256, (1, 5, lo + 1), dtype=torch.uint8,
+                        device=cuda)
+    for x in (img, img[..., :lo].contiguous()):
+        same(kernels.census_cost_volume(x, x.flip(-1).contiguous(), dmin,
+                                        dmin + d),
+             kernels.census_cost_volume_plain(x, x.flip(-1).contiguous(),
+                                              dmin, dmin + d))
 
 
 def test_census_limit_is_the_transcribed_arithmetic_on_card(cuda):
-    """One shared-memory budget explains every limit the card reports:
-    ``census_smem_bytes`` (the Python transcription) of each limit fits it,
-    and of one column more does not.  On an H100 the budget is the 227 KB a
-    block may opt in to."""
-    fits, over = 0, 1 << 30
-    for dmin, d in CENSUS_LIMIT_CASES:
-        cap = kernels.census_capacity(cuda, dmin, d)
-        fits = max(fits, kernels.census_smem_bytes(cap, dmin, d))
-        over = min(over, kernels.census_smem_bytes(cap + 1, dmin, d))
-        assert kernels.census_max_width(dmin, d, fits) <= cap
-    assert fits < over, (fits, over)
-    if "H100" in torch.cuda.get_device_name(cuda):
-        assert fits <= 227 * 1024 < over
-        for dmin, d in CENSUS_LIMIT_CASES:
-            assert kernels.census_capacity(cuda, dmin, d) == \
-                kernels.census_max_width(dmin, d, 227 * 1024)
+    """One shared-memory budget explains every plan the card reports:
+    ``census_plan`` (the Python transcription) at the card's opt-in limit,
+    227 KB on an H100, gives the C entry's plan at whole rows, at the
+    first segmented row and at rows of 9,000 to 70,000 columns, D up to
+    16,384."""
+    limit = 227 * 1024
+    if "H100" not in torch.cuda.get_device_name(cuda):
+        pytest.skip("the 227 KB budget is the H100's")
+    for dmin, d in CENSUS_LIMIT_CASES + [(24, 64), (0, 760), (0, 16384)]:
+        cap = kernels.census_max_width(dmin, d, limit)
+        for w in (cap, cap + 1, 9000, 20000, 40000, 70000):
+            assert census_plan_on_card(cuda, w, dmin, d) == \
+                kernels.census_plan(w, dmin, d, limit), (w, dmin, d)
+            assert kernels.census_segments(cuda, w, dmin, d) == \
+                kernels.census_plan(w, dmin, d, limit)
+
+
+@pytest.mark.parametrize("h,w,dmin,d", [(3, 9000, 24, 64), (2, 20000, 24, 64),
+                                        (2, 40000, 24, 64),
+                                        (2, 9001, -5, 64),
+                                        (2, 7000, 0, 16384)])
+def test_census_segments_match_plain_on_card(cuda, h, w, dmin, d):
+    """Rows no block holds whole, in segments: K1 untiled and in halo mode
+    (but at D = 16,384, 229 MB a mode) against the plain version, one launch
+    a call."""
+    left = _rand(130 + w, 0, 256, (1, h + 4, w), np.uint8, cuda)
+    right = _rand(131 + w, 0, 256, (1, h + 4, w), np.uint8, cuda)
+    assert kernels.census_segments(cuda, w, dmin, d).segmented
+    for halo in (False, True) if d <= 256 else (False,):
+        il, ir = (left, right) if halo else (left[:, :h].contiguous(),
+                                             right[:, :h].contiguous())
+        counter = "census_cost_volume_halo" if halo else "census_cost_volume"
+        before = kernels.LAUNCHES[counter]
+        same(kernels.census_cost_volume(il, ir, dmin, dmin + d, halo),
+             kernels.census_cost_volume_plain(il, ir, dmin, dmin + d, halo))
+        assert kernels.LAUNCHES[counter] == before + 1
 
 
 SURFACE = dict(h=48, w=96, d=32, levels=(4, 8, 12, 20))

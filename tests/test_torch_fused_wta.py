@@ -296,7 +296,7 @@ def test_launch_parts_split_a_group_with_its_epilogue_last(monkeypatch, n,
     it and without it both take; without the epilogue the split is the
     capacity's from the front."""
     monkeypatch.setattr(kernels, "group_capacity",
-                        lambda cost, out, wta=False: with_wta if wta else plain)
+                        lambda cost, out, wta=False, ranges=0: with_wta if wta else plain)
     parts = kernels._launch_parts(None, None, n, True)
     assert parts == want
     assert [k1 - k0 for k0, k1 in parts][-1] <= min(with_wta, plain)
@@ -325,21 +325,30 @@ def test_kernel_ab_calls_the_parent_group_entry_with_its_signature():
     pointers, 14 ints and the stream; its first fused form added the ring,
     the planes and 8 ints (the second roll set and its flag, the views,
     dmin); the next took the ScanPass array instead of the carries and
-    rolls: 6 pointers, 14 ints and the stream; this one adds the work
-    buffer of several clusters an image.  ``group_form`` tells the four
-    apart by their sources."""
+    rolls: 6 pointers, 14 ints and the stream; the next added the work
+    buffer of several clusters an image; this one adds the plan argument
+    ``ranges`` (an int before the stream), to its plan and capacity
+    entries too.  ``group_form`` tells the five apart by their sources."""
     old = kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group"]
     first = kernel_ab.GROUP_TWO_ORDER["sgm_scan_group"]
     passes = kernel_ab.GROUP_PASSES["sgm_scan_group"]
+    work = kernel_ab.GROUP_WORK["sgm_scan_group"]
     new = _build.SIGNATURES["sgm_scan_group"]
-    assert (len(old), len(first), len(passes), len(new)) == (23, 31, 21, 22)
+    assert (len(old), len(first), len(passes), len(work), len(new)) == \
+        (23, 31, 21, 22, 23)
     assert old[:8] + old[22:] == first[:8] + first[30:]
-    assert new[-1] == first[-1] and new[:6] + new[7:] == passes
+    assert new[-1] == first[-1] and work[:6] + work[7:] == passes
+    assert new[:-2] + new[-1:] == work
+    for entry in ("sgm_scan_group_capacity", "sgm_scan_group_plan"):
+        sig = _build.SIGNATURES[entry]
+        assert sig[:-2] + sig[-1:] == kernel_ab.GROUP_WORK[entry]
+    assert kernel_ab.group_form(["struct ScanPass",
+                                 "void* planes, void* work"]) == "work"
     assert kernel_ab.GROUP_BEFORE_FUSED["sgm_scan_group_capacity"] == \
-        _build.SIGNATURES["sgm_scan_group_capacity"][:5] + \
-        _build.SIGNATURES["sgm_scan_group_capacity"][6:]
+        kernel_ab.GROUP_WORK["sgm_scan_group_capacity"][:5] + \
+        kernel_ab.GROUP_WORK["sgm_scan_group_capacity"][6:]
     text = (_build.CSRC / "aggregate.cu").read_text()
-    assert kernel_ab.group_form([text]) == "work"
+    assert kernel_ab.group_form([text]) == "ranges"
     assert kernel_ab.group_form(["struct ScanPass"]) == "passes"
     assert kernel_ab.group_form(["int two_order, int q0"]) == "two_order"
     assert kernel_ab.group_form(["int accumulate, void* stream"]) == "before"
@@ -380,13 +389,14 @@ def test_two_order_scans_launch_twice_meeting_at_the_middle_row(
     monkeypatch.setattr(kernels, "_on_cpu", lambda *tensors: False)
     monkeypatch.setattr(kernels, "_stream", lambda t: 0)
     monkeypatch.setattr(kernels, "group_capacity",
-                        lambda cost, out, wta=False: cap_wta if wta else cap)
+                        lambda cost, out, wta=False, ranges=0: cap_wta if wta else cap)
     monkeypatch.setattr(kernels, "_launch",
                         lambda entry, counter, *args: launches.append(counter))
 
     def group(counter, cost, img, out, passes, npass, n, carry_n, restart, p1,
               p2_init, accumulate, views=0, dmin=0, finished=None,
-              planes=None):
+              planes=None, ranges=0):
+        assert ranges == 0      # the main path leaves the plan to the entry
         launches.append((counter, cost.shape[1], npass, n, accumulate, views,
                          [(p.lo, p.hi, p.reverse, bool(p.cin_cost),
                            bool(p.cout_cost), bool(p.prev_gray))

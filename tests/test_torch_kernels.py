@@ -176,12 +176,14 @@ def test_wta_online_plain_matches_pallas_and_plain(d, dmin, w, chunk, inverse,
 
 
 def test_wta_kernel_width_limit_matches_the_source():
-    """The wrapper's row limit and key shift are the kernel's (``kMaxWidth``,
-    ``kShift`` in csrc/wta.cu); the transcription refuses D > 16,384 (the
-    JAX package's bound, the latch's) as the wrapper does."""
+    """The kernel has no row limit (``kMaxWidth`` is gone from csrc/wta.cu,
+    ``WTA_MAX_WIDTH`` from the wrapper: rows of any width run in segments of
+    ``kMaxSegment`` columns); its key shift is the wrapper's (``kShift``);
+    the transcription refuses D > 16,384 (the JAX package's bound, the
+    latch's) as the wrapper does."""
     text = (_build.CSRC / "wta.cu").read_text()
-    assert re.search(r"constexpr int kMaxWidth = (\d+);", text).group(1) == \
-        str(kernels.WTA_MAX_WIDTH)
+    assert "kMaxWidth" not in text and not hasattr(kernels, "WTA_MAX_WIDTH")
+    assert "W > " not in text[text.index('extern "C" int sgm_wta_reduce('):]
     assert re.search(r"constexpr int kShift = (\d+);", text).group(1) == \
         str(kernels.WTA_KEY_SHIFT)
     d = kernels.MAX_RANGE + 1
@@ -327,10 +329,23 @@ def test_kernel_ab_chain_ablations_still_apply_to_the_probe_source(ablation):
 
 
 def test_kernel_ab_groups_and_the_probe_entries():
-    """``--only`` picks among the groups, each comparing one C entry; the
-    probe kernels' entries are found in their sources."""
+    """``--only`` picks among the groups, each comparing one C entry (but
+    ``split``, which times this checkout's plans against each other, and
+    ``sass``, which compares compiled code: neither builds a library of the
+    parent); the probe kernels' entries are found in their sources."""
     assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
-                                     "chain", "s2", "s4", "fused"}
+                                     "chain", "s2", "s4", "fused", "split",
+                                     "sass"}
+    assert kernel_ab.GROUP_ENTRIES["split"] is None
+    assert kernel_ab.GROUP_ENTRIES["sass"] is None
+    # the SASS comparison's name maps: the hashed anonymous namespace, and
+    # the group kernel's SPLIT = false (the parent's kernel has four
+    # template arguments)
+    name = ("_ZN45_GLOBAL__N__173b9b69_12_aggregate_cu_f9a6e0dc12group_kernel"
+            "ILi1ELb0ELb0ELb0ELb0EEEvNS_9GroupArgsE")
+    assert kernel_ab._ANON.sub("ANON", name) == \
+        "_ZNANON12group_kernelILi1ELb0ELb0ELb0ELb0EEEvNS_9GroupArgsE"
+    assert [s[-1] for s in kernel_ab.SPLIT_SHAPES] == [280, 760]
     found = kernel_ab.sources_defining(
         _build.CSRC, [kernel_ab.GROUP_ENTRIES[g]
                       for g in ("scan16", "s1", "chain", "s2", "s4")])

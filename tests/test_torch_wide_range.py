@@ -280,9 +280,11 @@ def test_cluster_count_transcribes_the_source():
     assert kernels.group_clusters(760, 2964, 1) == 4
     assert kernels.group_clusters(280, 1992, 1) == 1
     # the slab ring and two state buffers of strips of two columns: no
-    # number of clusters holds D = 2,516 for one direction
+    # number of clusters holds D = 2,516 for one direction whole; clusters
+    # whose blocks split D do (tests/test_torch_deep_range.py)
     assert kernels.group_clusters(2515, 4000, 1) is not None
     assert kernels.group_clusters(2516, 4000, 1) is None
+    assert kernels.group_split(2516, 4000, 1, False, 16) is not None
 
 
 # --- cli eval above 256 ------------------------------------------------------------
