@@ -185,7 +185,22 @@ Phases (each raises on failure, so the script exits non-zero):
    bit-equal to the plain path with its launches counted, the long frame
    also through the tiled engine on a 1x1 mesh, bit-equal; phase 10's
    full-size frames again, untiled bit-equal to tiled; the K2 forms and
-   the WTA at the D = 4,096 frame with their calls, plans and bounds;
+   the WTA at the D = 4,096 frame with their calls, plans and bounds.
+   Rows wider than the card holds at once, which the group scan takes in
+   column parts with halo columns (``kernels.group_route``):
+   every mode of ``sgm_scan_group`` bit-equal to its plain version at one
+   row past each resident width of ``group_capacity``'s docstring (D = 64
+   to 16,384, 3-8 rows; the plan's parts asserted), at a shape whose plan
+   takes chunks of rows with carries (D = 16,384, 240 columns, 120 rows),
+   and at the two shapes once refused before a launch (D = 2,000 at 30,000
+   columns, D = 16,384 at 2,000); the horizontal pair at D = 16,384 on a
+   transposed row of 240; the WTA's split window (70,000 columns, D = 64,
+   dmin = 60,000); ``SGMEngine.match`` on a satellite strip of 36,000 x
+   512 at D = 256 (two parts; its launches counted, 0.95 of the finite
+   pixels within 1 of the truth, its time) and the K2 forms and the WTA at
+   its shape beside their bounds; full-resolution Middlebury-2014
+   (2964x1988, D = 280) with both pairs forced into 2 and 4 parts,
+   bit-equal to the resident route;
 12. the per-kernel JSON line (each kernel's time beside its plain version's,
    its bound from this run's shapes and, where one PyTorch call computes the
    same function, that call's time; its launches from the path that runs
@@ -338,6 +353,24 @@ DEEP_KERNELS = (dict(batch=1, h=5, d=2516, w=96), dict(batch=2, h=4, d=4096, w=1
                 dict(batch=1, h=3, d=16384, w=40))
 DEEP_FRAME = dict(batch=1, h=256, w=512, dmax=4096, levels=(30, 120, 260, 400))
 LONG_FRAME = dict(batch=1, h=48, w=20000, dmax=64, levels=(10, 20, 35))
+# rows wider than the card holds at once: one column past each
+# resident width of kernels.group_capacity's docstring on an H100 80GB HBM3
+# (D, W, S); a shape whose plan takes chunks of rows (2 S halo columns
+# would pass a quarter of the 224 columns held at D = 16,384); the two
+# shapes the group scan once refused before a launch; the horizontal pair
+# at D = 16,384 on a transposed row of 240 (an image 240 rows tall, 6 wide)
+PAST_RESIDENT = ((64, 103681, 3), (128, 50401, 3), (256, 24481, 4),
+                 (280, 24553, 3), (760, 8449, 5), (1024, 6337, 3),
+                 (2516, 2341, 3), (4096, 1381, 4), (16384, 225, 8))
+CHUNKED = (16384, 240, 120)
+ONCE_REFUSED = ((2000, 30000, 3), (16384, 2000, 3))
+DEEP_PAIR = dict(d=16384, h=240, w=6)
+SPLIT_WTA = (2, 64, 70000, 60000)     # (h, D, w, dmin): two staged windows
+# a pushbroom satellite strip: 36,000 columns x 512 rows at D = 256, two
+# column parts of the vertical pair; full-resolution Middlebury-2014 with
+# both pairs forced into parts
+SATELLITE = dict(batch=1, h=512, w=36000, dmax=256, levels=(30, 90, 160, 230))
+FORCED_PARTS = (2, 4)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1930,19 +1963,25 @@ def surfaces_phase(tmp, card: str) -> None:
 def main_path_launches(b: int, h: int, w: int, d: int) -> dict:
     """C entry calls of one untiled match_batch at this shape: the scans'
     two launches a part of a group (``_launch_parts``: the vertical pair's
-    with the epilogue, the horizontal pair's on the transposed volume)."""
+    with the epilogue, the horizontal pair's on the transposed volume), or
+    where a pair's row passes the card's resident width its launches over
+    column parts and one ``wta_reduce`` (``kernels.bidir_calls``)."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch.ops import kernels
 
-    def parts(rows, n, wta):
+    def calls(s, rows, rolls, wta):
         probe = torch.empty((b, 1, d, rows), dtype=torch.uint8, device="cuda")
-        return len(kernels._launch_parts(probe, probe.to(torch.uint16), n, wta))
+        out = torch.empty(probe.shape, dtype=torch.uint16, device="cuda")
+        return kernels.bidir_calls(probe.expand(b, s, d, rows),
+                                   out.expand(b, s, d, rows), *rolls, wta)
 
     h_pad = -(-h // kernels.TRANSPOSED_PITCH) * kernels.TRANSPOSED_PITCH
-    return {"census_cost_volume": 1, "aggregate_paths_wta": 2 * parts(w, 3, True),
-            "horizontal_partial": 2 * parts(h_pad, 1, False),
-            "volume_transpose": 3, "lr_check": 1, "remove_speckles": 1}
+    vertical, reduce = calls(h, w, ((0, 1, -1), (0, -1, 1)), True)
+    return {"census_cost_volume": 1, "aggregate_paths_wta": vertical,
+            "horizontal_partial": calls(w, h_pad, ((0,), (0,)), False)[0],
+            "volume_transpose": 3, "wta_reduce": reduce, "lr_check": 1,
+            "remove_speckles": 1}
 
 
 def wide_kernel_checks(cfg) -> dict:
@@ -2174,7 +2213,12 @@ def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
         ms = cuda_ms(fn, 3)
         lim = bound(nbytes, ops)
         plan = ""
-        if planned is not None:
+        route = None if planned is None else kernels.group_route(
+            planned[0], planned[0], (1,) if planned[1] > 1 else (0,),
+            planned[2])
+        if route is not None:
+            plan = f", column parts {route._asdict()} (no epilogue)"
+        elif planned is not None:
             x, n, wta = planned
             probe = x[:, :1]
             per = kernels.group_capacity(probe, probe.to(torch.uint16), wta)
@@ -2351,11 +2395,157 @@ def unrefused_frames(card: str) -> None:
     wide_kernel_times(DEEP_FRAME, card, "unrefused")
 
 
+def past_resident_kernels(card: str) -> None:
+    """Every mode of the group scan over column parts, each bit-equal to its
+    plain version: a row past each resident width, a plan in chunks of
+    rows, the two shapes once refused; the horizontal pair at D = 16,384
+    past its width; the WTA's split window."""
+    import numpy as np
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(17)
+
+    def rand(high, shape, dtype=np.uint8):
+        return torch.from_numpy(rng.integers(0, high, shape).astype(dtype)).cuda()
+
+    cases = [(d, w, s, "past the resident width") for d, w, s in PAST_RESIDENT]
+    cases += [(*CHUNKED, "in chunks of rows")]
+    cases += [(d, w, s, "once refused") for d, w, s in ONCE_REFUSED]
+    for d, w, s, what in cases:
+        t0 = time.perf_counter()
+        cost, img, acc = rand(128, (1, s, d, w)), rand(256, (1, s, w)), \
+            rand(900, (1, s, d, w), np.uint16)
+        plans = {rolls: kernels.group_route(cost, acc, rolls)
+                 for rolls in ((0, 1, -1), (1,), (0,))}
+        if any(p is None or p.parts < 2 for p in plans.values()):
+            raise AssertionError(f"D={d} W={w}: no column parts: {plans}")
+        if (what == "in chunks of rows") != (plans[(1,)].rows < s):
+            raise AssertionError(f"D={d} W={w} S={s}: chunks {plans}")
+        kernels.reset_launch_counts()
+        every_group_mode(cost, img, acc)
+        print(f"unrefused, sgm_scan_group {what} at D={d} W={w} S={s}: every "
+              f"mode bit-equal to its plain version (max_abs_err 0.0); "
+              f"resident width {kernels.resident_width(cost.device, d)}, "
+              f"column parts (0, 1, -1) {plans[0, 1, -1]._asdict()}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del cost, img, acc
+        torch.cuda.empty_cache()
+    d, h, w = DEEP_PAIR["d"], DEEP_PAIR["h"], DEEP_PAIR["w"]
+    cost_t, img_t = rand(128, (1, w, d, h)), rand(256, (1, w, h))
+    route = kernels.group_route(cost_t, cost_t, (0,))
+    if route is None or route.halo != 0:
+        raise AssertionError(f"the horizontal pair at D={d} H={h}: {route}")
+    err = max_abs_err(kernels.horizontal_pair_transposed(cost_t, img_t, 10, 150),
+                      kernels.directional_scan_group_bidir_plain(
+                          cost_t, img_t, None, (0,), (0,), 10, 150, False))
+    print(f"unrefused, the horizontal pair at D={d} on a transposed row of {h}: "
+          f"bit-equal to its plain version (max_abs_err {err}), column parts "
+          f"{route._asdict()}")
+    del cost_t, img_t
+    h, d, w, dmin = SPLIT_WTA
+    aggr = rand(4000, (1, h, d, w), np.uint16)
+    opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+    for inverse in (True, False):
+        err = planes_err(_flat(kernels.wta_reduce(aggr, opt, inverse)),
+                         _flat(kernels.wta_reduce_plain(aggr, opt, inverse)))
+    fn = lambda: kernels.wta_reduce(aggr, opt)
+    print(f"unrefused, WTA {w}x{h} D={d} dmin={dmin} (two staged windows a "
+          f"plane): both views and the forward view alone bit-equal "
+          f"(max_abs_err {err}), {cuda_ms(fn, 5):.4f} ms; {card}")
+
+
+def satellite_frame(card: str) -> None:
+    """``SGMEngine.match`` on a satellite strip past the vertical pair's
+    resident width: its launches counted (the vertical pair over column
+    parts, one ``wta_reduce``), 0.95 of its finite pixels within 1 of the
+    truth, its time; the K2 forms and the WTA at its shape beside their
+    bounds (kernel table rows 2-4)."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMEngine, SGMOptions
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    cfg = SATELLITE
+    opt = SGMOptions(max_disparity=cfg["dmax"])
+    left, right, field = pair(cfg, seed=17)
+    engine = SGMEngine(opt, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    got = engine.match(left, right)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    per_call = main_path_launches(1, cfg["h"], cfg["w"], cfg["dmax"])
+    if not per_call["wta_reduce"]:
+        raise AssertionError(f"the satellite strip took no column parts: {per_call}")
+    launches = counted_launches(kernels.LAUNCHES, per_call, 1,
+                                f"match at {cfg['w']}x{cfg['h']} D={cfg['dmax']}")
+    valid = torch.isfinite(got)
+    good = ((got - field).abs() <= 1.0)[valid].float().mean().item()
+    if good < MIN_GOOD:
+        raise AssertionError(f"{cfg['w']}x{cfg['h']} D={cfg['dmax']}: only "
+                             f"{good} of the finite pixels lie within 1 of "
+                             f"the truth")
+    ms = cuda_ms(lambda: engine.match(left, right), 3)
+    probe = torch.empty((1, 1, cfg["dmax"], cfg["w"]), dtype=torch.uint8,
+                        device="cuda").expand(1, cfg["h"], -1, -1)
+    plan = kernels.group_route(probe, probe, (0, 1, -1, 0, -1, 1), True)
+    print(f"unrefused, satellite strip {cfg['w']}x{cfg['h']} D={cfg['dmax']} B=1 "
+          f"through SGMEngine.match: {ms:.3f} ms (CUDA events, median of 3); "
+          f"finite {valid.float().mean().item():.4f}, {good:.4f} of them within "
+          f"1 of the truth; launches {launches}; the vertical pair's column "
+          f"parts {plan._asdict()}; peak device memory {peak / 2**30:.3f} GiB "
+          f"above the inputs; {card}")
+    del left, right, field, got
+    torch.cuda.empty_cache()
+    wide_kernel_times(cfg, card, "unrefused")
+
+
+def forced_parts_frame(card: str) -> None:
+    """Full-resolution Middlebury-2014 (``WIDE_EVAL``'s frame, D = 280)
+    through ``SGMEngine.match`` with both pairs' two-order scans forced
+    into 2 and 4 column parts, each bit-equal to the resident route, with
+    its launches counted."""
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch import SGMEngine, SGMOptions
+    from soc_project_stereo_matching_tpu_torch.kernel_ab import forced_parts
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    cfg = WIDE_EVAL
+    opt = SGMOptions(max_disparity=cfg["dmax"])
+    left, right, _ = pair(dict(cfg, batch=1), seed=cfg["dmax"])
+    engine = SGMEngine(opt, device="cuda")
+    want = engine.match(left, right)
+    for parts in FORCED_PARTS:
+        with forced_parts(parts):
+            kernels.reset_launch_counts()
+            got = engine.match(left, right)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if launches.get("wta_reduce") != 1:
+            raise AssertionError(f"{parts} parts forced: no parts route "
+                                 f"({launches})")
+        err = max_abs_err(got, want)
+        print(f"unrefused, Middlebury-2014 {cfg['w']}x{cfg['h']} D={cfg['dmax']} "
+              f"with both pairs forced into {parts} column parts: bit-equal to "
+              f"the resident route (max_abs_err {err}); launches {launches}")
+    del left, right, want
+    torch.cuda.empty_cache()
+
+
 def unrefused_phase(card: str) -> None:
     """Phase 11: shapes the port once refused (see the module's docstring)."""
     t0 = time.perf_counter()
     unrefused_kernels(card)
     unrefused_frames(card)
+    past_resident_kernels(card)
+    satellite_frame(card)
+    forced_parts_frame(card)
     print(f"unrefused phase: {time.perf_counter() - t0:.1f} s")
 
 

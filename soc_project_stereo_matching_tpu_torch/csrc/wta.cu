@@ -64,10 +64,13 @@
 //     even (a row of 450 int32 starts 8-byte aligned), as 4-byte stores
 //     otherwise.
 // Rows of any width at any D in 1..16,384 (the JAX package's bound, the
-// latch's) and any dmin >= 0, where a plane's staged window (a segment's
-// columns and the inverse view's reach, min(dmin + D - 1, W) columns past
-// them) fits half a block's shared memory (shape_of); only rows wider than
-// that window can pass it, and then only where dmin + D - 1 does too.
+// latch's) and any dmin >= 0.  A segment's plane is staged as one window,
+// its columns and the inverse view's reach (min(dmin + D - 1, W) columns
+// past them), where that fits half a block's shared memory (shape_of);
+// where it does not (dmin in the tens of thousands, at rows wider still),
+// as two (SPLIT): its own columns for the forward view, and for the
+// inverse view only [s0 + dmin, min(W, s0 + seg + dmin + D - 1)), at most
+// 2,048 + D - 1 columns whatever dmin, so every D up to 16,384 fits.
 // Nothing else in the kernel depends on W: the grid is B * H * segments
 // blocks, the offsets into the volume and the planes are 64-bit, a plane's
 // table holds kMaxPlanes entries whatever W.
@@ -101,23 +104,32 @@ struct Shape {
   int seg;      // columns of a block (the last may have fewer)
   int threads;  // seg / 2, to whole warps
   int xs;       // staged columns of a segment's plane: its own + the reach
-  int pitch;    // bytes of a segment's staged plane
+                // (SPLIT: of its inverse window alone)
+  int pitch;    // bytes of a segment's staged plane (SPLIT: both windows)
   int planes;   // planes of a chunk
   int nchunks;
   int stage;    // bytes of a buffer
   int smem;     // dynamic shared memory
 };
 
-Shape shape_of(int W, int D, int dmin) {
+// The bytes of a SPLIT segment's forward window, which comes first.
+__host__ __device__ inline int forward_pitch(int threads) {
+  return round_up(4 * threads + 16, 16);
+}
+
+Shape shape_of(int W, int D, int dmin, bool split = false) {
   Shape s{};
   s.nseg = (W + kMaxSegment - 1) / kMaxSegment;
   s.seg = round_up((W + s.nseg - 1) / s.nseg, 2);
   s.threads = round_up(s.seg / 2, 32);
   // a segment's inverse view reads up to min(dmin + D - 1, W) columns
-  // right of its own
+  // right of its own; split, its inverse window takes D - 1 more than
+  // its own from dmin on
   const long long reach = (long long)dmin + D - 1;
-  s.xs = 2 * s.threads + (int)(reach < W ? reach : W);
-  s.pitch = round_up(2 * s.xs + 16, 16);
+  s.xs = split ? 2 * s.threads + D - 1
+               : 2 * s.threads + (int)(reach < W ? reach : W);
+  s.pitch = round_up(2 * s.xs + 16, 16) + (split ? forward_pitch(s.threads)
+                                                 : 0);
   // a whole-row buffer: the run, its lead, and room for the forward reads
   // of the lanes past the row's end
   const int plane = s.nseg == 1 ? 2 * W : s.pitch;
@@ -297,7 +309,7 @@ __device__ __forceinline__ void reduce_chunk(const int2* tab, int k0,
   }
 }
 
-template <bool INVERSE, bool EVEN>
+template <bool INVERSE, bool EVEN, bool SPLIT = false>
 __global__ void __launch_bounds__(kMaxThreads)
     wta_kernel(const uint16_t* __restrict__ aggr, int* __restrict__ out,
                int D, int W, int dmin, long long n, Shape s) {
@@ -341,6 +353,37 @@ __global__ void __launch_bounds__(kMaxThreads)
         bulk_copy(smem_addr(smem + base), (const unsigned char*)g - lead,
                   bytes, smem_addr(full + b));
       }
+    } else if constexpr (SPLIT) {   // each plane's two windows, a lane each
+      int bytes = 0, inv_bytes = 0;
+      const unsigned char *src = nullptr, *inv_src = nullptr;
+      const int dst = base + lane * s.pitch;
+      const int inv_dst = dst + forward_pitch(s.threads);
+      if (lane < kc) {
+        const uint16_t* g = g_row + (size_t)(k0 + lane) * W;
+        const int lead = (int)((uintptr_t)g & 15);
+        src = (const unsigned char*)g - lead;
+        bytes = round_up(lead + 2 * ncol, 16);
+        // plane k of column x's inverse view: column x + k of the window
+        // from dmin on, where that lies in the row (kx below)
+        int inv_lead = 0;
+        if (dmin < avail) {
+          const uint16_t* gi = g + dmin;
+          inv_lead = (int)((uintptr_t)gi & 15);
+          inv_src = (const unsigned char*)gi - inv_lead;
+          inv_bytes = round_up(inv_lead + 2 * min(s.xs, avail - dmin), 16);
+        }
+        tab[lane] = make_int2(dst + lead,
+                              inv_dst + inv_lead + 2 * (k0 + lane));
+      }
+      const int total = __reduce_add_sync(0xffffffffu, bytes + inv_bytes);
+      if (lane == 0) mbar_expect(smem_addr(full + b), total);
+      __syncwarp();
+      if (lane < kc) {
+        bulk_copy(smem_addr(smem + dst), src, bytes, smem_addr(full + b));
+        if (inv_bytes)
+          bulk_copy(smem_addr(smem + inv_dst), inv_src, inv_bytes,
+                    smem_addr(full + b));
+      }
     } else {       // a copy of each plane's window, a lane each
       int bytes = 0;
       const unsigned char* src = nullptr;
@@ -367,7 +410,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int x = 2 * tid;   // the block's columns x and x + 1
   const unsigned xb = smem_addr(smem) + 2 * x;
   // plane k of the inverse view of column x lies in the row for k < kx
-  const long long room = (long long)L - x - dmin;
+  const long long room = (long long)(SPLIT ? avail : L) - x - dmin;
   const int kx = (int)(room < -1 ? -1 : room > D + 1 ? D + 1 : room);
   const bool checked = __any_sync(0xffffffffu, kx - 1 < D);
 
@@ -419,10 +462,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <bool INVERSE, bool EVEN>
+template <bool INVERSE, bool EVEN, bool SPLIT>
 int launch(const uint16_t* aggr, int* out, int rows, int D, int W, int dmin,
            long long n, const Shape& s, cudaStream_t stream) {
-  auto* kernel = wta_kernel<INVERSE, EVEN>;
+  auto* kernel = wta_kernel<INVERSE, EVEN, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
   if (err != cudaSuccess) return (int)err;
@@ -436,8 +479,8 @@ int launch(const uint16_t* aggr, int* out, int rows, int D, int W, int dmin,
 // WTA planes of a uint16 (B, H, D, W) volume into out = int32 (5 or 10, B,
 // H, W): best, min, sec_min, c1, c2 of the forward view, then of the
 // inverse.  Refused (cudaErrorInvalidValue) outside D in 1..16,384 and dmin
-// >= 0, past 2^31 - 1 blocks, or where a segment's staged plane does not fit
-// shared memory.
+// >= 0, or past 2^31 - 1 blocks.  A segment whose one window does not fit
+// shared memory stages two (SPLIT), which fit at every D.
 extern "C" int sgm_wta_reduce(const void* aggr, void* out, int B, int H,
                               int D, int W, int dmin, int include_inverse,
                               void* stream) {
@@ -446,17 +489,26 @@ extern "C" int sgm_wta_reduce(const void* aggr, void* out, int B, int H,
   if (D < 1 || D > kMaxD || dmin < 0 ||
       (long long)B * H * ((W + kMaxSegment - 1) / kMaxSegment) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const Shape s = shape_of(W, D, dmin);
-  if (s.smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  Shape s = shape_of(W, D, dmin);
+  const bool split = s.smem > kSmemMax;
+  if (split) s = shape_of(W, D, dmin, true);
+  if (s.smem > kSmemMax || (split && s.nseg == 1))
+    return (int)cudaErrorInvalidValue;
   const bool even = W % 2 == 0 && (uintptr_t)out % 8 == 0 &&
                     (uintptr_t)aggr % 4 == 0;
   const auto* a = (const uint16_t*)aggr;
   auto* o = (int*)out;
   const auto st = (cudaStream_t)stream;
   const int rows = B * H;
+  if (split && include_inverse)
+    return even ? launch<true, true, true>(a, o, rows, D, W, dmin, n, s, st)
+                : launch<true, false, true>(a, o, rows, D, W, dmin, n, s, st);
+  if (split)
+    return even ? launch<false, true, true>(a, o, rows, D, W, dmin, n, s, st)
+                : launch<false, false, true>(a, o, rows, D, W, dmin, n, s, st);
   if (include_inverse)
-    return even ? launch<true, true>(a, o, rows, D, W, dmin, n, s, st)
-                : launch<true, false>(a, o, rows, D, W, dmin, n, s, st);
-  return even ? launch<false, true>(a, o, rows, D, W, dmin, n, s, st)
-              : launch<false, false>(a, o, rows, D, W, dmin, n, s, st);
+    return even ? launch<true, true, false>(a, o, rows, D, W, dmin, n, s, st)
+                : launch<true, false, false>(a, o, rows, D, W, dmin, n, s, st);
+  return even ? launch<false, true, false>(a, o, rows, D, W, dmin, n, s, st)
+              : launch<false, false, false>(a, o, rows, D, W, dmin, n, s, st);
 }

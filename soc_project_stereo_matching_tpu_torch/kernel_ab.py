@@ -3,7 +3,7 @@
 this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused,split,sass] \
+        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused,split,parts,sass] \
         [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
@@ -103,13 +103,25 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   splits, the splits in reverse, plan); and ``SGMEngine.match`` with the
   fastest split of row 3w forced into every two-order scan, in turns with
   the plan's own route;
+* column parts (group ``parts``, this checkout alone) at the first of those
+  shapes (2964x1988 B=1, D = 280): the resident route against both pairs'
+  two-order scans forced into ``PARTS_FORCED`` column parts
+  (``forced_parts``: each part a slice with its halo columns, gathered and
+  scattered around the launches; by parts the vertical pair stores its
+  volume and ``wta_reduce`` reduces it), each held bit-equal to the
+  resident route, then in turns with it: the vertical pair, the
+  horizontal pair on the transposed volume, and ``SGMEngine.match``; and
+  at a row the card does not hold at once (``PARTS_STRIP``, 36000x512 D =
+  256) the vertical pair's route in turns with its slices' launches
+  alone, its copies alone and ``wta_reduce`` (``parts_breakdown``);
 * the SASS of ``aggregate.cu``, ``census_cost.cu`` and ``wta.cu`` (group
   ``sass``; nvcc and cuobjdump, no launch): each source of both checkouts
   compiled to a cubin with the build's flags, and every kernel both
   define compared instruction by instruction (the group kernel's fifth
-  template argument, SPLIT = false, and the anonymous namespace's hashed
-  name mapped away): identical, different (with the count of differing
-  lines), or in one checkout only.
+  template argument, SPLIT = false, the WTA kernel's third, SPLIT =
+  false, and the anonymous namespace's hashed name mapped away):
+  identical, different (with the count of differing lines), or in one
+  checkout only.
 
 Needs one CUDA device; prints one line per figure with the card's name and
 power limit and writes them all as JSON to ``--out``.
@@ -146,7 +158,7 @@ GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
                  "s2": "sgm_probe_speckle_hist",
                  "s4": "sgm_probe_speckle_fused", "fused": "sgm_scan_group",
-                 "split": None, "sass": None}
+                 "split": None, "parts": None, "sass": None}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
@@ -170,6 +182,12 @@ ROUTE_SHAPES = (("720p B=1", 1, 720, 1280, 64),)
 SPLIT_SHAPES = (("Middlebury full D=280", 1, 1988, 2964, 280),
                 ("Middlebury full D=760", 1, 1988, 2964, 760))
 SPLIT_RANGES = (2, 4, 8, 16)
+# a row the card does not hold at once (the vertical pair's resident width
+# is 24,480 columns at D = 256): chip_smoke.py's satellite strip
+PARTS_STRIP = ("satellite strip 36000x512 D=256", 1, 512, 36000, 256)
+# both pairs forced into column parts at the first of SPLIT_SHAPES:
+# (parts, rows a chunk of the vertical pair; 0: all rows, one chunk)
+PARTS_FORCED = ((2, 0), (4, 0), (4, 248))
 # K1 ablations: (text in csrc/census_cost.cu, its replacement)
 ABLATIONS = {
     "no census window": [
@@ -1255,6 +1273,136 @@ class forced_split:
         kernels._bidir = self.saved
 
 
+class forced_parts:
+    """Run every two-order scan of the main path over ``parts`` column
+    parts, ``rows`` rows a chunk (0: all), whatever the card holds and
+    whatever the caller passes (``kernels._bidir``'s ``parts`` and
+    ``rows``; the route's slices do not call ``_bidir``)."""
+
+    def __init__(self, parts: int, rows: int = 0):
+        self.parts, self.rows = parts, rows
+
+    def __enter__(self):
+        saved = self.saved = kernels._bidir
+
+        def forced(*args, **kwargs):
+            return saved(*args, **{**kwargs, "parts": self.parts,
+                                   "rows": self.rows})
+        kernels._bidir = forced
+
+    def __exit__(self, *exc):
+        kernels._bidir = self.saved
+
+
+def parts_shape(rec, label, b, h, w, dmax, left, right, reps):
+    """The resident route against both pairs forced into ``PARTS_FORCED``
+    column parts (the vertical pair in one chunk of rows, or in chunks),
+    bit-equal first, then in turns (resident, the parts, the parts in
+    reverse, resident): the vertical pair (with the WTA epilogue where
+    resident; by parts its volume and ``wta_reduce``), the horizontal pair
+    on the transposed volume (no halo: chunks do not apply), and
+    ``SGMEngine.match``."""
+    from . import SGMEngine
+
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+
+    def vertical(parts, rows=0):
+        return lambda acc: stacked(kernels._bidir(
+            cost, left, acc, rf, rb, p1, p2, False, (0, True),
+            "directional_scan_group_bidir", parts=parts, rows=rows))
+
+    def name(k, rows):
+        return f"parts {k}" + (f" rows {rows}" if rows else "")
+
+    fns = {"resident": vertical(0)}
+    want = fns["resident"](part.clone())
+    for k, rows in PARTS_FORCED:
+        fns[name(k, rows)] = vertical(k, rows)
+        same(fns[name(k, rows)](part.clone()), want,
+             f"{name(k, rows)} {label}")
+    del want
+    # the sums the calls add onto wrap around over the runs: no kernel's
+    # time depends on the values
+    ms = rec["parts_vertical_ms"] = in_turns(
+        {name: (lambda fn=fn: fn(part)) for name, fn in fns.items()}, reps)
+    del part
+    cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+    img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+    del cost
+    hfns = {f"parts {k}" if k else "resident":
+            (lambda k=k: kernels.horizontal_pair_transposed(cost_t, img_t, p1,
+                                                             p2, parts=k))
+            for k in [0] + sorted({k for k, _ in PARTS_FORCED})}
+    want = hfns["resident"]()
+    for key, fn in hfns.items():
+        same(fn(), want, f"horizontal {key} {label}")
+    del want
+    hms = rec["parts_horizontal_ms"] = in_turns(hfns, reps)
+    del cost_t, img_t
+    engine = SGMEngine(opt, device="cuda")
+
+    def forced_match(parts, rows):
+        def run():
+            with forced_parts(parts, rows):
+                return engine.match(left, right)
+        return run
+
+    match = {"resident": lambda: engine.match(left, right)}
+    want = match["resident"]()
+    for k, rows in PARTS_FORCED:
+        match[name(k, rows)] = forced_match(k, rows)
+        same(match[name(k, rows)](), want, f"match, {name(k, rows)} {label}")
+    mms = rec["parts_match_ms"] = in_turns(match, max(3, reps // 4))
+    print(f"{label} column parts forced, ms in turns: the vertical pair "
+          f"{json.dumps(ms)}, the horizontal pair on the transposed volume "
+          f"{json.dumps(hms)}, SGMEngine.match {json.dumps(mms)}; "
+          f"{rec.get('card', '')}")
+
+
+def parts_breakdown(rec, label, b, h, w, dmax, left, right, reps):
+    """The vertical pair by column parts where the card does not hold its
+    row, in turns with its parts: the route (``_bidir`` with the WTA:
+    gathers, launches, scatters, ``wta_reduce``), its slices' launches
+    alone on slices gathered before, its copies alone (each slice of the
+    cost, the image and the volume gathered, the interior scattered back),
+    and ``wta_reduce`` of the totals."""
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    part = kernels.horizontal_partial(cost, left, p1, p2, False)
+    route = kernels.group_route(cost, part, rf + rb, True)
+    slices = kernels.part_columns(w, route, False)
+    gathered = [tuple(kernels._columns(x, lo, hi) for x in (cost, left, part))
+                for lo, hi, _, _ in slices]
+
+    def launches():
+        for c, g, a in gathered:
+            kernels._bidir(c, g, a, rf, rb, p1, p2, False, None,
+                           "directional_scan_group_bidir")
+
+    def copies():
+        for lo, hi, a, e in slices:
+            kernels._columns(cost, lo, hi), kernels._columns(left, lo, hi)
+            part[..., a:e] = kernels._columns(part, lo, hi)[..., a - lo:e - lo]
+
+    fns = {"route": lambda: kernels._bidir(
+               cost, left, part, rf, rb, p1, p2, False, (0, True),
+               "aggregate_paths_wta"),
+           "slice launches": launches, "copies": copies,
+           "wta_reduce": lambda: kernels.wta_reduce(part, opt)}
+    # the sums the calls add onto wrap around over the runs: no kernel's
+    # time depends on the values
+    ms = rec["parts_breakdown_ms"] = in_turns(fns, reps)
+    rec["parts_plan"] = route._asdict()
+    print(f"{label} the vertical pair by column parts {route._asdict()}, ms "
+          f"in turns: {json.dumps(ms)}; {rec.get('card', '')}")
+
+
 def split_fits(x, n: int, wta: bool, ranges: int) -> bool:
     """Whether a two-order launch of n directions on ``x``'s shape takes D
     split over ``ranges`` blocks, its clusters all on the card at once."""
@@ -1379,6 +1527,16 @@ def _changed(a: list, b: list) -> int:
                if op != "equal")
 
 
+def sass_name(name: str) -> str:
+    """This checkout's kernel name as an older checkout spells it: the
+    group kernel's fifth template argument and the WTA kernel's third,
+    SPLIT = false, mapped away (``sass_compare`` maps a name the other
+    checkout does not have)."""
+    name = re.sub(r"(group_kernelILi\dELb\dELb\dELb\d)ELb0EEEv", r"\1EEEv",
+                  name)
+    return re.sub(r"(wta_kernelILb\dELb\d)ELb0EEEv", r"\1EEEv", name)
+
+
 def sass_compare(csrc_other: Path) -> dict:
     """This checkout's kernels against the other's, SASS line by line."""
     import tempfile
@@ -1389,9 +1547,9 @@ def sass_compare(csrc_other: Path) -> dict:
                 for name in SASS_SOURCES]
         with ThreadPoolExecutor(len(jobs)) as ex:
             found = list(ex.map(lambda job: sass_functions(*job), jobs))
-    this = {re.sub(r"(group_kernelILi\dELb\dELb\dELb\d)ELb0EEEv", r"\1EEEv",
-                   k): v for f in found[:len(SASS_SOURCES)] for k, v in f.items()}
     other = {k: v for f in found[len(SASS_SOURCES):] for k, v in f.items()}
+    this = {k if k in other else sass_name(k): v
+            for f in found[:len(SASS_SOURCES)] for k, v in f.items()}
     both = sorted(set(this) & set(other))
     out = {"identical": [k for k in both if this[k] == other[k]],
            "different": {k: {"changed": _changed(other[k], this[k]),
@@ -1410,7 +1568,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent",
                     help="an unpacked checkout of the commit to compare with "
-                         "(every group but split needs one)")
+                         "(every group but split and parts needs one)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default=",".join(GROUPS),
                     help="comma-separated groups: " + ", ".join(GROUPS))
@@ -1427,7 +1585,8 @@ def main(argv=None) -> dict:
     if "fused" in only and "sgm_wta_reduce" not in entries:
         entries.append("sgm_wta_reduce")    # the parent's form ends with it
     if (entries or "sass" in only) and args.parent is None:
-        raise SystemExit("kernel_ab: --parent is needed but for --only split")
+        raise SystemExit("kernel_ab: --parent is needed but for --only "
+                         "split,parts")
     other = (build_library("parent", sources_defining(csrc_other, entries))
              if entries else None)
     this = _build.load()
@@ -1465,8 +1624,25 @@ def main(argv=None) -> dict:
                     max(3, args.reps // 4))
         del left, right
         torch.cuda.empty_cache()
+    for label, b, h, w, dmax in SPLIT_SHAPES[:1] if "parts" in only else ():
+        rec = result["shapes"].setdefault(label, {"card": result["card"]})
+        levels = tuple(dmax * f // 64 for f in (10, 20, 35))
+        left, right, _ = synthetic_pair(2, b, h, w, levels)
+        left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
+        parts_shape(rec, label, b, h, w, dmax, left, right,
+                    max(3, args.reps // 4))
+        del left, right
+        torch.cuda.empty_cache()
+    for label, b, h, w, dmax in (PARTS_STRIP,) if "parts" in only else ():
+        rec = result["shapes"].setdefault(label, {"card": result["card"]})
+        levels = tuple(dmax * f // 64 for f in (10, 20, 35))
+        left, right, _ = synthetic_pair(2, b, h, w, levels)
+        left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
+        parts_breakdown(rec, label, b, h, w, dmax, left, right, 3)
+        del left, right
+        torch.cuda.empty_cache()
     for label, b, h, w, dmax in S1_SHAPES + ROUTE_SHAPES \
-            if only - {"split", "sass"} else ():
+            if only - {"split", "parts", "sass"} else ():
         rec = result["shapes"].setdefault(label, {})
         if (label, b, h, w, dmax) in ROUTE_SHAPES:
             if "fused" in only:

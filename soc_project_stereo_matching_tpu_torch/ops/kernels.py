@@ -41,7 +41,11 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
 ``wta_epilogue_plain`` transcribes the group kernel's WTA epilogue (strips
 of columns, chunks of planes, partial tracks merged in a tree), and
 ``directional_scan_group_bidir_plain`` its two-order scan (half-scans,
-carries at the meeting row).  A wrapper
+carries at the meeting row).  A row wider than the card holds at once
+(``resident_width``) takes the group scan's route over column parts with
+halo columns (``group_route``, ``scan_parts``, ``bidir_parts``): the same
+launches on slices of the row, which the plain versions also run where
+``parts`` forces the route on CPU tensors.  A wrapper
 given CPU tensors runs the plain version.  Given CUDA
 tensors it checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the current stream, raises if the C entry
@@ -439,6 +443,25 @@ def _check_penalties(p1: int, p2_init: int) -> None:
                          f"P2_init={p2_init}")
 
 
+def group_directions(cost: torch.Tensor, out: torch.Tensor,
+                     wta: bool = False, ranges: int = 0) -> int:
+    """``group_capacity`` as the C entry ``sgm_scan_group_capacity`` gives
+    it, 0 where no launch takes even one direction of this row: the
+    wrappers then take the row in column parts (``group_route``)."""
+    return _directions(cost.data_ptr(), out.data_ptr(), cost.shape[0],
+                       cost.shape[2], cost.shape[3], wta, ranges)
+
+
+def _directions(cost_ptr: int, out_ptr: int, b: int, d: int, w: int,
+                wta: bool, ranges: int) -> int:
+    dirs = ctypes.c_int(0)
+    err = _build.load().sgm_scan_group_capacity(
+        cost_ptr, out_ptr, b, d, w, int(wta), ranges, ctypes.addressof(dirs))
+    if err != 0:
+        raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
+    return dirs.value
+
+
 def group_capacity(cost: torch.Tensor, out: torch.Tensor,
                    wta: bool = False, ranges: int = 0) -> int:
     """The most directions one ``sgm_scan_group`` launch takes for this
@@ -465,19 +488,19 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
     280, 8,448 at D = 760, 6,336 at D = 1,024 (66 clusters of 2 blocks),
     2,340 at D = 2,516, 1,380 at D = 4,096 and 224 at D = 16,384 for one
     direction (2,400, 1,410 and 224 with the epilogue at the last three).
-    Past the widest row the card holds at once this raises ``ValueError``;
-    so it does at any D and width with ``ranges`` >= 2 (the split forced
-    over that many blocks, for measurements) where the split does not fit.
-    A launch with the epilogue ends a group whose other launches have none
+    These are the card's resident widths (``resident_width``);
+    ``tests/test_torch_cuda.py`` reads them from this docstring and finds
+    them again by bisection.  Past the widest row the card holds at once
+    this raises ``ValueError``, and so it does at any D and width with
+    ``ranges`` >= 2 (the split forced over that many blocks, for
+    measurements) where the split does not fit: one launch cannot take the
+    row.  The wrappers do not ask it there: they take such a row in column
+    parts with halo columns (``group_route``, ``scan_parts``).  A launch
+    with the epilogue ends a group whose other launches have none
     (``_launch_parts``), so the wrappers take the narrower of the two."""
-    b, _, d, w = cost.shape
-    dirs = ctypes.c_int(0)
-    err = _build.load().sgm_scan_group_capacity(
-        cost.data_ptr(), out.data_ptr(), b, d, w, int(wta), ranges,
-        ctypes.addressof(dirs))
-    if err != 0:
-        raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
-    if dirs.value < 1:
+    dirs = group_directions(cost, out, wta, ranges)
+    if dirs < 1:
+        _, _, d, w = cost.shape
         plan = group_plan(cost, out, 1, wta, ranges=ranges)
         if plan.clusters_an_image == 0:
             why = "fits no plan"
@@ -486,7 +509,7 @@ def group_capacity(cost: torch.Tensor, out: torch.Tensor,
                    f"{plan.cluster_blocks} blocks resident at once, and the "
                    f"card holds {plan.clusters_at_once}")
         raise ValueError(f"D={d}, W={w}: a row's scan state {why}")
-    return dirs.value
+    return dirs
 
 
 class GroupPlan(NamedTuple):
@@ -636,6 +659,118 @@ def group_split(d: int, w: int, n: int, wta: bool = False,
     return group_clusters(d, w, n, wta, ranges, ranges)
 
 
+# --- K2: rows wider than the card holds at once -------------------------------
+
+# A part's halo (both sides) takes at most this share of the resident width
+HALO_SHARE = 4      # 1 / HALO_SHARE
+
+
+class PartsPlan(NamedTuple):
+    """How a scan takes a row that one launch does not (``parts_plan``)."""
+    parts: int      # P: column parts of a row, as even as strip_bounds
+    halo: int       # k: halo columns on each side of a part
+    rows: int       # R: rows a chunk (S: one chunk, no carries)
+
+
+def parts_plan(w: int, s: int, reach: int, resident: int) -> PartsPlan:
+    """The parts of a scan over S rows of W columns whose directions move
+    state by at most ``reach`` (max |roll|) columns a step, on a card that
+    holds rows of up to ``resident`` columns at once.
+
+    A part of columns [a, b) runs as the slice [a - k, b + k): a step moves
+    state by at most ``reach`` columns, so after R steps its interior is
+    exact whatever the slice's own edges do, with k = R * reach.  One part
+    (no halo, R = S) where the row fits; else R = S where the halo of 2 S *
+    reach columns keeps within 1 / ``HALO_SHARE`` of the resident width,
+    otherwise the most rows that keep it there (chunks of R rows, carries
+    between them); P, the fewest parts as even as ``strip_bounds`` makes
+    strips whose widest part plus 2 k columns fits.  The roll-0 direction
+    needs no halo (k = 0, R = S).  Pure arithmetic: ``group_route`` gives
+    it the card's resident width (``resident_width``)."""
+    if w <= resident:
+        return PartsPlan(1, 0, s)
+    room = resident // HALO_SHARE       # the halo's share
+    if reach == 0 or 2 * reach * s <= room:
+        rows = s
+    else:
+        rows = max(1, room // (2 * reach))
+    halo = rows * reach
+    pairs = (resident - 2 * halo) // 2      # column pairs of a part
+    if pairs < 1:
+        raise ValueError(f"a card that holds {resident} columns at once "
+                         f"takes no part with {halo} halo columns a side")
+    return PartsPlan(-(-((w + 1) // 2) // pairs), halo, rows)
+
+
+_RESIDENT = {}      # (device index, D, ranges) -> columns
+
+
+def resident_width(device: torch.device, d: int, ranges: int = 0) -> int:
+    """The widest row whose scan state one ``sgm_scan_group`` launch of one
+    direction (no epilogue) holds on ``device`` at D, asked of the C entry
+    ``sgm_scan_group_capacity`` by bisection (a row of this width and one
+    column less both fit, whatever the even and odd instances of the
+    kernel); ``ranges`` as ``group_plan``'s.  0 where no row fits."""
+    key = (device.index, d, ranges)
+    if key not in _RESIDENT:
+        with torch.cuda.device(device):
+            def fits(w):
+                return w < 2 or all(_directions(0, 0, 1, d, x, False, ranges)
+                                    for x in (w - 1, w))
+            lo, hi = 0, 1 << 12
+            while fits(hi):
+                lo, hi = hi, 2 * hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+            _RESIDENT[key] = lo if lo >= 2 and fits(lo) else 0
+    return _RESIDENT[key]
+
+
+def group_route(cost: torch.Tensor, out, rolls, wta: bool = False,
+                ranges: int = 0, parts: int = 0, rows: int = 0):
+    """The route of a group scan (``rolls``: all the directions it scans,
+    both orders of a two-order scan) over this cost: None where one launch
+    per part of the group takes the row (every row the card holds at
+    once), else the ``PartsPlan`` of its column parts.  ``parts`` >= 1
+    forces that many parts (and ``rows`` >= 1 that many rows a chunk; the
+    halo then follows), on CPU tensors too; a CPU tensor otherwise takes
+    no parts: its plain version takes any width."""
+    b, s, d, w = cost.shape
+    reach = max(abs(r) for r in rolls)
+    if parts >= 1:
+        rows = min(rows, s) if rows >= 1 else s
+        return PartsPlan(parts, 0 if parts == 1 else rows * reach, rows)
+    if rows:
+        raise ValueError("rows a chunk go with a number of parts")
+    if _on_cpu(cost) or (
+            group_directions(cost, out, False, ranges) and
+            (not wta or group_directions(cost, out, True, ranges))):
+        return None
+    return parts_plan(w, s, reach, resident_width(cost.device, d, ranges))
+
+
+def part_columns(w: int, plan: PartsPlan, restart: bool):
+    """[(lo, hi, a, b)]: each part's interior [a, b) and its slice [lo,
+    hi), read mod W: k halo columns a side in wrap mode, where the halo
+    wraps past the image's edge; in restart mode a slice stops at the
+    image's edge, where the kernel's own restart resets the diagonals."""
+    bounds = strip_bounds(w, plan.parts)
+    if plan.parts < 1 or any(a >= b for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"{plan.parts} parts leave one of {w} columns empty")
+    k = plan.halo
+    if restart:
+        return [(max(0, a - k), min(w, b + k), a, b)
+                for a, b in zip(bounds, bounds[1:])]
+    return [(a - k, b + k, a, b) for a, b in zip(bounds, bounds[1:])]
+
+
+def row_chunks(s: int, rows: int, reverse: bool):
+    """The [r0, r1) chunks of R rows in the order a scan walks them."""
+    chunks = [(r0, min(s, r0 + rows)) for r0 in range(0, s, rows)]
+    return [(s - r1, s - r0) for r0, r1 in chunks] if reverse else chunks
+
+
 class ScanPass(ctypes.Structure):
     """One scan order of a group over the rows [lo, hi), as the C entry
     ``sgm_scan_group`` takes it (``ScanPass`` in csrc/aggregate.cu): the
@@ -729,21 +864,25 @@ def _planes_of(planes: torch.Tensor):
 
 
 def aggregate_paths(cost: torch.Tensor, img_left: torch.Tensor,
-                    options: SGMOptions,
-                    diagonal_mode: str = "wrap") -> torch.Tensor:
+                    options: SGMOptions, diagonal_mode: str = "wrap",
+                    parts: int = 0, rows: int = 0) -> torch.Tensor:
     """uint8 (B, H, D, W) cost + uint8 (B, H, W) image -> uint16 (B, H, D, W)
     aggregated volume: the horizontal pair (``horizontal_partial``), then
     the two-order scan of the vertical group of ``DIRECTIONS_8/4`` added
     onto it (``directional_scan_group_bidir``'s two launches, counted
-    here)."""
-    if _on_cpu(cost, img_left):
+    here).  Either pair takes its rows in column parts where the card does
+    not hold them at once; ``parts`` (and ``rows``, the vertical pair's
+    rows a chunk) force parts on both pairs, on CPU tensors too."""
+    on_cpu = _on_cpu(cost, img_left)
+    if on_cpu and not parts:
         return aggregation.aggregate_paths(cost, img_left, options, diagonal_mode)
-    restart = _check_aggregate(cost, img_left, diagonal_mode)
+    restart = _check_aggregate(cost, img_left, diagonal_mode, on_cpu)
     out = horizontal_partial(cost, img_left, options.p1, options.p2_init,
-                             restart)
+                             restart, parts)
     (rolls_f, _), (rolls_b, _) = scan_groups(options.num_paths)
     return _bidir(cost, img_left, out, rolls_f, rolls_b, options.p1,
-                  options.p2_init, restart, None, "aggregate_paths")
+                  options.p2_init, restart, None, "aggregate_paths",
+                  parts=parts, rows=rows)
 
 
 def _check_aggregate(cost, img_left, diagonal_mode: str,
@@ -884,35 +1023,49 @@ def image_transpose(img: torch.Tensor, pad_to: int = 1) -> torch.Tensor:
 
 
 def horizontal_pair_transposed(cost_t: torch.Tensor, img_t: torch.Tensor,
-                               p1: int, p2_init: int) -> torch.Tensor:
+                               p1: int, p2_init: int,
+                               parts: int = 0) -> torch.Tensor:
     """Both horizontal directions on a transposed volume: uint8 (B, W, D, H)
     cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum.  There a
     horizontal path is a column: the two-order scan of the direction (0,),
     forward and reverse meeting at the middle (two launches), counted as
-    ``horizontal_partial``."""
+    ``horizontal_partial``.  Where the card does not hold the image's
+    height (the transposed row) at once, the columns go in parts, which
+    need no halo: the roll-0 direction moves nothing across columns
+    (``directional_scan_group_bidir``; ``parts`` forces them, on CPU
+    tensors too)."""
     if _on_cpu(cost_t, img_t):
-        return directional_scan_group_bidir_plain(cost_t, img_t, None, (0,),
-                                                  (0,), p1, p2_init, False)
-    _check_scan(cost_t, img_t)
+        if not parts:
+            return directional_scan_group_bidir_plain(cost_t, img_t, None,
+                                                      (0,), (0,), p1, p2_init,
+                                                      False)
+    else:
+        _check_scan(cost_t, img_t)
     return _bidir(cost_t, img_t, None, (0,), (0,), p1, p2_init, False, None,
-                  "horizontal_partial")
+                  "horizontal_partial", parts=parts)
 
 
 def horizontal_partial(cost: torch.Tensor, img: torch.Tensor, p1: int,
-                       p2_init: int, restart: bool) -> torch.Tensor:
+                       p2_init: int, restart: bool,
+                       parts: int = 0) -> torch.Tensor:
     """Both horizontal directions: uint8 (B, H, D, W) cost + uint8 (B, H, W)
     image -> their uint16 (B, H, D, W) sum.  Tile-local in the H-tiled
     layout.  Nothing walks the volume along W: the cost and the image are
     transposed, the pair runs as a two-order scan along the (B, W, D, H)
     volume's columns, and the sum is transposed back (3 transposes, 2
     scan launches).  ``restart`` changes nothing here (it resets
-    diagonals); the argument mirrors the entry this replaces."""
+    diagonals); the argument mirrors the entry this replaces.  ``parts``
+    as ``horizontal_pair_transposed``'s (on CPU tensors the same route
+    then runs the plain versions)."""
     if _on_cpu(cost, img):
-        return horizontal_partial_plain(cost, img, p1, p2_init, restart)
-    _, h, _, _ = _check_scan(cost, img)
+        if not parts:
+            return horizontal_partial_plain(cost, img, p1, p2_init, restart)
+        h = cost.shape[1]
+    else:
+        _, h, _, _ = _check_scan(cost, img)
     part_t = horizontal_pair_transposed(
         volume_transpose(cost, pad_to=TRANSPOSED_PITCH),
-        image_transpose(img, pad_to=TRANSPOSED_PITCH), p1, p2_init)
+        image_transpose(img, pad_to=TRANSPOSED_PITCH), p1, p2_init, parts)
     return volume_transpose(part_t, inner=h)
 
 
@@ -1271,7 +1424,8 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
                            rolls, reverse: bool, p1: int, p2_init: int,
                            restart: bool, carry_in=None,
                            want_carry: bool = False, prev_gray=None,
-                           wta=None, ranges: int = 0):
+                           wta=None, ranges: int = 0, parts: int = 0,
+                           rows: int = 0):
     """A group of vertical directions that share a scan order (rolls, e.g.
     (0, 1, -1)) over an H-tile: uint8 (B, S, D, W) cost + uint8 (B, S, W)
     image -> the uint16 (B, S, D, W) sum of their contributions, added in
@@ -1300,39 +1454,64 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
     and the uint16 volume is touched once.  ``ranges`` >= 2 forces D split
     over that many blocks of a cluster (``group_plan``; for measurements
     and tests: the plan takes the split by itself only where strips of two
-    columns do not hold one direction's state)."""
+    columns do not hold one direction's state).
+
+    A row wider than the card holds at once (``group_route``) goes in
+    column parts with halo columns, one launch per part of the group per
+    part of the row, and in chunks of rows with carries where the halo
+    would be too wide (``scan_parts``): the same result.  With ``wta`` the
+    epilogue does not run over parts (its inverse view reads across them):
+    the sums are added onto ``acc`` (or a new volume) and reduced by
+    ``wta_reduce``.  ``parts`` >= 1 forces that many parts (``rows`` >= 1
+    rows a chunk), on CPU tensors too, where each slice runs the plain
+    version (for tests and measurements)."""
     if prev_gray is None and carry_in is not None:
         prev_gray = _edge_gray(img, reverse)
     extra = [t for t in (acc, prev_gray, *(carry_in or ())) if t is not None]
-    if _on_cpu(cost, img, *extra):
+    on_cpu = _on_cpu(cost, img, *extra)
+    if on_cpu and not parts:
         return directional_scan_group_plain(cost, img, acc, rolls, reverse, p1,
                                             p2_init, restart, carry_in,
                                             want_carry, prev_gray, wta)
-    b, s, d, w = _check_scan(cost, img)
-    n = len(rolls)
+    if not on_cpu:
+        _check_carry(cost, img, len(rolls), carry_in, prev_gray)
     if wta is not None:
         _refuse_carry_with_wta(carry_in, want_carry)
         _check_wta(wta[0])
-    out = _acc_or_new(acc, cost)
-    cin_cost = cin_min = None
-    if carry_in is not None:
-        cin_cost, cin_min = carry_in
-        for t, name, shape in ((cin_cost, "carry cost", (b, n, d, w)),
-                               (cin_min, "carry min", (b, n, 1, w))):
-            _check(t, name, torch.int32, 4)
-            if t.shape != shape:
-                raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-        _check(prev_gray, "prev_gray", torch.uint8, 2)
-        if prev_gray.shape != (b, w):
-            raise ValueError(f"prev_gray: expected {(b, w)}, got "
-                             f"{tuple(prev_gray.shape)}")
-    has_carry = carry_in is not None or want_carry
-    cout_cost = cout_min = None
-    if has_carry:
-        cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
-        cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
     counter = ("directional_scan_group" if wta is None
                else "directional_scan_group_wta")
+    out = _acc_or_new(acc, cost)
+    plan = group_route(cost, out, rolls, wta is not None, ranges, parts, rows)
+    if plan is None:
+        return _group_launches(cost, img, out, acc is not None, rolls,
+                               reverse, p1, p2_init, restart, carry_in,
+                               want_carry or carry_in is not None, prev_gray,
+                               wta, ranges, counter)
+    res = scan_parts(cost, img, out, acc is not None, rolls, reverse, p1,
+                     p2_init, restart, plan, ranges, counter, carry_in,
+                     want_carry, prev_gray)
+    if wta is None:
+        return res
+    d = cost.shape[2]
+    return wta_reduce(out, SGMOptions(min_disparity=wta[0],
+                                      max_disparity=wta[0] + d), wta[1])
+
+
+def _group_launches(cost, img, out, accumulate: bool, rolls, reverse: bool,
+                    p1: int, p2_init: int, restart: bool, carry_in,
+                    want_carry: bool, prev_gray, wta, ranges: int,
+                    counter: str):
+    """``directional_scan_group``'s launches onto ``out`` for checked CUDA
+    inputs whose row one launch takes; the carry-out only where
+    ``want_carry`` (else None beside the sum where ``carry_in`` is
+    given)."""
+    b, s, d, w = cost.shape
+    n = len(rolls)
+    cin_cost, cin_min = carry_in or (None, None)
+    cout_cost = cout_min = None
+    if want_carry:
+        cout_cost = torch.empty((b, n, d, w), dtype=torch.int32, device=cost.device)
+        cout_min = torch.empty((b, n, 1, w), dtype=torch.int32, device=cost.device)
     views, finished, planes = _epilogue_buffers(cost, wta, 1)
     for k0, k1 in _launch_parts(cost, out, n, wta is not None, ranges):
         epi = views if k1 == n else 0
@@ -1341,13 +1520,33 @@ def directional_scan_group(cost: torch.Tensor, img: torch.Tensor, acc,
                                  (cin_cost, cin_min), _ptr(prev_gray), w,
                                  (cout_cost, cout_min))],
                       1, k1 - k0, n, restart, p1, p2_init,
-                      acc is not None or k0 > 0, epi,
+                      accumulate or k0 > 0, epi,
                       0 if wta is None else wta[0],
                       finished if epi else None, planes if epi else None,
                       ranges)
     if wta is not None:
         return _planes_of(planes)
-    return (out, (cout_cost, cout_min)) if has_carry else out
+    if carry_in is None and not want_carry:
+        return out
+    return out, ((cout_cost, cout_min) if want_carry else None)
+
+
+def _check_carry(cost, img, n: int, carry_in, prev_gray) -> None:
+    """Validate a group scan's inputs for the kernel: the cost and image,
+    and with ``carry_in`` its (B, n, D, W) / (B, n, 1, W) int32 tensors and
+    the uint8 (B, W) gray row."""
+    b, s, d, w = _check_scan(cost, img)
+    if carry_in is None:
+        return
+    for t, name, shape in ((carry_in[0], "carry cost", (b, n, d, w)),
+                           (carry_in[1], "carry min", (b, n, 1, w))):
+        _check(t, name, torch.int32, 4)
+        if t.shape != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    _check(prev_gray, "prev_gray", torch.uint8, 2)
+    if prev_gray.shape != (b, w):
+        raise ValueError(f"prev_gray: expected {(b, w)}, got "
+                         f"{tuple(prev_gray.shape)}")
 
 
 def _acc_or_new(acc, cost: torch.Tensor) -> torch.Tensor:
@@ -1421,7 +1620,8 @@ def directional_scan_group_bidir_plain(cost, img, acc, rolls_f, rolls_b,
 
 def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
                                  rolls_f, rolls_b, p1: int, p2_init: int,
-                                 restart: bool, wta=None, ranges: int = 0):
+                                 restart: bool, wta=None, ranges: int = 0,
+                                 parts: int = 0, rows: int = 0):
     """Both scan orders of a direction group (the Pallas
     ``_directional_scan_group_bidir``): uint8 (B, S, D, W) cost + uint8
     (B, S, W) image, ``rolls_f`` walking the rows forward and ``rolls_b`` in
@@ -1444,28 +1644,40 @@ def directional_scan_group_bidir(cost: torch.Tensor, img: torch.Tensor, acc,
     Counted as ``directional_scan_group_bidir``, two a part of a group
     split over launches (``group_capacity``), the last part's second
     launch carrying the epilogue.  ``ranges`` >= 2 forces D split over
-    that many blocks of a cluster (``directional_scan_group``'s)."""
+    that many blocks of a cluster (``directional_scan_group``'s).
+
+    A row wider than the card holds at once goes in column parts with halo
+    columns (``group_route``): each part's slice by the two launches where
+    the plan takes one chunk of rows, else as two one-order scans in chunks
+    (``bidir_parts``), the same result.  With ``wta`` the epilogue does not
+    run over parts: ``acc`` (or a new volume) is left holding the totals,
+    and ``wta_reduce`` gives the planes.  ``parts`` and ``rows`` force parts
+    as ``directional_scan_group``'s, on CPU tensors too."""
     if len(rolls_f) != len(rolls_b):
         raise ValueError(f"the two orders differ in directions: {rolls_f} "
                          f"and {rolls_b}")
     extra = () if acc is None else (acc,)
     if _on_cpu(cost, img, *extra):
-        return directional_scan_group_bidir_plain(cost, img, acc, rolls_f,
-                                                  rolls_b, p1, p2_init,
-                                                  restart, wta)
-    _check_scan(cost, img)
+        if not parts:
+            return directional_scan_group_bidir_plain(cost, img, acc, rolls_f,
+                                                      rolls_b, p1, p2_init,
+                                                      restart, wta)
+    else:
+        _check_scan(cost, img)
     return _bidir(cost, img, acc, tuple(rolls_f), tuple(rolls_b), p1, p2_init,
-                  restart, wta, "directional_scan_group_bidir", ranges)
+                  restart, wta, "directional_scan_group_bidir", ranges, parts,
+                  rows)
 
 
 def _bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
-           restart: bool, wta, counter: str, ranges: int = 0):
+           restart: bool, wta, counter: str, ranges: int = 0, parts: int = 0,
+           rows: int = 0):
     """The two-order launches of checked inputs, counted as ``counter``
-    (``ranges`` as ``bidir_launches``')."""
+    (``ranges``, ``parts`` and ``rows`` as ``bidir_launches``')."""
     out = _acc_or_new(acc, cost)
     launches, planes = bidir_launches(cost, img, out, rolls_f, rolls_b, p1,
                                       p2_init, restart, wta, counter,
-                                      acc is not None, ranges)
+                                      acc is not None, ranges, parts, rows)
     for launch in launches:
         launch()
     return out if wta is None else _planes_of(planes)
@@ -1473,7 +1685,7 @@ def _bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
 
 def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
                    restart: bool, wta, counter: str, accumulate: bool,
-                   ranges: int = 0):
+                   ranges: int = 0, parts: int = 0, rows: int = 0):
     """(the launches of a two-order scan onto ``out`` as calls, in order;
     the epilogue's int32 planes or None): for each part of the group
     (``_launch_parts``) two launches, each carrying both orders on clusters
@@ -1481,10 +1693,26 @@ def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
     ``directional_scan_group_bidir_plain``); the last part's second launch
     carries the epilogue.  A first launch writes the carries its second
     reads.  ``ranges`` >= 2 forces D split over that many blocks
-    (``group_plan``; the measurement tools)."""
+    (``group_plan``; the measurement tools).  Where the row goes in column
+    parts (``group_route``; ``parts`` and ``rows`` force them) one call
+    runs them all (``bidir_parts``) and, with ``wta``, ``wta_reduce`` of
+    the totals into the planes."""
     if wta is not None:
         _check_wta(wta[0])
     b, s, d, w = cost.shape
+    plan = group_route(cost, out, rolls_f + rolls_b, wta is not None, ranges,
+                       parts, rows)
+    if plan is not None:
+        planes = None if wta is None else torch.empty(
+            (5 * (2 if wta[1] else 1), b, s, w), dtype=torch.int32,
+            device=cost.device)
+
+        def by_parts():
+            bidir_parts(cost, img, out, accumulate, rolls_f, rolls_b, p1,
+                        p2_init, restart, plan, ranges, counter)
+            if wta is not None:
+                _wta_into(out, wta[0], wta[1], planes)
+        return [by_parts], planes
     n = len(rolls_f)
     m = meeting_row(s)
     views, finished, planes = _epilogue_buffers(cost, wta, 2)
@@ -1515,6 +1743,149 @@ def bidir_launches(cost, img, out, rolls_f, rolls_b, p1: int, p2_init: int,
             0 if wta is None else wta[0], finished if epi else None,
             planes if epi else None, ranges))
     return launches, planes
+
+
+def bidir_calls(cost: torch.Tensor, out: torch.Tensor, rolls_f, rolls_b,
+                wta: bool, restart: bool = False, ranges: int = 0,
+                parts: int = 0, rows: int = 0):
+    """(``sgm_scan_group`` calls, ``sgm_wta_reduce`` calls) that a two-order
+    scan of this (B, S, D, W) cost makes on the card by the wrappers' route
+    (``bidir_launches``): two a part of the group (``_launch_parts``) where
+    one launch takes the row; else, for each column part, two a part of
+    the group at the slice's width where the plan takes one chunk of rows,
+    one an order a chunk otherwise, and one ``wta_reduce`` with ``wta``.
+    Only the shape and alignment of ``cost`` and ``out`` are read (a
+    row's view expanded over S will do)."""
+    n = len(rolls_f)
+    plan = group_route(cost, out, tuple(rolls_f) + tuple(rolls_b), wta,
+                       ranges, parts, rows)
+    if plan is None:
+        return 2 * len(_launch_parts(cost, out, n, wta, ranges)), 0
+    b, s, d, w = cost.shape
+    calls = 0
+    for lo, hi, _, _ in part_columns(w, plan, restart):
+        probe = torch.empty((b, 1, d, hi - lo), dtype=torch.uint8,
+                            device=cost.device)
+        calls += 2 * len(row_chunks(s, plan.rows, False)) * len(_launch_parts(
+            probe, torch.empty(probe.shape, dtype=torch.uint16,
+                               device=cost.device), n, False, ranges))
+    return calls, int(wta)
+
+
+def _columns(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Columns [lo, hi) of ``x``'s last axis, read mod its width, as a
+    contiguous tensor of their own (a copy, also of all of ``x``)."""
+    w = x.shape[-1]
+    if 0 <= lo and hi <= w:
+        return x[..., lo:hi].clone(memory_format=torch.contiguous_format)
+    return x.index_select(-1, torch.arange(lo, hi, device=x.device) % w)
+
+
+def scan_parts(cost, img, out, accumulate: bool, rolls, reverse: bool,
+               p1: int, p2_init: int, restart: bool, plan: PartsPlan,
+               ranges: int = 0, counter: str = "directional_scan_group",
+               carry_in=None, want_carry: bool = False, prev_gray=None):
+    """One scan order of a group (``rolls``, ``reverse``) over the column
+    parts and row chunks of ``plan``, onto ``out`` (stored, or added where
+    ``accumulate``): ``directional_scan_group``'s result, ``out`` or
+    (``out``, carry_out).
+
+    For each chunk of rows in scan order (``row_chunks``), for each part
+    (``part_columns``): the part's slice of the cost, the chunk's image
+    rows, of ``out`` where it accumulates, of the carry and of the gray row
+    before the chunk, each a tensor of its own; the group scan on them
+    (``_group_slice``: one launch per part of the group on CUDA tensors,
+    counted as ``counter``, the plain version on CPU ones, with the same
+    slices); then the part's interior columns of the sums and of the
+    carry-out scattered back.  The carries between chunks live in two
+    full-width int32 buffers used in turn: a part of chunk c writes its
+    interior into one while the other parts of chunk c still read their
+    halo columns from the other.  The first chunk starts from
+    ``carry_in`` (or fresh paths); ``prev_gray`` as
+    ``directional_scan_group``'s."""
+    b, s, d, w = cost.shape
+    chunks = row_chunks(s, plan.rows, reverse)
+    has_carry = carry_in is not None or want_carry
+    bufs, cin, gray = [], carry_in, prev_gray
+    for c, (r0, r1) in enumerate(chunks):
+        cout = None
+        if has_carry or c + 1 < len(chunks):
+            if len(bufs) <= c % 2:
+                bufs.append(tuple(torch.empty((b, len(rolls), depth, w),
+                                              dtype=torch.int32,
+                                              device=cost.device)
+                                  for depth in (d, 1)))
+            cout = bufs[c % 2]
+        for lo, hi, a, e in part_columns(w, plan, restart):
+            sums, carry = _group_slice(
+                _columns(cost[:, r0:r1], lo, hi),
+                _columns(img[:, r0:r1], lo, hi),
+                _columns(out[:, r0:r1], lo, hi) if accumulate else None,
+                rolls, reverse, p1, p2_init, restart,
+                None if cin is None else tuple(_columns(x, lo, hi)
+                                               for x in cin),
+                cout is not None,
+                None if gray is None else _columns(gray, lo, hi),
+                ranges, counter)
+            out[:, r0:r1, ..., a:e] = sums[..., a - lo:e - lo]
+            for dst, src in zip(cout or (), carry or ()):
+                dst[..., a:e] = src[..., a - lo:e - lo]
+        cin = cout
+        gray = img[:, r0 if reverse else r1 - 1].contiguous()
+    return (out, cin) if has_carry else out
+
+
+def _group_slice(cost, img, acc, rolls, reverse: bool, p1: int, p2_init: int,
+                 restart: bool, carry_in, want_carry: bool, prev_gray,
+                 ranges: int, counter: str):
+    """A slice's one-order group scan for ``scan_parts``: (its sums, its
+    carry-out or None), by the kernel's launches on CUDA tensors
+    (``_group_launches``), by the plain version on CPU ones."""
+    if _on_cpu(cost, img):
+        res = directional_scan_group_plain(cost, img, acc, rolls, reverse, p1,
+                                           p2_init, restart, carry_in,
+                                           want_carry, prev_gray)
+    else:
+        res = _group_launches(cost, img, _acc_or_new(acc, cost),
+                              acc is not None, rolls, reverse, p1, p2_init,
+                              restart, carry_in, want_carry, prev_gray, None,
+                              ranges, counter)
+    return res if isinstance(res, tuple) else (res, None)
+
+
+def bidir_parts(cost, img, out, accumulate: bool, rolls_f, rolls_b, p1: int,
+                p2_init: int, restart: bool, plan: PartsPlan, ranges: int = 0,
+                counter: str = "directional_scan_group_bidir"):
+    """Both scan orders of a group over the column parts of ``plan``, onto
+    ``out`` (stored, or added where ``accumulate``): where the plan takes
+    one chunk of rows, each part's slice by the two-order scan (its two
+    launches meeting at the middle row on CUDA tensors, counted as
+    ``counter``, its plain version on CPU ones), its interior scattered
+    back; else the forward order and then the reverse order, each by
+    ``scan_parts`` in chunks, the second adding onto the first.  The same
+    sums either way."""
+    s, w = cost.shape[1], cost.shape[-1]
+    if plan.rows < s:
+        for (rolls, reverse), add in (((rolls_f, False), accumulate),
+                                      ((rolls_b, True), True)):
+            scan_parts(cost, img, out, add, rolls, reverse, p1, p2_init,
+                       restart, plan, ranges, counter)
+        return out
+    for lo, hi, a, e in part_columns(w, plan, restart):
+        c, g = _columns(cost, lo, hi), _columns(img, lo, hi)
+        acc = _columns(out, lo, hi) if accumulate else None
+        if _on_cpu(c, g):
+            sums = directional_scan_group_bidir_plain(c, g, acc, rolls_f,
+                                                      rolls_b, p1, p2_init,
+                                                      restart)
+        else:
+            sums = _acc_or_new(acc, c)
+            for launch in bidir_launches(c, g, sums, rolls_f, rolls_b, p1,
+                                         p2_init, restart, None, counter,
+                                         acc is not None, ranges)[0]:
+                launch()
+        out[..., a:e] = sums[..., a - lo:e - lo]
+    return out
 
 
 def wta_reduce_plain(aggr, options: SGMOptions, include_inverse: bool = True):
@@ -1601,15 +1972,26 @@ def wta_reduce(aggr: torch.Tensor, options: SGMOptions,
         return wta_reduce_plain(aggr, options, include_inverse)
     _check(aggr, "aggr", torch.uint16, 4)
     b, h, d, w = aggr.shape
-    check_range(d)
     n_out = 10 if include_inverse else 5
     out = torch.empty((n_out, b, h, w), dtype=torch.int32, device=aggr.device)
+    return _planes_of(_wta_into(aggr, options.min_disparity, include_inverse,
+                                out))
+
+
+def _wta_into(aggr: torch.Tensor, dmin: int, include_inverse: bool,
+              out: torch.Tensor) -> torch.Tensor:
+    """The WTA planes of a uint16 (B, H, D, W) volume into ``out``, int32
+    (5 or 10, B, H, W): one ``sgm_wta_reduce`` launch on a CUDA volume, the
+    plain version on a CPU one.  Returns ``out``."""
+    b, h, d, w = aggr.shape
+    check_range(d)
+    if _on_cpu(aggr, out):
+        opt = SGMOptions(min_disparity=dmin, max_disparity=dmin + d)
+        fwd, inv = wta_reduce_plain(aggr, opt, include_inverse)
+        return out.copy_(torch.stack([*fwd, *(inv or ())]))
     _launch("sgm_wta_reduce", "wta_reduce", aggr.data_ptr(), out.data_ptr(),
-            b, h, d, w, options.min_disparity, int(include_inverse),
-            _stream(out))
-    planes = out.unbind(0)
-    return (WTAPlanes(*planes[:5]),
-            WTAPlanes(*planes[5:]) if include_inverse else None)
+            b, h, d, w, dmin, int(include_inverse), _stream(out))
+    return out
 
 
 def aggregate_paths_wta_plain(cost, img_left, options: SGMOptions,
@@ -1621,26 +2003,32 @@ def aggregate_paths_wta_plain(cost, img_left, options: SGMOptions,
 
 def aggregate_paths_wta(cost: torch.Tensor, img_left: torch.Tensor,
                         options: SGMOptions, diagonal_mode: str = "wrap",
-                        include_inverse: bool = True):
+                        include_inverse: bool = True, parts: int = 0,
+                        rows: int = 0):
     """Aggregation and WTA without storing the aggregated volume: the
     horizontal pair (``horizontal_partial``), then the vertical group's
     two-order scan whose second launch carries the WTA epilogue
     (``directional_scan_group_bidir`` with ``wta``, two launches counted
     here): (forward WTAPlanes, inverse WTAPlanes or None), as ``wta_reduce``
     of ``aggregate_paths`` gives.  On CPU tensors the same route runs the plain
-    versions."""
+    versions.  Where the vertical pair takes its rows in column parts (the
+    card does not hold them at once; ``parts`` and ``rows`` force them as
+    ``aggregate_paths``'s), the epilogue, whose inverse view reads across
+    parts, does not run: the pair is added onto the horizontal pair's
+    volume, which exists anyway, and ``wta_reduce`` (one launch, counted
+    as such) reduces it."""
     on_cpu = _on_cpu(cost, img_left)
     restart = _check_aggregate(cost, img_left, diagonal_mode, on_cpu)
     p1, p2 = options.p1, options.p2_init
-    part = horizontal_partial(cost, img_left, p1, p2, restart)
+    part = horizontal_partial(cost, img_left, p1, p2, restart, parts)
     (rolls_f, _), (rolls_b, _) = scan_groups(options.num_paths)
     wta = (options.min_disparity, include_inverse)
-    if on_cpu:
+    if on_cpu and not parts:
         return directional_scan_group_bidir_plain(cost, img_left, part,
                                                   rolls_f, rolls_b, p1, p2,
                                                   restart, wta)
     return _bidir(cost, img_left, part, rolls_f, rolls_b, p1, p2, restart, wta,
-                  "aggregate_paths_wta")
+                  "aggregate_paths_wta", parts=parts, rows=rows)
 
 
 # --- K3: LR check ----------------------------------------------------------------

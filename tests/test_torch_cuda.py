@@ -1119,12 +1119,37 @@ GROUP_RESIDENT_LIMIT = {64: 103680, 128: 50400, 256: 24480, 280: 24552,
                         760: 8448, 1024: 6336}
 
 
+def _past_the_limit(cuda, d, w, wta=False, s=3):
+    """A row of ``w`` columns that one launch does not take: the wrappers'
+    route takes column parts (``group_route``, at the card's resident
+    width), and one scan order and the two-order scan (with the epilogue's
+    planes where ``wta``) equal their plain versions."""
+    cost = _rand(160 + d, 0, 128, (1, s, d, w), np.uint8, cuda)
+    img = _rand(161 + d, 0, 256, (1, s, w), np.uint8, cuda)
+    route = kernels.group_route(cost, cost, (0, 1, -1), wta)
+    assert route is not None and route.parts >= 2 and route.halo == s
+    args = ((0, 1, -1), False, 10, 150, False)
+    same(kernels.directional_scan_group(cost, img, None, *args),
+         kernels.directional_scan_group_plain(cost, img, None, *args))
+    if wta:
+        for g, w_ in zip(_planes(kernels.directional_scan_group_bidir(
+                             cost, img, None, (0, 1, -1), (0, -1, 1), 10, 150,
+                             False, wta=(0, True))),
+                         _planes(kernels.directional_scan_group_bidir_plain(
+                             cost, img, None, (0, 1, -1), (0, -1, 1), 10, 150,
+                             False, wta=(0, True)))):
+            same(g, w_)
+
+
 @pytest.mark.parametrize("d", sorted(GROUP_RESIDENT_LIMIT))
 def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
     """Where ``group_capacity`` starts to refuse a row: past the widest W
     whose G clusters (``group_clusters``, the card's cluster size) the card
     holds at once, found by bisection and checked on both sides; the
-    refusal names the clusters needed and held."""
+    refusal names the clusters needed and held.  The limit is the card's
+    resident width (``resident_width``), and from it on the wrappers take
+    the row in column parts: one column past it, the scans equal their
+    plain versions."""
 
     def plan(w):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
@@ -1149,6 +1174,8 @@ def test_group_capacity_refuses_rows_from_its_limit_on_card(cuda, d):
         kernels.group_split(d, hi, 1, False, refused.ranges)
         if refused.ranges > 1 else
         kernels.group_clusters(d, hi, 1, cs=refused.cluster_blocks))
+    assert kernels.resident_width(cuda, d) == lo
+    _past_the_limit(cuda, d, hi)
 
 
 # the widest row one direction's launch takes where the plan splits D, on
@@ -1161,7 +1188,10 @@ def test_group_split_refuses_rows_from_its_limit_on_card(cuda, d):
     """Where ``group_capacity`` starts to refuse a row at D > 2,515: past
     the widest W whose clusters splitting D the card holds at once, found
     by bisection with and without the epilogue; the refusal names the
-    clusters needed and held, and the plan reported is a split's."""
+    clusters needed and held, and the plan reported is a split's.  From
+    the limit on the wrappers take the row in column parts: one column
+    past it, the scans (with the epilogue's planes, which by parts come
+    from ``wta_reduce``) equal their plain versions."""
 
     def plan(w, wta):
         cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
@@ -1186,6 +1216,9 @@ def test_group_split_refuses_rows_from_its_limit_on_card(cuda, d):
         assert f"needs {refused.clusters_an_image} clusters" in why
         assert refused.clusters_an_image == kernels.group_split(
             d, hi, 1, wta, refused.ranges)
+        if not wta:
+            assert kernels.resident_width(cuda, d) == lo
+        _past_the_limit(cuda, d, hi, wta)
 
 
 # D > 256 at rows no cluster holds (G >= 2; the last in waves of one image:
@@ -1377,20 +1410,110 @@ def test_group_plan_matches_the_transcription_on_card(cuda):
 
 
 def test_group_refuses_what_the_card_cannot_hold_before_a_launch(cuda):
-    """An image whose clusters the card cannot hold at once, several
-    clusters an image or D split over their blocks (D = 16,384 at 2,000
-    columns): ``ValueError`` from ``group_capacity``, before any launch.
-    A range whose state does not fit strips of two columns (D = 2,516) is
-    no longer refused: D is split (``test_group_modes_with_d_split_on_card``)."""
+    """The two shapes this test once saw refused before any launch (an
+    image whose clusters the card cannot hold at once: D = 2,000 at 30,000
+    columns, D = 16,384 at 2,000) now compute: ``group_capacity`` still
+    says one launch cannot take them, before any launch, and the wrappers
+    take them in column parts, every mode equal to its plain version."""
+    for d, w in ((2000, 30000), (16384, 2000)):
+        cost = _rand(170 + d, 0, 128, (1, 3, d, w), np.uint8, cuda)
+        img = _rand(171 + d, 0, 256, (1, 3, w), np.uint8, cuda)
+        acc = _rand(172 + d, 0, 900, (1, 3, d, w), np.uint16, cuda)
+        kernels.reset_launch_counts()
+        with pytest.raises(ValueError, match="resident at once"):
+            kernels.group_capacity(cost, acc)
+        assert not any(kernels.LAUNCHES.values())
+        assert kernels.group_route(cost, acc, (0, 1, -1)).parts >= 2
+        _every_group_mode(cost, img, acc)
+
+
+# rows past the resident width (group_capacity's docstring), S of 3-8 rows;
+# a plan in chunks of rows (2 S halo columns would pass a quarter of the
+# 224 held at D = 16,384)
+PAST_RESIDENT = [(64, 103681, 3), (256, 24481, 4), (760, 8449, 5),
+                 (4096, 1381, 4), (16384, 225, 8), (16384, 240, 120)]
+
+
+@pytest.mark.parametrize("d,w,s", PAST_RESIDENT)
+def test_group_modes_past_the_resident_width_on_card(cuda, d, w, s):
+    """Every mode of the group scan (``_every_group_mode``) over column
+    parts with halo columns at rows the card does not hold at once; at 120
+    rows the plan takes chunks of rows with carries between them."""
+    cost = _rand(180 + d, 0, 128, (1, s, d, w), np.uint8, cuda)
+    img = _rand(181 + d, 0, 256, (1, s, w), np.uint8, cuda)
+    acc = _rand(182 + d, 0, 900, (1, s, d, w), np.uint16, cuda)
+    route = kernels.group_route(cost, acc, (0, 1, -1))
+    assert route.parts >= 2 and (route.rows < s) == (s == 120)
+    _every_group_mode(cost, img, acc)
+
+
+def test_horizontal_pair_past_its_width_on_card(cuda):
+    """The horizontal pair at D = 16,384 on a transposed row of 240 (an
+    image 240 rows tall): column parts without halo, equal to the plain
+    version, two launches a part."""
+    cost_t = _rand(190, 0, 128, (1, 6, kernels.MAX_RANGE, 240), np.uint8, cuda)
+    img_t = _rand(191, 0, 256, (1, 6, 240), np.uint8, cuda)
+    route = kernels.group_route(cost_t, cost_t, (0,))
+    assert route.parts == 2 and route.halo == 0
     kernels.reset_launch_counts()
-    for d, w, why in ((2000, 30000, "resident at once"),
-                      (16384, 2000, "resident at once")):
-        cost = torch.zeros((1, 1, d, w), dtype=torch.uint8, device=cuda)
-        img = torch.zeros((1, 1, w), dtype=torch.uint8, device=cuda)
-        with pytest.raises(ValueError, match=why):
-            kernels.directional_scan_group(cost, img, None, (0,), False, 10,
-                                           150, False)
-    assert not any(kernels.LAUNCHES.values())
+    same(kernels.horizontal_pair_transposed(cost_t, img_t, 10, 150),
+         kernels.directional_scan_group_bidir_plain(cost_t, img_t, None, (0,),
+                                                    (0,), 10, 150, False))
+    assert kernels.LAUNCHES["horizontal_partial"] == kernels.bidir_calls(
+        cost_t, cost_t, (0,), (0,), False)[0] == 4
+
+
+def test_satellite_strip_through_the_engine_on_card(cuda):
+    """``SGMEngine.match`` on a 36,000 x 512 strip at D = 256: the vertical
+    pair in two column parts, then ``wta_reduce``; 0.95 of the finite
+    pixels within 1 of the truth."""
+    b, h, w, d = 1, 512, 36000, 256
+    left, right, field = (torch.from_numpy(x).to(cuda) for x in
+                          synthetic_pair(17, b, h, w, (30, 90, 160, 230)))
+    kernels.reset_launch_counts()
+    disp = SGMEngine(SGMOptions(max_disparity=d), device="cuda").match(left,
+                                                                      right)
+    probe = torch.empty((b, 1, d, w), dtype=torch.uint8,
+                        device=cuda).expand(b, h, d, w)
+    vertical, reduce = kernels.bidir_calls(probe, probe, (0, 1, -1),
+                                           (0, -1, 1), True)
+    assert kernels.group_route(probe, probe, (0, 1, -1), True).parts == 2
+    assert kernels.LAUNCHES["aggregate_paths_wta"] == vertical
+    assert kernels.LAUNCHES["wta_reduce"] == reduce == 1
+    valid = torch.isfinite(disp)
+    assert ((disp - field).abs() <= 1.0)[valid].float().mean().item() >= 0.95
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_forced_parts_are_bit_equal_to_the_resident_route_on_card(cuda, parts):
+    """Full-resolution Middlebury-2014 (2964x1988, D = 280) with both pairs'
+    two-order scans forced into column parts: the same disparity as the
+    resident route."""
+    from soc_project_stereo_matching_tpu_torch.kernel_ab import forced_parts
+
+    left, right, _ = (torch.from_numpy(x).to(cuda) for x in
+                      synthetic_pair(280, 1, 1988, 2964, (30, 100, 190, 260)))
+    engine = SGMEngine(SGMOptions(max_disparity=280), device="cuda")
+    want = engine.match(left, right)
+    kernels.reset_launch_counts()
+    with forced_parts(parts):
+        same(engine.match(left, right), want)
+    # by parts: no epilogue, the stored volume reduced by the WTA kernel
+    assert kernels.LAUNCHES["wta_reduce"] == 1
+    assert kernels.LAUNCHES["aggregate_paths_wta"] > 2
+
+
+def test_wta_split_window_on_card(cuda):
+    """The WTA where a segment's one window would not fit shared memory
+    (dmin = 60,000 at 70,000 columns): its two windows, both views and the
+    forward view alone, equal the plain version."""
+    aggr = _rand(195, 0, 4000, (1, 2, 64, 70000), np.uint16, cuda)
+    opt = SGMOptions(min_disparity=60000, max_disparity=60064)
+    for inverse in (True, False):
+        got = kernels.wta_reduce(aggr, opt, inverse)
+        want = kernels.wta_reduce_plain(aggr, opt, inverse)
+        for g, w_ in zip(_planes(got), _planes(want)):
+            same(g, w_)
 
 
 # (dmin, D) at which K1's whole-row width is found on the card

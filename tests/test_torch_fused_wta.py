@@ -388,7 +388,7 @@ def test_two_order_scans_launch_twice_meeting_at_the_middle_row(
     launches = []
     monkeypatch.setattr(kernels, "_on_cpu", lambda *tensors: False)
     monkeypatch.setattr(kernels, "_stream", lambda t: 0)
-    monkeypatch.setattr(kernels, "group_capacity",
+    monkeypatch.setattr(kernels, "group_directions",
                         lambda cost, out, wta=False, ranges=0: cap_wta if wta else cap)
     monkeypatch.setattr(kernels, "_launch",
                         lambda entry, counter, *args: launches.append(counter))

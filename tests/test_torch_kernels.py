@@ -330,21 +330,31 @@ def test_kernel_ab_chain_ablations_still_apply_to_the_probe_source(ablation):
 
 def test_kernel_ab_groups_and_the_probe_entries():
     """``--only`` picks among the groups, each comparing one C entry (but
-    ``split``, which times this checkout's plans against each other, and
-    ``sass``, which compares compiled code: neither builds a library of the
-    parent); the probe kernels' entries are found in their sources."""
+    ``split`` and ``parts``, which time this checkout's routes against each
+    other, and ``sass``, which compares compiled code: none builds a
+    library of the parent); the probe kernels' entries are found in their
+    sources."""
     assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
                                      "chain", "s2", "s4", "fused", "split",
-                                     "sass"}
+                                     "parts", "sass"}
     assert kernel_ab.GROUP_ENTRIES["split"] is None
+    assert kernel_ab.GROUP_ENTRIES["parts"] is None
     assert kernel_ab.GROUP_ENTRIES["sass"] is None
     # the SASS comparison's name maps: the hashed anonymous namespace, and
-    # the group kernel's SPLIT = false (the parent's kernel has four
-    # template arguments)
+    # the group kernel's and the WTA kernel's SPLIT = false (the parent's
+    # kernels have four and two template arguments)
     name = ("_ZN45_GLOBAL__N__173b9b69_12_aggregate_cu_f9a6e0dc12group_kernel"
             "ILi1ELb0ELb0ELb0ELb0EEEvNS_9GroupArgsE")
     assert kernel_ab._ANON.sub("ANON", name) == \
         "_ZNANON12group_kernelILi1ELb0ELb0ELb0ELb0EEEvNS_9GroupArgsE"
+    assert kernel_ab.sass_name(kernel_ab._ANON.sub("ANON", name)) == \
+        "_ZNANON12group_kernelILi1ELb0ELb0ELb0EEEvNS_9GroupArgsE"
+    assert kernel_ab.sass_name(
+        "_ZNANON10wta_kernelILb1ELb0ELb0EEEvPKtPiiiixNS_5ShapeE") == \
+        "_ZNANON10wta_kernelILb1ELb0EEEvPKtPiiiixNS_5ShapeE"
+    assert kernel_ab.sass_name(
+        "_ZNANON10wta_kernelILb1ELb0ELb1EEEvPKtPiiiixNS_5ShapeE").endswith(
+        "ELb1EEEvPKtPiiiixNS_5ShapeE")
     assert [s[-1] for s in kernel_ab.SPLIT_SHAPES] == [280, 760]
     found = kernel_ab.sources_defining(
         _build.CSRC, [kernel_ab.GROUP_ENTRIES[g]
