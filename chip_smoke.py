@@ -145,8 +145,9 @@ Phases (each raises on failure, so the script exits non-zero):
       repeats): exactly one stdout line with ``bench.py``'s keys and a
       value, printed here; its median batch (a call at a time) within
       ``AGREE`` of ``stage_breakdown.batch_and_enqueue``'s on the same
-      inputs (the same timer, run again), of ``stage_breakdown``'s "total"
-      span around the staged forward and of the bench's own window; a
+      inputs (the same timer, run again), of the device range of the
+      program's ``sgm.match`` span (``stage_breakdown.stage_times``) and of
+      the bench's own window; a
       forced failure (``bench.report`` at D = 16,385, past the JAX
       package's bound; a row wider than one K1 block now runs) prints one
       line with ``value: null`` and an ``error`` and returns 1;
@@ -1666,10 +1667,11 @@ def benches_phase(tmp, card: str) -> dict:
     engine = SGMEngine(opt, device="cuda")
     theirs, _ = stage_breakdown.batch_and_enqueue(engine, left, right, 10)
     # the same per-call timer in a second run, then two other timers: the
-    # staged forward's "total" span and the bench's own back-to-back window
-    spans = stage_breakdown.stage_times(left, right, opt, 5)["total"]
+    # device range of the program's sgm.match span and the bench's own
+    # back-to-back window
+    spans = stage_breakdown.stage_times(engine, left, right, 5)["sgm.match"]
     others = {"stage_breakdown.batch_and_enqueue": theirs["median"],
-              "stage_breakdown's total span": spans["median"],
+              "stage_breakdown's sgm.match range": spans["median"],
               "the bench's window": window["median"]}
     ratios = {what: call["median"] / ms for what, ms in others.items()}
     if any(abs(r - 1.0) > AGREE for r in ratios.values()):

@@ -89,8 +89,8 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   timed only; the horizontal pair on the transposed volume, this
   checkout's two-order scan in turns with the other's, and as one launch;
   and the main path by both routes of the two-order scans
-  (``routes_shape``: two launches or one, in turns), the K2 span of
-  ``stage_breakdown.staged_forward`` and the batch, at the four shapes and
+  (``routes_shape``: two launches or one, in turns), the device range of
+  the program's ``sgm.aggregate`` span and the batch, at the four shapes and
   at 720p B=1;
 * D split over the blocks of a cluster (group ``split``, this checkout
   alone: no parent library is built for it) at full-resolution
@@ -1228,30 +1228,27 @@ def fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
 
 def routes_shape(rec, label, b, h, w, dmax, left, right, reps):
     """The main path by the two routes of the two-order scans, in turns
-    (two launches, one launch, one launch, two launches): the K2 span of
-    ``stage_breakdown.staged_forward`` and the batch a call at a time
-    (``stage_breakdown.batch_and_enqueue``), medians of ``reps`` batches."""
+    (two launches, one launch, one launch, two launches): the device range
+    of the program's ``sgm.aggregate`` span (``stage_breakdown.stage_times``)
+    and the batch a call at a time (``stage_breakdown.batch_and_enqueue``),
+    medians of ``reps`` batches."""
     from . import SGMEngine, stage_breakdown
-    from .utils.profiling import StageTimer
 
     opt = SGMOptions(max_disparity=dmax)
     engine = SGMEngine(opt, device="cuda")
     want = engine.match_batch(left, right)
     with one_launch_route():
         same(engine.match_batch(left, right), want, f"routes {label}")
-        same(stage_breakdown.staged_forward(left, right, opt, StageTimer()),
-             want, f"routes, staged {label}")
     out = {"two launches": {"k2_ms": [], "batch_ms": []},
            "one launch": {"k2_ms": [], "batch_ms": []}}
     for name in ("two launches", "one launch", "one launch", "two launches"):
         route = one_launch_route() if name == "one launch" else \
             contextlib.nullcontext()
         with route:
-            stages = stage_breakdown.stage_times(left, right, opt, reps)
+            stages = stage_breakdown.stage_times(engine, left, right, reps)
             batch, _ = stage_breakdown.batch_and_enqueue(engine, left, right,
                                                          reps)
-        out[name]["k2_ms"].append(
-            stages["scans + WTA epilogue (K2)"]["median"])
+        out[name]["k2_ms"].append(stages["sgm.aggregate"]["median"])
         out[name]["batch_ms"].append(batch["median"])
     rec["routes"] = out
     print(f"{label} main path, two-order scans as two launches against one, "

@@ -9,6 +9,12 @@ speckle passes run the hand-written CUDA kernels of ``ops/kernels.py``; the
 elementwise glue (``finalize_disparity``, the median) is plain PyTorch on
 the same device.  ``use_kernels=False`` runs the plain version of every
 stage, on whatever device the inputs are on.
+
+Under a recording ``torch.profiler`` each stage is a span of the program
+(``utils.profiling.span``): ``sgm.census``, ``sgm.aggregate``,
+``sgm.finalize`` (both views), ``sgm.lr_check``, ``sgm.speckle`` and
+``sgm.median``, inside ``SGMEngine.match``'s ``sgm.match`` with its
+``sgm.upload``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..ops.postprocess import median_filter_3x3, median_filter_3x3_inplace
 from ..ops.wta import finalize_disparity
 from ..parallel.mesh import Mesh
 from ..parallel.tiles import make_tiled_matcher
+from ..utils.profiling import span
 
 TILE_MODES = ("none", "exact", "pipelined", "local")
 
@@ -40,9 +47,6 @@ def sgm_forward(
         raise ValueError(f"unknown diagonal_mode {diagonal_mode!r}")
     lead = img_left.shape[:-2]
     h, w = img_left.shape[-2:]
-    left = img_left.reshape(-1, h, w).contiguous()
-    right = img_right.reshape(-1, h, w).contiguous()
-
     if use_kernels:
         census_cost = kernels.census_cost_volume
         aggregate_wta = kernels.aggregate_paths_wta
@@ -54,18 +58,30 @@ def sgm_forward(
         lr_check = postprocess.lr_check
         remove_speckles = postprocess.remove_speckles
 
-    cost = census_cost(left, right, options.min_disparity, options.max_disparity)
-    fwd, inv = aggregate_wta(cost, left, options, diagonal_mode,
-                             include_inverse=options.is_check_lr)
-    disp = finalize_disparity(fwd, options)
+    with span("census"):    # the pair as (B, H, W), then its cost volume
+        left = img_left.reshape(-1, h, w).contiguous()
+        right = img_right.reshape(-1, h, w).contiguous()
+        cost = census_cost(left, right, options.min_disparity,
+                           options.max_disparity)
+    with span("aggregate"):
+        fwd, inv = aggregate_wta(cost, left, options, diagonal_mode,
+                                 include_inverse=options.is_check_lr)
+    with span("finalize"):
+        disp = finalize_disparity(fwd, options)
+        if options.is_check_lr:
+            disp_right = finalize_disparity(inv, options)
     if options.is_check_lr:
-        disp = lr_check(disp, finalize_disparity(inv, options),
-                        options.lrcheck_thres, max_shift=options.max_disparity)
+        with span("lr_check"):
+            disp = lr_check(disp, disp_right, options.lrcheck_thres,
+                            max_shift=options.max_disparity)
     if options.is_remove_speckles:
-        disp = remove_speckles(disp, 1.0, options.min_speckle_area)
+        with span("speckle"):
+            disp = remove_speckles(disp, 1.0, options.min_speckle_area)
     median = median_filter_3x3_inplace if options.median_inplace \
         else median_filter_3x3
-    return median(disp).reshape(lead + (h, w))
+    with span("median"):
+        disp = median(disp)
+    return disp.reshape(lead + (h, w))
 
 
 class SGMEngine:
@@ -86,6 +102,11 @@ class SGMEngine:
     split over the mesh's 'data' axis and the image rows over its 'tile'
     axis (``parallel/tiles.py``); with 'none' the batch is still split over
     'data' (rows replicated over any 'tile' axis).  ``match`` never shards.
+
+    ``upload_bytes`` counts the bytes of the uint8 tensors that ``match``
+    and ``match_batch`` brought to the engine's device from another one
+    (numpy inputs and CPU tensors on a card); an input already there adds
+    nothing.
     """
 
     def __init__(self, options: SGMOptions = SGMOptions(),
@@ -107,6 +128,7 @@ class SGMEngine:
         self.device = device
         self.mesh = mesh
         self._matchers = {}
+        self.upload_bytes = 0
 
     def _matcher_key(self, h: int, w: int) -> tuple:
         # everything a tiled matcher bakes in: reassigned options or config
@@ -117,13 +139,20 @@ class SGMEngine:
     def _tensor(self, img) -> torch.Tensor:
         if not isinstance(img, torch.Tensor):
             img = torch.from_numpy(np.ascontiguousarray(img, dtype=np.uint8))
-        return img.to(device=self.device, dtype=torch.uint8)
+        out = img.to(device=self.device, dtype=torch.uint8)
+        if out.device != img.device:
+            self.upload_bytes += out.nbytes
+        return out
 
     def match(self, img_left, img_right) -> torch.Tensor:
-        """(..., H, W) pair -> (..., H, W) disparity."""
-        return sgm_forward(self._tensor(img_left), self._tensor(img_right),
-                           self.options, self.config.diagonal_mode,
-                           self.config.use_pallas)
+        """(..., H, W) pair -> (..., H, W) disparity: the spans ``sgm.match``
+        and, inside it, ``sgm.upload`` and ``sgm_forward``'s stages."""
+        with span("match"):
+            with span("upload"):
+                left, right = self._tensor(img_left), self._tensor(img_right)
+            return sgm_forward(left, right, self.options,
+                               self.config.diagonal_mode,
+                               self.config.use_pallas)
 
     def match_batch(self, imgs_left, imgs_right) -> torch.Tensor:
         """(B, H, W) pairs -> (B, H, W) disparities."""

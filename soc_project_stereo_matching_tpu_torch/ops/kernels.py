@@ -60,6 +60,11 @@ vertical two-order scan's two launches; their horizontal pair counts as
 ``count_verdict`` as ``remove_speckles``, whose stages they are.  The
 ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.
 There is no fallback: any other device raises.
+
+The C entries that only ask (``sgm_scan_group_capacity`` on every call of
+``_directions``, ``sgm_scan_group_plan`` and ``sgm_census_cost_plan`` where
+their plans are not cached yet) each add one to ``PLAN_QUERIES[<entry>]``
+and run inside the span ``sgm.plan`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ import torch
 from ..config import SGMOptions
 
 from .. import _build
+from ..utils.profiling import span
 from . import aggregation, census, cost_volume, postprocess
 from . import wta as wta_ops
 from .wta import WTAPlanes
@@ -91,9 +97,24 @@ LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "probe_speckle_fused": 0}
 
 
+PLAN_QUERIES = {"sgm_scan_group_capacity": 0, "sgm_scan_group_plan": 0,
+                "sgm_census_cost_plan": 0}
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _ask(entry: str, *args) -> None:
+    """One call of an asking C entry, in the span ``sgm.plan``, counted in
+    ``PLAN_QUERIES``; raises if it returns a CUDA error."""
+    fn = getattr(_build.load(), entry)
+    with span("plan"):
+        err = fn(*args)
+    PLAN_QUERIES[entry] += 1
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -233,10 +254,7 @@ def census_segments(device: torch.device, w: int, dmin: int,
     if key not in _CENSUS_PLANS:
         out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
-            err = _build.load().sgm_census_cost_plan(w, dmin, d,
-                                                      ctypes.addressof(out))
-        if err != 0:
-            raise RuntimeError(f"sgm_census_cost_plan: CUDA error {err}")
+            _ask("sgm_census_cost_plan", w, dmin, d, ctypes.addressof(out))
         _CENSUS_PLANS[key] = CensusPlan(out[0], out[1], bool(out[2]))
     return _CENSUS_PLANS[key]
 
@@ -455,10 +473,8 @@ def group_directions(cost: torch.Tensor, out: torch.Tensor,
 def _directions(cost_ptr: int, out_ptr: int, b: int, d: int, w: int,
                 wta: bool, ranges: int) -> int:
     dirs = ctypes.c_int(0)
-    err = _build.load().sgm_scan_group_capacity(
-        cost_ptr, out_ptr, b, d, w, int(wta), ranges, ctypes.addressof(dirs))
-    if err != 0:
-        raise RuntimeError(f"sgm_scan_group_capacity: CUDA error {err}")
+    _ask("sgm_scan_group_capacity", cost_ptr, out_ptr, b, d, w, int(wta),
+         ranges, ctypes.addressof(dirs))
     return dirs.value
 
 
@@ -540,11 +556,8 @@ def group_plan(cost: torch.Tensor, out: torch.Tensor, n: int,
     if key not in _PLANS:
         res = (ctypes.c_longlong * 6)()
         with torch.cuda.device(cost.device):
-            err = _build.load().sgm_scan_group_plan(
-                cost.data_ptr(), out.data_ptr(), b, d, w, n, int(wta), sets,
-                ranges, ctypes.addressof(res))
-        if err != 0:
-            raise RuntimeError(f"sgm_scan_group_plan: CUDA error {err}")
+            _ask("sgm_scan_group_plan", cost.data_ptr(), out.data_ptr(), b, d,
+                 w, n, int(wta), sets, ranges, ctypes.addressof(res))
         _PLANS[key] = GroupPlan(*(int(v) for v in res))
     return _PLANS[key]
 

@@ -2,20 +2,36 @@
 
     python -m soc_project_stereo_matching_tpu_torch.stage_breakdown \
         [--batch 32] [--h 375] [--w 450] [--dmax 64] [--reps 10] \
-        [--out chiprun_out/stage_breakdown.json]
+        [--host-fed] [--out chiprun_out/stage_breakdown.json]
 
 Needs one CUDA device.  On a seeded synthetic pair at the given geometry
 (default: the cone geometry, 450x375, D=64, B=32) with default
 ``SGMOptions`` otherwise, it measures:
 
-* per stage of ``sgm_forward`` (the kernel path), the CUDA-event milliseconds
-  of its span, median and [min, max] over ``--reps`` batches; the staged
-  output is checked bit-equal to ``SGMEngine.match_batch``;
+* a ``torch.profiler`` window over ``--reps`` calls of
+  ``SGMEngine.match_batch`` after one untimed call, read through the
+  program's own spans (``utils.profiling.span``: ``sgm.match`` and inside
+  it ``sgm.upload``, ``sgm.census``, ``sgm.aggregate``, ``sgm.finalize``,
+  ``sgm.lr_check``, ``sgm.speckle``, ``sgm.median``; ``sgm.plan`` around
+  each query of a planning C entry).  Each device operation belongs to the
+  span open around the host event that launched it (the CUDA runtime's
+  call, matched by its correlation id), and a span's device range runs
+  from its first operation's start to its last one's end: the stages'
+  milliseconds, median and [min, max] over the calls, ``sgm.match`` the
+  whole call.  From the same window: the device idle share, 1 - (union of
+  the device activity intervals) / (CUDA-event window), with the
+  profiler's annotation rows left out; the idle time between device
+  operations by the innermost ``sgm.*`` span open on the host
+  (``outside`` where none is), per call; and per call the main path's
+  launches (``kernels.LAUNCHES`` but the ``probe_*`` entries), the
+  planning queries (``kernels.PLAN_QUERIES``) and the bytes uploaded
+  (``SGMEngine.upload_bytes``).  The window's outputs (the last, where
+  host-fed) are checked bit-equal to the untimed call's.  The window's Chrome trace is written
+  to ``<--out without .json>/trace.json``.  ``--host-fed`` gives the calls
+  uint8 numpy pairs, as a camera does, and brings each disparity back to
+  host memory (``.cpu()``) before the next call;
 * the end-to-end batch time and the host's enqueue time (wall clock from the
   call to ``match_batch`` until it returns, before synchronising);
-* the device idle share over a three-batch ``torch.profiler`` window:
-  1 - (union of the device activity intervals) / (CUDA-event window); the
-  window's Chrome trace is written to ``<--out without .json>/trace.json``;
 * the K2 scans as the main path runs them (the group kernel: the
   horizontal pair's two-order scan, two launches, with its three
   transposes; the vertical pair's two-order scan with the WTA epilogue, its
@@ -33,8 +49,11 @@ Prints one line per figure and writes all of them as JSON to ``--out``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
+from collections import defaultdict
 from pathlib import Path
+from typing import Dict, List, NamedTuple
 
 import torch
 
@@ -42,39 +61,192 @@ from . import SGMEngine, SGMOptions
 from .benches import per_call_ms
 from .data.synthetic import synthetic_pair
 from .ops import aggregation, kernels
-from .ops.postprocess import median_filter_3x3
-from .ops.wta import finalize_disparity
-from .utils.profiling import StageTimer, card, cuda_time, summary, trace
+from .utils.profiling import SPAN_PREFIX, card, cuda_time, summary, trace
+
+STAGES = tuple(SPAN_PREFIX + s for s in (
+    "upload", "census", "aggregate", "finalize", "lr_check", "speckle",
+    "median"))
+MATCH = SPAN_PREFIX + "match"
+OUTSIDE = "outside"
 
 
-def staged_forward(left, right, opt: SGMOptions, timer: StageTimer):
-    """``sgm_forward`` on the kernel path, each stage a span of ``timer``
-    and the whole a span named "total"."""
-    with timer.span("total"):
-        with timer.span("census_cost (K1)"):
-            cost = kernels.census_cost_volume(left, right, opt.min_disparity,
-                                              opt.max_disparity)
-        with timer.span("scans + WTA epilogue (K2)"):
-            fwd, inv = kernels.aggregate_paths_wta(cost, left, opt,
-                                                   include_inverse=True)
-        with timer.span("2x finalize_disparity (plain)"):
-            dl, dr = finalize_disparity(fwd, opt), finalize_disparity(inv, opt)
-        with timer.span("lr_check (K3)"):
-            disp = kernels.lr_check(dl, dr, opt.lrcheck_thres, opt.max_disparity)
-        with timer.span("speckle (K4)"):
-            disp = kernels.remove_speckles(disp, 1.0, opt.min_speckle_area)
-        with timer.span("median (plain)"):
-            disp = median_filter_3x3(disp)
-    return disp
+class Event(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    correlation: int
 
 
-def stage_times(left, right, opt, reps):
-    timer = StageTimer()
-    for _ in range(reps + 1):          # the first batch is a warm-up
-        staged_forward(left, right, opt, timer)
-    times = timer.times()
-    stages = [s for s in times if s != "total"] + ["total"]
-    return {stage: summary(times[stage][1:]) for stage in stages}
+class Profile(NamedTuple):
+    """A profiler window's events, each sorted by start.  ``device``: the
+    operations the card ran, ``correlation`` the id of the host function
+    open around their launch; ``host``: the host's recorded functions
+    (PyTorch's operators, the program's spans), ``correlation`` their own
+    id; ``spans``: the program's ``sgm.*`` spans among them."""
+    device: List[Event]
+    host: List[Event]
+    spans: List[Event]
+
+
+def collect(prof) -> Profile:
+    """The ``Profile`` of a finished ``torch.profiler.profile``.  The
+    profiler's annotation rows on the device's timeline (the ranges it draws
+    for user-scope ``record_function`` spans) are not device work, and the
+    CUDA runtime's host calls, linked to the function open around them,
+    are not recorded functions."""
+    from torch.autograd import DeviceType
+
+    device, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                device.append(Event(e.name(), start, start + e.duration_ns(),
+                                    e.linked_correlation_id()))
+        elif e.linked_correlation_id() == 0:
+            host.append(Event(e.name(), start, start + e.duration_ns(),
+                              e.correlation_id()))
+    device.sort(key=lambda e: e.start_ns)
+    host.sort(key=lambda e: e.start_ns)
+    return Profile(device, host,
+                   [e for e in host if e.name.startswith(SPAN_PREFIX)])
+
+
+def enclosing(times, spans: List[Event]) -> List[int]:
+    """For each time, the index in ``spans`` of the innermost span open at
+    it, or -1; the spans nest or are disjoint."""
+    order = sorted(range(len(spans)),
+                   key=lambda i: (spans[i].start_ns, -spans[i].end_ns))
+    out = [-1] * len(times)
+    stack, j = [], 0
+    for k in sorted(range(len(times)), key=times.__getitem__):
+        t = times[k]
+        while j < len(order) and spans[order[j]].start_ns <= t:
+            stack.append(order[j])
+            j += 1
+        # a span ends before any span open around it: the top is the
+        # innermost once the closed ones above it are gone
+        while stack and spans[stack[-1]].end_ns <= t:
+            stack.pop()
+        out[k] = stack[-1] if stack else -1
+    return out
+
+
+def device_ranges(profile: Profile, names) -> Dict[str, List[float]]:
+    """{span name: [ms]}: for each span of those ``names`` that launched
+    device work, the time from its first operation's start to its last
+    one's end.  An operation belongs to the innermost of those spans open
+    at the start of the host function that launched it (the function open
+    around its launch: a PyTorch operator, or a span itself)."""
+    started = {e.correlation: e.start_ns for e in profile.host}
+    spans = [s for s in profile.spans if s.name in names]
+    ops = [op for op in profile.device if op.correlation in started]
+    owner = enclosing([started[op.correlation] for op in ops], spans)
+    lo: Dict[int, int] = {}
+    hi: Dict[int, int] = {}
+    for op, i in zip(ops, owner):
+        if i >= 0:
+            lo[i] = min(lo.get(i, op.start_ns), op.start_ns)
+            hi[i] = max(hi.get(i, op.end_ns), op.end_ns)
+    out: Dict[str, List[float]] = defaultdict(list)
+    for i in sorted(lo):
+        out[spans[i].name].append((hi[i] - lo[i]) / 1e6)
+    return dict(out)
+
+
+def merged(ops: List[Event]) -> List[List[int]]:
+    """The union of the operations' intervals, disjoint and sorted."""
+    out: List[List[int]] = []
+    for op in sorted(ops, key=lambda o: o.start_ns):
+        if out and op.start_ns <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], op.end_ns)
+        else:
+            out.append([op.start_ns, op.end_ns])
+    return out
+
+
+def busy_ms(profile: Profile) -> float:
+    return sum(hi - lo for lo, hi in merged(profile.device)) / 1e6
+
+
+def idle_by_span(profile: Profile) -> Dict[str, float]:
+    """{innermost ``sgm.*`` span open on the host, or ``OUTSIDE``: ms}: the
+    time between the first and the last device operation in which none
+    ran, cut at the spans' starts and ends."""
+    busy = merged(profile.device)
+    cuts = sorted({t for s in profile.spans for t in (s.start_ns, s.end_ns)})
+    pieces = []
+    for (_, g0), (g1, _) in zip(busy, busy[1:]):
+        points = [g0] + cuts[bisect.bisect_right(cuts, g0):
+                             bisect.bisect_left(cuts, g1)] + [g1]
+        pieces += zip(points, points[1:])
+    owners = enclosing([(a + b) / 2 for a, b in pieces], profile.spans)
+    out: Dict[str, float] = defaultdict(float)
+    for (a, b), i in zip(pieces, owners):
+        out[profile.spans[i].name if i >= 0 else OUTSIDE] += (b - a) / 1e6
+    return dict(out)
+
+
+def main_launches() -> int:
+    """Launches of the main path's C entries so far (``LAUNCHES`` but the
+    probes')."""
+    return sum(n for name, n in kernels.LAUNCHES.items()
+               if not name.startswith("probe_"))
+
+
+class Window(NamedTuple):
+    profile: Profile
+    window_ms: float        # CUDA events around the calls
+    calls: int
+    launches: int           # main-path launches in the window
+    plan_queries: int       # PLAN_QUERIES in the window
+    upload_bytes: int       # engine.upload_bytes in the window
+    outputs: list
+
+
+def profiled_window(engine, left, right, calls: int, host_fed: bool,
+                    trace_dir) -> Window:
+    """``calls`` calls of ``engine.match_batch`` under ``torch.profiler``
+    (``utils.profiling.trace``, its Chrome trace to ``trace_dir``); where
+    ``host_fed`` each output is brought to host memory before the next
+    call, and only the last is kept (a download onto fresh host pages each
+    call would time the page faults)."""
+    launches, plans = main_launches(), sum(kernels.PLAN_QUERIES.values())
+    uploaded = engine.upload_bytes
+    outputs = []
+    torch.cuda.synchronize()
+    with trace(trace_dir) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(calls):
+            out = engine.match_batch(left, right)
+            if host_fed:    # keep the last download only, as a camera does
+                outputs[:] = [out.cpu()]
+            else:
+                outputs.append(out)
+        end.record()
+        torch.cuda.synchronize()
+    return Window(collect(prof), start.elapsed_time(end), calls,
+                  main_launches() - launches,
+                  sum(kernels.PLAN_QUERIES.values()) - plans,
+                  engine.upload_bytes - uploaded, outputs)
+
+
+def stage_summary(window: Window) -> Dict[str, dict]:
+    """{span: summary of its device ranges in ms}: the stages in pipeline
+    order, then ``sgm.match``."""
+    ranges = device_ranges(window.profile, STAGES)
+    ranges.update(device_ranges(window.profile, (MATCH,)))
+    return {name: summary(ranges[name]) for name in STAGES + (MATCH,)
+            if name in ranges}
+
+
+def stage_times(engine, left, right, reps: int) -> Dict[str, dict]:
+    """``stage_summary`` of ``reps`` calls after an untimed one, inputs on
+    the card."""
+    engine.match_batch(left, right)
+    return stage_summary(profiled_window(engine, left, right, reps, False,
+                                         None))
 
 
 def batch_and_enqueue(engine, left, right, reps):
@@ -84,33 +256,6 @@ def batch_and_enqueue(engine, left, right, reps):
     call()
     batch_ms, enqueue_ms = per_call_ms(call, reps)
     return summary(batch_ms), summary(enqueue_ms)
-
-
-def idle_share(engine, left, right, trace_dir, batches=3):
-    """(idle share, device busy ms, window ms) over ``batches`` batches: busy
-    is the union of the device activity intervals the profiler recorded, the
-    window the CUDA-event time around the batches; share None if the
-    profiler recorded no device activity.  The window's Chrome trace goes to
-    ``trace_dir``."""
-    from torch.autograd import DeviceType
-
-    torch.cuda.synchronize()
-    with trace(trace_dir) as prof:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(batches):
-            engine.match_batch(left, right)
-        end.record()
-        torch.cuda.synchronize()
-    window = start.elapsed_time(end)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
-    for lo, hi in spans:
-        busy_us += max(0.0, hi - max(lo, reach))
-        reach = max(reach, hi)
-    busy = busy_us / 1e3
-    return (1.0 - busy / window if busy > 0 else None), busy, window
 
 
 def scan_directions(left, right, opt, reps=5):
@@ -178,6 +323,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--w", type=int, default=450)
     ap.add_argument("--dmax", type=int, default=64)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--host-fed", action="store_true")
     ap.add_argument("--out", default="chiprun_out/stage_breakdown.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -187,34 +333,46 @@ def main(argv=None) -> dict:
     opt = SGMOptions(max_disparity=args.dmax)
     engine = SGMEngine(opt, device="cuda")
     levels = tuple(args.dmax * f // 64 for f in (10, 20, 35))
-    left, right, _ = synthetic_pair(2, args.batch, args.h, args.w, levels)
-    left, right = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+    host_l, host_r, _ = synthetic_pair(2, args.batch, args.h, args.w, levels)
+    left, right = torch.from_numpy(host_l).cuda(), torch.from_numpy(host_r).cuda()
+    fed_l, fed_r = (host_l, host_r) if args.host_fed else (left, right)
 
-    staged = staged_forward(left, right, opt, StageTimer())
-    if not torch.equal(staged, engine.match_batch(left, right)):
-        raise AssertionError("staged pipeline differs from match_batch")
-
-    stages = stage_times(left, right, opt, args.reps)
-    batch, enqueue = batch_and_enqueue(engine, left, right, args.reps)
-    idle, busy, window = idle_share(engine, left, right,
-                                    Path(args.out).with_suffix(""))
+    want = engine.match_batch(fed_l, fed_r).cpu()
+    win = profiled_window(engine, fed_l, fed_r, args.reps, args.host_fed,
+                          Path(args.out).with_suffix(""))
+    if not all(torch.equal(out.cpu(), want) for out in win.outputs):
+        raise AssertionError("a profiled call's output differs from "
+                             "match_batch's")
+    stages = stage_summary(win)
+    busy = busy_ms(win.profile)
+    idle = 1.0 - busy / win.window_ms if busy > 0 else None
+    gaps = {name: ms / win.calls for name, ms in sorted(
+        idle_by_span(win.profile).items(), key=lambda x: -x[1])}
+    per_call = {"launches": win.launches / win.calls,
+                "plan_queries": win.plan_queries / win.calls,
+                "upload_bytes": win.upload_bytes / win.calls}
+    batch, enqueue = batch_and_enqueue(engine, fed_l, fed_r, args.reps)
     groups = scan_groups(left, right, opt)
     scans, scan_bytes = scan_directions(left, right, opt)
 
-    result = {"card": name_and_limit, "batch": args.batch, "h": args.h, "w": args.w,
-              "d": args.dmax, "stages_ms": stages, "batch_ms": batch,
+    result = {"card": name_and_limit, "batch": args.batch, "h": args.h,
+              "w": args.w, "d": args.dmax, "host_fed": args.host_fed,
+              "stages_ms": stages, "idle_ms_per_call_by_span": gaps,
+              "per_call": per_call, "batch_ms": batch,
               "enqueue_ms": enqueue, "idle_share": idle,
-              "device_busy_ms": busy, "profiler_window_ms": window,
+              "device_busy_ms": busy, "profiler_window_ms": win.window_ms,
               "scan_group_ms": groups,
               "scan_direction_ms": scans, "scan_direction_bytes": scan_bytes}
     print(name_and_limit)
-    total = stages["total"]["median"]
+    total = stages[MATCH]["median"]
     for stage, s in stages.items():
         print(f"stage {stage}: {s['median']:.4f} ms [{s['min']:.4f}, "
               f"{s['max']:.4f}] {100 * s['median'] / total:.1f}%")
+    print(f"idle ms a call by the innermost span: {json.dumps(gaps)}")
+    print(f"a call: {json.dumps(per_call)}")
     print(f"batch {batch['median']:.4f} ms, host enqueue "
           f"{enqueue['median']:.4f} ms; idle share {idle} "
-          f"(device {busy:.3f} of {window:.3f} ms)")
+          f"(device {busy:.3f} of {win.window_ms:.3f} ms)")
     for name, ms in groups.items():
         print(f"scan group {name}: {ms:.4f} ms")
     for name, ms in scans.items():
