@@ -13,14 +13,17 @@ Phases (each raises on failure, so the script exits non-zero):
    K4 also on ``data.synthetic.speckle_frames``: tile corners, a snake
    across every tile, NaN / -inf, frames that must not connect); median
    CUDA-event times of kernel and plain version at the cone shape.  The K2
-   scan is the group kernel (the vertical pair and the horizontal pair, on
-   the transposed volume, each a two-order scan: two launches, each with
-   both orders on clusters of their own, meeting at the middle row; the
-   epilogue's reduction in warps of its own): ``aggregate_paths``
-   is also held against the sum of the first design's launches
-   (``scan_direction``, one per direction), and the horizontal pair against
-   that design's two launches along W.  The fused forms: the main path's
-   ``aggregate_paths_wta`` (the two-order scan with the WTA epilogue),
+   scan of the vertical pair is the group kernel (a two-order scan: two
+   launches, each with both orders on clusters of their own, meeting at
+   the middle row; the epilogue's reduction in warps of its own); the
+   horizontal pair's, on the transposed volume, the path scan
+   (``horizontal_paths``, csrc/path_scan.cu: both orders in one launch,
+   held against the plain two-order scan and the group kernel's):
+   ``aggregate_paths`` is also held against the sum of the first design's
+   launches (``scan_direction``, one per direction), and the horizontal
+   pair against that design's two launches along W.  The fused forms: the
+   main path's ``aggregate_paths_wta`` (the two-order scan with the WTA
+   epilogue),
    ``directional_scan_group_bidir`` (both forms; the parked sums too) and
    the group launch with the epilogue (``directional_scan_group(wta=...)``,
    the last launch of the two-launch route) against their plain versions
@@ -28,9 +31,10 @@ Phases (each raises on failure, so the script exits non-zero):
 4. slice: ``SGMEngine(SGMOptions(), device="cuda").match_batch`` on a B=8
    synthetic 375x450 pair, with every launch counter reset before and read
    after (the K2 scans must count the two launches of the vertical pair's
-   two-order scan with the WTA epilogue, the two of the horizontal pair's
+   two-order scan with the WTA epilogue, the horizontal pair's path scan
    and 3 transposes, and no ``wta_reduce``: no aggregated volume is
-   stored); the result must be
+   stored; past D = 512 the pair takes the group kernel's two launches,
+   ``past_paths_range``); the result must be
    bit-equal to the plain path on the
    card, a 96x160 crop bit-equal to the same engine on the CPU (the plain
    ops, which the CPU tests hold bit-equal to the JAX package and its numpy
@@ -172,7 +176,7 @@ Phases (each raises on failure, so the script exits non-zero):
    tiled engine on a 1x1 mesh in exact mode, 0.95 of its finite pixels
    within 1 of the truth, its launches counted, its ms and peak device
    memory printed; at 2964x1988 D=760 each K2 form and the WTA timed with
-   its calls, plan and bound (kernel table rows 2, 2c, 2w, 3, 3w, 4); one
+   its calls, plan and bound (kernel table rows 2, 2c, 2w, 3p/3, 3w, 4); one
    ``cli eval --device cuda`` through a Middlebury-2014 folder written at
    2964x1988 with ``ndisp=280``, its measurement equal to the script's;
 11. the shapes where the port once refused and the JAX package
@@ -247,6 +251,9 @@ KERNELS = {  # counter -> (source, Pallas kernel it replaces)
     "aggregate_paths_wta": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
     "aggregate_paths": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
     "horizontal_partial": (f"{CSRC}/aggregate.cu", f"{PALLAS}:500"),
+    # the horizontal pair up to D = 512: the path scan (_bidir_kernel for
+    # the roll-0 pair), one launch carrying both orders
+    "horizontal_paths": (f"{CSRC}/path_scan.cu", f"{PALLAS}:500"),
     "volume_transpose": (f"{CSRC}/transpose.cu",
                          "scripts/aggr_transpose_probe.py:176"),
     "wta_reduce": (f"{CSRC}/wta.cu", f"{PALLAS}:1073"),
@@ -278,16 +285,16 @@ KERNELS = {  # counter -> (source, Pallas kernel it replaces)
     "probe_speckle_fused": (f"{CSRC}/probe_speckle.cu",
                             "scripts/speckle_tail_probe.py:110"),
 }
-MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_partial",
+MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_paths",
              "volume_transpose", "lr_check", "remove_speckles")
 # launches of the K2 scans per match_batch: the vertical pair's two-order
 # scan with the WTA epilogue (two launches meeting at the middle row; no
-# volume stored, no WTA launch), the horizontal pair's two-order scan (two
-# launches) and the three transposes around it
-SCAN_LAUNCHES = {"aggregate_paths_wta": 2, "horizontal_partial": 2,
+# volume stored, no WTA launch), the horizontal pair's path scan (one
+# launch) and the three transposes around it
+SCAN_LAUNCHES = {"aggregate_paths_wta": 2, "horizontal_paths": 1,
                  "volume_transpose": 3}
 # ... and per aggregate_paths call (the vertical pair's scan without it)
-AGGREGATE_LAUNCHES = {"aggregate_paths": 2, "horizontal_partial": 2,
+AGGREGATE_LAUNCHES = {"aggregate_paths": 2, "horizontal_paths": 1,
                       "volume_transpose": 3}
 # C entry calls per match_batch of every main-path wrapper: one each for K1,
 # K3 and K4 (whose entry makes its four launches); wta_reduce none
@@ -321,7 +328,7 @@ WIRE = dict(frames=3, h=720, w=1280, dmax=64, levels=(8, 16, 28, 45))
 # mesh (the halo census, the horizontal pair and its transposes, one launch a
 # vertical group, the WTA, K3 and K4); the bench's median batch against
 # stage_breakdown's, at most this far apart; the benches' shortened runs
-TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_partial": 2,
+TILED_LAUNCHES = {"census_cost_volume_halo": 1, "horizontal_paths": 1,
                   "volume_transpose": 3, "directional_scan_group_bidir": 2,
                   "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 AGREE = 0.10
@@ -490,6 +497,21 @@ def check_kernels(cfg, timed: bool) -> dict:
            vol + px + 2 * vol, 2 * 10 * vol, plain_reps=1)
     if timed:
         out["horizontal_partial"]["first_design_ms"] = cuda_ms(hp_old, 20)
+    # the path scan alone on the transposed volume, against the plain
+    # two-order scan and the group kernel's route; its least bytes: the
+    # cost read once, half the uint16 sums stored and half read-added
+    pitch = kernels.TRANSPOSED_PITCH
+    cost_t = kernels.volume_transpose(cost, pad_to=pitch)
+    left_t = kernels.image_transpose(left, pad_to=pitch)
+    ps = lambda: kernels.horizontal_paths(cost_t, left_t, opt.p1, opt.p2_init)
+    ps_plain = lambda: kernels.directional_scan_group_bidir_plain(
+        cost_t, left_t, None, (0,), (0,), opt.p1, opt.p2_init, False)
+    err = max(max_abs_err(ps(), ps_plain()), max_abs_err(ps(), kernels._bidir(
+        cost_t, left_t, None, (0,), (0,), opt.p1, opt.p2_init, False, None,
+        "horizontal_partial")))
+    record("horizontal_paths", err, ps, ps_plain,
+           4 * cost_t.numel() + left_t.numel(), 2 * 10 * cost_t.numel(),
+           plain_reps=1)
 
     # K2 WTA, with and without the inverse view
     fwd, inv = kernels.wta_reduce(aggr, opt, include_inverse=True)
@@ -742,9 +764,9 @@ def wta_ladder() -> None:
     and ``wta_reduce``, on the same horizontal sums, held bit-equal first,
     timed in turns (parent, fused, fused, parent), with the fused scan's
     byte bound; and the "two-order horizontal" line: the horizontal pair's
-    two-order scan on the transposed volume (the main path's) beside two
-    one-order group launches, held bit-equal first, in turns, with its
-    bound."""
+    path scan on the transposed volume (the main path's) beside the group
+    kernel's two-order scan of it and two one-order group launches, held
+    bit-equal first, in turns, with the path scan's bound."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch import SGMOptions
@@ -808,8 +830,9 @@ def wta_ladder() -> None:
         del part, right
         torch.cuda.empty_cache()
 
-        # the horizontal pair on the transposed volume: its two-order scan
-        # beside two one-order group launches (forward stored, reverse added)
+        # the horizontal pair on the transposed volume: its path scan (the
+        # main path's) beside the group kernel's two-order scan of it and
+        # two one-order group launches (forward stored, reverse added)
         cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
         img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
         del cost, left
@@ -820,20 +843,26 @@ def wta_ladder() -> None:
             return kernels.directional_scan_group(cost_t, img_t, acc, (0,),
                                                   True, p1, p2, False)
 
-        two_order = lambda: kernels.horizontal_pair_transposed(cost_t, img_t,
-                                                               p1, p2)
+        two_order = lambda: kernels._bidir(cost_t, img_t, None, (0,), (0,), p1,
+                                           p2, False, None,
+                                           "horizontal_partial")
+        paths = lambda: kernels.horizontal_paths(cost_t, img_t, p1, p2)
         max_abs_err(two_order(), one_order())
-        times = in_turns({"one-order": one_order, "two-order": two_order}, 5)
-        # the transposed cost and image in, the uint16 sum out; 2 directions
+        max_abs_err(paths(), two_order())
+        times = in_turns({"one-order": one_order, "two-order": two_order,
+                          "paths": paths}, 5)
+        # the transposed cost read once, half the uint16 sums stored and
+        # half read-added; 2 directions
         vol_t = cost_t.numel()
-        lim = bound(3 * vol_t + img_t.numel(), 2 * 10 * vol_t)
+        lim = bound(4 * vol_t + img_t.numel(), 2 * 10 * vol_t)
         print(f"two-order horizontal {h}x{w} D={d} B={b}: the horizontal "
-              f"pair's two-order scan on the transposed volume "
-              f"{times['two-order']:.4f} ms, two one-order group launches "
-              f"{times['one-order']:.4f} ms (in turns, median of 5 each, the "
-              f"two reads averaged; "
-              f"{times['two-order'] / times['one-order']:.3f}x); bound "
-              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}); bit-equal")
+              f"pair's path scan {times['paths']:.4f} ms, the group kernel's "
+              f"two-order scan {times['two-order']:.4f} ms, two one-order "
+              f"group launches {times['one-order']:.4f} ms (in turns, median "
+              f"of 5 each, the two reads averaged; path scan "
+              f"{times['paths'] / times['two-order']:.3f}x the two-order "
+              f"scan); bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}); "
+              f"bit-equal")
         del cost_t, img_t
         torch.cuda.empty_cache()
 
@@ -1020,6 +1049,32 @@ def chained_tile_path(cfg) -> dict:
     return launches
 
 
+def past_paths_range() -> dict:
+    """The horizontal pair past the path scan's range (D = 513): the
+    group kernel's two-order scan, two launches counted as
+    ``horizontal_partial``, bit-equal to the plain version; its
+    launches."""
+    import numpy as np
+    import torch
+
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(12)
+    d = kernels.PATHS_MAX_RANGE + 1
+    cost_t = torch.from_numpy(rng.integers(0, 128, (1, 6, d, 32), dtype=np.uint8)).cuda()
+    img_t = torch.from_numpy(rng.integers(0, 256, (1, 6, 32), dtype=np.uint8)).cuda()
+    kernels.reset_launch_counts()
+    err = max_abs_err(kernels.horizontal_pair_transposed(cost_t, img_t, 10, 150),
+                      kernels.directional_scan_group_bidir_plain(
+                          cost_t, img_t, None, (0,), (0,), 10, 150, False))
+    torch.cuda.synchronize()
+    launches = counted_launches(kernels.LAUNCHES, {"horizontal_partial": 2}, 1,
+                                f"the horizontal pair at D={d}")
+    print(f"the horizontal pair at D={d}: the group kernel's two launches "
+          f"{launches}, bit-equal to its plain version (max_abs_err {err})")
+    return launches
+
+
 def two_launch_path(cfg) -> dict:
     """The two-launch route of the JAX package's ``aggregate_paths_wta``
     (its form where the two-order kernel does not fit): the horizontal
@@ -1045,7 +1100,7 @@ def two_launch_path(cfg) -> dict:
         wta=(opt.min_disparity, True))
     torch.cuda.synchronize()
     launches = counted_launches(
-        kernels.LAUNCHES, {"horizontal_partial": 2, "volume_transpose": 3,
+        kernels.LAUNCHES, {"horizontal_paths": 1, "volume_transpose": 3,
                            "directional_scan_group": 1,
                            "directional_scan_group_wta": 1}, 1,
         "the two-launch route")
@@ -1963,11 +2018,13 @@ def surfaces_phase(tmp, card: str) -> None:
 
 
 def main_path_launches(b: int, h: int, w: int, d: int) -> dict:
-    """C entry calls of one untiled match_batch at this shape: the scans'
-    two launches a part of a group (``_launch_parts``: the vertical pair's
-    with the epilogue, the horizontal pair's on the transposed volume), or
-    where a pair's row passes the card's resident width its launches over
-    column parts and one ``wta_reduce`` (``kernels.bidir_calls``)."""
+    """C entry calls of one untiled match_batch at this shape: the vertical
+    pair's two launches a part of its group (``_launch_parts``, with the
+    epilogue), or where its row passes the card's resident width its
+    launches over column parts and one ``wta_reduce``
+    (``kernels.bidir_calls``); the horizontal pair's path scan on the
+    transposed volume, one launch, or past D = 512 the group kernel's
+    (``kernels.horizontal_calls``)."""
     import torch
 
     from soc_project_stereo_matching_tpu_torch.ops import kernels
@@ -1980,8 +2037,10 @@ def main_path_launches(b: int, h: int, w: int, d: int) -> dict:
 
     h_pad = -(-h // kernels.TRANSPOSED_PITCH) * kernels.TRANSPOSED_PITCH
     vertical, reduce = calls(h, w, ((0, 1, -1), (0, -1, 1)), True)
-    return {"census_cost_volume": 1, "aggregate_paths_wta": vertical,
-            "horizontal_partial": calls(w, h_pad, ((0,), (0,)), False)[0],
+    pair = kernels.horizontal_calls(torch.empty(
+        (b, 1, d, h_pad), dtype=torch.uint8, device="cuda").expand(
+            b, w, d, h_pad))
+    return {"census_cost_volume": 1, "aggregate_paths_wta": vertical, **pair,
             "volume_transpose": 3, "wta_reduce": reduce, "lr_check": 1,
             "remove_speckles": 1}
 
@@ -2160,7 +2219,7 @@ def wide_eval(tmp, card: str) -> None:
 
 def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
     """Each K2 form and the WTA at a full-size frame's shape with D > 256
-    (kernel table rows 2, 2c, 2w, 3, 3w and 4): CUDA-event ms, the entry
+    (kernel table rows 2, 2c, 2w, 3p or 3, 3w and 4): CUDA-event ms, the entry
     calls a call makes, the plan (clusters an image) of its largest launch
     and its bound (inputs read once, outputs written once; 10 32-bit
     operations an element and direction for the recurrence, 3 an element and
@@ -2184,6 +2243,8 @@ def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
     gray = left[:, -1].contiguous()
     (rf, _), (rb, _) = GROUPS
     carry_bytes = 2 * 4 * b * 3 * (d + 1) * w
+    paths = kernels.horizontal_route(d) == "paths"
+    pair_row = "3p horizontal pair" if paths else "3 horizontal pair"
     rows = {
         "2 group": (lambda: kernels.directional_scan_group(
             cost, left, None, rf, False, 10, 150, False),
@@ -2197,7 +2258,7 @@ def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
             cost, left, acc, rb, True, 10, 150, False, wta=(0, True)),
             vol + px + 2 * vol + 40 * px, 3 * 10 * vol + 2 * 3 * vol,
             (cost, 3, True)),
-        "3 horizontal pair": (lambda: kernels.horizontal_pair_transposed(
+        pair_row: (lambda: kernels.horizontal_pair_transposed(
             cost_t, img_t, 10, 150),
             cost_t.numel() + img_t.numel() + 2 * cost_t.numel(),
             2 * 10 * cost_t.numel(), (cost_t, 1, False)),
@@ -2218,7 +2279,10 @@ def wide_kernel_times(cfg, card: str, phase: str = "wide range") -> None:
         route = None if planned is None else kernels.group_route(
             planned[0], planned[0], (1,) if planned[1] > 1 else (0,),
             planned[2])
-        if route is not None:
+        if name == pair_row and paths:
+            p = kernels.path_plan(cost_t.device, b, d, cost_t.shape[3])
+            plan = f", the path scan's plan {p._asdict()}"
+        elif route is not None:
             plan = f", column parts {route._asdict()} (no epilogue)"
         elif planned is not None:
             x, n, wta = planned
@@ -2510,7 +2574,8 @@ def satellite_frame(card: str) -> None:
 def forced_parts_frame(card: str) -> None:
     """Full-resolution Middlebury-2014 (``WIDE_EVAL``'s frame, D = 280)
     through ``SGMEngine.match`` with both pairs' two-order scans forced
-    into 2 and 4 column parts, each bit-equal to the resident route, with
+    into 2 and 4 column parts (the horizontal pair by the group kernel's
+    parts, not the path scan), each bit-equal to the resident route, with
     its launches counted."""
     import torch
 
@@ -2529,9 +2594,11 @@ def forced_parts_frame(card: str) -> None:
             got = engine.match(left, right)
             torch.cuda.synchronize()
             launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        if launches.get("wta_reduce") != 1:
-            raise AssertionError(f"{parts} parts forced: no parts route "
-                                 f"({launches})")
+        if (launches.get("wta_reduce") != 1
+                or launches.get("horizontal_partial") != 2 * parts
+                or "horizontal_paths" in launches):
+            raise AssertionError(f"{parts} parts forced: not both pairs by "
+                                 f"parts ({launches})")
         err = max_abs_err(got, want)
         print(f"unrefused, Middlebury-2014 {cfg['w']}x{cfg['h']} D={cfg['dmax']} "
               f"with both pairs forced into {parts} column parts: bit-equal to "
@@ -2640,6 +2707,7 @@ def main() -> None:
           f"{scans}; "
           f"B={FPS_BATCH}: {ms:.3f} ms/batch = {FPS_BATCH / ms * 1e3:.2f} frames/s")
     launches.update(two_launch_path(dict(CONE, batch=SLICE_BATCH)))
+    launches.update(past_paths_range())
     scan_ladder()
     k1_k4_ladder()
     wta_ladder()

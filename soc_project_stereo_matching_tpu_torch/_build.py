@@ -48,6 +48,8 @@ SIGNATURES = {
     "sgm_probe_chainio": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
                           _I, _P),
     "sgm_volume_transpose": (_P, _P) + (_I,) * 7 + (_P,),
+    "sgm_path_scan": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "sgm_path_scan_plan": (_I,) * 3 + (_P,),
     "sgm_probe_rung": (_P, _P, _I, _I, _I, _I, _P),
     "sgm_probe_scan16": (_P, _P, _P) + (_I,) * 13 + (_P,),
     "sgm_probe_scan16_capacity": (_I, _I, _I, _P),

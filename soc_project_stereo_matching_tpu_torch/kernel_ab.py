@@ -3,7 +3,7 @@
 this checkout against another checkout's, on one card.
 
     python -m soc_project_stereo_matching_tpu_torch.kernel_ab --parent DIR \
-        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused,split,parts,sass] \
+        [--reps 20] [--only k4,k1,wta,scan16,s1,chain,s2,s4,fused,hpair,split,parts,sass] \
         [--out chiprun_out/kernel_ab.json]
 
 ``DIR`` is an unpacked copy of the other commit, for example
@@ -92,6 +92,16 @@ Middlebury-half (1000x1500, D=256, B=1), on seeded synthetic pairs:
   (``routes_shape``: two launches or one, in turns), the device range of
   the program's ``sgm.aggregate`` span and the batch, at the four shapes and
   at 720p B=1;
+* the horizontal pair on the transposed volume (group ``hpair``): this
+  checkout's route (the path scan, csrc/path_scan.cu, one launch, up to
+  D = 512) in turns with the other's (its library's group-kernel
+  two-order scan of the roll-0 direction, two launches, through
+  ``kernels._bidir``), bit-equal first, median of ``--reps`` each, at the
+  cells' shapes (KITTI-2015 375x1242 D=192 B=1 and 8, Middlebury-2014
+  1988x2964 D=280 B=1), at cone B=2, 8, 32, and past the cells' ranges
+  (KITTI D = 512 and 1,024, Middlebury D = 384, 512, 760 and 1,024), with
+  the path scan's plan and its byte bound (the transposed cost read once,
+  half the uint16 sums stored, half read-added);
 * D split over the blocks of a cluster (group ``split``, this checkout
   alone: no parent library is built for it) at full-resolution
   Middlebury-2014, 2964x1988 B=1, D = 280 and 760: the vertical pair's
@@ -158,7 +168,8 @@ GROUP_ENTRIES = {"k4": "sgm_remove_speckles", "k1": "sgm_census_cost",
                  "s1": "sgm_probe_speckle_labels", "chain": "sgm_probe_chain",
                  "s2": "sgm_probe_speckle_hist",
                  "s4": "sgm_probe_speckle_fused", "fused": "sgm_scan_group",
-                 "split": None, "parts": None, "sass": None}
+                 "hpair": "sgm_scan_group", "split": None, "parts": None,
+                 "sass": None}
 GROUPS = tuple(GROUP_ENTRIES)
 ENTRIES = tuple(GROUP_ENTRIES[g] for g in ("k4", "k1", "wta"))   # main path
 # scan16's entry before it took a group: one direction a launch
@@ -176,6 +187,18 @@ SHAPES = (("cone B=2", 2, 375, 450, 64), ("cone B=8", 8, 375, 450, 64),
           ("cone B=32", 32, 375, 450, 64),
           ("Middlebury-half B=1", 1, 1000, 1500, 256))
 S1_SHAPES = SHAPES + (("37x45 B=4", 4, 37, 45, 48),)   # S1 also here
+# the horizontal pair at the cells' shapes and the cone's batches, then
+# at ranges past the cells' (past D = 512 both checkouts run the group
+# kernel: the readings that set the path scan's edge there)
+HPAIR_SHAPES = (("KITTI-2015 B=1", 1, 375, 1242, 192),
+                ("KITTI-2015 B=8", 8, 375, 1242, 192),
+                ("Middlebury full D=280", 1, 1988, 2964, 280)) + SHAPES[:3] + (
+    ("KITTI-2015 B=1 D=512", 1, 375, 1242, 512),
+    ("KITTI-2015 B=1 D=1024", 1, 375, 1242, 1024),
+    ("Middlebury full D=384", 1, 1988, 2964, 384),
+    ("Middlebury full D=512", 1, 1988, 2964, 512),
+    ("Middlebury full D=760", 1, 1988, 2964, 760),
+    ("Middlebury full D=1024", 1, 1988, 2964, 1024))
 # the main path's routes also at the 720p frame of the wire protocol
 ROUTE_SHAPES = (("720p B=1", 1, 720, 1280, 64),)
 # full-resolution Middlebury-2014 at two of its ranges (chip_smoke phase 10)
@@ -1081,12 +1104,20 @@ def two_order_call(lib, cost, img, acc, rolls, reverse: bool, p1: int,
 
 
 def one_launch_bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
-                     restart: bool, wta, counter: str):
+                     restart: bool, wta, counter: str, ranges: int = 0,
+                     parts: int = 0, rows: int = 0):
     """``kernels._bidir`` with each part of the group in one launch of this
     checkout's kernel: one set of clusters runs both orders in turn (the
     first over all rows, parking its sums; the second adding onto them,
     with the epilogue).  The meeting at the middle row (two launches)
-    against one launch."""
+    against one launch.  Where ``ranges``, ``parts`` or ``rows`` are forced
+    or the row takes column parts, the two-launch route (``_bidir`` as
+    the module has it)."""
+    if ranges or parts or rows or kernels.group_route(
+            cost, cost if acc is None else acc,
+            tuple(rolls_f) + tuple(rolls_b), wta is not None):
+        return TWO_LAUNCH_BIDIR(cost, img, acc, rolls_f, rolls_b, p1, p2_init,
+                                restart, wta, counter, ranges, parts, rows)
     b, s, d, w = cost.shape
     n = len(rolls_f)
     out = kernels._acc_or_new(acc, cost)
@@ -1101,6 +1132,9 @@ def one_launch_bidir(cost, img, acc, rolls_f, rolls_b, p1: int, p2_init: int,
             epi, 0 if wta is None else wta[0], finished if epi else None,
             planes if epi else None)
     return out if wta is None else kernels._planes_of(planes)
+
+
+TWO_LAUNCH_BIDIR = kernels._bidir
 
 
 class one_launch_route:
@@ -1226,6 +1260,46 @@ def fused_shape(rec, label, b, h, w, dmax, left, right, other, this,
     del cost_t, img_t, acc_t
 
 
+def hpair_shape(rec, label, b, h, w, dmax, left, right, other, reps):
+    """The horizontal pair on the transposed volume: this checkout's route
+    (``horizontal_pair_transposed``: the path scan up to D = 512) in
+    turns with the other checkout's (its library's group kernel, the
+    two-order scan of (0,) by ``kernels._bidir``), bit-equal first."""
+    opt = SGMOptions(max_disparity=dmax)
+    p1, p2 = opt.p1, opt.p2_init
+    cost = kernels.census_cost_volume(left, right, 0, dmax)
+    cost_t = kernels.volume_transpose(cost, pad_to=kernels.TRANSPOSED_PITCH)
+    img_t = kernels.image_transpose(left, pad_to=kernels.TRANSPOSED_PITCH)
+    del cost
+
+    def parent_pair():
+        with library(other):
+            return kernels._bidir(cost_t, img_t, None, (0,), (0,), p1, p2,
+                                  False, None, "horizontal_partial")
+
+    this_pair = lambda: kernels.horizontal_pair_transposed(cost_t, img_t, p1,
+                                                           p2)
+    same(this_pair(), parent_pair(), f"horizontal pair {label}")
+    torch.cuda.empty_cache()
+    ms = in_turns({"parent": parent_pair, "this": this_pair}, reps)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    bound = (4 * cost_t.numel() + img_t.numel()) / HBM_BYTES_PER_S * 1e3
+    plan = (kernels.path_plan(cost_t.device, *cost_t.shape[:1],
+                              cost_t.shape[2], cost_t.shape[3])._asdict()
+            if kernels.horizontal_route(dmax) == "paths" else None)
+    rec["hpair"] = {"ms": ms, "bound_ms": bound, "plan": plan,
+                    "steps": cost_t.shape[1]}
+    print(f"{label} horizontal pair {cost_t.shape[3]}x{cost_t.shape[1]} "
+          f"(transposed) D={dmax}: ms in turns {json.dumps(ms)}; this "
+          f"{med['this']:.4f} ms, parent {med['parent']:.4f} ms "
+          f"({med['parent'] / med['this']:.2f}x faster, "
+          f"{med['this'] / cost_t.shape[1] * 1e3:.3f} us a step); bound "
+          f"{bound:.4f} ms (bytes), {bound / med['this']:.1%} of it; plan "
+          f"{json.dumps(plan)}; bit-equal")
+    del cost_t, img_t
+    torch.cuda.empty_cache()
+
+
 def routes_shape(rec, label, b, h, w, dmax, left, right, reps):
     """The main path by the two routes of the two-order scans, in turns
     (two launches, one launch, one launch, two launches): the device range
@@ -1274,21 +1348,26 @@ class forced_parts:
     """Run every two-order scan of the main path over ``parts`` column
     parts, ``rows`` rows a chunk (0: all), whatever the card holds and
     whatever the caller passes (``kernels._bidir``'s ``parts`` and
-    ``rows``; the route's slices do not call ``_bidir``)."""
+    ``rows``; the route's slices do not call ``_bidir``).  The horizontal
+    pair too: ``kernels.horizontal_route`` sends it to the group kernel's
+    ``_bidir`` at every D."""
 
     def __init__(self, parts: int, rows: int = 0):
         self.parts, self.rows = parts, rows
 
     def __enter__(self):
         saved = self.saved = kernels._bidir
+        self.saved_route = kernels.horizontal_route
 
         def forced(*args, **kwargs):
             return saved(*args, **{**kwargs, "parts": self.parts,
                                    "rows": self.rows})
         kernels._bidir = forced
+        kernels.horizontal_route = lambda d, parts=0: "group"
 
     def __exit__(self, *exc):
         kernels._bidir = self.saved
+        kernels.horizontal_route = self.saved_route
 
 
 def parts_shape(rec, label, b, h, w, dmax, left, right, reps):
@@ -1612,6 +1691,14 @@ def main(argv=None) -> dict:
 
     if "sass" in only:
         result["sass"] = sass_compare(csrc_other)
+    for label, b, h, w, dmax in HPAIR_SHAPES if "hpair" in only else ():
+        rec = result["shapes"].setdefault(label, {"card": result["card"]})
+        levels = tuple(dmax * f // 64 for f in (10, 20, 35))
+        left, right, _ = synthetic_pair(2, b, h, w, levels)
+        left, right = (torch.from_numpy(x).to(dev) for x in (left, right))
+        hpair_shape(rec, label, b, h, w, dmax, left, right, other, args.reps)
+        del left, right
+        torch.cuda.empty_cache()
     for label, b, h, w, dmax in SPLIT_SHAPES if "split" in only else ():
         rec = result["shapes"].setdefault(label, {"card": result["card"]})
         levels = tuple(dmax * f // 64 for f in (10, 20, 35))
@@ -1639,7 +1726,7 @@ def main(argv=None) -> dict:
         del left, right
         torch.cuda.empty_cache()
     for label, b, h, w, dmax in S1_SHAPES + ROUTE_SHAPES \
-            if only - {"split", "parts", "sass"} else ():
+            if only - {"split", "parts", "sass", "hpair"} else ():
         rec = result["shapes"].setdefault(label, {})
         if (label, b, h, w, dmax) in ROUTE_SHAPES:
             if "fused" in only:

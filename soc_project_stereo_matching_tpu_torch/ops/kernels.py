@@ -12,9 +12,14 @@ One wrapper per kernel entry, each with its plain PyTorch version beside it:
     aggregate_paths_wta     K2 csrc/aggregate.cu    <- aggregate_paths_wta:
                                the same, the two-order scan's second launch
                                carrying the WTA epilogue (no volume stored)
-    horizontal_partial      K2 csrc/aggregate.cu    <- horizontal_partial: three
-                               transposes around the two-order scan (two
-                               launches) on the transposed volume
+    horizontal_partial      K2 csrc/path_scan.cu    <- horizontal_partial: three
+                               transposes around the horizontal pair on the
+                               transposed volume (horizontal_pair_transposed:
+                               horizontal_paths, one launch, up to D = 512;
+                               the group kernel's two-order scan past it)
+    horizontal_paths        K2 csrc/path_scan.cu    <- _bidir_kernel for the
+                               roll-0 pair: both orders of every column in one
+                               launch, a path's state in a warp's registers
     volume_transpose        P3 csrc/transpose.cu    <- aggr_transpose_probe.py
                                (the transposes around the horizontal pair)
     directional_scan_group  K2 csrc/aggregate.cu    <- directional_scan_group /
@@ -56,7 +61,9 @@ The counter is the wrapper's name, except that the halo census counts as
 ``directional_scan_group`` with ``wta`` as ``directional_scan_group_wta``
 (``aggregate_paths`` and ``aggregate_paths_wta`` themselves count their
 vertical two-order scan's two launches; their horizontal pair counts as
-``horizontal_partial``, two launches, and ``volume_transpose``, three), and ``union_find_labels`` and
+``horizontal_paths``, one launch, and ``volume_transpose``, three; past
+D = 512 the pair's group-kernel launches count as ``horizontal_partial``,
+two a part: ``horizontal_calls``), and ``union_find_labels`` and
 ``count_verdict`` as ``remove_speckles``, whose stages they are.  The
 ``probe_*`` counters belong to the wrappers in ``probes/kernels.py``.
 There is no fallback: any other device raises.
@@ -88,6 +95,7 @@ LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
             "lr_check": 0, "remove_speckles": 0,
             "census_cost_volume_halo": 0, "directional_scan_group": 0,
             "volume_transpose": 0, "horizontal_partial": 0,
+            "horizontal_paths": 0,
             "aggregate_paths_wta": 0, "directional_scan_group_wta": 0,
             "directional_scan_group_bidir": 0,
             # the probe kernels, launched by probes/kernels.py
@@ -98,7 +106,7 @@ LAUNCHES = {"census_cost_volume": 0, "aggregate_paths": 0, "wta_reduce": 0,
 
 
 PLAN_QUERIES = {"sgm_scan_group_capacity": 0, "sgm_scan_group_plan": 0,
-                "sgm_census_cost_plan": 0}
+                "sgm_census_cost_plan": 0, "sgm_path_scan_plan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1035,18 +1043,128 @@ def image_transpose(img: torch.Tensor, pad_to: int = 1) -> torch.Tensor:
     return volume_transpose(img[:, :, None, :], pad_to=pad_to).squeeze(2)
 
 
+# --- the horizontal pair's path scan (csrc/path_scan.cu) ------------------------
+
+PATHS_MAX_RANGE = 512       # kMaxRange: past it the group kernel takes the pair
+PATHS_WORDS = (1, 3, 5, 9, 13, 17)  # words a lane, as instantiated
+PATHS_PITCH = 16            # kPitch: the entry takes H a multiple of it
+INT32_MAX = 2 ** 31 - 1
+
+
+def path_lanes(d: int):
+    """(L, W) of csrc/path_scan.cu at this D: L lanes of a warp hold a pair
+    of neighbouring paths, 4, 8, 16 or 32 for D up to 64, 128, 256, 512;
+    each lane W words (one disparity of both paths each), the least of
+    ``PATHS_WORDS`` (odd: the lanes' rows W apart fall into different
+    banks) with L W >= D.  The same at every batch."""
+    if not 1 <= d <= PATHS_MAX_RANGE:
+        raise ValueError(f"the path scan takes D in 1..{PATHS_MAX_RANGE}, "
+                         f"got {d}")
+    lanes = 4 if d <= 64 else 8 if d <= 128 else 16 if d <= 256 else 32
+    return lanes, next(w for w in PATHS_WORDS if w * lanes >= d)
+
+
+def horizontal_route(d: int, parts: int = 0) -> str:
+    """Which kernel takes the horizontal pair at this D: ``"paths"``
+    (``horizontal_paths``, one launch) up to ``PATHS_MAX_RANGE``, else
+    ``"group"`` (the group kernel's two-order scan, ``_bidir``), which
+    forced ``parts`` also take (the tools' and tests' column parts).  The
+    edge is measured: on an H100 at a full-size Middlebury frame the path
+    scan took 0.51x the group kernel's time at D = 512, 1.03x at 760 and
+    1.74x at 1,024 (at KITTI's 375x1242 it still won at 1,024)."""
+    return "paths" if not parts and d <= PATHS_MAX_RANGE else "group"
+
+
+def horizontal_calls(cost_t: torch.Tensor, parts: int = 0) -> dict:
+    """The launches of ``horizontal_pair_transposed`` on this transposed
+    (B, W, D, H') cost by the card's route, by counter:
+    ``{"horizontal_paths": 1}``, or the group kernel's
+    ``{"horizontal_partial": n}`` (``bidir_calls``).  Only the shape and
+    alignment of ``cost_t`` are read."""
+    if horizontal_route(cost_t.shape[2], parts) == "paths":
+        return {"horizontal_paths": 1}
+    return {"horizontal_partial": bidir_calls(cost_t, cost_t, (0,), (0,),
+                                              False, parts=parts)[0]}
+
+
+class PathPlan(NamedTuple):
+    """How one ``sgm_path_scan`` launch runs (``sgm_path_scan_plan``)."""
+    lanes: int      # L: lanes a pair of paths
+    words: int      # W: words a lane
+    width: int      # HB: columns a block, 16 or 32
+    warps: int      # warps a block: HB / (64 / L) computing, one producing
+    ring: int       # R: steps staged ahead
+    blocks: int     # B H / HB
+    smem: int       # shared bytes a block
+
+
+def path_plan(device: torch.device, b: int, d: int, h: int) -> PathPlan:
+    """The C entry's plan for a path scan of B images of H' (a multiple of
+    ``PATHS_PITCH``) columns at this D: blocks of 16 or 32 columns, the
+    fewest computing warps an SM takes (the wider block where two tie); the
+    shallowest ring where the blocks fill the card, else the deepest with
+    which every block is resident at once."""
+    res = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        _ask("sgm_path_scan_plan", b, d, h, ctypes.addressof(res))
+    return PathPlan(*(int(v) for v in res))
+
+
+def _check_path_penalties(p1: int, p2_init: int) -> None:
+    """The path scan's penalties: >= 0, and P1 + 255 within int32 (past it
+    the plain version's L(d +- 1) + P1 wraps, which the scan does not
+    take; a P2' past it the scan takes)."""
+    _check_penalties(p1, p2_init)
+    if p1 > INT32_MAX - 255:
+        raise ValueError(f"P1 = {p1}: P1 + 255 passes INT32_MAX, where the "
+                         f"plain version's L(d +- 1) + P1 wraps")
+
+
+def horizontal_paths(cost_t: torch.Tensor, img_t: torch.Tensor, p1: int,
+                     p2_init: int) -> torch.Tensor:
+    """Both horizontal directions on a transposed volume by the path scan
+    (csrc/path_scan.cu, D up to ``PATHS_MAX_RANGE``): uint8 (B, W, D, H)
+    cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum, each
+    column a path, both orders in one launch (counted as
+    ``horizontal_paths``).  H not a multiple of ``PATHS_PITCH`` (or an
+    input not 16-byte aligned) is padded with zero columns, paths of their
+    own that the result drops.  The entry plans the launch (``path_plan``).
+    On CPU tensors: the plain two-order scan of (0,)."""
+    _check_path_penalties(p1, p2_init)
+    if _on_cpu(cost_t, img_t):
+        return directional_scan_group_bidir_plain(cost_t, img_t, None, (0,),
+                                                  (0,), p1, p2_init, False)
+    b, s, d, h = _check_scan(cost_t, img_t)
+    if d > PATHS_MAX_RANGE:
+        raise ValueError(f"the path scan takes D up to {PATHS_MAX_RANGE}, "
+                         f"got {d}")
+    hp = _padded(h, PATHS_PITCH)
+    if hp != h or cost_t.data_ptr() % 16 or img_t.data_ptr() % 16:
+        c, g = cost_t.new_zeros((b, s, d, hp)), img_t.new_zeros((b, s, hp))
+        c[..., :h], g[..., :h] = cost_t, img_t
+        return horizontal_paths(c, g, p1, p2_init)[..., :h].contiguous()
+    out = torch.empty(cost_t.shape, dtype=torch.uint16, device=cost_t.device)
+    _launch("sgm_path_scan", "horizontal_paths", cost_t.data_ptr(),
+            img_t.data_ptr(), out.data_ptr(), b, s, d, h, p1, p2_init,
+            _stream(out))
+    return out
+
+
 def horizontal_pair_transposed(cost_t: torch.Tensor, img_t: torch.Tensor,
                                p1: int, p2_init: int,
                                parts: int = 0) -> torch.Tensor:
     """Both horizontal directions on a transposed volume: uint8 (B, W, D, H)
     cost + uint8 (B, W, H) image -> their uint16 (B, W, D, H) sum.  There a
-    horizontal path is a column: the two-order scan of the direction (0,),
-    forward and reverse meeting at the middle (two launches), counted as
-    ``horizontal_partial``.  Where the card does not hold the image's
-    height (the transposed row) at once, the columns go in parts, which
-    need no halo: the roll-0 direction moves nothing across columns
-    (``directional_scan_group_bidir``; ``parts`` forces them, on CPU
-    tensors too)."""
+    horizontal path is a column, and the roll-0 direction moves nothing
+    across columns.  Up to D = ``PATHS_MAX_RANGE`` the path scan takes it
+    (``horizontal_paths``: both orders in one launch, no block barrier a
+    step); past it, or where ``parts`` forces column parts (on CPU tensors
+    too), the group kernel's two-order scan of the direction (0,), forward
+    and reverse meeting at the middle (two launches a part, counted as
+    ``horizontal_partial``), in column parts without halo where the card
+    does not hold the transposed row at once (``horizontal_route``)."""
+    if horizontal_route(cost_t.shape[2], parts) == "paths":
+        return horizontal_paths(cost_t, img_t, p1, p2_init)
     if _on_cpu(cost_t, img_t):
         if not parts:
             return directional_scan_group_bidir_plain(cost_t, img_t, None,

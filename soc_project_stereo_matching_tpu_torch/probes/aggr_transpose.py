@@ -21,7 +21,7 @@ geometry (default: the cone pair, B=8, 375x450, D=64):
                    shipped route gives its transposed volumes
     ktrans16       the same on the padded uint16 volume, back
     hpart          ops.kernels.horizontal_partial as shipped: the transposed
-                   route (3 transposes, 1 two-order group launch)
+                   route (3 transposes, the path scan's launch)
     hpart_strided  the first design: two launches of the warp-per-path
                    kernel along W (ops.kernels.scan_directions)
     hpart_not      the two group scans on a volume that already is

@@ -1,18 +1,20 @@
 """The serial floor of the SGM recurrence beside the shipped K2 scans.
 
 Counterpart of the JAX package's ``scripts/recurrence_floor.py``.  The
-shipped K2 scan (``csrc/aggregate.cu``'s group kernel) owns columns: one
-launch walks the S steps of a scan order for up to three directions that
-share it, every path of every image at once.  Along a path each step needs
-the step before, so a launch can take no less than its paths' dependent
-chain of S steps.  The main path makes four scan launches and three
-transposes per ``match_batch``:
+shipped K2 scan of the vertical pair (``csrc/aggregate.cu``'s group
+kernel) owns columns: one launch walks the S steps of a scan order for up
+to three directions that share it, every path of every image at once; the
+horizontal pair's path scan (``csrc/path_scan.cu``) walks both orders of a
+path in one warp.  Along a path each step needs the step before, so a
+launch can take no less than its paths' dependent chain of S steps.  The
+main path makes three scan launches and three transposes per
+``match_batch``:
 
-    horizontal_partial   the cost and the image transposed, two
-                         one-direction group launches along the transposed
-                         volume's columns (B*H paths of W steps; the reverse
-                         one adds onto the forward one's sum), the sum
-                         transposed back
+    horizontal_partial   the cost and the image transposed, the path
+                         scan along the transposed volume's columns (B*H
+                         paths of W steps, both orders in one launch; the
+                         group kernel's two launches past D = 512), the
+                         sum transposed back
     aggregate_paths      two three-direction vertical groups (straight and
                          both diagonals: 3*B*W paths of H steps), forward
                          and reverse, each adding onto the sum
@@ -41,8 +43,8 @@ held against what the recurrence itself allows:
                  (ops.kernels.scan_directions)
     prod3        the shipped vertical group, one launch of the group kernel
                  (ops.kernels.directional_scan_group)
-    hpart        the shipped horizontal pair: three transposes and two group
-                 launches (ops.kernels.horizontal_partial)
+    hpart        the shipped horizontal pair: three transposes and the path
+                 scan (ops.kernels.horizontal_partial)
     bw_stream    x + 1 on an int16 (B, H, D, W) volume: the memory stream a
                  launch's loads and stores can draw on, in GB/s
 

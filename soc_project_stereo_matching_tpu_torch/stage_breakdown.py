@@ -23,7 +23,9 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
   profiler's annotation rows left out; the idle time between device
   operations by the innermost ``sgm.*`` span open on the host
   (``outside`` where none is), per call; and per call the main path's
-  launches (``kernels.LAUNCHES`` but the ``probe_*`` entries), the
+  launches (``kernels.LAUNCHES`` but the ``probe_*`` entries, in all and
+  by counter: ``horizontal_paths`` is the horizontal pair's path scan,
+  ``horizontal_partial`` its group-kernel route past D = 512), the
   planning queries (``kernels.PLAN_QUERIES``) and the bytes uploaded
   (``SGMEngine.upload_bytes``).  The window's outputs (the last, where
   host-fed) are checked bit-equal to the untimed call's.  The window's Chrome trace is written
@@ -32,10 +34,10 @@ Needs one CUDA device.  On a seeded synthetic pair at the given geometry
   host memory (``.cpu()``) before the next call;
 * the end-to-end batch time and the host's enqueue time (wall clock from the
   call to ``match_batch`` until it returns, before synchronising);
-* the K2 scans as the main path runs them (the group kernel: the
-  horizontal pair's two-order scan, two launches, with its three
-  transposes; the vertical pair's two-order scan with the WTA epilogue, its
-  two launches together and each alone) and the vertical pair's two-order
+* the K2 scans as the main path runs them (the horizontal pair's path
+  scan, one launch, with its three transposes, and beside it the group
+  kernel's two-order scan of the pair; the vertical pair's two-order scan
+  with the WTA epilogue, its two launches together and each alone) and the vertical pair's two-order
   scan without the epilogue (the volume, as ``aggregate_paths`` makes it),
   median of five calls, and beside them each
   of the eight directions alone by the first design's kernel
@@ -187,11 +189,11 @@ def idle_by_span(profile: Profile) -> Dict[str, float]:
     return dict(out)
 
 
-def main_launches() -> int:
+def main_counts() -> Dict[str, int]:
     """Launches of the main path's C entries so far (``LAUNCHES`` but the
-    probes')."""
-    return sum(n for name, n in kernels.LAUNCHES.items()
-               if not name.startswith("probe_"))
+    probes'), by counter."""
+    return {name: n for name, n in kernels.LAUNCHES.items()
+            if not name.startswith("probe_")}
 
 
 class Window(NamedTuple):
@@ -202,6 +204,7 @@ class Window(NamedTuple):
     plan_queries: int       # PLAN_QUERIES in the window
     upload_bytes: int       # engine.upload_bytes in the window
     outputs: list
+    by_counter: Dict[str, int]  # the window's launches by counter, if any
 
 
 def profiled_window(engine, left, right, calls: int, host_fed: bool,
@@ -211,7 +214,7 @@ def profiled_window(engine, left, right, calls: int, host_fed: bool,
     ``host_fed`` each output is brought to host memory before the next
     call, and only the last is kept (a download onto fresh host pages each
     call would time the page faults)."""
-    launches, plans = main_launches(), sum(kernels.PLAN_QUERIES.values())
+    counts, plans = main_counts(), sum(kernels.PLAN_QUERIES.values())
     uploaded = engine.upload_bytes
     outputs = []
     torch.cuda.synchronize()
@@ -226,10 +229,12 @@ def profiled_window(engine, left, right, calls: int, host_fed: bool,
                 outputs.append(out)
         end.record()
         torch.cuda.synchronize()
+    by_counter = {name: n - counts[name] for name, n in main_counts().items()
+                  if n > counts[name]}
     return Window(collect(prof), start.elapsed_time(end), calls,
-                  main_launches() - launches,
+                  sum(by_counter.values()),
                   sum(kernels.PLAN_QUERIES.values()) - plans,
-                  engine.upload_bytes - uploaded, outputs)
+                  engine.upload_bytes - uploaded, outputs, by_counter)
 
 
 def stage_summary(window: Window) -> Dict[str, dict]:
@@ -275,14 +280,15 @@ def scan_directions(left, right, opt, reps=5):
 
 def scan_groups(left, right, opt, reps=5):
     """Milliseconds of the launches of ``kernels.aggregate_paths_wta``: the
-    horizontal pair (its transposes and its two-order scan's two launches,
-    and the transposes alone), then the vertical pair's two-order scan
+    horizontal pair (its transposes and its path scan, the transposes
+    alone, the path scan alone and the group kernel's two-order scan of the
+    pair, its route past D = 512), then the vertical pair's two-order scan
     adding onto its sum with the WTA epilogue, each of its two launches
     alone, and the same scan without the epilogue (``aggregate_paths``'s)."""
     cost = kernels.census_cost_volume(left, right, opt.min_disparity,
                                       opt.max_disparity)
     p1, p2 = opt.p1, opt.p2_init
-    out = {"horizontal pair (3 transposes, a two-order scan of 2 launches)":
+    out = {"horizontal pair (3 transposes and its scan)":
            cuda_time(lambda: kernels.horizontal_partial(cost, left, p1, p2,
                                                         False),
                      reps)["median"]}
@@ -293,6 +299,18 @@ def scan_groups(left, right, opt, reps=5):
         lambda: (kernels.volume_transpose(cost, pad_to=pitch),
                  kernels.image_transpose(left, pad_to=pitch),
                  kernels.volume_transpose(aggr_t, inner=h)), reps)["median"]
+    cost_t = kernels.volume_transpose(cost, pad_to=pitch)
+    left_t = kernels.image_transpose(left, pad_to=pitch)
+    if kernels.horizontal_route(cost.shape[2]) == "paths":
+        out["its path scan alone (1 launch)"] = cuda_time(
+            lambda: kernels.horizontal_paths(cost_t, left_t, p1, p2),
+            reps)["median"]
+    out["the group kernel's two-order scan of the pair (2 launches)"] = \
+        cuda_time(lambda: kernels._bidir(cost_t, left_t, None, (0,), (0,), p1,
+                                         p2, False, None,
+                                         "horizontal_partial"),
+                  reps)["median"]
+    del cost_t, left_t
     (rf, _), (rb, _) = kernels.scan_groups(opt.num_paths)
     wta = (opt.min_disparity, True)
     # the sums these launches add onto wrap around over the runs: their
@@ -349,6 +367,8 @@ def main(argv=None) -> dict:
     gaps = {name: ms / win.calls for name, ms in sorted(
         idle_by_span(win.profile).items(), key=lambda x: -x[1])}
     per_call = {"launches": win.launches / win.calls,
+                "launches_by_counter": {name: n / win.calls for name, n
+                                        in win.by_counter.items()},
                 "plan_queries": win.plan_queries / win.calls,
                 "upload_bytes": win.upload_bytes / win.calls}
     batch, enqueue = batch_and_enqueue(engine, fed_l, fed_r, args.reps)

@@ -20,7 +20,7 @@ from soc_project_stereo_matching_tpu_torch.ops import (aggregation, kernels,
                                                        postprocess, wta)
 
 H, W = 37, 53
-MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_partial",
+MAIN_PATH = ("census_cost_volume", "aggregate_paths_wta", "horizontal_paths",
              "volume_transpose", "lr_check", "remove_speckles")
 pytestmark = pytest.mark.cuda
 
@@ -143,14 +143,18 @@ def test_stage_breakdown_runs_and_matches_the_engine(cuda, tmp_path):
                                    "--dmax", "16", "--reps", "2",
                                    "--out", str(out)])
     assert out.exists() and len(result["scan_direction_ms"]) == 8
-    assert len(result["scan_group_ms"]) == 6
+    assert len(result["scan_group_ms"]) == 8
     # main() holds every profiled call's output to match_batch's; the
     # stages are the program's spans, each with device work
     assert list(result["stages_ms"]) == [
         "sgm.census", "sgm.aggregate", "sgm.finalize", "sgm.lr_check",
         "sgm.speckle", "sgm.median", "sgm.match"]
     assert result["stages_ms"]["sgm.match"]["median"] > 0
-    assert result["per_call"]["launches"] == 10
+    # the horizontal pair's path scan, one launch: 9 launches a call
+    assert result["per_call"]["launches"] == 9
+    by_counter = result["per_call"]["launches_by_counter"]
+    assert by_counter["horizontal_paths"] == 1
+    assert "horizontal_partial" not in by_counter
 
 
 @pytest.mark.parametrize("dmin,dmax", [(0, 16), (8, 56)])
@@ -226,7 +230,7 @@ def test_tiled_engine_on_card_matches_untiled(cuda):
         # meeting at the middle row), the stored volume's WTA a launch of
         # its own
         assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
-            "census_cost_volume_halo": 1, "horizontal_partial": 2,
+            "census_cost_volume_halo": 1, "horizontal_paths": 1,
             "volume_transpose": 3, "directional_scan_group_bidir": 2,
             "wta_reduce": 1, "lr_check": 1, "remove_speckles": 1}
 
@@ -898,12 +902,13 @@ def test_main_path_launches_each_entry_once_per_batch(cuda):
     kernels.reset_launch_counts()
     engine.match_batch(left, right)
     torch.cuda.synchronize()
-    # the vertical pair's two-order scan with the WTA epilogue and the
-    # horizontal pair's, two launches each (the orders meet at the middle
-    # row), the 3 transposes; no wta_reduce: no volume is stored
+    # the vertical pair's two-order scan with the WTA epilogue, two launches
+    # (the orders meet at the middle row); the horizontal pair's path scan,
+    # one launch, between the 3 transposes; no wta_reduce: no volume is
+    # stored
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
         "census_cost_volume": 1, "aggregate_paths_wta": 2,
-        "horizontal_partial": 2, "volume_transpose": 3, "lr_check": 1,
+        "horizontal_paths": 1, "volume_transpose": 3, "lr_check": 1,
         "remove_speckles": 1}
 
 
@@ -1360,16 +1365,16 @@ def test_main_path_above_256_on_card(cuda, b, h, d, w):
     kernels.reset_launch_counts()
     disp = SGMEngine(opt, device="cuda").match_batch(left, right)
     torch.cuda.synchronize()
-    parts = [len(kernels._launch_parts(x, x.to(torch.uint16), n, wta))
-             for x, n, wta in (
-                 (torch.empty((b, 1, d, w), dtype=torch.uint8, device=cuda),
-                  3, True),
-                 (torch.empty((b, 1, d, -(-h // 16) * 16), dtype=torch.uint8,
-                              device=cuda), 1, False))]
+    vertical = torch.empty((b, 1, d, w), dtype=torch.uint8, device=cuda)
+    parts = len(kernels._launch_parts(vertical, vertical.to(torch.uint16), 3,
+                                      True))
+    # the horizontal pair: the path scan up to D = 512, else the group
+    # kernel's two launches a part
+    pair = kernels.horizontal_calls(torch.empty(
+        (b, w, d, -(-h // 16) * 16), dtype=torch.uint8, device=cuda))
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
-        "census_cost_volume": 1, "aggregate_paths_wta": 2 * parts[0],
-        "horizontal_partial": 2 * parts[1], "volume_transpose": 3,
-        "lr_check": 1, "remove_speckles": 1}
+        "census_cost_volume": 1, "aggregate_paths_wta": 2 * parts,
+        **pair, "volume_transpose": 3, "lr_check": 1, "remove_speckles": 1}
     same(disp, sgm_forward(left, right, opt, use_kernels=False))
     raw = torch.where(torch.isfinite(disp), dl.floor(), disp)
     same(kernels.remove_speckles(raw, 1.0, 20),
@@ -1504,9 +1509,12 @@ def test_forced_parts_are_bit_equal_to_the_resident_route_on_card(cuda, parts):
     kernels.reset_launch_counts()
     with forced_parts(parts):
         same(engine.match(left, right), want)
-    # by parts: no epilogue, the stored volume reduced by the WTA kernel
+    # by parts: no epilogue, the stored volume reduced by the WTA kernel;
+    # the horizontal pair by the group kernel's parts, not the path scan
     assert kernels.LAUNCHES["wta_reduce"] == 1
     assert kernels.LAUNCHES["aggregate_paths_wta"] > 2
+    assert kernels.LAUNCHES["horizontal_partial"] == 2 * parts
+    assert kernels.LAUNCHES["horizontal_paths"] == 0
 
 
 def test_wta_split_window_on_card(cuda):
@@ -1674,3 +1682,142 @@ def test_client_on_card_matches_cpu(cuda, tmp_path):
         runs[device] = [{k: m[k] for k in ("seq", "rmse_mm", "bpr", "n_valid")}
                         for m in json.loads(path.read_text())["measurements"]]
     assert runs["cuda"] == runs["cpu"] and len(runs["cuda"]) == 3
+
+
+# --- the horizontal pair's path scan (csrc/path_scan.cu) ---------------------
+
+def _pair_inputs(seed, b, s, d, h, cuda):
+    return (_rand(seed, 0, 128, (b, s, d, h), np.uint8, cuda),
+            _rand(seed + 1, 0, 256, (b, s, h), np.uint8, cuda))
+
+
+def _group_pair(cost, img, p1, p2):
+    """The parent's route: the group kernel's two-order scan of (0,)."""
+    return kernels._bidir(cost, img, None, (0,), (0,), p1, p2, False, None,
+                          "horizontal_partial")
+
+
+@pytest.mark.parametrize("b,s,d,h", [
+    (1, 1, 1, 16), (2, 2, 3, 16), (1, 5, 63, 32), (2, 7, 65, 48),
+    (1, 9, 129, 16), (1, 6, 257, 32), (1, 5, 417, 16), (1, 4, 512, 16),
+    (1, 3, 33, 20), (1, 33, 192, 40), (3, 40, 64, 64), (1, 17, 280, 2000)])
+@pytest.mark.parametrize("p1,p2", [(10, 150), (0, 0), (300, 70000)])
+def test_path_scan_matches_plain_and_group_route_on_card(cuda, b, s, d, h, p1,
+                                                         p2):
+    """The path scan bit-equal to the plain two-order scan and to the group
+    kernel's route: D at every lane count's edges up to 512, S = 1 and 2
+    (the meeting row), H not a multiple of a block's columns (padded), P1
+    = P2 = 0 and penalties past 255."""
+    cost, img = _pair_inputs(200 + d, b, s, d, h, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.horizontal_pair_transposed(cost, img, p1, p2)
+    assert kernels.LAUNCHES["horizontal_paths"] == 1
+    assert kernels.LAUNCHES["horizontal_partial"] == 0
+    same(got, kernels.directional_scan_group_bidir_plain(cost, img, None, (0,),
+                                                         (0,), p1, p2, False))
+    same(got, _group_pair(cost, img, p1, p2))
+
+
+def test_path_scan_takes_the_wrapping_p2_on_card(cuda):
+    """A P2 with pmin + P2' past INT32_MAX: m = t < 0, as the plain
+    version's int32 arithmetic gives it."""
+    cost, img = _pair_inputs(230, 2, 9, 65, 32, cuda)
+    for p2 in (2 ** 31 - 1, 2 ** 31 - 200):
+        same(kernels.horizontal_paths(cost, img, 7, p2),
+             kernels.directional_scan_group_bidir_plain(cost, img, None, (0,),
+                                                        (0,), 7, p2, False))
+
+
+@pytest.mark.parametrize("b,s,d,h", [(1, 1242, 192, 384), (8, 1242, 192, 384),
+                                     (1, 2964, 280, 2000)])
+def test_path_scan_at_the_cells_shapes_on_card(cuda, b, s, d, h):
+    """The transposed shapes of KITTI-2015 at B = 1 and 8 and of
+    Middlebury-2014 at full size: the path scan bit-equal to the group
+    kernel's route (and at B = 1 to the plain scan)."""
+    cost, img = _pair_inputs(240 + b, b, s, d, h, cuda)
+    got = kernels.horizontal_paths(cost, img, 10, 150)
+    same(got, _group_pair(cost, img, 10, 150))
+    if b == 1 and d == 192:
+        same(got, kernels.directional_scan_group_bidir_plain(
+            cost, img, None, (0,), (0,), 10, 150, False))
+
+
+def test_path_scan_plans_of_both_widths_on_card(cuda):
+    """Shapes at which the entry's plan takes blocks of 16 and of 32
+    columns and at least three ring depths (the batch and the columns move
+    them; S does not): every plan gives the plain scan's sums."""
+    plans = set()
+    for b, d, h in ((1, 192, 384), (8, 192, 384), (4, 192, 384),
+                    (1, 280, 2000), (2, 64, 384), (8, 64, 384),
+                    (32, 64, 384)):
+        cost, img = _pair_inputs(250 + b, b, 9, d, h, cuda)
+        plan = kernels.path_plan(cuda, b, d, h)
+        plans.add((plan.width, plan.ring))
+        same(kernels.horizontal_paths(cost, img, 10, 150),
+             kernels.directional_scan_group_bidir_plain(cost, img, None, (0,),
+                                                        (0,), 10, 150, False))
+    assert {width for width, _ in plans} == {16, 32}, plans
+    assert len({ring for _, ring in plans}) >= 3, plans
+
+
+def test_horizontal_pair_past_1024_takes_the_group_kernel_on_card(cuda):
+    """At D = 513, the route's edge, and at 1,025 the pair is the group
+    kernel's two launches, equal to the plain scan; forced parts take the
+    group kernel at any D."""
+    for d in (513, 1025):
+        cost, img = _pair_inputs(260, 1, 6, d, 32, cuda)
+        kernels.reset_launch_counts()
+        got = kernels.horizontal_pair_transposed(cost, img, 10, 150)
+        assert kernels.LAUNCHES["horizontal_paths"] == 0
+        assert kernels.LAUNCHES["horizontal_partial"] == 2
+        same(got, kernels.directional_scan_group_bidir_plain(
+            cost, img, None, (0,), (0,), 10, 150, False))
+    cost, img = _pair_inputs(261, 2, 30, 192, 48, cuda)
+    kernels.reset_launch_counts()
+    same(kernels.horizontal_pair_transposed(cost, img, 10, 150, parts=2),
+         kernels.horizontal_paths(cost, img, 10, 150))
+    assert kernels.LAUNCHES["horizontal_partial"] == 4
+
+
+PROFILED_NAMES = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from soc_project_stereo_matching_tpu_torch import SGMEngine, SGMOptions
+from soc_project_stereo_matching_tpu_torch.data.synthetic import synthetic_pair
+left, right, _ = synthetic_pair(11, 1, 96, 160, (3, 6, 10))
+engine = SGMEngine(SGMOptions(max_disparity=64), device="cuda")
+engine.match_batch(left, right)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    engine.match_batch(left, right)
+    torch.cuda.synchronize()
+print(json.dumps(sorted({e.name() for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA})))
+"""
+
+
+def test_path_scan_time_is_kernels_k2_on_card(cuda):
+    """In a traced ``match_batch`` (a process of its own, so that no earlier
+    profiler's state counts) the path scan's kernel name falls in the
+    benchmark's ``kernels_k2`` layer (its pattern ``scan_kernel``), and no
+    device operation falls in ``other``."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from stereo_bench import spec, trace
+
+    out = subprocess.run([sys.executable, "-c", PROFILED_NAMES],
+                         capture_output=True, text=True, cwd=root,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    layers = {n: trace.classify(n, spec.layer_patterns()) for n in names}
+    scans = [n for n in names if "scan_kernel" in n]
+    assert scans and all(layers[n] == "kernels_k2" for n in scans), layers
+    assert trace.OTHER not in layers.values(), layers

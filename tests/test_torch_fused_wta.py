@@ -377,8 +377,9 @@ def test_scan_pass_matches_the_kernels_struct():
                                            (8, 2, 2), (8, 3, 1)])
 def test_two_order_scans_launch_twice_meeting_at_the_middle_row(
         monkeypatch, s, cap, cap_wta, no_launch):
-    """The card route of ``aggregate_paths_wta`` (and so of
-    ``horizontal_pair_transposed``) and of ``aggregate_paths``, run on CPU
+    """The card route of ``aggregate_paths_wta`` and of
+    ``aggregate_paths`` (the horizontal pair by the path scan's one launch
+    between the transposes), run on CPU
     tensors with the C entries recorded instead of called: each two-order
     scan is two launches a part of its group, each with the two orders on
     sets of clusters of their own; the first over [0, m) forward and
@@ -421,8 +422,8 @@ def test_two_order_scans_launch_twice_meeting_at_the_middle_row(
                      2 if epilogue and k1 == 3 else 0, second)]
         return out
 
-    pair = ["volume_transpose"] * 2 + scan("horizontal_partial", w, False,
-                                           False, [(0, 1)]) + \
+    # the horizontal pair: the path scan, one launch (csrc/path_scan.cu)
+    pair = ["volume_transpose"] * 2 + ["horizontal_paths"] + \
         ["volume_transpose"]
     parts = kernels._launch_parts(None, None, 3, True)
     kernels.aggregate_paths_wta(cost, img, opt)

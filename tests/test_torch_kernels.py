@@ -335,8 +335,11 @@ def test_kernel_ab_groups_and_the_probe_entries():
     library of the parent); the probe kernels' entries are found in their
     sources."""
     assert set(kernel_ab.GROUPS) == {"k4", "k1", "wta", "scan16", "s1",
-                                     "chain", "s2", "s4", "fused", "split",
-                                     "parts", "sass"}
+                                     "chain", "s2", "s4", "fused", "hpair",
+                                     "split", "parts", "sass"}
+    # hpair times the parent's group kernel (its library) against the path
+    # scan of this checkout
+    assert kernel_ab.GROUP_ENTRIES["hpair"] == "sgm_scan_group"
     assert kernel_ab.GROUP_ENTRIES["split"] is None
     assert kernel_ab.GROUP_ENTRIES["parts"] is None
     assert kernel_ab.GROUP_ENTRIES["sass"] is None

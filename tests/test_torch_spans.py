@@ -176,7 +176,8 @@ def test_each_capacity_query_is_counted_and_spanned(monkeypatch):
         before["sgm_scan_group_capacity"] + 3
     assert {k: after[k] - before[k] for k in after
             if k != "sgm_scan_group_capacity"} == \
-        {"sgm_scan_group_plan": 0, "sgm_census_cost_plan": 0}
+        {"sgm_scan_group_plan": 0, "sgm_census_cost_plan": 0,
+         "sgm_path_scan_plan": 0}
 
 
 # --- stage_breakdown's reading of a window, on hand-made events -------------
@@ -354,9 +355,9 @@ def test_every_device_operation_belongs_to_a_stage_on_card(cuda, host_fed):
     assert list(stages) == want_stages + ["sgm.match"]
     assert all(s["min"] > 0 for s in stages.values())
     assert win.upload_bytes == (3 * 2 * H * W * 2 if host_fed else 0)
-    # census, the horizontal pair's 3 transposes and 2 scans, the vertical
-    # pair's 2, K3, K4: 10 launches a call (chip_smoke.MAIN_LAUNCHES)
-    assert win.launches == 3 * 10 and win.plan_queries > 0
+    # census, the horizontal pair's 3 transposes and its path scan, the
+    # vertical pair's 2, K3, K4: 9 launches a call (chip_smoke.MAIN_LAUNCHES)
+    assert win.launches == 3 * 9 and win.plan_queries > 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         engine.match_batch(left, right)
