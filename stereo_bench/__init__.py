@@ -13,9 +13,10 @@ its own here, found by its name:
     feeds/<feed>.py             the loop that drives a traffic's calls
     metrics/<metric>.py         one reader a metric, ``read(record)``
     layers/<layer>/*.txt        kernel-name patterns of a layer
-    reference/sgm.py            the frozen plain pipeline that decides
-                                ``correct``
+    reference/<reference>.py    a configuration's ``reference``, which
+                                decides ``correct``; ``sgm.py``, the frozen
+                                plain pipeline, where it names none
 
-Nothing here imports JAX or the JAX package; the reference imports nothing
+Nothing here imports JAX or the JAX package; no reference imports anything
 of the port either.
 """

@@ -1,9 +1,11 @@
 """Whether what the timed path produced is correct.
 
-After the window closes, the frozen plain pipeline (``reference/sgm.py``)
-computes the disparity of every pool entry that the sample holds an output
-of, from the inputs the benchmark made, and every sampled output is
-compared with it bit for bit (+inf is the invalid value on both sides).
+After the window closes, the configuration's reference
+(``reference/<name>.py`` of its ``reference``; without the key the frozen
+plain pipeline ``reference/sgm.py``) computes the disparity of every pool
+entry that the sample holds an output of, from the inputs the benchmark
+made, and every sampled output is compared with it bit for bit (+inf is
+the invalid value on both sides).
 The numbers compared, each beside its limit:
 
     pixels_differing   pixels whose float32 bits differ        <= 0
@@ -23,7 +25,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .reference import sgm as reference
+from . import spec
 
 TRUTH_TOLERANCE = 1.0   # the synthetic truth's sanity line: within 1 pixel
 TRUTH_SHARE = 0.95      # of the finite pixels
@@ -34,11 +36,19 @@ def _bits(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
 
 
+def reference_of(config: dict):
+    """The module of the configuration's ``reference`` (``spec.reference``)."""
+    return spec.reference(config.get("reference", spec.DEFAULT_REFERENCE))
+
+
 def checkable(config: dict) -> None:
-    """Refuse a configuration whose result the reference cannot work out.
-    Its ``engine`` settings go to ``EngineConfig`` whole; the reference
-    computes whole frames in either diagonal mode, so a tiling that
-    restarts paths at tile edges cannot be checked."""
+    """Refuse, before any run, a configuration whose result its reference
+    cannot work out: options the reference's own check refuses, a diagonal
+    mode it lacks.  Its ``engine`` settings go to ``EngineConfig`` whole; a
+    reference computes whole frames, so a tiling that restarts paths at
+    tile edges cannot be checked."""
+    reference = reference_of(config)
+    reference._check_options(config["options"])
     engine = config["engine"]
     mode = engine.get("diagonal_mode", "wrap")
     if mode not in reference.DIAGONAL_MODES:
@@ -50,9 +60,9 @@ def checkable(config: dict) -> None:
 
 def reference_outputs(lefts, rights, indices, config: dict, device,
                       float_dtypes=(torch.float32,)) -> list:
-    """[{pool index: float32 (B, H, W) disparity}] of the plain pipeline,
-    one dict for each float dtype, for each pool entry in ``indices``;
-    inputs numpy (pool, B, H, W) uint8.  The entries' frames go through
+    """[{pool index: float32 (B, H, W) disparity}] of the configuration's
+    reference, one dict for each float dtype, for each pool entry in
+    ``indices``; inputs numpy (pool, B, H, W) uint8.  The entries' frames go through
     the reference together, in its blocks."""
     checkable(config)
     keys = sorted(set(indices))
@@ -61,9 +71,9 @@ def reference_outputs(lefts, rights, indices, config: dict, device,
     b = lefts.shape[1]
     stack = lambda x: torch.from_numpy(
         np.ascontiguousarray(x[keys].reshape((-1,) + x.shape[2:]))).to(device)
-    disps = reference.sgm_in(stack(lefts), stack(rights), config["options"],
-                             float_dtypes,
-                             config["engine"].get("diagonal_mode", "wrap"))
+    disps = reference_of(config).sgm_in(
+        stack(lefts), stack(rights), config["options"], float_dtypes,
+        config["engine"].get("diagonal_mode", "wrap"))
     return [{k: d[i * b:(i + 1) * b].cpu().numpy() for i, k in enumerate(keys)}
             for d in disps]
 

@@ -5,12 +5,13 @@ own size on the card.  The benchmark's runs do not run this.
         --seeds 11 12 13 [--out build/stereo_bench/control.json]
 
 For each seed it makes the cell's pool of inputs, as a run does, and
-compares with the frozen reference (float32, the configuration's
-precision), every frame of the pool, by ``check.compare``:
+compares with the configuration's reference (``check.reference_of``;
+float32, the configuration's precision), every frame of the pool, by
+``check.compare``:
 
 * the program: each pool entry through ``SGMEngine.match_batch`` once, on
   the path and at the batch the window drives;
-* the control: the reference itself with the disparity's float stage in
+* the control: that reference itself with the disparity's float stage in
   bfloat16, the next precision below the configuration's float32, put in
   the program's place.  It must come out not correct.
 

@@ -12,6 +12,10 @@ A ``--trace 1`` run makes the same untraced window first, from which the
 metrics on the host's clock are read, and then a second window of the
 same length under ``torch.profiler``, from which the device's are read:
 the profiler's own cost on the host stays out of the host's numbers.
+The program's counters (its main path's launches, its planning queries,
+the bytes its engine uploaded) are read just before and after the traced
+window, and the window's counts go on the record beside the program's
+spans and the device seconds of the operations launched under each.
 """
 
 from __future__ import annotations
@@ -46,6 +50,17 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def program_counts(kernels, engine) -> dict:
+    """The program's counters as they stand: launches of the main path's
+    C entries by counter (``kernels.LAUNCHES`` but the ``probe_*``
+    entries), ``PLAN_QUERIES`` in all, ``upload_bytes`` of the engine."""
+    launches = {k: n for k, n in kernels.LAUNCHES.items()
+                if not k.startswith("probe_")}
+    return {"launches": launches,
+            "plan_queries": sum(kernels.PLAN_QUERIES.values()),
+            "upload_bytes": engine.upload_bytes}
+
+
 def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
              traced: bool, *, device: str = "cuda",
              t0: Optional[float] = None, config: Optional[dict] = None,
@@ -57,6 +72,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
 
     from soc_project_stereo_matching_tpu_torch import (EngineConfig, SGMEngine,
                                                        SGMOptions)
+    from soc_project_stereo_matching_tpu_torch.ops import kernels
 
     t0 = time.perf_counter() if t0 is None else t0
     marks = [("imports", time.perf_counter())]      # the set-up's phases
@@ -115,24 +131,41 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     breakdown = None
     if traced:
         prof = trace.profiler()
+        before = program_counts(kernels, engine)
         prof.__enter__()
         tw = feed.window(engine, feed_l, feed_r, seconds, clock, sample, True)
         prof.__exit__(None, None, None)
+        after = program_counts(kernels, engine)
         tr = trace.collect(prof)
         del prof
         calls += tw.calls
         reached = min(len(lefts), max(window.calls, tw.calls))
         layers = trace.layer_of(tr.device, spec.layer_patterns())
+        launched = {k: n - before["launches"][k]
+                    for k, n in after["launches"].items()
+                    if n != before["launches"][k]}
         record.traced = SimpleNamespace(
-            frames=tw.calls * batch, window_s=tw.window_ms / 1e3,
+            frames=tw.calls * batch, calls=tw.calls,
+            window_s=tw.window_ms / 1e3,
             busy_s=trace.busy_seconds(tr.device),
-            layer_s=trace.seconds_by_layer(tr.device, layers))
+            layer_s=trace.seconds_by_layer(tr.device, layers),
+            idle_s=trace.idle_by_span(tr.device, tr.host),
+            span_s=trace.span_seconds(tr.host),
+            span_device_s=trace.seconds_by_span(tr),
+            launches=sum(launched.values()),
+            plan_queries=after["plan_queries"] - before["plan_queries"],
+            upload_bytes=after["upload_bytes"] - before["upload_bytes"])
         breakdown = {"device_ops": trace.device_ops(tr.device),
                      "idle_gaps": trace.idle_gaps(tr.device, tr.host)}
         t = record.traced
         log(f"traced window: {tw.calls} calls in {tw.elapsed_s:.6f} s; device "
             f"seconds by layer: {t.layer_s}; busy {t.busy_s:.6f} of "
             f"{t.window_s:.6f} s")
+        log("device seconds by program span: " + str(
+            {span: sum(by_op.values()) for span, by_op in t.span_device_s.items()}))
+        log(f"program counts in the traced window: launches {launched}, "
+            f"plan queries {t.plan_queries}, upload bytes {t.upload_bytes}; "
+            f"host seconds by program span: {t.span_s}")
         log(f"host ms a call in match_batch: untraced "
             f"{sum(window.host_call_s) * 1e3 / window.calls:.6f}, traced "
             f"{sum(tw.host_call_s) * 1e3 / tw.calls:.6f}")

@@ -1,8 +1,9 @@
 """Finding a cell's parts by name: ``BENCHMARK.json`` at the checkout's
 root, and under this directory the configuration files, the traffic files,
-the feeds that drive them, the metric readers and the layers' kernel-name
-patterns.  A later cell, feed, metric or layer is a file added here;
-nothing in this module lists them."""
+the feeds that drive them, the references that decide ``correct``, the
+metric readers and the layers' kernel-name patterns.  A later cell, feed,
+reference, metric or layer is a file added here; nothing in this module
+lists them."""
 
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ HERE = Path(__file__).resolve().parent
 CHECKOUT = HERE.parent
 TRAFFIC_DIR = HERE / "traffic"
 FEEDS_DIR = HERE / "feeds"
+REFERENCE_DIR = HERE / "reference"
 METRICS_DIR = HERE / "metrics"
 LAYERS_DIR = HERE / "layers"
+# the reference of a configuration file without a "reference" key
+DEFAULT_REFERENCE = "sgm"
 # top-level module names that no run of the benchmark may load
 FORBIDDEN = ("jax", "jaxlib", "flax", "soc_project_stereo_matching_tpu")
 
@@ -72,8 +76,22 @@ def feed(name: str) -> ModuleType:
     return _module(FEEDS_DIR, name)
 
 
+def reference(name: str) -> ModuleType:
+    """``reference/<name>.py``, a configuration's ``reference``: its
+    ``DIAGONAL_MODES``, ``_check_options(options)``, which raises on
+    options it cannot follow, and ``sgm_in(left, right, options,
+    float_dtypes, diagonal_mode)``."""
+    if "/" in name or not (REFERENCE_DIR / f"{name}.py").is_file():
+        raise ValueError(f"no reference {name!r} in {REFERENCE_DIR}")
+    return _module(REFERENCE_DIR, name)
+
+
 def reader(name: str) -> Callable:
-    """``read(record)`` of ``metrics/<name>.py``."""
+    """``read(record)`` of ``metrics/<name>.py``.  A metric split by the
+    cells it serves, ``<quantity>.<cells>`` (``k2_ms_per_frame.stream``),
+    without a file of its own is read by ``<quantity>``'s."""
+    while not (METRICS_DIR / f"{name}.py").is_file() and "." in name:
+        name = name.rsplit(".", 1)[0]
     return _module(METRICS_DIR, name).read
 
 

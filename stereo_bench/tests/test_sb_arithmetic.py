@@ -132,6 +132,66 @@ def test_readers():
     assert read("k2_roofline") == pytest.approx(100 * least / 5e-3)
 
 
+def test_the_program_readers():
+    # the traced window: 40 calls of 2 frames; idle under the program's
+    # spans 0.004 s, under the benchmark's 0.010 s; 40 MB uploaded by
+    # host-to-device copies of 0.02 s on the device, launched under the
+    # sgm.upload spans (a kernel there and the download's copy outside
+    # them are not the upload's copies)
+    traced = SimpleNamespace(
+        frames=80, calls=40, window_s=2.0, busy_s=1.9, layer_s={},
+        idle_s={"sgm.upload": 0.003, "sgm.plan": 0.001,
+                "bench.download": 0.010, "host.none": 0.002},
+        span_s={"sgm.match": 0.5, "sgm.upload": 0.3},
+        span_device_s={
+            "sgm.upload": {"Memcpy HtoD (Pageable -> Device)": 0.02,
+                           "at::native::elementwise_kernel": 0.5},
+            "host.none": {"Memcpy DtoH (Device -> Pageable)": 0.03}},
+        launches=360, plan_queries=160, upload_bytes=40_000_000)
+    r = record(traced=traced, traffic={"feed": "host"})
+    read = lambda name, rec=r: spec.reader(name)(rec)
+    assert read("idle_in_program_ms_per_frame") == pytest.approx(0.05)
+    assert read("upload_gbps.stream") == pytest.approx(2.0)
+    assert read("kernel_launches_per_call") == 9
+    assert read("plan_queries_per_call") == 4
+    resident = record(traced=traced)
+    assert read("upload_gbps.stream", resident) is None
+    assert read("kernel_launches_per_call", resident) == 9
+    # a traced window in which the program marked nothing
+    bare = record(traced=SimpleNamespace(**dict(
+        vars(traced), span_s={}, idle_s={"host.none": 0.1},
+        span_device_s={"host.none": {"Memcpy HtoD (Pageable -> Device)": 0.02}})))
+    assert read("idle_in_program_ms_per_frame", bare) is None
+    assert read("upload_gbps.stream", bare) is None
+
+
+def test_a_metric_split_by_cells_is_read_by_its_quantity():
+    """``<quantity>.<cells>`` without a reader of its own (the stream's
+    ``fps.stream``, ``k2_ms_per_frame.stream``) reads what ``<quantity>``
+    reads; one with its own (``upload_gbps.stream``) keeps it; a name whose
+    quantity has no reader is refused."""
+    traced = SimpleNamespace(
+        frames=50, calls=50, window_s=2.0, busy_s=1.5,
+        layer_s={"kernels_k2": 0.25, "kernels_k134": 0.005,
+                 "plain_glue": 0.01, "engine": 0.0015},
+        idle_s={"sgm.upload": 0.003}, span_s={"sgm.upload": 0.01},
+        span_device_s={}, launches=450, plan_queries=200, upload_bytes=1)
+    r = record(traced=traced, traffic={"feed": "host"})
+    bench = spec.load_benchmark()
+    split = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]
+             if "." in m["name"]
+             and not (spec.METRICS_DIR / f"{m['name']}.py").is_file()]
+    assert {"fps.stream", "k2_ms_per_frame.stream", "k2_roofline.stream",
+            "kernel_launches_per_call.stream"} <= set(split)
+    for name in split:
+        quantity = name.split(".")[0]
+        assert spec.reader(name)(r) == spec.reader(quantity)(r), name
+        assert spec.reader(name)(r) is not None, name
+    assert spec.reader("upload_gbps.stream")(r) is None
+    with pytest.raises(FileNotFoundError):
+        spec.reader("no_such_quantity.stream")
+
+
 def test_the_host_clock_reader_reads_the_untraced_window():
     """The traced window's calls are slower on the host (the profiler's
     own cost); ``host_call_ms.stream`` reads the untraced one's."""
@@ -145,7 +205,11 @@ def test_a_reader_with_nothing_to_read_returns_nothing():
     r = record()
     for name in ("frame_ms_p95", "k2_ms_per_frame", "k2_roofline",
                  "k134_ms_per_frame", "glue_ms_per_frame", "copy_ms.stream",
-                 "host_call_ms.stream", "idle_share"):
+                 "host_call_ms.stream", "idle_share",
+                 "idle_in_program_ms_per_frame", "upload_gbps.stream",
+                 "plan_queries_per_call", "kernel_launches_per_call",
+                 "k2_ms_per_frame.stream", "idle_share.stream",
+                 "plan_queries_per_call.stream"):
         assert spec.reader(name)(r) is None, name
 
 

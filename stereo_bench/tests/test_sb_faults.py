@@ -77,7 +77,11 @@ def test_a_sound_run_is_correct(cell):
     assert list(result)[-1] == "checks"
     assert result["checks"]["pixels_differing"] == \
         {"value": 0, "limit": 0, "rule": "<="}
-    assert {"fps", "setup_s", "peak_mem_gib"} <= set(result["metrics"])
+    # every end-to-end metric of the cell, a rate among them (the stream's
+    # is its own, fps.stream)
+    assert set(result["metrics"]) == \
+        {m["name"] for m in spec.metrics_of(BENCH, cell, False)}
+    assert len({"fps", "fps.stream"} & set(result["metrics"])) == 1
 
 
 # half of the batch can be left out only where a call takes several frames

@@ -1,8 +1,10 @@
 """No module of the benchmark loads JAX or the JAX package, compared by
-whole top-level names, and the reference loads nothing of the port."""
+whole top-level names, and no reference loads anything of the port."""
 
 import subprocess
 import sys
+
+import pytest
 
 from stereo_bench import spec
 
@@ -26,14 +28,16 @@ print(sorted({{m.split(".")[0] for m in sys.modules}}))
 REFERENCE_ONLY = """
 import sys
 sys.path.insert(0, {root!r})
-from stereo_bench.reference import sgm
-from stereo_bench import check
+from stereo_bench import check, spec
+spec.reference({name!r})
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
+REFERENCES = sorted(p.stem for p in spec.REFERENCE_DIR.glob("*.py"))
 
 
-def top_levels(code):
-    out = subprocess.run([sys.executable, "-c", code.format(root=str(spec.CHECKOUT))],
+def top_levels(code, **kw):
+    out = subprocess.run([sys.executable, "-c",
+                          code.format(root=str(spec.CHECKOUT), **kw)],
                          capture_output=True, text=True, timeout=300,
                          env={"PATH": "/usr/bin:/bin", "HOME": str(spec.CHECKOUT)})
     assert out.returncode == 0, out.stderr
@@ -47,8 +51,9 @@ def test_no_module_loads_jax_or_the_jax_package():
     assert not loaded & set(spec.FORBIDDEN)
 
 
-def test_the_reference_loads_nothing_of_the_port():
-    loaded = top_levels(REFERENCE_ONLY)
+@pytest.mark.parametrize("name", REFERENCES)
+def test_the_reference_loads_nothing_of_the_port(name):
+    loaded = top_levels(REFERENCE_ONLY, name=name)
     assert "soc_project_stereo_matching_tpu_torch" not in loaded
     assert not loaded & set(spec.FORBIDDEN)
 

@@ -3,14 +3,20 @@ to device operations by layer, the device's busy time and the idle gaps
 by what the host was doing.
 
 The benchmark marks its own host phases with ``record_function`` spans
-named ``bench.<phase>``; the program is not instrumented.  A device
-operation belongs to the layer whose patterns (``layers/<layer>/*.txt``)
-its name matches, or to ``other``; a name that two layers claim is an
-error, so that a pattern file added later cannot count a kernel twice.
+named ``bench.<phase>``; the program marks its own layers with host spans
+named ``sgm.<layer>``, which draw no row on the device's timeline.  Both
+kinds are kept, so an idle gap is named by the innermost span of either
+kind, and a device operation can be put in the program's span that was
+open when the host function that launched it started (the profiler's
+correlation id).  A device operation belongs to the layer whose patterns
+(``layers/<layer>/*.txt``) its name matches, or to ``other``; a name that
+two layers claim is an error, so that a pattern file added later cannot
+count a kernel twice.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import re
 from collections import defaultdict
@@ -18,6 +24,8 @@ from typing import Dict, Iterable, List, NamedTuple, Sequence, Tuple
 
 OTHER = "other"
 HOST_PREFIX = "bench."
+PROGRAM_PREFIX = "sgm."     # the program's spans, by name: nothing imported
+HOST_NONE = "host.none"     # no span open on the host
 TOP = 10
 
 
@@ -28,8 +36,10 @@ class Op(NamedTuple):
 
 
 class Trace(NamedTuple):
-    device: List[Op]   # kernels, copies and sets the device ran
-    host: List[Op]     # the benchmark's own bench.* spans
+    device: List[Op]    # kernels, copies and sets the device ran
+    host: List[Op]      # the benchmark's bench.* and the program's sgm.* spans
+    launched: List[int]  # for each device operation, the start of the host
+                         # function open around its launch (0: not known)
 
 
 @contextlib.contextmanager
@@ -53,21 +63,29 @@ def profiler():
 
 def collect(prof) -> Trace:
     """The profiler's events as ``Trace``: device operations (``is_work``)
-    and the benchmark's host spans, in the profiler's nanoseconds."""
+    with the start of the host function that launched each, and the host
+    spans of the benchmark and of the program, in the profiler's
+    nanoseconds.  A device operation's linked correlation id is that of
+    the host function open around its launch (a PyTorch operator, or a
+    program span itself); the CUDA runtime's own host calls, which are
+    linked to that function, are not recorded functions."""
     from torch.autograd import DeviceType
 
-    device, host = [], []
+    device, host, started = [], [], {}
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         op = Op(name, e.start_ns(), e.start_ns() + e.duration_ns())
         if e.device_type() != DeviceType.CUDA:
-            if name.startswith(HOST_PREFIX):
+            if e.linked_correlation_id() == 0:
+                started[e.correlation_id()] = op.start_ns
+            if name.startswith((HOST_PREFIX, PROGRAM_PREFIX)):
                 host.append(op)
         elif is_work(name):
-            device.append(op)
-    device.sort(key=lambda o: o.start_ns)
+            device.append((op, e.linked_correlation_id()))
+    device.sort(key=lambda d: d[0].start_ns)
     host.sort(key=lambda o: o.start_ns)
-    return Trace(device, host)
+    return Trace([op for op, _ in device], host,
+                 [started.get(link, 0) if link else 0 for _, link in device])
 
 
 def is_work(name: str) -> bool:
@@ -153,8 +171,9 @@ def device_ops(ops: Iterable[Op]) -> List[list]:
 
 def innermost(host: Sequence[Op]) -> List[Op]:
     """The host's timeline as disjoint (label, start, end) pieces, each
-    labelled by the innermost ``bench.*`` span open over it (the spans
-    nest: the window holds each call's spans)."""
+    labelled by the innermost span open over it (the spans nest: the
+    window holds each call's ``bench.*`` spans, ``bench.match_batch`` the
+    program's ``sgm.match`` and that its stages)."""
     bounds = sorted({t for h in host for t in (h.start_ns, h.end_ns)})
     spans = sorted(host, key=lambda h: (h.start_ns, -h.end_ns))
     out, stack, i = [], [], 0
@@ -168,11 +187,10 @@ def innermost(host: Sequence[Op]) -> List[Op]:
     return out
 
 
-def idle_gaps(ops: Sequence[Op], host: Sequence[Op]) -> List[list]:
-    """[[what the host was doing, seconds]]: the time between device
-    activity, split by the innermost ``bench.*`` host span open over each
-    part of it (``host.none`` where none is), summed by name, the longest
-    first, at most ``TOP``."""
+def idle_by_span(ops: Sequence[Op], host: Sequence[Op]) -> Dict[str, float]:
+    """{what the host was doing: seconds}: the time between device
+    activity, split by the innermost host span open over each part of it
+    (``HOST_NONE`` where none is), summed by name."""
     busy = merged(ops)
     gaps = [(end, nxt) for (_, end), (nxt, _) in zip(busy, busy[1:])]
     pieces = innermost(host)
@@ -190,5 +208,37 @@ def idle_gaps(ops: Sequence[Op], host: Sequence[Op]) -> List[list]:
                 covered += part
             k += 1
         if g1 - g0 > covered:
-            total["host.none"] += (g1 - g0 - covered) / 1e9
+            total[HOST_NONE] += (g1 - g0 - covered) / 1e9
+    return dict(total)
+
+
+def idle_gaps(ops: Sequence[Op], host: Sequence[Op]) -> List[list]:
+    """[[what the host was doing, seconds]] of ``idle_by_span``, the
+    longest first, at most ``TOP``."""
+    total = idle_by_span(ops, host)
     return [[n, s] for n, s in sorted(total.items(), key=lambda x: -x[1])[:TOP]]
+
+
+def seconds_by_span(tr: Trace) -> Dict[str, Dict[str, float]]:
+    """{program span: {operation name: device seconds}}: each device
+    operation under the innermost program span (``sgm.*``) open when the
+    host function that launched it started, ``HOST_NONE`` where none was
+    or the launch is not known."""
+    pieces = innermost([h for h in tr.host if h.name.startswith(PROGRAM_PREFIX)])
+    starts = [p.start_ns for p in pieces]
+    out: Dict[str, Dict[str, float]] = defaultdict(lambda: defaultdict(float))
+    for op, t in zip(tr.device, tr.launched):
+        i = bisect.bisect_right(starts, t) - 1
+        inside = t > 0 and i >= 0 and t < pieces[i].end_ns
+        span = pieces[i].name if inside else HOST_NONE
+        out[span][op.name] += (op.end_ns - op.start_ns) / 1e9
+    return {span: dict(by_op) for span, by_op in out.items()}
+
+
+def span_seconds(host: Iterable[Op]) -> Dict[str, float]:
+    """Summed host seconds of the program's spans, by name."""
+    out: Dict[str, float] = defaultdict(float)
+    for h in host:
+        if h.name.startswith(PROGRAM_PREFIX):
+            out[h.name] += (h.end_ns - h.start_ns) / 1e9
+    return dict(out)
